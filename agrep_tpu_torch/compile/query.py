@@ -209,8 +209,37 @@ def _compile_bitap(pattern: str, opts: Options, lut) -> CompiledQuery:
 
 
 def _compile_regex(pattern, rw, opts, lut) -> CompiledQuery:
-    raise NotImplementedError(
-        "regular-expression search comes in a later slice of the port")
+    from . import regex as remod
+    from ..ops import renfa
+
+    if opts.D > 4:
+        # bitap.c:97-104 (typo preserved); the check fires inside the
+        # engine, so exec still prints the Grand Total (late error)
+        raise AgrepError(
+            "%s: the maximum number of erorrs allowed for full regular "
+            "expressions is 4" % PROGNAME, late=True,
+            verbose=opts.verbose)
+    # maskgen runs on the meta pattern trimmed to the head NOCARE
+    # (preproce.c:366); the delimiter part is excluded for regex.
+    meta = rw.pattern
+    idx = meta.index(bytes([cp.NOCARE]))
+    trimmed = meta[idx:]
+    t = masks.maskgen(trimmed, opts.D, d_length=rw.d_length,
+                      nocase=opts.nocase is not None, regex=True)
+    # bit base uses maskgen's M even when it disagrees with the parser
+    # (a '?' in the pattern -- see build_automaton's m_override note)
+    auto = remod.build_automaton(rw.r_pat, m_override=t.m)
+    # re/re1 never apply the codepage LUT to text (agrep.c:528,804);
+    # case folding happens only through maskgen's ASCII mask-row fold.
+    mc = renfa.machine_from_automaton(
+        auto, t.mask, t.no_err_mask, opts.D, head_on=rw.head,
+        tail_on=rw.tail)
+    q = CompiledQuery(
+        opts=opts, pattern=pattern, engine_class="regex", D=opts.D,
+        lut=lut, tables=t)
+    q.re_mc = mc
+    q.re_auto = auto
+    return q
 
 
 def _compile_multi(pattern, opts, lut) -> CompiledQuery:

@@ -323,6 +323,37 @@ def bitap_scan_events(text: np.ndarray, mask_table: np.ndarray,
             np.concatenate([p[1] for p in parts]))
 
 
+def renfa_scan_lines(buf: np.ndarray, mc: dict, cont_states,
+                     inject: int = -1,
+                     n_lines_hint: int | None = None
+                     ) -> np.ndarray | None:
+    """Per-line regex-NFA verdicts over a stream that starts one past
+    a newline; None when the native library is unavailable.  inject
+    processes one extra 0x00 byte before buf[inject] (the re()
+    block-boundary glitch)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    from ..ops.renfa import next_tables_arrays
+    lo_tab, hi_tab, h, rel = next_tables_arrays(mc)
+    if hi_tab is None:
+        hi_tab = np.zeros(1, dtype=np.uint32)
+    D = int(mc["D"])
+    cont = np.asarray([int(x) & 0xFFFFFFFF for x in cont_states],
+                      dtype=np.uint32)
+    cap = (n_lines_hint if n_lines_hint is not None
+           else int(np.count_nonzero(buf == 0x0A))) + 1
+    out = np.empty(max(cap, 1), dtype=np.uint8)
+    n = lib.renfa_scan_lines(
+        np.ascontiguousarray(buf), len(buf),
+        np.ascontiguousarray(mc["mask"].astype(np.uint32)),
+        np.ascontiguousarray(lo_tab), np.ascontiguousarray(hi_tab),
+        h, rel, int(mc["init1"]) & 0xFFFFFFFF,
+        int(mc["no_err"]) & 0xFFFFFFFF, D, int(bool(mc["tail"])),
+        cont, int(inject), out, len(out))
+    return out[:min(n, len(out))].astype(bool)
+
+
 def pack_lines(stream: np.ndarray, starts: np.ndarray,
                lens: np.ndarray, L: int) -> np.ndarray | None:
     """Zero-padded u8[R, L] lane matrix (returns a reused scratch

@@ -1336,7 +1336,7 @@ int64_t bitap_scan_events(const uint8_t* buf, int64_t n,
 extern "C" {
 
 // Sequential regex-NFA stream scan: the host twin of the renfa lane
-// machine (ops/renfa.py _scan_records_np), using the tabulated
+// machine (ops/renfa.py scan_records), using the tabulated
 // followpos transition (compute_next agrep.c:396-457; split half
 // tables like re1 :492-498).  buf must START one past a newline;
 // emits one verdict byte per '\n' encountered.  Returns the line

@@ -36,6 +36,7 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # their own, so their compiles run side by side.
 UNITS = {
     "mask_scan": [()] + [("-DMASK_SCAN_D=%d" % d,) for d in range(9)],
+    "renfa_lanes": [()] + [("-DRENFA_D=%d" % d,) for d in range(5)],
 }
 
 _lock = threading.Lock()

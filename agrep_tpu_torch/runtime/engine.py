@@ -2526,10 +2526,12 @@ class Executor:
             self.engine = SgrepEngine(q)
         elif q.engine_class == "bitap":
             self.engine = BitapEngine(q)
-        elif q.engine_class in ("mgrep", "regex"):
+        elif q.engine_class == "mgrep":
             raise NotImplementedError(
-                "the %s engine comes in a later slice of the port"
-                % q.engine_class)
+                "the mgrep engine comes in a later slice of the port")
+        elif q.engine_class == "regex":
+            from .regex_engine import RegexEngine
+            self.engine = RegexEngine(q)
         else:
             raise NotImplementedError(q.engine_class)
 

@@ -8,16 +8,24 @@ exits non-zero:
 
   1. card: the GPU's name and power limit (nvidia-smi) and the torch and
      CUDA versions;
-  2. build: compiles csrc/mask_scan.cu with nvcc and times the build;
+  2. build: compiles csrc/mask_scan.cu and csrc/renfa_lanes.cu with nvcc,
+     every compile unit of both started together, and times the build;
   3. parity: the mask_scan kernel against its plain PyTorch version
      (mask_scan_reference) on the card, bit for bit, over every variant,
-     D, cost wiring, endpos shape and edge size the kernel takes (phase 4
-     repeats the check at the main path's chunk shape);
+     D, cost wiring, endpos shape and edge size the kernel takes; then
+     the renfa_lanes kernel against renfa_lines_reference, bit for bit,
+     over regex machines (D = 0..4, -i, anchors, 29 positions) and line
+     sets (R = 1, 31, 32, 33, 4097, empty lines, lengths at the length
+     buckets' edges, a line over 49152 bytes, a launch from the
+     memory-mode seed states); phase 4 repeats both checks at the main
+     path's chunk shape;
   4. main path: a --mb MB ASCII corpus made from --seed, searched through
-     agrep_tpu_torch.api.fileagrep with BASELINE configs 1-3 (the file
-     is over the streaming threshold, so each run is chunked) and one
-     in-memory memagrep call; stdout and return codes must equal the
-     port's own numpy host backend, and every run must launch the kernel;
+     agrep_tpu_torch.api.fileagrep with BASELINE configs 1-4 (the file
+     is over the streaming threshold, so each run is chunked; config 4,
+     the regex, runs as a count and as a line-numbered print) and
+     through memagrep with configs 1 and 4 on the in-memory buffer;
+     stdout and return codes must equal the port's own numpy host
+     backend, and every run must launch its kernel;
   5. kernels: one JSON line with each kernel's launches on the main path,
      its time, its plain version's time and its bound on this card.
 
@@ -46,11 +54,19 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # an SM has half as many int32 lanes: 132 x 64 x 1.98e9 int32 op/s.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# shared memory serves 128 B a clock per SM: 32 four-byte loads, issued
+# on the load/store pipe beside the int32 lanes
+SHARED_LOADS_PER_S = 132 * 32 * 1.98e9
 
 CONFIGS = [
     ("config1", ["-c", "hello"]),
     ("config2", ["-1", "-n", "matching"]),
     ("config3", ["-3", "-D2", "-I1", "-S1", "-w", "-i", "approximate"]),
+]
+REGEX = "appro[a-z]*mat(e|ion)"          # BASELINE config 4
+REGEX_CONFIGS = [
+    ("config4", ["-2", "-c", REGEX]),
+    ("config4n", ["-2", "-n", REGEX]),
 ]
 FILLER = [b"the", b"quick", b"brown", b"fox", b"pattern", b"search",
           b"world", b"lorem", b"ipsum", b"dolor", b"bibliography",
@@ -154,6 +170,71 @@ def halo(consts: dict, D: int, L: int) -> int:
     return min(max(consts.get("m", 32) + D + 2, 48), L)
 
 
+# regex machines: tests/test_renfa_kernel.py's patterns, the REGEXES of
+# tests/test_conformance_more.py that compile to the regex engine,
+# config 4's pattern at D = 0..4, anchors, and 29 positions (compile
+# takes at most 30)
+REGEX_SPECS = [
+    ("ab*c", 0), ("a(bc|de)f", 1), ("[a-d]x*[0-9]", 1), ("ab*c", 2),
+    ("x.*y", 1), ("wo(r|t)king", 2),
+    ("a(b|d)c", 3), ("colou|or", 2), ("h(el)*lo", 1), ("ab.*ld", 4),
+    (REGEX, 0), (REGEX, 1), (REGEX, 2), (REGEX, 3), (REGEX, 4),
+    ("^wo(r|t)king", 1), ("ab*c$", 0), ("^h(el)*lo$", 3),
+    ("abcdefghijklmnopqrstuvwxy(z|0)", 0),
+    ("abcdefghijklmnopqrstuvwxy(z|0)", 2),
+]
+RE_PLANTS = [b"abbbc", b"adef", b"ax3", b"xqqy", b"working", b"wotking",
+             b"colour", b"hellello", b"approximate", b"APPROXIMATION",
+             b"aproxmation", b"abd", b"abxyzld",
+             b"abcdefghijklmnopqrstuvwxy0"]
+# line lengths at the edges of the plain version's length buckets
+# (ops/renfa.py MAXLINE_BUCKETS: a line of n bytes takes the bucket of
+# n + 1), and past the last one
+EDGE_LENS = [0, 30, 31, 32, 126, 127, 128, 510, 511, 512, 2046, 2047,
+             2048]
+LONG_LENS = [8191, 8192, 49153]
+
+
+def regex_machines():
+    """(name, re_mc, extra line sets) of every regex machine phase 3
+    holds the lanes kernel to.  The plain version steps one column at a
+    time, so the bucket-edge lines go to five machines and the long
+    lines to one."""
+    from agrep_tpu_torch.compile.query import compile_query
+    from agrep_tpu_torch.options import Options
+    out = []
+    for pat, d in REGEX_SPECS:
+        q = compile_query(pat, Options(D=d, approx=d > 0))
+        extra = []
+        if pat in (REGEX, REGEX_SPECS[-1][0]) and d % 2 == 0:
+            extra.append("edges")
+        if (pat, d) == (REGEX, 0):
+            extra.append("long")
+        out.append(("%s D%d" % (pat, d), q.re_mc, extra))
+    q = compile_query(REGEX, Options(D=2, approx=True, nocase="i"))
+    out.append(("%s D2 -i" % REGEX, q.re_mc, []))
+    return out
+
+
+def make_lines(lens, rng):
+    """A text of lines of the given lengths, each ended by '\\n':
+    printable bytes, with a RE_PLANTS sample at the start or the end of
+    every third line that fits one.  Returns (text, starts)."""
+    import numpy as np
+    lens = np.asarray(lens, dtype=np.int64)
+    text = rng.integers(32, 127, size=int(lens.sum()) + len(lens),
+                        dtype=np.uint8)
+    starts = np.concatenate([[0], np.cumsum(lens + 1)[:-1]]) \
+        .astype(np.int64)
+    text[starts + lens] = 0x0A
+    for r in range(0, len(lens), 3):
+        p = RE_PLANTS[(r // 3) % len(RE_PLANTS)]
+        if lens[r] >= len(p):
+            off = int(starts[r]) + (0 if r % 2 else int(lens[r]) - len(p))
+            text[off:off + len(p)] = np.frombuffer(p, dtype=np.uint8)
+    return text, starts
+
+
 # ---------------------------------------------------------------------
 # work counts for the bound
 # ---------------------------------------------------------------------
@@ -212,6 +293,65 @@ def bound(m, N: int, W: int, L: int, planes) -> tuple:
     return t_bytes * 1e3, "bytes"
 
 
+def nxt_ops(M: int) -> tuple:
+    """(int32 operations, shared loads) of one nxt at its least: a load
+    from the reference's tabulated Next (ops/renfa.py
+    next_tables_arrays), indexed by the state's bits 1..M-1.  Up to 15
+    index bits the table (128 KB at most) fits the 227 KB of shared
+    memory a block can take: one three-input logic op (LOP3) masks the
+    index, with an OR of two states fused in, one LEA scales it to an
+    address, one load.  Above 15, two half tables: two index and two
+    scale ops, one OR, two loads.  M <= 1: nxt is the constant head
+    bit."""
+    rel = max(M - 1, 0)
+    if rel == 0:
+        return 0, 0
+    return (2, 1) if rel <= 15 else (5, 2)
+
+
+def regex_byte_ops(D: int, M: int) -> tuple:
+    """(int32 operations, shared loads) of one text byte of the lanes
+    machine at its least, with the ORs and ANDs fused into LOP3s: the
+    byte's extract from a wide load and its scale to a CMask address
+    (2) and the CMask load; level 0 is nxt and (nxt & cm) | (init1 & s)
+    (2 LOP3); level k is two nxt (the r0 OR fused into an index) and the
+    seven-input combine (3 LOP3).  The loop's control, amortized by
+    unrolling, is not counted."""
+    no, nl = nxt_ops(M)
+    return 2 + no + 2 + D * (2 * no + 3), 1 + nl * (2 * D + 1)
+
+
+def regex_verdict_ops(tail: bool, M: int) -> tuple:
+    """(int32 operations, shared loads) of a line's verdict at its
+    newline at its least: CMask['\\n'] is a constant; nxt and 2 LOP3
+    form ad; the tail step is nxt and a LOP3 that takes the & 1 too
+    (without it, the & 1 alone)."""
+    no, nl = nxt_ops(M)
+    if tail:
+        return 2 * no + 3, 2 * nl
+    return no + 3, nl
+
+
+def regex_bound(m, n_text: int, lens) -> tuple:
+    """(bound_ms, bound_by) of one lanes launch over R lines, from the
+    function's least work (not this kernel's): the largest of the text
+    read once, 16 B of line index and 1 B of verdict a line and the
+    machine (CMask and the follow bits) over HBM's rate; the int32
+    operations of every line's bytes and verdict over the card's int32
+    rate; and their shared loads over the shared-memory rate."""
+    R = len(lens)
+    n_bytes = n_text + 17 * R + 256 * 4 + 4 * m.M
+    (bo, bl), (vo, vl) = (regex_byte_ops(m.D, m.M),
+                          regex_verdict_ops(m.tail, m.M))
+    n = int(lens.sum())
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = max((n * bo + R * vo) / INT32_OPS_PER_S,
+                (n * bl + R * vl) / SHARED_LOADS_PER_S)
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
 def time_kernel(fn, reps: int = 5) -> float:
     """ms per call of fn on the card: CUDA events around reps calls after
     one warm-up call."""
@@ -233,31 +373,37 @@ def time_kernel(fn, reps: int = 5) -> float:
 # ---------------------------------------------------------------------
 
 def phase_build() -> None:
-    """Build every kernel source from the checkout, all compiles started
-    together."""
+    """Build every kernel source from the checkout, all compile units of
+    all sources started together."""
     from agrep_tpu_torch.ops import _cuda
+    names = ["mask_scan", "renfa_lanes"]
     t0 = time.perf_counter()
-    paths = _cuda.build_all(["mask_scan"])
-    _cuda.load("mask_scan")
+    paths = _cuda.build_all(names)
+    for name in names:
+        _cuda.load(name)
     dt = time.perf_counter() - t0
-    log = _cuda.build_logs.get("mask_scan", "")
-    regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
-    frames = [int(x) for x in re.findall(r"(\d+) bytes stack frame", log)]
-    spills = [int(a) + int(b) for a, b in re.findall(
-        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
     t0 = time.perf_counter()
     from agrep_tpu_torch import native
     if native.get_lib() is None:
         raise RuntimeError("the native host library did not build")
     print("build: native host library (g++) in %.2f s"
           % (time.perf_counter() - t0))
-    print("build: mask_scan.cu -> %s in %.2f s (%d compile units in "
-          "parallel); %d kernels; registers max %s; stack frame max %s B; "
-          "kernels that spill: %d"
-          % (os.path.relpath(paths["mask_scan"], REPO), dt,
-             len(_cuda.UNITS["mask_scan"]), len(regs),
-             max(regs, default="n/a"), max(frames, default="n/a"),
-             sum(1 for s in spills if s)))
+    for name in names:
+        log = _cuda.build_logs.get(name, "")
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+        frames = [int(x) for x in re.findall(r"(\d+) bytes stack frame",
+                                             log)]
+        spills = [int(a) + int(b) for a, b in re.findall(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+        print("build: %s.cu -> %s (%d compile units); %d kernels; "
+              "registers max %s; stack frame max %s B; kernels that "
+              "spill: %d"
+              % (name, os.path.relpath(paths[name], REPO),
+                 len(_cuda.UNITS[name]), len(regs),
+                 max(regs, default="n/a"), max(frames, default="n/a"),
+                 sum(1 for sp in spills if sp)))
+    print("build: %d compile units of %d sources in parallel in %.2f s"
+          % (sum(len(_cuda.UNITS[n]) for n in names), len(names), dt))
 
 
 def phase_parity(device: str, seed: int, big: int) -> float:
@@ -316,6 +462,78 @@ def phase_parity(device: str, seed: int, big: int) -> float:
     return float(worst)
 
 
+def phase_parity_regex(device: str, seed: int) -> float:
+    """Lanes-kernel verdicts vs plain verdicts on every regex machine and
+    line set; returns the largest |kernel - plain| (0 or fail)."""
+    import numpy as np
+    import torch
+
+    from agrep_tpu_torch.ops import kernels, renfa, renfa_kernel
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, 100, 4097)
+    lens[::8] = 0
+    sets = {}
+    text, starts = make_lines(lens, rng)
+    for R in (1, 31, 32, 33, 4097):
+        idx = np.arange(R)
+        if R == 4097:
+            idx = np.argsort(lens, kind="stable")  # the main path's order
+        sets["R=%d" % R] = (text, starts[idx], lens[idx])
+    for name, ls in (("edges", EDGE_LENS), ("long", LONG_LENS)):
+        t, st = make_lines(ls, rng)
+        sets[name] = (t, st, np.asarray(ls, dtype=np.int64))
+    dev_sets = {k: (kernels.to_device(t, device),
+                    torch.from_numpy(st).to(device),
+                    torch.from_numpy(ln).to(device))
+                for k, (t, st, ln) in sets.items()}
+    worst = 0
+    failed = []
+    for name, mc, extra in regex_machines():
+        m = renfa_kernel.machine_from_mc(mc, device)
+        cont, _ = renfa.step_newline(list(mc["inits"]),
+                                     int(mc["mask"][0x0A]), mc)
+        # memory mode's seed (regex_engine.search_stream): re() seeds
+        # Init[0] at every level, re1() the Init[k] closures
+        seed0 = ([int(mc["init0"])] * (m.D + 1) if m.M <= 15
+                 else list(mc["inits"]))
+        runs = [(k, cont) for k in sets if k.startswith("R=")]
+        runs.append(("R=33", seed0))
+        runs += [(k, cont) for k in extra]
+        t0 = time.perf_counter()
+        n_true = 0
+        bad = []
+        for key, init in runs:
+            text_d, st_d, ln_d = dev_sets[key]
+            got = renfa_kernel.renfa_lines(text_d, st_d, ln_d, m, init)
+            want = renfa_kernel.renfa_lines_reference(text_d, st_d, ln_d,
+                                                      m, init)
+            diff = int((got.to(torch.int64) - want.to(torch.int64))
+                       .abs().max().item())
+            worst = max(worst, diff)
+            n_true += int(want.sum().item())
+            if diff:
+                where = (got != want).nonzero()[:4, 0].tolist()
+                bad.append(key)
+                print("parity: regex %s %s%s MISMATCH; first (line, "
+                      "start, len, kernel, plain): %s"
+                      % (name, key, " seed" if init is seed0 else "", [
+                          (r, int(st_d[r]), int(ln_d[r]), bool(got[r]),
+                           bool(want[r])) for r in where]))
+        torch.cuda.synchronize()
+        if bad:
+            failed.append((name, bad))
+            continue
+        print("parity: regex %-38s M=%-2d %s equal bit for bit (%d true "
+              "verdicts) %.1f s"
+              % (name, m.M, [k + (" seed" if v is seed0 else "")
+                             for k, v in runs], n_true,
+                 time.perf_counter() - t0))
+    if failed:
+        raise AssertionError("lanes verdicts differ from "
+                             "renfa_lines_reference: %s" % failed)
+    return float(worst)
+
+
 def _run(api_fn, argv, data=None):
     buf = io.BytesIO()
     if data is None:
@@ -326,53 +544,79 @@ def _run(api_fn, argv, data=None):
     return hashlib.sha256(out).hexdigest(), rc & 0xFF, len(out)
 
 
+def _time_plain(fn) -> float:
+    """ms of one call of a plain version on the card, after one warm-up
+    call (which also warms the allocator)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _max_diff(a, b) -> int:
+    import torch
+    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
+
+
 def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
     import numpy as np
     import torch
 
     from agrep_tpu_torch import api
     from agrep_tpu_torch.compile.query import compile_query
-    from agrep_tpu_torch.ops import kernels
+    from agrep_tpu_torch.ops import kernels, renfa, renfa_kernel
     from agrep_tpu_torch.ops import scan as scan_ops
     from agrep_tpu_torch.options import parse_args
 
+    counts = {"mask_scan": kernels.launches,
+              "renfa_lanes": renfa_kernel.launches}
     n_bytes = mb << 20
     corpus = make_corpus(n_bytes, seed)
     build = os.path.join(REPO, "build")
     os.makedirs(build, exist_ok=True)
     res = {}
+    mem_data = b"\n" + corpus.tobytes()
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         path = os.path.join(tmp, "corpus.txt")
         corpus.tofile(path)
-        runs = [(name, api.fileagrep, argv + [path], None)
-                for name, argv in CONFIGS]
-        mem_data = b"\n" + corpus.tobytes()
+        runs = ([(name, api.fileagrep, argv + [path], None, "mask_scan")
+                 for name, argv in CONFIGS]
+                + [(name, api.fileagrep, argv + [path], None, "renfa_lanes")
+                   for name, argv in REGEX_CONFIGS])
         # memory mode of the bitap engine is a per-byte host loop
-        # (bitap.c:309-446 emulation); the sgrep engine scans on the card
-        runs.append(("memagrep", api.memagrep, CONFIGS[0][1], mem_data))
+        # (bitap.c:309-446 emulation); the sgrep engine scans on the card,
+        # and so does the regex engine, its virtual leading line included
+        runs.append(("memagrep", api.memagrep, CONFIGS[0][1], mem_data,
+                     "mask_scan"))
+        runs.append(("memagrep4", api.memagrep, REGEX_CONFIGS[0][1],
+                     mem_data, "renfa_lanes"))
 
         # the main path, on the card: counts start at 0 here
         scan_ops.set_backend("torch")
-        for k in kernels.launches:
-            kernels.launches[k] = 0
+        for c in counts.values():
+            for k in c:
+                c[k] = 0
         got = {}
-        for name, fn, argv, data in runs:
-            before = kernels.launches["mask_scan"]
+        for name, fn, argv, data, kname in runs:
+            before = counts[kname][kname]
             t0 = time.perf_counter()
             got[name] = _run(fn, argv, data)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            n = kernels.launches["mask_scan"] - before
+            n = counts[kname][kname] - before
             if n == 0:
-                raise AssertionError("%s: the main path launched no "
-                                     "mask_scan kernel" % name)
-            res[name] = {"wall_s": wall, "launches": n}
-        main_launches = dict(kernels.launches)
+                raise AssertionError("%s: the main path launched no %s "
+                                     "kernel" % (name, kname))
+            res[name] = {"wall_s": wall, "launches": n, "kernel": kname}
+        main_launches = {k: c[k] for k, c in counts.items()}
 
         # the same runs on the port's exact host backend
         scan_ops.set_backend("numpy")
         try:
-            for name, fn, argv, data in runs:
+            for name, fn, argv, data, _k in runs:
                 want = _run(fn, argv, data)
                 if got[name][:2] != want[:2]:
                     raise AssertionError(
@@ -381,10 +625,12 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
         finally:
             scan_ops.set_backend("torch")
 
-    # the kernel alone at the main path's chunk shape
+    # the mask kernel alone at the main path's chunk shape, and at the
+    # memagrep buffer's
     chunk = corpus[:scan_ops.STREAM_CHUNK]
     text = kernels.to_device(chunk, device)
-    for name, argv in CONFIGS:
+    mem_text = kernels.to_device(np.frombuffer(mem_data, np.uint8), device)
+    for name, argv in CONFIGS + [("memagrep", CONFIGS[0][1])]:
         opts, pattern, _ = parse_args(argv + ["x"])
         q = compile_query(pattern, opts)
         if q.engine_class == "sgrep":
@@ -397,40 +643,76 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                                         device)
         W, L = halo(consts, q.D, scan_ops.DEFAULT_TILE), \
             scan_ops.DEFAULT_TILE
-        ms = time_kernel(lambda: kernels.mask_scan(text, m, W, L))
-        planes = kernels.mask_scan(text, m, W, L)
-        kernels.mask_scan_reference(text, m, W, L)     # warm the allocator
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want = kernels.mask_scan_reference(text, m, W, L)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
+        t = mem_text if name == "memagrep" else text
+        ms = time_kernel(lambda: kernels.mask_scan(t, m, W, L))
+        planes = kernels.mask_scan(t, m, W, L)
+        plain_ms = _time_plain(
+            lambda: kernels.mask_scan_reference(t, m, W, L))
         # the kernel against its plain version at this shape too
-        diff = int((planes.to(torch.int64) - want.to(torch.int64))
-                   .abs().max().item())
+        diff = _max_diff(planes, kernels.mask_scan_reference(t, m, W, L))
         if diff != 0:
             raise AssertionError("%s: kernel planes differ from "
-                                 "mask_scan_reference on the %d MB chunk "
-                                 "(max |diff| %d)"
-                                 % (name, len(chunk) >> 20, diff))
-        bms, by = bound(m, len(chunk), W, L, planes)
+                                 "mask_scan_reference on %d bytes "
+                                 "(max |diff| %d)" % (name, t.numel(), diff))
+        bms, by = bound(m, t.numel(), W, L, planes)
+        res[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                         bound_by=by, shape_b=t.numel(), max_abs_err=diff)
+
+    # the lanes kernel alone on the same chunk and on the memagrep
+    # buffer, each split into its lines in the length order the engine
+    # launches them in
+    opts, pattern, _ = parse_args(REGEX_CONFIGS[0][1] + ["x"])
+    mc = compile_query(pattern, opts).re_mc
+    m = renfa_kernel.machine_from_mc(mc, device)
+    cont, _ = renfa.step_newline(list(mc["inits"]), int(mc["mask"][0x0A]),
+                                 mc)
+    for buf, names in ((chunk, ("config4", "config4n")),
+                       (np.frombuffer(mem_data, np.uint8), ("memagrep4",))):
+        nls = np.flatnonzero(buf == 0x0A)
+        starts = np.concatenate([[0], nls[:-1] + 1]).astype(np.int64)
+        lens = (nls - starts).astype(np.int64)
+        order = np.argsort(lens, kind="stable")
+        seg = kernels.to_device(buf[:int(nls[-1]) + 1], device)
+        st_d = torch.from_numpy(starts[order]).to(device)
+        ln_d = torch.from_numpy(lens[order]).to(device)
+        # the launch alone: the wrapper's bounds check syncs the host
+        ms = time_kernel(
+            lambda: renfa_kernel._launch(seg, st_d, ln_d, m, cont))
+        verdicts = renfa_kernel.renfa_lines(seg, st_d, ln_d, m, cont)
+        plain_ms = _time_plain(lambda: renfa_kernel.renfa_lines_reference(
+            seg, st_d, ln_d, m, cont))
+        diff = _max_diff(verdicts, renfa_kernel.renfa_lines_reference(
+            seg, st_d, ln_d, m, cont))
+        if diff != 0:
+            raise AssertionError("lanes verdicts differ from "
+                                 "renfa_lines_reference on %d bytes"
+                                 % seg.numel())
+        bms, by = regex_bound(m, seg.numel(), lens)
+        for n in names:
+            res[n].update(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                          bound_by=by, shape_b=seg.numel(),
+                          max_abs_err=diff, lines=len(lens),
+                          true=int(verdicts.sum().item()))
+
+    for name, fn, argv, data, kname in runs:
         r = res[name]
-        r.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                 chunk_mb=len(chunk) >> 20, max_abs_err=diff)
-        print("main: %s %-44s rc=%d out=%d B sha256=%s.. wall=%.3f s "
-              "(%.3f GB/s) launches=%d | kernel %.4f ms per %d MB chunk "
+        where = ("%d MB buffer" % mb if data is not None
+                 else "%d MB file" % mb)
+        print("main: %-9s %-42s %s rc=%d out=%d B sha256=%s.. wall=%.3f s "
+              "(%.3f GB/s) %s launches=%d | kernel %.4f ms per %d B launch "
               "(%.1f GB/s, equal to plain), plain %.1f ms, bound %.4f ms "
               "(%s) | card: %s"
-              % (name, " ".join(argv), got[name][1], got[name][2],
-                 got[name][0][:12], r["wall_s"], n_bytes / r["wall_s"] / 1e9,
-                 r["launches"], ms, len(chunk) >> 20,
-                 len(chunk) / ms / 1e6, plain_ms, bms, by, card))
-    r = res["memagrep"]
-    print("main: memagrep %s (%d MB buffer) rc=%d sha256=%s.. wall=%.3f s "
-          "(%.3f GB/s) launches=%d | card: %s"
-          % (" ".join(CONFIGS[0][1]), mb, got["memagrep"][1],
-             got["memagrep"][0][:12], r["wall_s"],
-             n_bytes / r["wall_s"] / 1e9, r["launches"], card))
+              % (name, " ".join(argv[:len(argv) - (data is None)]), where,
+                 got[name][1], got[name][2], got[name][0][:12],
+                 r["wall_s"], n_bytes / r["wall_s"] / 1e9, kname,
+                 r["launches"], r["ms"], r["shape_b"],
+                 r["shape_b"] / r["ms"] / 1e6, r["plain_ms"], r["bound_ms"],
+                 r["bound_by"], card))
+    for name in ("config4", "memagrep4"):
+        r = res[name]
+        print("main: the lanes kernel's %d B launch of %s holds %d lines, "
+              "%d true verdicts" % (r["shape_b"], name, r["lines"],
+                                    r["true"]))
     print("main: stdout and return codes equal the numpy host backend "
           "for all %d runs" % len(runs))
     res["launches"] = main_launches
@@ -462,9 +744,10 @@ def main(argv=None) -> int:
              sys.version.split()[0], torch.cuda.device_count()))
     phase_build()
     err = phase_parity("cuda", args.seed, 8 << 20)
+    err_re = phase_parity_regex("cuda", args.seed)
     res = phase_main("cuda", args.seed, args.mb, card)
 
-    c2 = res["config2"]
+    c2, c4 = res["config2"], res["config4"]
     line = {"kernels": [{
         "name": "mask_scan",
         "route": "cuda",
@@ -478,10 +761,26 @@ def main(argv=None) -> int:
         "bound_ms": c2["bound_ms"],
         "bound_by": c2["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "renfa_lanes",
+        "route": "cuda",
+        "source": "agrep_tpu_torch/csrc/renfa_lanes.cu",
+        "replaces": "agrep_tpu/ops/renfa_kernel.py:188",
+        "launches": res["launches"]["renfa_lanes"],
+        "max_abs_err": max(err_re, c4["max_abs_err"],
+                           res["memagrep4"]["max_abs_err"]),
+        "ms": c4["ms"],
+        "plain_ms": c4["plain_ms"],
+        "bound_ms": c4["bound_ms"],
+        "bound_by": c4["bound_by"],
+        # no PyTorch call computes this automaton
+        "library_ms": None,
     }]}
-    print("kernels: times are per launch at the main path's %d MB chunk "
-          "of config2 (%s); launches are all main-path runs; card: %s"
-          % (c2["chunk_mb"], " ".join(CONFIGS[1][1]), card))
+    print("kernels: times are per launch at the main path's %d B chunk "
+          "of config2 (%s) and of config4 (%s); launches are all "
+          "main-path runs; card: %s"
+          % (c2["shape_b"], " ".join(CONFIGS[1][1]),
+             " ".join(REGEX_CONFIGS[0][1]), card))
     print(json.dumps(line))
     print("total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"ok": True, "device": {

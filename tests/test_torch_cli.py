@@ -1,12 +1,13 @@
 """The port's CLI against agrep_tpu's, byte for byte, on the CPU.
 
 agrep_tpu_torch.api.fileagrep / memagrep run on the torch backend with
-AGREP_TORCH_DEVICE=cpu (the plain PyTorch mask machine), and
-agrep_tpu.api.fileagrep / memagrep run in-process on their exact numpy
-backend.  Stdout bytes and return codes must be equal: the argv sets of
-tests/test_conformance_basic.py (single-pattern, BASELINE configs 1-3),
-a file over the streaming threshold with the chunked paths shrunk to
-run on it, and memagrep buffers.
+AGREP_TORCH_DEVICE=cpu (the plain PyTorch mask machine and regex
+lanes), and agrep_tpu.api.fileagrep / memagrep run in-process on their
+exact numpy backend.  Stdout bytes and return codes must be equal: the
+argv sets of tests/test_conformance_basic.py (single-pattern, BASELINE
+configs 1-3) and the regex sets of tests/test_conformance_more.py
+(BASELINE config 4's engine), files over the streaming threshold with
+the chunked paths shrunk to run on them, and memagrep buffers.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from agrep_tpu.ops import scan as j_scan
 from agrep_tpu.options import AgrepError as JAgrepError
 from agrep_tpu.runtime.output import OutputOverflow as JOverflow
 from agrep_tpu_torch.ops import kernels as t_kernels
+from agrep_tpu_torch.ops import renfa_kernel as t_renfa_kernel
 from agrep_tpu_torch.ops import scan as t_scan
 from agrep_tpu_torch.options import AgrepError as TAgrepError
 from agrep_tpu_torch.runtime.output import OutputOverflow as TOverflow
@@ -169,3 +171,94 @@ def test_memagrep_matches_agrep_tpu(corpus, argv, name):
     with open(corpus[name], "rb") as f:
         data = b"\n" + f.read()
     _both(argv, data)
+
+
+# tests/test_conformance_more.py: the regex argv sets, on its re.txt
+REGEXES = ["ab*c", "a(b|d)c", ".bc", "colou|or", "gr[ae]y",
+           "h(el)*lo", "[xh]b?c", "ab.*ld"]
+RE_TXT = (b"abc def\nabd xyz\nxbc q\nhello world\nab\nabcabc\n"
+          b"the colour gray\nthe color grey\nhomogenous mix\n")
+
+
+@pytest.mark.parametrize("pat", REGEXES)
+@pytest.mark.parametrize("flags", [[], ["-c"], ["-n"], ["-v"], ["-i"],
+                                   ["-1"], ["-2"], ["-b"]],
+                         ids=lambda f: "_".join(f) or "plain")
+def test_regex_matches_agrep_tpu(tmp_path, pat, flags):
+    path = tmp_path / "re.txt"
+    path.write_bytes(RE_TXT)
+    _both(flags + [pat, str(path)])
+
+
+def _counted_renfa_lines(monkeypatch):
+    calls = []
+    real = t_renfa_kernel.renfa_lines
+
+    def counted(text, starts, lens, m, init):
+        calls.append(text.numel())
+        return real(text, starts, lens, m, init)
+
+    monkeypatch.setattr(t_renfa_kernel, "renfa_lines", counted)
+    return calls
+
+
+REGEX_P = "appro[a-z]*mat(e|ion)"           # BASELINE config 4's pattern
+STREAM_REGEX_ARGVS = [
+    (["-2", "-c", REGEX_P], True),         # config 4: the streamed count
+    (["-2", "-n", REGEX_P], True),         # the streamed print
+    (["-v", "-c", "h(el)*lo"], True),
+    (["-b", "h(el)*lo"], True),
+    (["-2", "-n", REGEX_P], False),        # the whole-file path
+]
+
+
+@pytest.mark.parametrize("argv,streamed", STREAM_REGEX_ARGVS,
+                         ids=["_".join(a) + ("" if s else "_whole")
+                              for a, s in STREAM_REGEX_ARGVS])
+def test_streamed_regex_matches_agrep_tpu(tmp_path, monkeypatch, argv,
+                                          streamed):
+    """A regex file over 49152 bytes (the re() block-overrun glitch
+    byte) through the chunked regex engine, or its whole-file path,
+    in both packages; every verdict of the port comes from
+    renfa_lines."""
+    data = _big_corpus(300_000)
+    path = tmp_path / "big.txt"
+    path.write_bytes(data)
+    mb = "0" if streamed else "8"
+    monkeypatch.setenv("AGREP_TORCH_STREAM_MB", mb)
+    monkeypatch.setenv("AGREP_TPU_STREAM_MB", mb)
+    monkeypatch.setattr(t_scan, "STREAM_CHUNK", 64 << 10)
+    monkeypatch.setattr(j_scan, "STREAM_CHUNK", 64 << 10)
+    calls = _counted_renfa_lines(monkeypatch)
+    out, rc = _both(argv + [str(path)])
+    assert rc > 0 and out
+    if streamed:
+        assert len(calls) > 1 and max(calls) <= (64 << 10) + 1024, \
+            "the chunked regex path did not run"
+    else:
+        # one upload: the sentinel newline, the file, the glitch byte
+        assert calls == [len(data) + 2]
+
+
+REGEX_MEM_ARGVS = [["-c", "ab*c"], ["ab*c"], ["-1", "-n", "h(el)*lo"],
+                   ["-2", "-c", REGEX_P], ["-v", "-n", "colou|or"],
+                   ["-1", "-b", "a(b|d)c"]]
+
+
+@pytest.mark.parametrize("argv", REGEX_MEM_ARGVS,
+                         ids=["_".join(a) for a in REGEX_MEM_ARGVS])
+@pytest.mark.parametrize("lead", [b"\n", b"", b"abc and hello\n"],
+                         ids=["nl", "none", "line"])
+def test_regex_memagrep_matches_agrep_tpu(monkeypatch, argv, lead):
+    """Memory mode, with its virtual leading line: the lines and the
+    leading line both go through renfa_lines."""
+    calls = _counted_renfa_lines(monkeypatch)
+    _both(argv, lead + RE_TXT)
+    assert len(calls) == 2
+
+
+def test_regex_five_errors_is_a_late_error(tmp_path):
+    path = tmp_path / "re.txt"
+    path.write_bytes(RE_TXT)
+    out, rc = _both(["-5", "abc(d|e)fgh", str(path)])
+    assert rc != 0

@@ -97,7 +97,13 @@ def test_cuda_without_a_gpu_raises(no_gpu, tmp_path):
                                          output=buf),
                  lambda: t_api.memagrep(["-c", "hello"], b"\nhello\n",
                                         output=buf),
-                 lambda: t_api.Query("hello")):
+                 lambda: t_api.Query("hello"),
+                 # a regex query (the lanes kernel's path)
+                 lambda: t_api.fileagrep(["-2", "-c", "h(el)*lo", str(f)],
+                                         output=buf),
+                 lambda: t_api.memagrep(["ab*c"], b"\nabc\n", output=buf),
+                 lambda: t_api.Query(argv=["-2", "appro[a-z]*mat(e|ion)",
+                                           str(f)])):
         with pytest.raises(RuntimeError, match="is_available"):
             call()
     assert buf.getvalue() == b""
