@@ -89,9 +89,12 @@ def compile_query(pattern: str | None, opts: Options) -> CompiledQuery:
         split = boolean.split_pattern(pattern)
         if split is not None and (split.complex
                                   or len(split.terminals) >= 2):
-            raise NotImplementedError(
-                "boolean multi-pattern search (mgrep) comes in a later "
-                "slice of the port")
+            q = CompiledQuery(
+                opts=opts, pattern=pattern, engine_class="mgrep",
+                D=opts.D, lut=lut, terminals=split.terminals,
+                bool_tree=split.tree, bool_op=split.op)
+            _setup_delim_for_multi(q, opts)
+            return q
 
     return _compile_bitap(pattern, opts, lut)
 
@@ -110,6 +113,16 @@ def _boolean_split_allowed(opts: Options) -> bool:
     # (checksg.c:135) sits after the blocking-flag rejections, so a
     # silent term still splits ("dont care output, so dont care pat")
     return True
+
+
+def _setup_delim_for_multi(q: CompiledQuery, opts: Options) -> None:
+    if opts.delimiter is not None:
+        q.delimiter_opt = True
+        q.delim = _preprocess_delimiter(opts.delimiter)
+        q.outtail = opts.outtail
+    else:
+        q.delim = b"\n"
+        q.outtail = opts.outtail
 
 
 def _preprocess_delimiter(src: str) -> bytes:
@@ -243,9 +256,97 @@ def _compile_regex(pattern, rw, opts, lut) -> CompiledQuery:
 
 
 def _compile_multi(pattern, opts, lut) -> CompiledQuery:
-    raise NotImplementedError(
-        "multi-pattern search (-f/-m, mgrep) comes in a later slice of "
-        "the port")
+    from . import multi as multi_mod
+
+    cap = (multi_mod.MAXPATFILE + 2 * multi_mod.MAX_NUM) // 2
+
+    def _file_err(first_line: str):
+        # prepf failure flow (newmgrep.c:215-232 + agrep.c:2855-2862):
+        # prepf's own stderr line, then agrep_init's trailer naming the
+        # first remaining argv entry (the first input file, or the
+        # pattern file itself when no files follow)
+        hint = getattr(opts, "pat_errfile_hint", None) or opts.pat_file
+        raise AgrepError("%s\n%s: error in processing pattern file: %s"
+                         % (first_line, PROGNAME, hint))
+
+    if opts.pat_file is not None:
+        import os
+        import stat as statmod
+        try:
+            st = os.stat(opts.pat_file)
+        except OSError:
+            _file_err("%s: cannot stat file: %s"
+                      % (PROGNAME, opts.pat_file))
+        if not statmod.S_ISREG(st.st_mode):
+            _file_err("%s: pattern file not regular file: %s"
+                      % (PROGNAME, opts.pat_file))
+        if st.st_size * 2 > multi_mod.MAXPATFILE + 2 * multi_mod.MAX_NUM:
+            _file_err("%s: pattern file too large (> %d B): %s"
+                      % (PROGNAME, cap, opts.pat_file))
+        with open(opts.pat_file, "rb") as f:
+            raw = f.read()
+        segs = raw.split(b"\n")
+        if not segs[-1]:
+            segs = segs[:-1]   # prepf appends the final '\n' itself
+        # interior empty lines DO consume pattern slots (observable in
+        # -P indices; prepf's split loop, newmgrep.c:276-281)
+        terms = [t.decode("latin-1") for t in segs]
+        if len(terms) + 1 > multi_mod.MAX_NUM:
+            # newmgrep.c:284-293 as WRITTEN; the compiled reference
+            # UB-optimizes this check away (gcc deduces p < max_num
+            # from the patt[p] OOB write) and corrupts memory past
+            # 40,000 patterns -- we keep the intended diagnostic
+            # (documented divergence, docs/CONFORMANCE.md)
+            _file_err("%s: maximum number of patterns is %d"
+                      % (PROGNAME, multi_mod.MAX_NUM))
+    else:
+        braw = opts.pat_buffer.encode("latin-1")
+        if len(braw) * 2 > multi_mod.MAXPATFILE + 2 * multi_mod.MAX_NUM:
+            raise AgrepError(
+                "%s: pattern buffer too large (> %d B)\n"
+                "%s: error in processing pattern buffer"
+                % (PROGNAME, cap, PROGNAME))
+        segs = braw.split(b"\n")
+        if segs and not segs[-1]:
+            segs = segs[:-1]
+        terms = [t.decode("latin-1") for t in segs]
+        if len(terms) + 1 > multi_mod.MAX_NUM:
+            raise AgrepError(
+                "%s: maximum number of patterns is %d\n"
+                "%s: error in processing pattern buffer"
+                % (PROGNAME, multi_mod.MAX_NUM, PROGNAME))
+    q = CompiledQuery(
+        opts=opts, pattern=pattern or "", engine_class="mgrep", D=opts.D,
+        lut=lut, terminals=terms, bool_tree=None, bool_op="or")
+    _setup_delim_for_multi(q, opts)
+    if q.delimiter_opt and _sgrep_off_for_empty(opts):
+        # With -f/-m the pattern is empty and preprocess() returns
+        # before touching the delimiter (preproce.c:68-70); the
+        # conversion then only happens on agrep_search's SGREP branch
+        # (agrep.c:3182-3189).  Any checksg condition that keeps SGREP
+        # off -- JUMP costs, SILENT (returns 1 *without* setting
+        # SGREP, checksg.c:135), zero insert cost, best-match, or
+        # errors with -i/-w/-x -- leaves D_pattern as the RAW
+        # "<PAT>; " buffer with D_length = 1 + len(PAT): the
+        # effective record delimiter is '<' plus the undecoded
+        # user text.
+        q.delim = b"<" + opts.delimiter.encode("latin-1")
+    return q
+
+
+def _sgrep_off_for_empty(opts: Options) -> bool:
+    """checksg('', D, 1) leaves SGREP off (so the -f/-m delimiter
+    stays raw) for these flags -- checksg.c:127-141."""
+    if opts.jump or opts.cost_insert == 0 or opts.bestmatch:
+        return True
+    if opts.silent or opts.linenum:
+        # -n survives as a flag under -c (only its output is
+        # "ignored"), and checksg's LINENUM check still bars SGREP
+        return True
+    if opts.D > 0 and (opts.nocase is not None or opts.wordbound
+                       or opts.wholeline):
+        return True
+    return False
 
 
 def _decompose_bits(word: int) -> list[int]:

@@ -100,6 +100,10 @@ def get_lib():
     lib.qgram_occ_all.argtypes = [
         u8p, i64, u8p, i32p, i64p, i64p, u8p, i64p, u8p, i64,
         ctypes.c_int32, ctypes.c_int32, i64p, i64p, i64]
+    lib.qgram_occ_at.restype = i64
+    lib.qgram_occ_at.argtypes = [
+        u8p, i64, i64p, i64, u8p, i32p, i64p, i64p, u8p, i64p, u8p, i64,
+        ctypes.c_int32, ctypes.c_int32, i64p, i64p, i64]
     lib.pack_lines.restype = None
     lib.pack_lines.argtypes = [u8p, i64, i64p, i64p, i64, i64, u8p]
     u32 = ctypes.c_uint32
@@ -537,6 +541,57 @@ def qgram_occ_all(stream: np.ndarray, member: np.ndarray,
         out_t = _scratch("qgram_t", int(cnt) + 16)
         cnt = lib.qgram_occ_all(*args_fixed, out_a, out_t, len(out_a))
     return out_a[:cnt], out_t[:cnt]
+
+
+# Candidate count from which qgram_occ_at verifies in parallel slices.
+OCC_AT_PAR_MIN = 1 << 20
+
+
+def qgram_occ_at(stream: np.ndarray, anchors: np.ndarray,
+                 member: np.ndarray, hash_id: np.ndarray,
+                 bucket_off: np.ndarray, bucket_tids: np.ndarray,
+                 term_bytes: np.ndarray, term_off: np.ndarray,
+                 tr: np.ndarray, p: int, longf: bool, shortf: bool):
+    """qgram_occ_all's verified (anchor, tid) pairs at the given
+    ascending candidate anchors only (e.g. the device q-gram filter's);
+    None when the native library is unavailable.  Long candidate lists
+    are split into up to four slices verified side by side (ctypes
+    releases the GIL); the rows keep anchor order."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    s = np.ascontiguousarray(stream)
+    tables = (
+        np.ascontiguousarray(member.astype(np.uint8)),
+        np.ascontiguousarray(hash_id.astype(np.int32)),
+        np.ascontiguousarray(bucket_off.astype(np.int64)),
+        np.ascontiguousarray(bucket_tids.astype(np.int64)),
+        np.ascontiguousarray(term_bytes),
+        np.ascontiguousarray(term_off.astype(np.int64)),
+        np.ascontiguousarray(tr), p, int(longf), int(shortf))
+
+    def one(cand):
+        # hits are sparse among the candidates: a list past the first
+        # guess is walked once more at its exact size
+        cap = min(len(cand), 1 << 20) + 16
+        while True:
+            out_a = np.empty(cap, dtype=np.int64)
+            out_t = np.empty(cap, dtype=np.int64)
+            cnt = lib.qgram_occ_at(s, len(s), cand, len(cand), *tables,
+                                   out_a, out_t, cap)
+            if cnt <= cap:
+                return out_a[:cnt], out_t[:cnt]
+            cap = int(cnt) + 16
+
+    cand = np.ascontiguousarray(anchors, dtype=np.int64)
+    nthreads = min(4, os.cpu_count() or 1)
+    if nthreads <= 1 or len(cand) < OCC_AT_PAR_MIN:
+        return one(cand)
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(nthreads) as ex:
+        parts = list(ex.map(one, np.array_split(cand, nthreads)))
+    return (np.concatenate([x[0] for x in parts]),
+            np.concatenate([x[1] for x in parts]))
 
 
 def qgram_first_per_anchor(stream: np.ndarray, member: np.ndarray,

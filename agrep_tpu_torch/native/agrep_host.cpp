@@ -1415,6 +1415,44 @@ void pack_lines(const uint8_t* buf, int64_t n, const int64_t* starts,
     }
 }
 
+// Hash one anchor a (>= p - 1), check its membership, and verify its
+// bucket's terms at start a - (p - 1); appends each verified
+// (anchor, tid) row while cnt < cap and returns the new count.
+static inline int64_t qgram_verify_anchor(
+    const uint8_t* buf, int64_t n, int64_t a, const uint8_t* member,
+    const int32_t* hash_id, const int64_t* bucket_off,
+    const int64_t* bucket_tids, const uint8_t* term_bytes,
+    const int64_t* term_off, const uint8_t* tr, int64_t p,
+    int32_t longf, int32_t shortf, int64_t* out_anchor,
+    int64_t* out_tid, int64_t cap, int64_t cnt) {
+    uint32_t h;
+    if (shortf) {
+        h = tr[buf[a]];
+    } else {
+        h = ((uint32_t)(buf[a] & 31) << 5) | (buf[a - 1] & 31);
+        if (longf)
+            h = ((h << 5) | (buf[a - 2] & 31)) & 32767u;
+    }
+    if (!member[h]) return cnt;
+    int32_t b = hash_id[h];
+    for (int64_t j = bucket_off[b]; j < bucket_off[b + 1]; j++) {
+        int64_t tid = bucket_tids[j];
+        const uint8_t* t = term_bytes + term_off[tid];
+        int64_t L = term_off[tid + 1] - term_off[tid];
+        int64_t s = a - (p - 1);
+        if (s + L > n) continue;
+        int64_t k = 0;
+        while (k < L && tr[buf[s + k]] == tr[t[k]]) k++;
+        if (k < L) continue;
+        if (cnt < cap) {
+            out_anchor[cnt] = a;
+            out_tid[cnt] = tid;
+        }
+        cnt++;
+    }
+    return cnt;
+}
+
 // All verified (anchor, tid) pairs -- the full occurrence table of
 // compile/multi.py::qgram_occurrences at C speed (dense member filter
 // + bucket verify, NO first-per-line pruning, NO wordbound: callers
@@ -1436,31 +1474,34 @@ int64_t qgram_occ_all(
             a = qs.next(a);
             if (a >= n) break;
         }
-        uint32_t h;
-        if (shortf) {
-            h = tr[buf[a]];
-        } else {
-            h = ((uint32_t)(buf[a] & 31) << 5) | (buf[a - 1] & 31);
-            if (longf)
-                h = ((h << 5) | (buf[a - 2] & 31)) & 32767u;
-        }
-        if (!member[h]) continue;
-        int32_t b = hash_id[h];
-        for (int64_t j = bucket_off[b]; j < bucket_off[b + 1]; j++) {
-            int64_t tid = bucket_tids[j];
-            const uint8_t* t = term_bytes + term_off[tid];
-            int64_t L = term_off[tid + 1] - term_off[tid];
-            int64_t s = a - (p - 1);
-            if (s + L > n) continue;
-            int64_t k = 0;
-            while (k < L && tr[buf[s + k]] == tr[t[k]]) k++;
-            if (k < L) continue;
-            if (cnt < cap) {
-                out_anchor[cnt] = a;
-                out_tid[cnt] = tid;
-            }
-            cnt++;
-        }
+        cnt = qgram_verify_anchor(buf, n, a, member, hash_id, bucket_off,
+                                  bucket_tids, term_bytes, term_off, tr, p,
+                                  longf, shortf, out_anchor, out_tid, cap,
+                                  cnt);
+    }
+    return cnt;
+}
+
+// The verify half of qgram_occ_all over given ascending candidate
+// anchors (the device q-gram filter's, a sound superset of the member
+// anchors): the same rows, in the same order, as qgram_occ_all gives
+// for those anchors.  Returns the TOTAL pair count; only the first cap
+// are written.
+int64_t qgram_occ_at(
+    const uint8_t* buf, int64_t n, const int64_t* anchors,
+    int64_t n_anchors, const uint8_t* member, const int32_t* hash_id,
+    const int64_t* bucket_off, const int64_t* bucket_tids,
+    const uint8_t* term_bytes, const int64_t* term_off,
+    const uint8_t* tr, int64_t p, int32_t longf, int32_t shortf,
+    int64_t* out_anchor, int64_t* out_tid, int64_t cap) {
+    int64_t cnt = 0;
+    for (int64_t i = 0; i < n_anchors; i++) {
+        int64_t a = anchors[i];
+        if (a < p - 1 || a >= n) continue;
+        cnt = qgram_verify_anchor(buf, n, a, member, hash_id, bucket_off,
+                                  bucket_tids, term_bytes, term_off, tr, p,
+                                  longf, shortf, out_anchor, out_tid, cap,
+                                  cnt);
     }
     return cnt;
 }

@@ -7,5 +7,11 @@ scan     -- the windowed-parallel shift-or scan over tiled byte streams;
             numpy/native host backend.
 kernels  -- the mask-machine kernel's wrapper (csrc/mask_scan.cu), its
             plain PyTorch version and the packed-plane readback.
+renfa_kernel -- the regex lanes kernel (csrc/renfa_lanes.cu) and its
+            plain version.
+chain_kernel -- the -f engine's exact multi-term start scan
+            (csrc/chain_scan.cu), its compiler and plain version.
+qgram_kernel -- the -f engine's 2-gram membership filter
+            (csrc/qgram_filter.cu) and its plain version.
 _cuda    -- builds the CUDA sources with nvcc and loads them with ctypes.
 """

@@ -32,8 +32,13 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                      "-Xptxas", "-v")
 
+# Every kernel source under csrc/; build_all(SOURCES) builds them all at
+# once.
+SOURCES = ("mask_scan", "renfa_lanes", "chain_scan", "qgram_filter")
+
 # Compile units of each source: the kernels of each D in an object of
-# their own, so their compiles run side by side.
+# their own, so their compiles run side by side.  A source not listed is
+# one compile unit.
 UNITS = {
     "mask_scan": [()] + [("-DMASK_SCAN_D=%d" % d,) for d in range(9)],
     "renfa_lanes": [()] + [("-DRENFA_D=%d" % d,) for d in range(5)],

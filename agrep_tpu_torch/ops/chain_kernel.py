@@ -1,0 +1,266 @@
+"""The chain kernel: exact multi-term match starts for the -f engine.
+
+chain_scan() marks, at every byte position i of a flat u8 text tensor,
+whether some term of a compiled term set starts there:
+
+    start[i] = OR_term AND_t (tr[text[i+t]] == tr[term[t]]),
+
+bytes past the end of the text read as 0, packed 32 positions to a word
+(bit r of word w is position 32*w + r).  On a CUDA tensor it launches the
+hand-written Hopper kernel csrc/chain_scan.cu (built and loaded by
+ops/_cuda.py) or raises; on a CPU tensor it runs chain_scan_reference(),
+the plain PyTorch version of the same function.  chain_match_starts()
+turns the plane into positions.
+
+The match is exact: the engine (runtime/mgrep.py) only attributes term
+ids at true hits (compile/multi.py qgram_occurrences consumes the starts
+as cand_anchor_rel).  compile_chain() keeps the TPU engine's static caps:
+a term set past them compiles to None, and the engine then takes the
+q-gram filter (ops/qgram_kernel.py).  Planes are int32 tensors holding
+u32 words.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+# compile caps of the -f engine's chain program; past them the q-gram
+# filter takes the term set
+MAX_POSITIONS = 2400      # total pattern chars across all terms
+MAX_EQ_SETS = 96          # distinct folded character classes
+MAX_CUBES = 8             # OR-of-AND cover terms per class
+MAX_TERM_LEN = 128
+NO_CLASS = 255            # class id of a byte that no term holds
+
+# Launches of each kernel since the counts were last set to 0.
+launches = {"chain_scan": 0}
+
+
+def _cube_cover(byte_set: frozenset) -> tuple | None:
+    """Cover a byte set by (mask, value) cubes: the cube contains all
+    bytes b with (b & mask) == value.  Greedy largest-cube-first;
+    returns None when the cover needs more than MAX_CUBES cubes."""
+    remaining = set(byte_set)
+    cubes = []
+    while remaining:
+        seed = min(remaining)
+        mask = 0xFF
+        # try to free each bit (largest win first is moot at 8 bits)
+        for b in range(8):
+            trial = mask & ~(1 << b)
+            # cube (trial, seed & trial) must lie inside the SET (not
+            # just inside `remaining`: overlap with prior cubes is fine)
+            width = 1 << (8 - bin(trial).count("1"))
+            val = seed & trial
+            members = [v for v in range(256)
+                       if (v & trial) == val]
+            if len(members) == width and all(m in byte_set
+                                             for m in members):
+                mask = trial
+        val = seed & mask
+        cubes.append((mask, val))
+        for v in range(256):
+            if (v & mask) == val:
+                remaining.discard(v)
+        if len(cubes) > MAX_CUBES:
+            return None
+    return tuple(cubes)
+
+
+def compile_chain(terms: list, tr: np.ndarray):
+    """Static chain program for a term set under fold table tr.
+
+    Returns (eq_specs, term_specs, term_ids, maxlen) or None when the
+    set exceeds the caps.  eq_specs[e] is the cube cover of folded
+    class e; term_specs[i] is the tuple of class indices of term_ids[i]'s
+    byte positions."""
+    tr = np.asarray(tr, dtype=np.uint8)
+    # preimage classes of the fold map, computed once
+    inv: dict = {}
+    for b in range(256):
+        inv.setdefault(int(tr[b]), []).append(b)
+    eq_index: dict = {}
+    eq_specs: list = []
+    term_specs: list = []
+    term_ids: list = []
+    total = 0
+    maxlen = 0
+    for tid, t in enumerate(terms):
+        if not t:
+            continue
+        if len(t) > MAX_TERM_LEN:
+            return None
+        spec = []
+        for ch in t:
+            f = int(tr[ch])
+            if f not in eq_index:
+                cubes = _cube_cover(frozenset(inv[f]))
+                if cubes is None:
+                    return None
+                eq_index[f] = len(eq_specs)
+                eq_specs.append(cubes)
+            spec.append(eq_index[f])
+        total += len(spec)
+        maxlen = max(maxlen, len(spec))
+        term_specs.append(tuple(spec))
+        term_ids.append(tid)
+    if (not term_specs or total > MAX_POSITIONS
+            or len(eq_specs) > MAX_EQ_SETS):
+        return None
+    return tuple(eq_specs), tuple(term_specs), tuple(term_ids), maxlen
+
+
+@dataclass(frozen=True)
+class ChainProgram:
+    """A compiled chain program as the kernel takes it, on one device."""
+    class_of: torch.Tensor    # u8[256]: byte -> class id (NO_CLASS: none)
+    term_cls: torch.Tensor    # u8[n_pos]: distinct terms' class ids,
+                              # concatenated, sorted by first class
+    term_off: torch.Tensor    # i16[n_terms + 1]: term t's range in term_cls
+    bucket: torch.Tensor      # i16[257]: terms of first class c are
+                              # bucket[c] .. bucket[c + 1] - 1
+    n_terms: int
+    n_pos: int
+    maxlen: int
+
+
+def device_program(prog, device="cpu") -> ChainProgram:
+    """Kernel inputs from compile_chain's program: each cube cover gives
+    its class's bytes, duplicate terms collapse (the match is an OR)."""
+    eq_specs, term_specs, _tids, maxlen = prog
+    if len(eq_specs) > MAX_EQ_SETS:
+        raise ValueError("%d classes, the kernel takes %d"
+                         % (len(eq_specs), MAX_EQ_SETS))
+    class_of = np.full(256, NO_CLASS, dtype=np.uint8)
+    for e, cubes in enumerate(eq_specs):
+        for mask, val in cubes:
+            for b in range(256):
+                if b & mask == val:
+                    class_of[b] = e
+    specs = sorted(set(term_specs))
+    if sum(len(s) for s in specs) > MAX_POSITIONS or maxlen > MAX_TERM_LEN:
+        raise ValueError("term set past the chain kernel's caps")
+    term_cls = np.asarray([c for s in specs for c in s], dtype=np.uint8)
+    term_off = np.concatenate(
+        [[0], np.cumsum([len(s) for s in specs])]).astype(np.int16)
+    first = np.asarray([s[0] for s in specs], dtype=np.int64)
+    bucket = np.searchsorted(first, np.arange(257), side="left") \
+        .astype(np.int16)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return ChainProgram(class_of=dev(class_of), term_cls=dev(term_cls),
+                        term_off=dev(term_off), bucket=dev(bucket),
+                        n_terms=len(specs), n_pos=len(term_cls),
+                        maxlen=int(maxlen))
+
+
+def chain_scan(text: torch.Tensor, p: ChainProgram) -> torch.Tensor:
+    """Start plane int32[ceil(N/32)] of the program over text (module
+    docstring).  A CUDA tensor goes to the kernel, a CPU tensor to
+    chain_scan_reference."""
+    if text.dtype != torch.uint8 or text.dim() != 1:
+        raise TypeError("text must be a 1-D uint8 tensor, got %s %r"
+                        % (text.dtype, tuple(text.shape)))
+    if not text.is_contiguous():
+        raise ValueError("text must be contiguous")
+    if text.numel() == 0:
+        raise ValueError("empty text")
+    if text.device != p.class_of.device:
+        raise ValueError("text on %s but the program on %s"
+                         % (text.device, p.class_of.device))
+    if text.is_cuda:
+        return _launch(text, p)
+    if text.device.type == "cpu":
+        return chain_scan_reference(text, p)
+    raise ValueError("no chain kernel for device %s" % text.device)
+
+
+def _bind():
+    from . import _cuda
+    lib = _cuda.load("chain_scan")
+    if not getattr(lib, "_bound", False):
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.chain_scan_launch.restype = i
+        lib.chain_scan_launch.argtypes = [p, ll, p, p, i, p, i, p, i, p, p]
+        lib.chain_scan_error_string.restype = ctypes.c_char_p
+        lib.chain_scan_error_string.argtypes = [i]
+        lib._bound = True
+    return lib
+
+
+def _launch(text: torch.Tensor, p: ChainProgram) -> torch.Tensor:
+    lib = _bind()
+    N = text.numel()
+    out = torch.empty(-(-N // 32), dtype=torch.int32, device=text.device)
+    stream = torch.cuda.current_stream(text.device).cuda_stream
+    err = lib.chain_scan_launch(
+        text.data_ptr(), N, p.class_of.data_ptr(), p.term_cls.data_ptr(),
+        p.n_pos, p.term_off.data_ptr(), p.n_terms, p.bucket.data_ptr(),
+        p.maxlen, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("chain_scan kernel launch failed: %s (%d)"
+                           % (lib.chain_scan_error_string(err).decode(),
+                              err))
+    launches["chain_scan"] += 1
+    return out
+
+
+def pack_bits(hit: torch.Tensor) -> torch.Tensor:
+    """bool[N] -> int32[ceil(N/32)] holding u32 words, bit r of word w
+    from hit[32*w + r]."""
+    n_words = -(-hit.numel() // 32)
+    bits = torch.zeros(n_words * 32, dtype=torch.int64, device=hit.device)
+    bits[:hit.numel()] = hit
+    shifts = torch.arange(32, dtype=torch.int64, device=hit.device)
+    words = (bits.view(n_words, 32) << shifts).sum(dim=1)
+    return torch.where(words >= 1 << 31, words - (1 << 32),
+                       words).to(torch.int32)
+
+
+def plane_positions(plane: torch.Tensor, N: int) -> np.ndarray:
+    """Set-bit positions (< N) of an int32 plane, ascending, as int64 on
+    the host; only nonzero words are expanded."""
+    nz = torch.nonzero(plane).flatten()
+    words = plane[nz].to(torch.int64) & 0xFFFFFFFF
+    shifts = torch.arange(32, dtype=torch.int64, device=plane.device)
+    bits = ((words[:, None] >> shifts) & 1) != 0
+    pos = (nz[:, None] * 32 + shifts)[bits]
+    pos = pos.cpu().numpy().astype(np.int64)
+    return pos[pos < N]
+
+
+def chain_scan_reference(text: torch.Tensor, p: ChainProgram
+                         ) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, on any device: the text's
+    class ids (padded with byte 0's class), then per term one
+    vectorized compare and AND per position, ORed over the terms."""
+    dev = text.device
+    N = text.numel()
+    cls = torch.full((N + p.maxlen,), int(p.class_of[0]),
+                     dtype=torch.uint8, device=dev)
+    cls[:N] = p.class_of[text.long()]
+    hit = torch.zeros(N, dtype=torch.bool, device=dev)
+    term_cls = p.term_cls.cpu().tolist()
+    off = p.term_off.cpu().tolist()
+    for t in range(p.n_terms):
+        m = torch.ones(N, dtype=torch.bool, device=dev)
+        for k, c in enumerate(term_cls[off[t]:off[t + 1]]):
+            m &= cls[k:k + N] == c
+        hit |= m
+    return pack_bits(hit)
+
+
+def chain_match_starts(text: torch.Tensor, prog) -> np.ndarray:
+    """Exact match-start positions (any term) in text coordinates, int64
+    on the host.  text: a u8 tensor (CUDA: the kernel; CPU: the plain
+    version); prog: compile_chain's program, or its ChainProgram on
+    text's device."""
+    if not isinstance(prog, ChainProgram):
+        prog = device_program(prog, text.device)
+    return plane_positions(chain_scan(text, prog), text.numel())

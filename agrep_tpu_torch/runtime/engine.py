@@ -2527,8 +2527,8 @@ class Executor:
         elif q.engine_class == "bitap":
             self.engine = BitapEngine(q)
         elif q.engine_class == "mgrep":
-            raise NotImplementedError(
-                "the mgrep engine comes in a later slice of the port")
+            from .mgrep import MgrepEngine
+            self.engine = MgrepEngine(q)
         elif q.engine_class == "regex":
             from .regex_engine import RegexEngine
             self.engine = RegexEngine(q)

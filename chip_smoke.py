@@ -8,8 +8,9 @@ exits non-zero:
 
   1. card: the GPU's name and power limit (nvidia-smi) and the torch and
      CUDA versions;
-  2. build: compiles csrc/mask_scan.cu and csrc/renfa_lanes.cu with nvcc,
-     every compile unit of both started together, and times the build;
+  2. build: compiles the four kernel sources (csrc/mask_scan.cu,
+     renfa_lanes.cu, chain_scan.cu, qgram_filter.cu) with nvcc, every
+     compile unit of all four started together, and times the build;
   3. parity: the mask_scan kernel against its plain PyTorch version
      (mask_scan_reference) on the card, bit for bit, over every variant,
      D, cost wiring, endpos shape and edge size the kernel takes; then
@@ -17,15 +18,29 @@ exits non-zero:
      over regex machines (D = 0..4, -i, anchors, 29 positions) and line
      sets (R = 1, 31, 32, 33, 4097, empty lines, lengths at the length
      buckets' edges, a line over 49152 bytes, a launch from the
-     memory-mode seed states); phase 4 repeats both checks at the main
-     path's chunk shape;
+     memory-mode seed states); then the chain_scan kernel against
+     chain_scan_reference over term sets (1 term, config 5's 100, terms
+     of 31-128 bytes, a full-byte-range set, a set whose terms run past
+     the text's end into its zero pad; each with and without -i) and
+     texts (N = 1, 31, 32, 33, 4095, 4096, 4097, 8 MB), and the
+     qgram_filter kernel against qgram_reference on 2-gram, LONG and -i
+     member sets at the same N; phase 4 repeats every check at the main
+     path's shapes;
   4. main path: a --mb MB ASCII corpus made from --seed, searched through
      agrep_tpu_torch.api.fileagrep with BASELINE configs 1-4 (the file
      is over the streaming threshold, so each run is chunked; config 4,
      the regex, runs as a count and as a line-numbered print) and
-     through memagrep with configs 1 and 4 on the in-memory buffer;
-     stdout and return codes must equal the port's own numpy host
-     backend, and every run must launch its kernel;
+     through memagrep with configs 1 and 4 on the in-memory buffer; then
+     BASELINE config 5 on a second corpus, the first with a blank line
+     every 8-16 lines: -f with 100 patterns over '$$' records (config5),
+     the same as a count (config5c) and through memagrep (memagrep5), a
+     count with 400 patterns, past the chain kernel's caps (config5q),
+     a boolean AND over '$$' records (bool5, the chain kernel), and a
+     boolean with a term past the chain caps (bool5m, the mask
+     machine's packed term words); stdout and return codes must equal
+     the port's own numpy host backend, whose walls are printed beside
+     the GPU route's, and every run must launch its kernel (config5q
+     the q-gram kernel and no chain kernel);
   5. kernels: one JSON line with each kernel's launches on the main path,
      its time, its plain version's time and its bound on this card.
 
@@ -68,11 +83,14 @@ REGEX_CONFIGS = [
     ("config4", ["-2", "-c", REGEX]),
     ("config4n", ["-2", "-n", REGEX]),
 ]
+CONFIG5_DELIM = ["-d", "$$"]               # BASELINE config 5's records
 FILLER = [b"the", b"quick", b"brown", b"fox", b"pattern", b"search",
           b"world", b"lorem", b"ipsum", b"dolor", b"bibliography",
           b"string", b"grep", b"over", b"lazy", b"dog"]
 PLANTS = [b"hello", b"matching", b"matchng", b"Approximate",
           b"aproximate", b"approximately", b"HELLO"]
+# a boolean term past the chain kernel's 128 bytes a term
+LONG_TERM = "hello" + "q" * 131
 
 
 def card_line() -> str:
@@ -104,6 +122,48 @@ def make_corpus(n_bytes: int, seed: int):
         total += len(line)
     tmpl = np.frombuffer(b"".join(lines), dtype=np.uint8)
     return np.tile(tmpl, -(-n_bytes // len(tmpl)))[:n_bytes].copy()
+
+
+def make_records(corpus, seed: int):
+    """Config 5's corpus: the corpus's lines with a blank line after every
+    8-16 of them, so that -d '$$' (a blank line) cuts it into records;
+    cut back to the corpus's size."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 1)
+    nl = np.flatnonzero(corpus == 0x0A)
+    at = np.cumsum(rng.integers(8, 17, len(nl) // 8 + 1)) - 1
+    at = at[at < len(nl)]
+    return np.insert(corpus, nl[at] + 1, 0x0A)[:len(corpus)]
+
+
+def make_patterns(n: int, seed: int) -> list:
+    """Config 5's pattern file: the PLANTS, then random 5-10-letter words
+    that no FILLER or PLANT word holds, so matches stay sparse.  The
+    first k patterns of n are those of k."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 2)
+    pats = list(PLANTS)
+    while len(pats) < n:
+        w = bytes(rng.integers(97, 123, int(rng.integers(5, 11)))
+                  .astype(np.uint8))
+        if w not in pats and not any(w in f for f in FILLER + PLANTS):
+            pats.append(w)
+    return pats
+
+
+def plant(text, terms, rng, fold: bool):
+    """text with every term copied in at a few random offsets (each copy
+    in random case when fold), ending in the bytes FE FD."""
+    import numpy as np
+    n = len(text)
+    for t in terms:
+        if len(t) >= n:
+            continue
+        for off in rng.integers(0, n - len(t), max(1, n // 4000)):
+            b = t.swapcase() if fold and rng.integers(0, 2) else t
+            text[off:off + len(t)] = np.frombuffer(b, dtype=np.uint8)
+    text[-2:] = np.frombuffer(b"\xfe\xfd", dtype=np.uint8)[-min(n, 2):]
+    return text
 
 
 def random_text(n: int, rng):
@@ -352,6 +412,56 @@ def regex_bound(m, n_text: int, lens) -> tuple:
     return t_bytes * 1e3, "bytes"
 
 
+def chain_ops() -> tuple:
+    """(int32 operations, shared loads) of one text byte of the chain
+    function at its least: a multi-string (Aho-Corasick) automaton over
+    the folded classes with its transition table in shared memory
+    (config 5's 784 states times 32 classes at 2 B an entry is 50 KB):
+    the byte's class load and the transition load, the next-state index
+    (one IMAD), the state's accept bit tested and merged into the output
+    word (2 LOP3/SHF).  Moving a match's bit from its end to its start
+    costs a few operations for each of the run's sparse matches, which
+    this count leaves out."""
+    return 3, 2
+
+
+def chain_bound(N: int) -> tuple:
+    """(bound_ms, bound_by) of one chain scan of N bytes: the text read
+    once and the start plane written once over HBM's rate, against
+    chain_ops over the int32 and shared-load rates.  The TPU kernel's
+    bit-plane form does about 80 operations a byte for config 5's terms:
+    that is one design's count, not the function's least work, and is
+    not the bound."""
+    ops, loads = chain_ops()
+    t_bytes = (N + 4 * -(-N // 32)) / HBM_BYTES_PER_S
+    t_ops = max(N * ops / INT32_OPS_PER_S, N * loads / SHARED_LOADS_PER_S)
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
+def qgram_ops() -> tuple:
+    """(int32 operations, shared loads) of one text byte of the q-gram
+    filter at its least: the byte's low 5 bits (kept for the next byte's
+    previous), the member word's load (its index is those bits), the
+    shift by the previous byte's bits and the bit's merge into the
+    output word (2 LOP3/SHF), and the byte's extract from a wide load."""
+    return 4, 1
+
+
+def qgram_bound(N: int) -> tuple:
+    """(bound_ms, bound_by) of one q-gram filter of N bytes: the text
+    read once, the 128 B member set and the candidate plane written once
+    over HBM's rate, against qgram_ops over the int32 and shared-load
+    rates."""
+    ops, loads = qgram_ops()
+    t_bytes = (N + 128 + 4 * -(-N // 32)) / HBM_BYTES_PER_S
+    t_ops = max(N * ops / INT32_OPS_PER_S, N * loads / SHARED_LOADS_PER_S)
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
 def time_kernel(fn, reps: int = 5) -> float:
     """ms per call of fn on the card: CUDA events around reps calls after
     one warm-up call."""
@@ -376,7 +486,7 @@ def phase_build() -> None:
     """Build every kernel source from the checkout, all compile units of
     all sources started together."""
     from agrep_tpu_torch.ops import _cuda
-    names = ["mask_scan", "renfa_lanes"]
+    names = list(_cuda.SOURCES)
     t0 = time.perf_counter()
     paths = _cuda.build_all(names)
     for name in names:
@@ -399,11 +509,12 @@ def phase_build() -> None:
               "registers max %s; stack frame max %s B; kernels that "
               "spill: %d"
               % (name, os.path.relpath(paths[name], REPO),
-                 len(_cuda.UNITS[name]), len(regs),
+                 len(_cuda.UNITS.get(name, [()])), len(regs),
                  max(regs, default="n/a"), max(frames, default="n/a"),
                  sum(1 for sp in spills if sp)))
     print("build: %d compile units of %d sources in parallel in %.2f s"
-          % (sum(len(_cuda.UNITS[n]) for n in names), len(names), dt))
+          % (sum(len(_cuda.UNITS.get(n, [()])) for n in names),
+             len(names), dt))
 
 
 def phase_parity(device: str, seed: int, big: int) -> float:
@@ -534,6 +645,118 @@ def phase_parity_regex(device: str, seed: int) -> float:
     return float(worst)
 
 
+def chain_sets(pats100) -> list:
+    """(name, terms, fold) of every term set phase 3 holds the chain
+    kernel to, each with and without -i folding."""
+    import numpy as np
+    rng = np.random.default_rng(5)
+    sets = [
+        ("1 term", [b"hello"]),
+        ("100 terms", pats100),
+        ("31..128 B", [bytes(rng.integers(97, 123, n).astype(np.uint8))
+                       for n in (31, 32, 33, 64, 65, 128)]),
+        # tests/test_chain_kernel.py test_full_byte_range's shape
+        ("full bytes", [b"\x00\xff", bytes(range(200, 212)),
+                        b"\x80\x00\x7f", b"\n\n", b"ab\x00c"]),
+        # plant() ends every text in FE FD: these run into the zero pad
+        ("zero pad", [b"\xfe\xfd\x00\x00", b"\xfd\x00", b"hello"]),
+    ]
+    return [(name + (" -i" if fold else ""), terms, fold)
+            for name, terms in sets for fold in (False, True)]
+
+
+def qgram_sets() -> list:
+    """(name, terms, fold) of every member set phase 3 holds the q-gram
+    kernel to: 2-gram tables, LONG (3-gram) tables (multilen > 400) and
+    -i folding."""
+    import numpy as np
+    rng = np.random.default_rng(6)
+
+    def words(k, lo, hi):
+        return [bytes(rng.integers(97, 123, int(rng.integers(lo, hi)))
+                      .astype(np.uint8)) for _ in range(k)]
+    return [("2-gram", words(30, 3, 7), False),
+            ("LONG", words(60, 5, 11), False),
+            ("2-gram -i", words(30, 3, 7), True)]
+
+
+PARITY_SIZES = (1, 31, 32, 33, 4095, 4096, 4097)
+
+
+def phase_parity_multi(device: str, seed: int, big: int, pats100) -> tuple:
+    """chain_scan planes vs chain_scan_reference planes, and qgram_filter
+    planes vs qgram_reference planes, on every set and size; returns the
+    largest |kernel - plain| word difference of each (0 or fail)."""
+    import numpy as np
+    import torch
+
+    from agrep_tpu_torch.compile import multi
+    from agrep_tpu_torch.ops import chain_kernel, kernels, qgram_kernel
+    from agrep_tpu_torch.runtime.mgrep import _fold_tr
+    rng = np.random.default_rng(seed)
+    sizes = PARITY_SIZES + (big,)
+    base = {n: random_text(n, rng) for n in sizes}
+    base_bytes = {n: rng.integers(0, 256, n, dtype=np.uint8) for n in sizes}
+    worst = {"chain_scan": 0, "qgram_filter": 0}
+    failed = []
+
+    def check(kname, name, n, got, want):
+        diff = _max_diff(got, want)
+        worst[kname] = max(worst[kname], diff)
+        if diff:
+            where = (got != want).nonzero()[:4, 0].tolist()
+            print("parity: %s %s N=%d MISMATCH; first (word, kernel, "
+                  "plain): %s" % (kname, name, n, [
+                      (w, hex(int(got[w]) & 0xFFFFFFFF),
+                       hex(int(want[w]) & 0xFFFFFFFF)) for w in where]))
+            failed.append((kname, name, n))
+        return _set_bits(want)
+
+    for name, terms, fold in chain_sets(pats100):
+        tr = _fold_tr(fold)
+        prog = chain_kernel.compile_chain(terms, tr)
+        if prog is None:
+            raise AssertionError("chain set %s does not compile" % name)
+        p = chain_kernel.device_program(prog, device)
+        t0 = time.perf_counter()
+        hits = 0
+        for n in sizes:
+            src = base_bytes if name.startswith("full") else base
+            text = kernels.to_device(plant(src[n].copy(), terms, rng, fold),
+                                     device)
+            hits += check("chain_scan", name, n,
+                          chain_kernel.chain_scan(text, p),
+                          chain_kernel.chain_scan_reference(text, p))
+        torch.cuda.synchronize()
+        print("parity: chain %-16s %3d terms, %4d positions, %2d classes, "
+              "N=%s equal bit for bit (%d starts) %.1f s"
+              % (name, len(terms), sum(len(t) for t in prog[1]),
+                 len(prog[0]), list(sizes), hits,
+                 time.perf_counter() - t0))
+    for name, terms, fold in qgram_sets():
+        tr = _fold_tr(fold)
+        tb = multi.build_qgram_tables(terms, tr)
+        proj = multi.member_projection_1024(tb)
+        words = qgram_kernel.words_tensor(proj, device)
+        t0 = time.perf_counter()
+        hits = 0
+        for n in sizes:
+            text = kernels.to_device(plant(base[n].copy(), terms, rng, fold),
+                                     device)
+            hits += check("qgram_filter", name, n,
+                          qgram_kernel.qgram_filter(text, words),
+                          qgram_kernel.qgram_reference(text, words))
+        torch.cuda.synchronize()
+        print("parity: qgram %-10s %2d terms, LONG=%d, %4d member grams, "
+              "N=%s equal bit for bit (%d candidates) %.1f s"
+              % (name, len(terms), tb.long_, int(proj.sum()), list(sizes),
+                 hits, time.perf_counter() - t0))
+    if failed:
+        raise AssertionError("multi-pattern kernels differ from their "
+                             "plain versions: %s" % failed)
+    return float(worst["chain_scan"]), float(worst["qgram_filter"])
+
+
 def _run(api_fn, argv, data=None):
     buf = io.BytesIO()
     if data is None:
@@ -556,6 +779,13 @@ def _time_plain(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+def _set_bits(t) -> int:
+    """Number of set bits in a tensor of u32 words (int32 or uint32)."""
+    import torch
+    w = t.to(torch.int64) & 0xFFFFFFFF
+    return int(sum(((w >> b) & 1).sum().item() for b in range(32)))
+
+
 def _max_diff(a, b) -> int:
     import torch
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
@@ -567,21 +797,47 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
 
     from agrep_tpu_torch import api
     from agrep_tpu_torch.compile.query import compile_query
-    from agrep_tpu_torch.ops import kernels, renfa, renfa_kernel
+    from agrep_tpu_torch.ops import chain_kernel, kernels, qgram_kernel
+    from agrep_tpu_torch.ops import renfa, renfa_kernel
     from agrep_tpu_torch.ops import scan as scan_ops
     from agrep_tpu_torch.options import parse_args
 
     counts = {"mask_scan": kernels.launches,
-              "renfa_lanes": renfa_kernel.launches}
+              "renfa_lanes": renfa_kernel.launches,
+              "chain_scan": chain_kernel.launches,
+              "qgram_filter": qgram_kernel.launches}
     n_bytes = mb << 20
     corpus = make_corpus(n_bytes, seed)
+    records = make_records(corpus, seed)
+    pats = make_patterns(400, seed)
     build = os.path.join(REPO, "build")
     os.makedirs(build, exist_ok=True)
     res = {}
     mem_data = b"\n" + corpus.tobytes()
+    mem_records = b"\n" + records.tobytes()
+    # the inputs of each kernel wrapper's last call in each run, for the
+    # kernel-alone checks below (the wrappers still count their launches)
+    seen: dict = {}
+    real = {"chain_scan": (chain_kernel, chain_kernel.chain_scan),
+            "qgram_filter": (qgram_kernel, qgram_kernel.qgram_filter),
+            "mask_scan": (kernels, kernels.mask_scan)}
+
+    def recorder(kname, fn):
+        def call(*args):
+            seen[kname] = args
+            return fn(*args)
+        return call
+
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         path = os.path.join(tmp, "corpus.txt")
         corpus.tofile(path)
+        rec = os.path.join(tmp, "records.txt")
+        records.tofile(rec)
+        p100 = os.path.join(tmp, "pats100.txt")
+        p400 = os.path.join(tmp, "pats400.txt")
+        for f, k in ((p100, 100), (p400, 400)):
+            with open(f, "wb") as fh:
+                fh.write(b"".join(w + b"\n" for w in pats[:k]))
         runs = ([(name, api.fileagrep, argv + [path], None, "mask_scan")
                  for name, argv in CONFIGS]
                 + [(name, api.fileagrep, argv + [path], None, "renfa_lanes")
@@ -593,31 +849,68 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                      "mask_scan"))
         runs.append(("memagrep4", api.memagrep, REGEX_CONFIGS[0][1],
                      mem_data, "renfa_lanes"))
+        # BASELINE config 5 on its records corpus: 100 patterns take the
+        # chain kernel, 400 (past its caps) the q-gram kernel, a boolean
+        # of two terms the chain kernel too, and a boolean with a term
+        # past the chain caps the mask machine's packed term words
+        c5 = ["-f", p100] + CONFIG5_DELIM
+        runs += [
+            ("config5", api.fileagrep, c5 + [rec], None, "chain_scan"),
+            ("config5c", api.fileagrep, ["-c", "-f", p100, rec], None,
+             "chain_scan"),
+            ("config5q", api.fileagrep, ["-c", "-f", p400, rec], None,
+             "qgram_filter"),
+            ("memagrep5", api.memagrep, c5, mem_records, "chain_scan"),
+            ("bool5", api.fileagrep, CONFIG5_DELIM + ["hello;lazy", rec],
+             None, "chain_scan"),
+            ("bool5m", api.fileagrep,
+             CONFIG5_DELIM + ["hello;matching," + LONG_TERM, rec], None,
+             "mask_scan"),
+        ]
+        progs = {k: chain_kernel.compile_chain(
+            pats[:k], np.arange(256, dtype=np.uint8)) for k in (100, 400)}
+        if progs[100] is None or progs[400] is not None:
+            raise AssertionError("config 5's 100 patterns must compile to "
+                                 "a chain program and its 400 must not")
 
         # the main path, on the card: counts start at 0 here
         scan_ops.set_backend("torch")
         for c in counts.values():
             for k in c:
                 c[k] = 0
-        got = {}
-        for name, fn, argv, data, kname in runs:
-            before = counts[kname][kname]
-            t0 = time.perf_counter()
-            got[name] = _run(fn, argv, data)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            n = counts[kname][kname] - before
-            if n == 0:
-                raise AssertionError("%s: the main path launched no %s "
-                                     "kernel" % (name, kname))
-            res[name] = {"wall_s": wall, "launches": n, "kernel": kname}
+        for kname, (mod, fn) in real.items():
+            setattr(mod, kname, recorder(kname, fn))
+        got, inputs = {}, {}
+        try:
+            for name, fn, argv, data, kname in runs:
+                before = {k: c[k] for k, c in counts.items()}
+                seen.clear()
+                t0 = time.perf_counter()
+                got[name] = _run(fn, argv, data)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                n = {k: c[k] - before[k] for k, c in counts.items()}
+                if n[kname] == 0:
+                    raise AssertionError("%s: the main path launched no %s "
+                                         "kernel" % (name, kname))
+                if name == "config5q" and n["chain_scan"]:
+                    raise AssertionError("config5q launched the chain "
+                                         "kernel past its caps")
+                inputs[name] = dict(seen)
+                res[name] = {"wall_s": wall, "launches": n[kname],
+                             "kernel": kname}
+        finally:
+            for kname, (mod, fn) in real.items():
+                setattr(mod, kname, fn)
         main_launches = {k: c[k] for k, c in counts.items()}
 
-        # the same runs on the port's exact host backend
+        # the same runs on the port's exact host backend (native C passes)
         scan_ops.set_backend("numpy")
         try:
             for name, fn, argv, data, _k in runs:
+                t0 = time.perf_counter()
                 want = _run(fn, argv, data)
+                res[name]["host_wall_s"] = time.perf_counter() - t0
                 if got[name][:2] != want[:2]:
                     raise AssertionError(
                         "%s: stdout sha256/rc %s on the GPU, %s on the "
@@ -694,20 +987,54 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                           max_abs_err=diff, lines=len(lens),
                           true=int(verdicts.sum().item()))
 
+    # the config 5 runs' kernels alone, on the inputs the main path gave
+    # their wrappers (each run's last call), against their plain versions
+    plain_fns = {"chain_scan": chain_kernel.chain_scan_reference,
+                 "qgram_filter": qgram_kernel.qgram_reference,
+                 "mask_scan": kernels.mask_scan_reference}
+    launch_fns = {"chain_scan": chain_kernel._launch,
+                  "qgram_filter": qgram_kernel._launch,
+                  "mask_scan": kernels._launch}
+    for name, _fn, _argv, _data, kname in runs[-6:]:
+        args = inputs[name][kname]
+        N = args[0].numel()
+        ms = time_kernel(lambda: launch_fns[kname](*args))
+        out = launch_fns[kname](*args)
+        plain_ms = _time_plain(lambda: plain_fns[kname](*args))
+        diff = _max_diff(out, plain_fns[kname](*args))
+        if diff != 0:
+            raise AssertionError("%s: the %s kernel differs from its plain "
+                                 "version on %d bytes (max |diff| %d)"
+                                 % (name, kname, N, diff))
+        if kname == "chain_scan":
+            bms, by = chain_bound(N)
+        elif kname == "qgram_filter":
+            bms, by = qgram_bound(N)
+        else:
+            bms, by = bound(args[1], N, args[2], args[3], out)
+        res[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                         bound_by=by, shape_b=N, max_abs_err=diff,
+                         set_bits=_set_bits(out))
+
     for name, fn, argv, data, kname in runs:
         r = res[name]
-        where = ("%d MB buffer" % mb if data is not None
-                 else "%d MB file" % mb)
-        print("main: %-9s %-42s %s rc=%d out=%d B sha256=%s.. wall=%.3f s "
-              "(%.3f GB/s) %s launches=%d | kernel %.4f ms per %d B launch "
-              "(%.1f GB/s, equal to plain), plain %.1f ms, bound %.4f ms "
-              "(%s) | card: %s"
+        src = "records " if name.endswith(("5", "5c", "5q", "5m")) else ""
+        where = ("%d MB %sbuffer" % (mb, src) if data is not None
+                 else "%d MB %sfile" % (mb, src))
+        print("main: %-9s %-38s %s rc=%d out=%d B sha256=%s.. GPU route "
+              "wall=%.3f s (%.3f GB/s), numpy backend wall=%.3f s | %s "
+              "launches=%d | kernel %.4f ms per %d B launch (%.1f GB/s, "
+              "equal to plain), plain %.1f ms, bound %.4f ms (%s) | card: %s"
               % (name, " ".join(argv[:len(argv) - (data is None)]), where,
                  got[name][1], got[name][2], got[name][0][:12],
-                 r["wall_s"], n_bytes / r["wall_s"] / 1e9, kname,
-                 r["launches"], r["ms"], r["shape_b"],
-                 r["shape_b"] / r["ms"] / 1e6, r["plain_ms"], r["bound_ms"],
-                 r["bound_by"], card))
+                 r["wall_s"], n_bytes / r["wall_s"] / 1e9,
+                 r["host_wall_s"], kname, r["launches"], r["ms"],
+                 r["shape_b"], r["shape_b"] / r["ms"] / 1e6,
+                 r["plain_ms"], r["bound_ms"], r["bound_by"], card))
+    for name in ("config5", "config5q", "bool5", "bool5m"):
+        r = res[name]
+        print("main: the %s kernel's %d B launch of %s sets %d bits"
+              % (r["kernel"], r["shape_b"], name, r["set_bits"]))
     for name in ("config4", "memagrep4"):
         r = res[name]
         print("main: the lanes kernel's %d B launch of %s holds %d lines, "
@@ -745,17 +1072,20 @@ def main(argv=None) -> int:
     phase_build()
     err = phase_parity("cuda", args.seed, 8 << 20)
     err_re = phase_parity_regex("cuda", args.seed)
+    err_chain, err_qgram = phase_parity_multi(
+        "cuda", args.seed, 8 << 20, make_patterns(100, args.seed))
     res = phase_main("cuda", args.seed, args.mb, card)
 
-    c2, c4 = res["config2"], res["config4"]
+    c2, c4, c5, c5q = (res["config2"], res["config4"], res["config5"],
+                       res["config5q"])
     line = {"kernels": [{
         "name": "mask_scan",
         "route": "cuda",
         "source": "agrep_tpu_torch/csrc/mask_scan.cu",
         "replaces": "agrep_tpu/ops/kernels.py:386",
         "launches": res["launches"]["mask_scan"],
-        "max_abs_err": max([err] + [res[n]["max_abs_err"]
-                                    for n, _ in CONFIGS]),
+        "max_abs_err": max([err] + [res[n]["max_abs_err"] for n in (
+            "config1", "config2", "config3", "memagrep", "bool5m")]),
         "ms": c2["ms"],
         "plain_ms": c2["plain_ms"],
         "bound_ms": c2["bound_ms"],
@@ -775,12 +1105,43 @@ def main(argv=None) -> int:
         "bound_by": c4["bound_by"],
         # no PyTorch call computes this automaton
         "library_ms": None,
+    }, {
+        "name": "chain_scan",
+        "route": "cuda",
+        "source": "agrep_tpu_torch/csrc/chain_scan.cu",
+        "replaces": "agrep_tpu/ops/chain_kernel.py:233",
+        "launches": res["launches"]["chain_scan"],
+        "max_abs_err": max([err_chain] + [res[n]["max_abs_err"] for n in (
+            "config5", "config5c", "memagrep5", "bool5")]),
+        "ms": c5["ms"],
+        "plain_ms": c5["plain_ms"],
+        "bound_ms": c5["bound_ms"],
+        "bound_by": c5["bound_by"],
+        # no PyTorch call matches many strings at once: the nearest,
+        # unfold + eq + all per term, is the plain version itself
+        "library_ms": None,
+    }, {
+        "name": "qgram_filter",
+        "route": "cuda",
+        "source": "agrep_tpu_torch/csrc/qgram_filter.cu",
+        "replaces": "agrep_tpu/ops/qgram_kernel.py:102",
+        "launches": res["launches"]["qgram_filter"],
+        "max_abs_err": max(err_qgram, c5q["max_abs_err"]),
+        "ms": c5q["ms"],
+        "plain_ms": c5q["plain_ms"],
+        "bound_ms": c5q["bound_ms"],
+        "bound_by": c5q["bound_by"],
+        # no single PyTorch call packs a gathered bit set into words; the
+        # gather alone is the plain version's first step
+        "library_ms": None,
     }]}
     print("kernels: times are per launch at the main path's %d B chunk "
-          "of config2 (%s) and of config4 (%s); launches are all "
-          "main-path runs; card: %s"
+          "of config2 (%s) and of config4 (%s), at config5's %d B stream "
+          "(chain_scan) and config5q's %d B stream (qgram_filter); "
+          "launches are all main-path runs; card: %s"
           % (c2["shape_b"], " ".join(CONFIGS[1][1]),
-             " ".join(REGEX_CONFIGS[0][1]), card))
+             " ".join(REGEX_CONFIGS[0][1]), c5["shape_b"], c5q["shape_b"],
+             card))
     print(json.dumps(line))
     print("total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"ok": True, "device": {

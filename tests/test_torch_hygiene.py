@@ -103,7 +103,13 @@ def test_cuda_without_a_gpu_raises(no_gpu, tmp_path):
                                          output=buf),
                  lambda: t_api.memagrep(["ab*c"], b"\nabc\n", output=buf),
                  lambda: t_api.Query(argv=["-2", "appro[a-z]*mat(e|ion)",
-                                           str(f)])):
+                                           str(f)]),
+                 # multi-pattern queries (the chain and q-gram kernels'
+                 # engine)
+                 lambda: t_api.fileagrep(["-c", "hello;bye", str(f)],
+                                         output=buf),
+                 lambda: t_api.memagrep(["-m", "hello\nbye\n"],
+                                        b"\nhello\n", output=buf)):
         with pytest.raises(RuntimeError, match="is_available"):
             call()
     assert buf.getvalue() == b""

@@ -255,14 +255,23 @@ def test_numpy_backend_regex_count_uses_the_native_twin(tmp_path,
 
 
 def test_regex_compiles_and_runs_while_mgrep_still_raises():
+    """The regex and the multi-pattern (mgrep) engines both compile and
+    run now: a boolean query and a -m pattern buffer build MgrepEngine
+    and search a buffer."""
     from agrep_tpu_torch.runtime.engine import Executor
+    from agrep_tpu_torch.runtime.mgrep import MgrepEngine
     from agrep_tpu_torch.runtime.output import Sink
     from agrep_tpu_torch.runtime.regex_engine import RegexEngine
     q = t_compile("appro[a-z]*mat(e|ion)", TOptions(D=2, approx=True))
     assert isinstance(Executor(q, Sink(lambda b: None, q.opts)).engine,
                       RegexEngine)
-    with pytest.raises(NotImplementedError, match="mgrep"):
-        t_compile("hello;world", TOptions())
-    q.engine_class = "mgrep"
-    with pytest.raises(NotImplementedError, match="mgrep"):
-        Executor(q, Sink(lambda b: None, q.opts))
+    data = np.frombuffer(b"\nhello world\nworld\nhello\n", np.uint8)
+    for q, want in ((t_compile("hello;world", TOptions()), 1),
+                    (t_compile(None, TOptions(pat_buffer="world\nbye\n")),
+                     2)):
+        assert q.engine_class == "mgrep"
+        out = []
+        ex = Executor(q, Sink(out.append, q.opts))
+        assert isinstance(ex.engine, MgrepEngine)
+        assert ex.run_buffer(data) == want
+        assert b"".join(out).count(b"world") == want
