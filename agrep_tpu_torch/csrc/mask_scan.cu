@@ -2,34 +2,58 @@
 //
 // Replaces the Pallas TPU kernel agrep_tpu/ops/kernels.py::_get_pallas_scan
 // (the `run` it returns, pl.pallas_call at kernels.py:386).  It computes
-// the same function; none of the TPU layout carries over:
+// the same function; none of the TPU layout carries over.
 //
-//   * One thread scans one tile t = 0..T-1 of L body bytes, preceded by a
-//     W-byte halo of the real preceding bytes, from a cold state (the
-//     halo-warmup argument in ops/scan.py).  The thread reads
-//     text[t*L - W + j] for j in [0, W+L) straight from the flat text,
-//     as 0 outside [0, N), so no window array is packed first.
-//   * The 256-entry u32 mask table lives in shared memory (1 KB) and is
-//     looked up per byte -- no static compare tree.
-//   * The D+1 u32 states stay in registers; D and the variant are
-//     template parameters dispatched by a switch.
-//   * Output: u32 planes [n_planes, T, n_words], n_words = ceil((W+L)/32);
-//     bit j of word w is column 32*w + j.  Plane 0 is "delimiter
-//     completed" (bitap) and stays 0 for sgrep; planes 1.. are hit planes,
-//     one per endpos bit when endpos has several bits (bitap), else one
-//     combined plane.  Bits past column W+L-1 in the last word are 0.
-//   * Tile 0 is forced to the init state at column W (its halo is the
-//     zero padding before the stream start).
+// The function.  Tile t = 0..T-1 holds L body bytes preceded by a W-byte
+// halo of the real preceding bytes: window column j of tile t is
+// text[t*L - W + j] for j in [0, W+L), 0 outside [0, N).  Each tile is
+// scanned from a cold state (the halo-warmup argument of ops/scan.py);
+// tile 0 is forced to the init state at column W (its halo is the zero
+// padding before the stream start).  Output: u32 planes
+// [n_planes, T, n_words], n_words = ceil((W+L)/32); bit j of word w is
+// column 32*w + j.  Plane 0 is "delimiter completed" (bitap) and stays 0
+// for sgrep; planes 1.. are hit planes, one per endpos bit when endpos
+// has several bits (bitap), else one combined plane.  Bits past column
+// W+L-1 in the last word are 0.
 //
-// What bounds it on an H100: the kernel reads N*(1 + W/L) bytes and
-// writes (1 + n_hit)*N/8 bytes, and does about 20 + 10*D int32 operations
-// per byte.  At 3.35 TB/s and ~16.7 T int32 op/s the operations take
-// longer than the bytes for every D >= 0, so it is bounded by integer
-// throughput, not by HBM.  Known slack left for a later change: the
-// threads of a warp read at stride L, so byte loads are uncoalesced
-// (staging byte blocks through shared memory, or several lanes per warp
-// on one tile, would fix that), and T = N/L threads fill the card only
-// for inputs of tens of megabytes.
+// What bounds it on an H100: it must read N bytes and write
+// (1 + n_hit) * T * n_words words, and do about 14 + 10*D (bitap) or
+// 8 + 8*D (sgrep) int32 operations on each of the T*(W+L) window
+// columns.  At 3.35 TB/s and ~16.7 T int32 op/s the operations take
+// longer than the bytes for every D, so it is bounded by integer
+// throughput.  What the design does about it:
+//
+//   * Sub-tile threads.  One thread per tile leaves most of the card idle
+//     (a 32 MB chunk is 32,768 tiles, 8 warps an SM) with nothing to hide
+//     the latency of each column's table lookup.  So each tile's n_words
+//     output words are split over s threads (plan_word below; the same
+//     formula as kernels.subtile_plan in Python).  Sub-tile 0 emits words
+//     [0, w_1) from a cold start at column 0, as the whole-tile scan does
+//     (32*w_1 >= W, so it covers the halo).  Sub-tile i > 0 emits words
+//     [w_i, w_{i+1}) and starts cold at column 32*w_i - W: after W warm-up
+//     columns of real bytes its state is the whole-tile scan's, which is
+//     the same halo-warmup argument the tiles rest on.  It holds only for
+//     machines whose dependence window is bounded (sgrep, or bitap with
+//     init1_ns == init0); the launcher refuses s > 1 for any other.  Every
+//     thread of tile 0 applies the stream-start reset at column W.
+//   * Coalesced staging.  A block takes tpb consecutive tiles and first
+//     copies their bytes into shared memory with 16-byte loads,
+//     neighbouring threads on neighbouring addresses, from a 16-byte
+//     aligned floor; bytes outside [0, N) are staged as 0.  Each thread
+//     then reads its columns four bytes at a time (one shared load and a
+//     funnel shift per four columns) instead of one byte-wide global load
+//     per column at stride L across the warp.
+//   * No bank conflicts on the staged bytes.  Thread x of a block takes
+//     tile x % tpb and sub-tile x / tpb, so the 32 lanes of a warp are 32
+//     tiles at the same column, L bytes apart.  Staged word q lives at
+//     q + (q >> row_shift), with rows of L/4 words: one word of skew per
+//     tile puts those 32 lanes on 32 banks.  The staging stores rotate the
+//     four words of each 16-byte chunk so that they are conflict-free too.
+//   * The 256-entry u32 mask table lives in shared memory (1 KB); the D+1
+//     states stay in registers; D and the variant are template parameters
+//     dispatched by a switch.  The hit word of plane 1 is a register;
+//     further hit planes (multi-bit endpos) accumulate in dynamic shared
+//     memory, taken only by launches with n_hit > 1.
 //
 // Built by ops/_cuda.py as ten objects compiled in parallel and linked
 // into one shared library with a plain C interface: -DMASK_SCAN_D=0..8
@@ -45,8 +69,11 @@ namespace mask_scan {
 constexpr int kSgrep = 0;       // sgrep.c agrep():1183-1186, inverted bits
 constexpr int kBitap = 1;       // asearch.c:100-115, uniform costs
 constexpr int kBitapCost = 2;   // asearch1.c:90-97, costs (I, S, DD)
-constexpr int kThreads = 128;
+constexpr int kMaxThreads = 256;
 constexpr int kMaxPlanes = 32;
+constexpr int kMaxSplit = 32;
+// an H100 block takes 227 KB of shared memory; 1 KB is the static table
+constexpr long long kMaxDynamicShared = 232448 - 1024;
 
 struct Params {
     const uint8_t* text;
@@ -55,16 +82,53 @@ struct Params {
     uint32_t* out;
     long long T;
     int W, L, n_words;
+    int s, tpb;          // sub-tiles a tile, tiles a block
+    int row_shift;       // staged word q sits at q + (q >> row_shift)
     uint32_t init0, init1, noerr, d_endpos, d_mask, hit_mask;
     int ci, cs, cd;
     int n_hit;
     int hit_pos[kMaxPlanes];
 };
 
+// First output word of sub-tile i of s (i = s gives n_words): sub-tile 0
+// takes about h = ceil(W/32) words more than the others, since they
+// spend W columns warming up.  Python: kernels.subtile_plan.
+__host__ __device__ inline int plan_word(int i, int s, int n_words, int W) {
+    if (i <= 0) return 0;
+    const long long h = (W + 31) / 32;
+    const long long X = n_words + (s - 1) * h;
+    return (int)(i * X / s - (i - 1) * h);
+}
+
+// Staged word q's place in shared memory.
+__device__ __forceinline__ int phys(int q, int row_shift) {
+    return q + (q >> row_shift);
+}
+
+// Bytes of dynamic shared memory one block takes: the staged bytes of
+// tpb tiles (up to 15 bytes of alignment before them, 8 after for the
+// last four-byte read) with their skew, and the hit planes past the
+// first.  Python: kernels.shared_bytes.
+inline long long smem_bytes(int W, int L, int s, int tpb, int n_hit,
+                            int row_shift) {
+    const long long bytes =
+        (15 + (long long)(tpb - 1) * L + W + L + 8 + 15) / 16 * 16;
+    const long long q = bytes / 4;
+    const long long planes = n_hit > 1 ? (long long)(n_hit - 1) * s * tpb : 0;
+    return 4 * (q + (q >> row_shift) + 1 + planes);
+}
+
+inline int row_shift_for(int L) {
+    int rs = 5;
+    while (rs < 30 && (1 << (rs + 1)) <= L / 4) ++rs;
+    return rs;
+}
+
 // Launches the kernel of one D (defined in the object built with
 // MASK_SCAN_D=D).
 template <int D>
-cudaError_t launch_d(const Params& p, int variant, cudaStream_t stream);
+cudaError_t launch_d(const Params& p, int variant, long long smem,
+                     cudaStream_t stream);
 
 }  // namespace mask_scan
 
@@ -73,11 +137,30 @@ cudaError_t launch_d(const Params& p, int variant, cudaStream_t stream);
 namespace mask_scan {
 namespace {
 
+// The cost wiring's edges as masks, one per level distance d = 0..D:
+// all ones where level k draws from level k - d (insertions ci,
+// substitutions cs, deletions cd), else 0.  Set once a thread, so that a
+// column spends one logic op on each edge and no compare.
+template <int D>
+struct CostMasks {
+    uint32_t ins[D + 1], sub[D + 1], del[D + 1];
+
+    __device__ __forceinline__ void set(const Params& p) {
+#pragma unroll
+        for (int d = 0; d <= D; ++d) {
+            ins[d] = p.ci == d ? ~0u : 0u;
+            sub[d] = p.cs == d ? ~0u : 0u;
+            del[d] = p.cd == d ? ~0u : 0u;
+        }
+    }
+};
+
 // One level pass of the mask machine: nw = levels(s, cm).
 template <int D, int V>
 __device__ __forceinline__ void levels(const uint32_t (&s)[D + 1],
                                        uint32_t (&nw)[D + 1], uint32_t cm,
-                                       const Params& p) {
+                                       const Params& p,
+                                       const CostMasks<D>& cw) {
     if (V == kSgrep) {
         nw[0] = ((s[0] >> 1) | 0x80000000u) & cm;
 #pragma unroll
@@ -92,91 +175,178 @@ __device__ __forceinline__ void levels(const uint32_t (&s)[D + 1],
                     | (((nw[k - 1] | s[k - 1]) >> 1) & p.noerr);
     } else {
         // level k draws insertions from k-I, substitutions from k-S and
-        // deletions from the new level k-DD; the runtime offsets pick a
-        // register by predicate, never by a dynamic index
+        // deletions from the new level k-DD, each picked by its mask
 #pragma unroll
         for (int k = 0; k <= D; ++k) {
             uint32_t r = ((s[k] >> 1) & cm) | (p.init1 & s[k]);
             uint32_t err = 0;
 #pragma unroll
             for (int j = 0; j <= k; ++j) {
-                if (j == k - p.ci) r |= s[j];
-                if (j == k - p.cs) err |= s[j];
-                if (j < k && j == k - p.cd) err |= nw[j];
+                r |= s[j] & cw.ins[k - j];
+                err |= s[j] & cw.sub[k - j];
+                if (j < k) err |= nw[j] & cw.del[k - j];
             }
             nw[k] = r | ((err >> 1) & p.noerr);
         }
     }
 }
 
-// Per-thread machine state and the bits of the current 32-column word.
-// Hit planes past the first (multi-bit endpos) accumulate in shared
-// memory, one column of acc per thread, so the rare multi-plane scan
-// costs no registers in the common single-plane one.
-template <int D, int V>
+// Per-thread machine state and the bits of the current 32-column word:
+// dword (plane 0), hword (plane 1) and, when M, planes 2.. in shared
+// memory (acc[(e - 1) * stride] for plane 1 + e).  Each column's bit
+// enters at the top of its word and moves down one place a column, so
+// after 32 columns bit j is column j; a word of nb < 32 columns is
+// shifted down by 32 - nb at its end.
+template <int D, int V, bool M>
 struct Scanner {
-    uint32_t s[D + 1];
+    uint32_t st[D + 1];
     uint32_t ini[D + 1];
     uint32_t dword, hword;
+    CostMasks<D> cw;
 
-    __device__ __forceinline__ void step(uint32_t c, int j, int reset_col,
-                                         int b, const uint32_t* tab,
-                                         uint32_t (*acc)[kThreads],
-                                         const Params& p) {
-        if (j == reset_col) {
+    __device__ __forceinline__ void reset() {
 #pragma unroll
-            for (int k = 0; k <= D; ++k) s[k] = ini[k];
-        }
+        for (int k = 0; k <= D; ++k) st[k] = ini[k];
+    }
+
+    __device__ __forceinline__ void step(uint32_t c, const uint32_t* tab,
+                                         uint32_t* acc,
+                                         int stride, const Params& p) {
         const uint32_t cm = tab[c];
         uint32_t nw[D + 1];
         uint32_t fin;
         if (V == kSgrep) {
-            if (D > 0 && c == 0x0Au) {
-#pragma unroll
-                for (int k = 0; k <= D; ++k) s[k] = ini[k];
-            }
-            levels<D, V>(s, nw, cm, p);
+            if (D > 0 && c == 0x0Au) reset();
+            levels<D, V>(st, nw, cm, p, cw);
             fin = nw[D];
 #pragma unroll
-            for (int k = 0; k <= D; ++k) s[k] = nw[k];
+            for (int k = 0; k <= D; ++k) st[k] = nw[k];
         } else {
-            levels<D, V>(s, nw, cm, p);
+            levels<D, V>(st, nw, cm, p, cw);
             fin = nw[D];
             const bool trig = (nw[0] & p.d_endpos) != 0u;
             if (trig) {
                 // delimiter completed: restart every level from init0,
                 // level 0 gated by d_mask
                 uint32_t rs[D + 1];
-                levels<D, V>(ini, rs, cm, p);
+                levels<D, V>(ini, rs, cm, p, cw);
                 rs[0] &= p.d_mask;
 #pragma unroll
-                for (int k = 0; k <= D; ++k) s[k] = rs[k];
+                for (int k = 0; k <= D; ++k) st[k] = rs[k];
             } else {
 #pragma unroll
-                for (int k = 0; k <= D; ++k) s[k] = nw[k];
+                for (int k = 0; k <= D; ++k) st[k] = nw[k];
             }
-            dword |= (uint32_t)trig << b;
+            dword = __funnelshift_r(dword, (uint32_t)trig, 1);
         }
-        if (p.n_hit == 1) {
-            hword |= (uint32_t)((fin & p.hit_mask) != 0u) << b;
+        if (!M) {
+            const uint32_t hit = (fin & p.hit_mask) != 0u;
+            hword = __funnelshift_r(hword, hit, 1);
         } else {
-            for (int e = 0; e < p.n_hit; ++e)
-                acc[e][threadIdx.x] |= ((fin >> p.hit_pos[e]) & 1u) << b;
+            hword = __funnelshift_r(hword, fin >> p.hit_pos[0], 1);
+            for (int e = 1; e < p.n_hit; ++e) {
+                uint32_t& a = acc[(e - 1) * stride];
+                a = __funnelshift_r(a, fin >> p.hit_pos[e], 1);
+            }
         }
     }
 };
 
-template <int D, int V>
-__global__ void __launch_bounds__(kThreads)
+// Byte b (0..3) of a word, zero-extended.
+__device__ __forceinline__ uint32_t byte_of(uint32_t w, int b) {
+    return __byte_perm(w, 0u, 0x4440u | (uint32_t)b);
+}
+
+// The four staged bytes from byte k on.
+__device__ __forceinline__ uint32_t read4(const uint32_t* stage, int k,
+                                          int row_shift) {
+    const int q = k >> 2;
+    return __funnelshift_r(stage[phys(q, row_shift)],
+                           stage[phys(q + 1, row_shift)], (k & 3) * 8);
+}
+
+// Columns [c0, c1) of this thread's tile (staged from byte kbase on),
+// with the tile-0 reset checked at every column.
+template <int D, int V, bool M>
+__device__ __forceinline__ void scan_cols(Scanner<D, V, M>& sc,
+                                          const uint32_t* stage, int kbase,
+                                          int c0, int c1, int reset_col,
+                                          const uint32_t* tab, uint32_t* acc,
+                                          int stride, const Params& p) {
+    for (int c = c0; c < c1; c += 4) {
+        const uint32_t four = read4(stage, kbase + c, p.row_shift);
+        const int nb = min(4, c1 - c);
+        for (int b = 0; b < nb; ++b) {
+            if (c + b == reset_col) sc.reset();
+            sc.step(byte_of(four, b), tab, acc, stride, p);
+        }
+    }
+}
+
+template <int D, int V, bool M>
+__global__ void __launch_bounds__(kMaxThreads)
 mask_scan_kernel(const Params p) {
     __shared__ uint32_t tab[256];
-    __shared__ uint32_t acc[kMaxPlanes][kThreads];
-    for (int i = threadIdx.x; i < 256; i += blockDim.x) tab[i] = p.table[i];
-    __syncthreads();
-    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (t >= p.T) return;
+    extern __shared__ uint32_t dyn[];
+    const int nthreads = blockDim.x;
+    uint32_t* const stage = dyn + (M ? (p.n_hit - 1) * nthreads : 0);
+    for (int i = threadIdx.x; i < 256; i += nthreads) tab[i] = p.table[i];
 
-    Scanner<D, V> sc;
+    // stage the block's bytes: text index `first` is column 0 of tile t0;
+    // staged byte 0 is text index g0 = first - pre, 16-byte aligned in the
+    // address space
+    const long long t0 = (long long)blockIdx.x * p.tpb;
+    const int tiles = (int)min((long long)p.tpb, p.T - t0);
+    const long long first = t0 * p.L - p.W;
+    const int pre = (int)((reinterpret_cast<uintptr_t>(p.text)
+                           + (uintptr_t)first) & 15u);
+    const long long g0 = first - pre;
+    const int n_chunks = (pre + (tiles - 1) * p.L + p.W + p.L + 8 + 15) >> 4;
+    for (int c = threadIdx.x; c < n_chunks; c += nthreads) {
+        const long long g = g0 + 16LL * c;
+        uint32_t v0, v1, v2, v3;
+        if (g >= 0 && g + 16 <= p.n) {
+            const uint4 x = __ldg(reinterpret_cast<const uint4*>(p.text + g));
+            v0 = x.x; v1 = x.y; v2 = x.z; v3 = x.w;
+        } else {
+            uint32_t v[4];
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+                uint32_t w = 0;
+#pragma unroll
+                for (int b = 0; b < 4; ++b) {
+                    const long long gi = g + 4 * m + b;
+                    if (gi >= 0 && gi < p.n)
+                        w |= (uint32_t)p.text[gi] << (8 * b);
+                }
+                v[m] = w;
+            }
+            v0 = v[0]; v1 = v[1]; v2 = v[2]; v3 = v[3];
+        }
+        const int rot = (c >> 3) & 3;
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+            const int mm = (m + rot) & 3;
+            const uint32_t val =
+                mm == 0 ? v0 : mm == 1 ? v1 : mm == 2 ? v2 : v3;
+            stage[phys(4 * c + mm, p.row_shift)] = val;
+        }
+    }
+    __syncthreads();
+
+    const int tl = threadIdx.x % p.tpb;
+    const int sub = threadIdx.x / p.tpb;
+    if (tl >= tiles) return;
+    const long long t = t0 + tl;
+    const int w_lo = plan_word(sub, p.s, p.n_words, p.W);
+    const int w_hi = plan_word(sub + 1, p.s, p.n_words, p.W);
+    const int start = sub == 0 ? 0 : 32 * w_lo - p.W;
+    const int kbase = pre + tl * p.L;
+    const int S = p.W + p.L;
+    const int reset_col = (t == 0) ? p.W : -1;
+    uint32_t* const acc = dyn + threadIdx.x;
+
+    Scanner<D, V, M> sc;
     if (V == kSgrep) {
         uint32_t lvl = 0;
         sc.ini[0] = 0;
@@ -189,56 +359,96 @@ mask_scan_kernel(const Params p) {
 #pragma unroll
         for (int k = 0; k <= D; ++k) sc.ini[k] = p.init0;
     }
-#pragma unroll
-    for (int k = 0; k <= D; ++k) sc.s[k] = sc.ini[k];
+    sc.reset();
+    if (V == kBitapCost) sc.cw.set(p);
+    sc.dword = 0;
+    sc.hword = 0;
 
-    const uint8_t* __restrict__ text = p.text;
-    const unsigned long long n = (unsigned long long)p.n;
-    const long long base = t * p.L - p.W;
-    const int wl = p.W + p.L;
-    const int reset_col = (t == 0) ? p.W : -1;
+    // warm-up: columns before the first word this thread emits
+    scan_cols(sc, stage, kbase, start, 32 * w_lo, reset_col, tab, acc,
+              nthreads, p);
+
     const long long plane = p.T * p.n_words;
-    uint32_t* out = p.out + t * p.n_words;
-
-    for (int w = 0; w < p.n_words; ++w) {
-        const int j0 = w * 32;
-        const int nb = min(32, wl - j0);
+    uint32_t* const row = p.out + t * p.n_words;
+    for (int w = w_lo; w < w_hi; ++w) {
+        const int j0 = 32 * w;
         sc.dword = 0;
         sc.hword = 0;
-        if (p.n_hit > 1)
-            for (int e = 0; e < p.n_hit; ++e) acc[e][threadIdx.x] = 0;
-#pragma unroll 4
-        for (int b = 0; b < nb; ++b) {
-            const unsigned long long g = (unsigned long long)(base + j0 + b);
-            const uint32_t c = g < n ? __ldg(text + g) : 0u;
-            sc.step(c, j0 + b, reset_col, b, tab, acc, p);
-        }
-        out[w] = sc.dword;
-        if (p.n_hit == 1) {
-            out[plane + w] = sc.hword;
+        if (M)
+            for (int e = 1; e < p.n_hit; ++e) acc[(e - 1) * nthreads] = 0;
+        const int nb = min(32, S - j0);
+        if (nb == 32 && (reset_col >> 5) != w) {
+            // a whole word without the reset: nine shared loads
+            const int k0 = kbase + j0;
+            const int q = k0 >> 2;
+            const int sh = (k0 & 3) * 8;
+            uint32_t lo = stage[phys(q, p.row_shift)];
+            // not unrolled in full: with all 32 columns unrolled, the
+            // uniform-cost kernels of D >= 1 wrote wrong delimiter bits on
+            // the card at every ptxas level, while the same source run
+            // column by column on the CPU, and this form, are exact
+#pragma unroll 2
+            for (int g = 0; g < 8; ++g) {
+                const uint32_t hi = stage[phys(q + g + 1, p.row_shift)];
+                const uint32_t four = __funnelshift_r(lo, hi, sh);
+                lo = hi;
+#pragma unroll
+                for (int b = 0; b < 4; ++b)
+                    sc.step(byte_of(four, b), tab, acc, nthreads, p);
+            }
         } else {
-            for (int e = 0; e < p.n_hit; ++e)
-                out[(long long)(1 + e) * plane + w] = acc[e][threadIdx.x];
+            scan_cols(sc, stage, kbase, j0, j0 + nb, reset_col, tab, acc,
+                      nthreads, p);
+            if (nb < 32) {
+                sc.dword >>= 32 - nb;
+                sc.hword >>= 32 - nb;
+                if (M)
+                    for (int e = 1; e < p.n_hit; ++e)
+                        acc[(e - 1) * nthreads] >>= 32 - nb;
+            }
         }
+        row[w] = sc.dword;
+        row[plane + w] = sc.hword;
+        if (M)
+            for (int e = 1; e < p.n_hit; ++e)
+                row[(long long)(1 + e) * plane + w] = acc[(e - 1) * nthreads];
     }
+}
+
+template <int D, int V, bool M>
+cudaError_t launch_one(const Params& p, long long smem, cudaStream_t stream) {
+    const void* k = reinterpret_cast<const void*>(&mask_scan_kernel<D, V, M>);
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return e;
+    }
+    const dim3 grid((unsigned)((p.T + p.tpb - 1) / p.tpb));
+    const dim3 block((unsigned)(p.s * p.tpb));
+    Params q = p;
+    void* args[] = {&q};
+    const cudaError_t e = cudaLaunchKernel(k, grid, block, args,
+                                           (size_t)smem, stream);
+    return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 }  // namespace
 
 template <int D>
-cudaError_t launch_d(const Params& p, int variant, cudaStream_t stream) {
-    const long long blocks = (p.T + kThreads - 1) / kThreads;
-    const dim3 grid((unsigned)blocks), block(kThreads);
+cudaError_t launch_d(const Params& p, int variant, long long smem,
+                     cudaStream_t stream) {
+    const bool multi = p.n_hit > 1;
     if (variant == kSgrep)
-        mask_scan_kernel<D, kSgrep><<<grid, block, 0, stream>>>(p);
-    else if (variant == kBitap)
-        mask_scan_kernel<D, kBitap><<<grid, block, 0, stream>>>(p);
-    else
-        mask_scan_kernel<D, kBitapCost><<<grid, block, 0, stream>>>(p);
-    return cudaGetLastError();
+        return launch_one<D, kSgrep, false>(p, smem, stream);
+    if (variant == kBitap)
+        return multi ? launch_one<D, kBitap, true>(p, smem, stream)
+                     : launch_one<D, kBitap, false>(p, smem, stream);
+    return multi ? launch_one<D, kBitapCost, true>(p, smem, stream)
+                 : launch_one<D, kBitapCost, false>(p, smem, stream);
 }
 
-template cudaError_t launch_d<MASK_SCAN_D>(const Params&, int, cudaStream_t);
+template cudaError_t launch_d<MASK_SCAN_D>(const Params&, int, long long,
+                                           cudaStream_t);
 
 }  // namespace mask_scan
 
@@ -246,23 +456,48 @@ template cudaError_t launch_d<MASK_SCAN_D>(const Params&, int, cudaStream_t);
 
 using namespace mask_scan;
 
+namespace {
+
+// True when sub-tile split s is a valid plan: every sub-tile emits a
+// word, and sub-tile 0 covers the halo.
+bool plan_ok(int W, int n_words, int s) {
+    if (s < 1 || s > kMaxSplit) return false;
+    for (int i = 0; i < s; ++i)
+        if (plan_word(i + 1, s, n_words, W) <= plan_word(i, s, n_words, W))
+            return false;
+    return s == 1 || 32 * plan_word(1, s, n_words, W) >= W;
+}
+
+}  // namespace
+
 extern "C" {
 
-// Launches the mask machine on `stream`; returns cudaGetLastError() after
-// the launch (cudaErrorInvalidValue for arguments the kernel does not
-// take).  All pointers are device pointers except hit_pos (host, n_hit
-// entries); out holds (1 + n_hit) * T * ceil((W+L)/32) words.
+// Launches the mask machine on `stream` with s sub-tiles a tile and tpb
+// tiles a block; returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for arguments the kernel does not take: s > 1
+// for an unbounded machine, a split without a plan, more than
+// kMaxThreads threads or kMaxDynamicShared bytes a block).  All pointers
+// are device pointers except hit_pos (host, n_hit entries); out holds
+// (1 + n_hit) * T * ceil((W+L)/32) words.
 int mask_scan_launch(const uint8_t* text, long long n,
                      const uint32_t* table, uint32_t* out, long long T,
                      int W, int L, int D, int variant, uint32_t init0,
                      uint32_t init1, uint32_t noerr, uint32_t d_endpos,
                      uint32_t d_mask, uint32_t hit_mask, int ci, int cs,
-                     int cd, int n_hit, const int* hit_pos, void* stream) {
-    if (n < 1 || T < 1 || W < 0 || L < 1 || T * L < n || n_hit < 1
-        || n_hit > kMaxPlanes || (variant == kSgrep && n_hit != 1)
+                     int cd, int n_hit, const int* hit_pos, int s, int tpb,
+                     void* stream) {
+    const bool bounded = variant == kSgrep || init1 == init0;
+    if (n < 1 || T < 1 || W < 0 || L < 1 || W > L || T * L < n
+        || n_hit < 1 || n_hit > kMaxPlanes
+        || (variant == kSgrep && n_hit != 1)
         || variant < kSgrep || variant > kBitapCost
-        || (T + kThreads - 1) / kThreads > 0x7FFFFFFFLL)
+        || (s > 1 && !bounded) || tpb < 1
+        || (long long)s * tpb > kMaxThreads
+        || !plan_ok(W, (W + L + 31) / 32, s)
+        || (T + tpb - 1) / tpb > 0x7FFFFFFFLL)
         return (int)cudaErrorInvalidValue;
+    const long long smem = smem_bytes(W, L, s, tpb, n_hit, row_shift_for(L));
+    if (smem > kMaxDynamicShared) return (int)cudaErrorInvalidValue;
     Params p;
     p.text = text;
     p.n = n;
@@ -272,6 +507,9 @@ int mask_scan_launch(const uint8_t* text, long long n,
     p.W = W;
     p.L = L;
     p.n_words = (W + L + 31) / 32;
+    p.s = s;
+    p.tpb = tpb;
+    p.row_shift = row_shift_for(L);
     p.init0 = init0;
     p.init1 = init1;
     p.noerr = noerr;
@@ -284,17 +522,17 @@ int mask_scan_launch(const uint8_t* text, long long n,
     p.n_hit = n_hit;
     for (int e = 0; e < kMaxPlanes; ++e)
         p.hit_pos[e] = e < n_hit ? hit_pos[e] : 0;
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (D) {
-        case 0: return (int)launch_d<0>(p, variant, s);
-        case 1: return (int)launch_d<1>(p, variant, s);
-        case 2: return (int)launch_d<2>(p, variant, s);
-        case 3: return (int)launch_d<3>(p, variant, s);
-        case 4: return (int)launch_d<4>(p, variant, s);
-        case 5: return (int)launch_d<5>(p, variant, s);
-        case 6: return (int)launch_d<6>(p, variant, s);
-        case 7: return (int)launch_d<7>(p, variant, s);
-        case 8: return (int)launch_d<8>(p, variant, s);
+        case 0: return (int)launch_d<0>(p, variant, smem, st);
+        case 1: return (int)launch_d<1>(p, variant, smem, st);
+        case 2: return (int)launch_d<2>(p, variant, smem, st);
+        case 3: return (int)launch_d<3>(p, variant, smem, st);
+        case 4: return (int)launch_d<4>(p, variant, smem, st);
+        case 5: return (int)launch_d<5>(p, variant, smem, st);
+        case 6: return (int)launch_d<6>(p, variant, smem, st);
+        case 7: return (int)launch_d<7>(p, variant, smem, st);
+        case 8: return (int)launch_d<8>(p, variant, smem, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -13,11 +13,18 @@ Plane 0 marks "delimiter completed" (new[0] & d_endpos, bitap only);
 planes 1.. mark hits: one per endpos bit when a bitap endpos has several
 bits, else one plane for the whole of endpos.  Bits past column W+L-1
 are 0.
+
+The kernel splits each tile's words over s threads (subtile_plan); the
+wrapper picks s with choose_split: 1 for a machine whose dependence
+window is unbounded, else the least s with which every SM holds
+FILL_THREADS_PER_SM threads at once.  A block stages its tiles' bytes in
+shared memory, so the threads an SM holds grow with s.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import warnings
 from dataclasses import dataclass
 
@@ -27,6 +34,20 @@ import torch
 MAX_D = 8
 MAX_PLANES = 32
 _VARIANT_CODE = {"sgrep": 0, "bitap": 1}     # the cost wiring is code 2
+
+# Sub-tile splits the wrapper chooses from, the tiles a block takes, and
+# the threads an SM must hold at once for a split to count as filling the
+# card (tools/torch_mask_scan_time.py measures the candidates).
+SPLITS = (1, 2, 4, 8)
+TILES_PER_BLOCK = 32
+FILL_THREADS_PER_SM = 1536
+# an H100 SM: 228 KB of shared memory, of which each block also takes
+# the 1 KB mask table and 1 KB the runtime reserves; 2048 threads and
+# 32 blocks at most
+SM_SHARED_BYTES = 233472
+BLOCK_SHARED_EXTRA = 2048
+SM_THREADS = 2048
+SM_BLOCKS = 32
 
 # Launches of each kernel since the counts were last set to 0.
 launches = {"mask_scan": 0}
@@ -96,6 +117,109 @@ def geometry(N: int, W: int, L: int) -> tuple:
     return max(1, -(-N // L)), -(-(W + L) // 32)
 
 
+def subtile_plan(W: int, L: int, n_words: int, s: int) -> list:
+    """[(start column, first word, end word)] of each of a tile's s
+    sub-tiles, as csrc/mask_scan.cu's plan_word computes them.
+
+    Sub-tile 0 emits words [0, w_1) from a cold start at column 0, so it
+    must cover the halo (32*w_1 >= W); sub-tile i > 0 emits [w_i, w_i+1)
+    after a cold start at column 32*w_i - W.  Sub-tile 0 takes about
+    ceil(W/32) words more than the others, since they spend W columns
+    warming up.  Raises ValueError for an s that leaves a sub-tile no
+    word."""
+    if n_words != -(-(W + L) // 32):
+        raise ValueError("n_words=%d is not ceil((W+L)/32) for W=%d L=%d"
+                         % (n_words, W, L))
+    h = -(-W // 32)
+    X = n_words + (s - 1) * h
+
+    def word(i):
+        return 0 if i <= 0 else i * X // s - (i - 1) * h
+    bounds = [word(i) for i in range(s + 1)]
+    if s < 1 or any(b <= a for a, b in zip(bounds, bounds[1:])) \
+            or (s > 1 and 32 * bounds[1] < W):
+        raise ValueError("no plan of %d sub-tiles for W=%d, %d words"
+                         % (s, W, n_words))
+    return [(0 if i == 0 else 32 * bounds[i] - W, bounds[i], bounds[i + 1])
+            for i in range(s)]
+
+
+def bounded(m: Machine) -> bool:
+    """True when a cold start W columns early gives the machine's exact
+    state (no sticky bits), as ops/scan.py's streaming halos assume:
+    the sgrep machine, or bitap with init1_ns == init0."""
+    return m.variant == "sgrep" or m.init1_ns == m.init0
+
+
+def shared_bytes(W: int, L: int, s: int, tpb: int, n_hit: int) -> int:
+    """Dynamic shared memory of one block, as csrc/mask_scan.cu's
+    smem_bytes counts it: the staged bytes of tpb tiles (15 bytes of
+    alignment before them, 8 after) with one word of skew every row of
+    L/4 words, and n_hit - 1 accumulator words a thread."""
+    rs = 5
+    while rs < 30 and (1 << (rs + 1)) <= L // 4:
+        rs += 1
+    q = (15 + (tpb - 1) * L + W + L + 8 + 15) // 16 * 4
+    planes = (n_hit - 1) * s * tpb if n_hit > 1 else 0
+    return 4 * (q + (q >> rs) + 1 + planes)
+
+
+def busy_threads(T: int, W: int, L: int, s: int, tpb: int, n_hit: int,
+                 n_sm: int) -> float:
+    """Threads an SM holds at once in a launch of T tiles split s ways:
+    as many blocks as its shared memory, threads and block slots allow,
+    and no more than the launch's T*s threads over n_sm SMs."""
+    threads = s * tpb
+    blocks = min(SM_BLOCKS, SM_THREADS // threads,
+                 SM_SHARED_BYTES // (shared_bytes(W, L, s, tpb, n_hit)
+                                     + BLOCK_SHARED_EXTRA))
+    return min(blocks * threads, T * s / n_sm)
+
+
+def choose_split(m: Machine, T: int, W: int, L: int, n_sm: int,
+                 tpb: int = TILES_PER_BLOCK) -> int:
+    """Sub-tiles a tile for a launch of T tiles on n_sm SMs: 1 for an
+    unbounded machine; else the least split in SPLITS with which every SM
+    holds FILL_THREADS_PER_SM threads at once, or, where none does, the
+    one with which it holds the most."""
+    if not bounded(m):
+        return 1
+    n_words = -(-(W + L) // 32)
+    best = None
+    for s in SPLITS:
+        try:
+            subtile_plan(W, L, n_words, s)
+        except ValueError:
+            continue
+        busy = busy_threads(T, W, L, s, tpb, len(m.hit_masks), n_sm)
+        if busy >= FILL_THREADS_PER_SM:
+            return s
+        if best is None or busy > best[0]:
+            best = (busy, s)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def launch_geometry(N: int, m: Machine, W: int, L: int, device,
+                    s: int | None = None, tpb: int | None = None) -> dict:
+    """What _launch runs for a scan of N bytes on a CUDA device: split,
+    tiles a block, threads a block, blocks, dynamic shared bytes a
+    block."""
+    T, _ = geometry(N, W, L)
+    dev = torch.device(device)
+    if tpb is None:
+        tpb = TILES_PER_BLOCK
+    if s is None:
+        s = choose_split(m, T, W, L, _sm_count(dev.index or 0), tpb)
+    return {"s": s, "tiles_per_block": tpb, "threads": s * tpb,
+            "blocks": -(-T // tpb),
+            "smem_bytes": shared_bytes(W, L, s, tpb, len(m.hit_masks))}
+
+
 def mask_scan(text: torch.Tensor, m: Machine, W: int, L: int
               ) -> torch.Tensor:
     """Packed planes of the mask machine over text (see module
@@ -129,18 +253,21 @@ def _bind():
         lib.mask_scan_launch.restype = i
         lib.mask_scan_launch.argtypes = [
             p, ll, p, p, ll, i, i, i, i, u, u, u, u, u, u, i, i, i, i,
-            ctypes.POINTER(ctypes.c_int), p]
+            ctypes.POINTER(ctypes.c_int), i, i, p]
         lib.mask_scan_error_string.restype = ctypes.c_char_p
         lib.mask_scan_error_string.argtypes = [i]
         lib._bound = True
     return lib
 
 
-def _launch(text: torch.Tensor, m: Machine, W: int, L: int
-            ) -> torch.Tensor:
+def _launch(text: torch.Tensor, m: Machine, W: int, L: int,
+            s: int | None = None, tpb: int | None = None) -> torch.Tensor:
+    """The kernel on text's device; s and tpb (sub-tiles a tile, tiles a
+    block) default to launch_geometry's choice."""
     lib = _bind()
     N = text.numel()
     T, n_words = geometry(N, W, L)
+    geo = launch_geometry(N, m, W, L, text.device, s, tpb)
     n_hit = len(m.hit_masks)
     out = torch.empty((1 + n_hit, T, n_words), dtype=torch.uint32,
                       device=text.device)
@@ -155,7 +282,8 @@ def _launch(text: torch.Tensor, m: Machine, W: int, L: int
     err = lib.mask_scan_launch(
         text.data_ptr(), N, m.table.data_ptr(), out.data_ptr(), T, W, L,
         m.D, code, m.init0, m.init1_ns, m.noerr, m.d_endpos, m.d_mask,
-        m.hit_masks[0], ci, cs, cd, n_hit, pos, stream)
+        m.hit_masks[0], ci, cs, cd, n_hit, pos, geo["s"],
+        geo["tiles_per_block"], stream)
     if err != 0:
         raise RuntimeError("mask_scan kernel launch failed: %s (%d)"
                            % (lib.mask_scan_error_string(err).decode(),

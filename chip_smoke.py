@@ -13,7 +13,11 @@ exits non-zero:
      compile unit of all four started together, and times the build;
   3. parity: the mask_scan kernel against its plain PyTorch version
      (mask_scan_reference) on the card, bit for bit, over every variant,
-     D, cost wiring, endpos shape and edge size the kernel takes; then
+     D, cost wiring, endpos shape and edge size the kernel takes (sizes
+     whose last tile ends inside a later sub-tile among them), with the
+     wrapper's own sub-tile split and with every split it may choose, and
+     on machines with a sticky bit, which take whole tiles and whose
+     split the launcher must refuse; then
      the renfa_lanes kernel against renfa_lines_reference, bit for bit,
      over regex machines (D = 0..4, -i, anchors, 29 positions) and line
      sets (R = 1, 31, 32, 33, 4097, empty lines, lengths at the length
@@ -41,8 +45,12 @@ exits non-zero:
      the port's own numpy host backend, whose walls are printed beside
      the GPU route's, and every run must launch its kernel (config5q
      the q-gram kernel and no chain kernel);
-  5. kernels: one JSON line with each kernel's launches on the main path,
-     its time, its plain version's time and its bound on this card.
+  5. kernels: mask_scan's launch geometry (split, tiles a block, threads,
+     dynamic shared memory; registers and spills from ptxas) and its
+     time against its bound at all five main-path shapes, each on a line
+     of its own; then one JSON line with each kernel's launches on the
+     main path, its time, its plain version's time and its bound on this
+     card.
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device,
 or without the agrep_tpu_torch package beside it, the script exits
@@ -517,9 +525,19 @@ def phase_build() -> None:
              len(names), dt))
 
 
+def sticky(m):
+    """The machine with a sticky bit (init1_ns keeps bit 0 of init0): an
+    unbounded dependence window, which the kernel scans in whole tiles."""
+    import dataclasses
+    return dataclasses.replace(m, init1_ns=m.init1_ns | 1)
+
+
 def phase_parity(device: str, seed: int, big: int) -> float:
-    """Kernel planes vs plain planes on every machine and edge size;
-    returns the largest |kernel - plain| word difference (0 or fail)."""
+    """Kernel planes vs plain planes on every machine and edge size, for
+    the wrapper's own sub-tile split and for every split it may choose
+    (only whole tiles for the sticky machines, where the launcher must
+    refuse a split); returns the largest |kernel - plain| word difference
+    (0 or fail)."""
     import numpy as np
     import torch
 
@@ -529,43 +547,65 @@ def phase_parity(device: str, seed: int, big: int) -> float:
     worst = 0
     texts = {}
     failed = []
+    machines = []
     for name, table, consts, D, variant, costs in parity_machines():
         m = kernels.machine_from_arrays(table, consts, D, variant, costs,
                                         device)
-        W = halo(consts, D, L)
-        sizes = (1, W - 1, L, L + 1, 3 * L + 17, big)
+        machines.append((name, m, halo(consts, D, L)))
+        if name in ("bitap_D2", "bitap_costs211_D3", "bitap_delim_dollar"):
+            machines.append((name + "_sticky", sticky(m),
+                             halo(consts, D, L)))
+    for name, m, W in machines:
+        # sub-tile edges: the last tile ends inside a later sub-tile
+        sizes = (1, W - 1, L, L + 1, 2 * L + W + 33, 3 * L + 17,
+                 3 * L + 600, big)
+        splits = kernels.SPLITS if kernels.bounded(m) else (1,)
         n_hits = n_delims = 0
         bad = []
         t0 = time.perf_counter()
+        used = set()
         for N in sizes:
             if N not in texts:
                 texts[N] = kernels.to_device(random_text(N, rng), device)
             text = texts[N]
-            got = kernels.mask_scan(text, m, W, L)
             want = kernels.mask_scan_reference(text, m, W, L)
-            if got.shape != want.shape:
-                raise AssertionError("%s N=%d: shape %s vs %s" % (
-                    name, N, tuple(got.shape), tuple(want.shape)))
-            diff = int((got.to(torch.int64) - want.to(torch.int64))
-                       .abs().max().item())
-            worst = max(worst, diff)
-            if diff != 0:
-                bad.append(N)
-                where = (got != want).nonzero()[:4].tolist()
-                print("parity: %s N=%d MISMATCH max |diff| %d; first "
-                      "(plane, tile, word, kernel, plain): %s"
-                      % (name, N, diff, [
-                          (p, t, w, hex(int(got[p, t, w])),
-                           hex(int(want[p, t, w]))) for p, t, w in where]))
+            auto = kernels.launch_geometry(N, m, W, L, device)["s"]
+            for s in (None,) + splits:
+                got = (kernels.mask_scan(text, m, W, L) if s is None
+                       else kernels._launch(text, m, W, L, s))
+                used.add(auto if s is None else s)
+                if got.shape != want.shape:
+                    raise AssertionError("%s N=%d s=%s: shape %s vs %s" % (
+                        name, N, s, tuple(got.shape), tuple(want.shape)))
+                diff = _max_diff(got, want)
+                worst = max(worst, diff)
+                if diff != 0:
+                    bad.append((N, s))
+                    where = (got != want).nonzero()[:4].tolist()
+                    print("parity: %s N=%d s=%s MISMATCH max |diff| %d; "
+                          "first (plane, tile, word, kernel, plain): %s"
+                          % (name, N, s, diff, [
+                              (p, t, w, hex(int(got[p, t, w])),
+                               hex(int(want[p, t, w])))
+                              for p, t, w in where]))
             n_hits += int((want[1:] != 0).sum().item())
             n_delims += int((want[0] != 0).sum().item())
+        if not kernels.bounded(m):
+            # no fallback: a split of an unbounded machine is refused
+            try:
+                kernels._launch(texts[L], m, W, L, 2)
+            except RuntimeError:
+                pass
+            else:
+                raise AssertionError("%s: the launcher took s=2 for an "
+                                     "unbounded machine" % name)
         torch.cuda.synchronize()
         if bad:
             failed.append((name, bad))
             continue
-        print("parity: %-20s W=%-3d N=%s equal bit for bit (nonzero "
+        print("parity: %-26s W=%-3d N=%s s=%s equal bit for bit (nonzero "
               "words: %d hit, %d delimiter) %.1f s"
-              % (name, W, list(sizes), n_hits, n_delims,
+              % (name, W, list(sizes), sorted(used), n_hits, n_delims,
                  time.perf_counter() - t0))
     if failed:
         raise AssertionError("kernel planes differ from "
@@ -949,7 +989,9 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                                  "(max |diff| %d)" % (name, t.numel(), diff))
         bms, by = bound(m, t.numel(), W, L, planes)
         res[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                         bound_by=by, shape_b=t.numel(), max_abs_err=diff)
+                         bound_by=by, shape_b=t.numel(), max_abs_err=diff,
+                         geometry=kernels.launch_geometry(t.numel(), m, W,
+                                                          L, device))
 
     # the lanes kernel alone on the same chunk and on the memagrep
     # buffer, each split into its lines in the length order the engine
@@ -1012,6 +1054,8 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
             bms, by = qgram_bound(N)
         else:
             bms, by = bound(args[1], N, args[2], args[3], out)
+            res[name]["geometry"] = kernels.launch_geometry(N, *args[1:],
+                                                            device)
         res[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                          bound_by=by, shape_b=N, max_abs_err=diff,
                          set_bits=_set_bits(out))
@@ -1046,6 +1090,34 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
     return res
 
 
+MASK_SHAPES = ("config1", "config2", "config3", "memagrep", "bool5m")
+
+
+def mask_scan_geometry_line(res) -> str:
+    """mask_scan's launch at each main-path shape, and the registers and
+    spills ptxas reported for its kernels."""
+    from agrep_tpu_torch.ops import _cuda
+    log = _cuda.build_logs.get("mask_scan", "")
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+    spills = sum(int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log))
+    return ("geometry: mask_scan %s | registers max %s, spill bytes %d "
+            "(ptxas, %d kernels)" % (" | ".join(
+                "%s s=%d tiles/block=%d threads=%d blocks=%d dynamic "
+                "shared=%d B" % (n, g["s"], g["tiles_per_block"],
+                                 g["threads"], g["blocks"], g["smem_bytes"])
+                for n in MASK_SHAPES for g in [res[n]["geometry"]]),
+                max(regs, default="n/a"), spills, len(regs)))
+
+
+def mask_scan_times_line(res, card: str) -> str:
+    return "times: mask_scan %s | card: %s" % (" | ".join(
+        "%s %.4f ms per %d B launch, %.1f %% of its %.4f ms bound (%s)"
+        % (n, r["ms"], r["shape_b"], 100 * r["bound_ms"] / r["ms"],
+           r["bound_ms"], r["bound_by"])
+        for n in MASK_SHAPES for r in [res[n]]), card)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1078,6 +1150,8 @@ def main(argv=None) -> int:
 
     c2, c4, c5, c5q = (res["config2"], res["config4"], res["config5"],
                        res["config5q"])
+    print(mask_scan_geometry_line(res))
+    print(mask_scan_times_line(res, card))
     line = {"kernels": [{
         "name": "mask_scan",
         "route": "cuda",
