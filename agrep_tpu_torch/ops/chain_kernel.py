@@ -28,6 +28,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .kernels import _sm_count
+
 # compile caps of the -f engine's chain program; past them the q-gram
 # filter takes the term set
 MAX_POSITIONS = 2400      # total pattern chars across all terms
@@ -35,6 +37,11 @@ MAX_EQ_SETS = 96          # distinct folded character classes
 MAX_CUBES = 8             # OR-of-AND cover terms per class
 MAX_TERM_LEN = 128
 NO_CLASS = 255            # class id of a byte that no term holds
+
+# Start positions a tile of the kernel's launch;
+# tools/torch_chain_scan_time.py times every tile and blocks an SM at the
+# main path's shapes.
+TILE = 8192
 
 # Launches of each kernel since the counts were last set to 0.
 launches = {"chain_scan": 0}
@@ -116,13 +123,23 @@ def compile_chain(terms: list, tr: np.ndarray):
 
 @dataclass(frozen=True)
 class ChainProgram:
-    """A compiled chain program as the kernel takes it, on one device."""
+    """A compiled chain program as the kernel takes it, on one device.
+
+    The terms are sorted by their first two classes, the one-byte terms
+    after all longer ones.  A position whose class has a one-byte term
+    starts a match whatever follows; any other position tests only the
+    terms of its pair (its class, the next byte's class), NO_CLASS
+    counting as class n_cls."""
     class_of: torch.Tensor    # u8[256]: byte -> class id (NO_CLASS: none)
     term_cls: torch.Tensor    # u8[n_pos]: distinct terms' class ids,
-                              # concatenated, sorted by first class
+                              # concatenated in the order above
     term_off: torch.Tensor    # i16[n_terms + 1]: term t's range in term_cls
-    bucket: torch.Tensor      # i16[257]: terms of first class c are
-                              # bucket[c] .. bucket[c + 1] - 1
+    pair: torch.Tensor        # i16[(n_cls + 1)**2 + 1]: the terms whose
+                              # first two classes are (a, b) are pair[q]
+                              # .. pair[q + 1] - 1, q = a * (n_cls + 1) + b
+    single: torch.Tensor      # u8[n_cls]: 1 where a one-byte term has
+                              # that class
+    n_cls: int
     n_terms: int
     n_pos: int
     maxlen: int
@@ -132,30 +149,36 @@ def device_program(prog, device="cpu") -> ChainProgram:
     """Kernel inputs from compile_chain's program: each cube cover gives
     its class's bytes, duplicate terms collapse (the match is an OR)."""
     eq_specs, term_specs, _tids, maxlen = prog
-    if len(eq_specs) > MAX_EQ_SETS:
+    n_cls = len(eq_specs)
+    if n_cls > MAX_EQ_SETS:
         raise ValueError("%d classes, the kernel takes %d"
-                         % (len(eq_specs), MAX_EQ_SETS))
+                         % (n_cls, MAX_EQ_SETS))
     class_of = np.full(256, NO_CLASS, dtype=np.uint8)
     for e, cubes in enumerate(eq_specs):
         for mask, val in cubes:
             for b in range(256):
                 if b & mask == val:
                     class_of[b] = e
-    specs = sorted(set(term_specs))
+    specs = sorted(set(term_specs), key=lambda s: (len(s) == 1, s))
     if sum(len(s) for s in specs) > MAX_POSITIONS or maxlen > MAX_TERM_LEN:
         raise ValueError("term set past the chain kernel's caps")
     term_cls = np.asarray([c for s in specs for c in s], dtype=np.uint8)
     term_off = np.concatenate(
         [[0], np.cumsum([len(s) for s in specs])]).astype(np.int16)
-    first = np.asarray([s[0] for s in specs], dtype=np.int64)
-    bucket = np.searchsorted(first, np.arange(257), side="left") \
-        .astype(np.int16)
+    stride = n_cls + 1
+    keys = np.asarray([s[0] * stride + s[1] for s in specs if len(s) > 1],
+                      dtype=np.int64)
+    pair = np.searchsorted(keys, np.arange(stride * stride + 1),
+                           side="left").astype(np.int16)
+    single = np.zeros(n_cls, dtype=np.uint8)
+    single[[s[0] for s in specs if len(s) == 1]] = 1
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     return ChainProgram(class_of=dev(class_of), term_cls=dev(term_cls),
-                        term_off=dev(term_off), bucket=dev(bucket),
+                        term_off=dev(term_off), pair=dev(pair),
+                        single=dev(single), n_cls=n_cls,
                         n_terms=len(specs), n_pos=len(term_cls),
                         maxlen=int(maxlen))
 
@@ -163,7 +186,7 @@ def device_program(prog, device="cpu") -> ChainProgram:
 def chain_scan(text: torch.Tensor, p: ChainProgram) -> torch.Tensor:
     """Start plane int32[ceil(N/32)] of the program over text (module
     docstring).  A CUDA tensor goes to the kernel, a CPU tensor to
-    chain_scan_reference."""
+    chain_scan_reference.  The text may start at any byte address."""
     if text.dtype != torch.uint8 or text.dim() != 1:
         raise TypeError("text must be a 1-D uint8 tensor, got %s %r"
                         % (text.dtype, tuple(text.shape)))
@@ -186,27 +209,62 @@ def _bind():
     lib = _cuda.load("chain_scan")
     if not getattr(lib, "_bound", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        ip = ctypes.POINTER(ctypes.c_int)
         lib.chain_scan_launch.restype = i
-        lib.chain_scan_launch.argtypes = [p, ll, p, p, i, p, i, p, i, p, p]
+        lib.chain_scan_launch.argtypes = [p, ll, p, p, i, p, i, p, i, p, i,
+                                          p, i, i, p]
+        lib.chain_scan_geometry.restype = i
+        lib.chain_scan_geometry.argtypes = [i, i, i, i, ip, ip, ip]
         lib.chain_scan_error_string.restype = ctypes.c_char_p
         lib.chain_scan_error_string.argtypes = [i]
         lib._bound = True
     return lib
 
 
-def _launch(text: torch.Tensor, p: ChainProgram) -> torch.Tensor:
+def _check(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError("chain_scan %s failed: %s (%d)"
+                           % (what, lib.chain_scan_error_string(err)
+                              .decode(), err))
+
+
+def launch_geometry(N: int, p: ChainProgram, device,
+                    tile: int | None = None,
+                    blocks_per_sm: int | None = None) -> dict:
+    """What _launch runs for a scan of N bytes on a CUDA device: start
+    positions a tile, threads a block, blocks an SM (by default all
+    that the SM holds, from the CUDA occupancy calculator), the grid
+    (never more blocks than tiles) and dynamic shared bytes a block."""
+    lib = _bind()
+    tile = TILE if tile is None else tile
+    threads, smem, fits = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    _check(lib, lib.chain_scan_geometry(
+        p.n_cls, p.n_pos, p.n_terms, tile, ctypes.byref(threads),
+        ctypes.byref(smem), ctypes.byref(fits)), "geometry")
+    if blocks_per_sm is None:
+        blocks_per_sm = fits.value
+    n_tiles = -(-N // tile)
+    dev = torch.device(device)
+    return {"tile": tile, "threads": threads.value, "smem_bytes": smem.value,
+            "blocks_per_sm": blocks_per_sm, "fits_per_sm": fits.value,
+            "tiles": n_tiles,
+            "grid": min(n_tiles, blocks_per_sm * _sm_count(dev.index or 0))}
+
+
+def _launch(text: torch.Tensor, p: ChainProgram, tile: int | None = None,
+            blocks_per_sm: int | None = None) -> torch.Tensor:
+    """The kernel on text's device; tile and blocks_per_sm default to
+    launch_geometry's choice."""
     lib = _bind()
     N = text.numel()
+    geo = launch_geometry(N, p, text.device, tile, blocks_per_sm)
     out = torch.empty(-(-N // 32), dtype=torch.int32, device=text.device)
     stream = torch.cuda.current_stream(text.device).cuda_stream
-    err = lib.chain_scan_launch(
-        text.data_ptr(), N, p.class_of.data_ptr(), p.term_cls.data_ptr(),
-        p.n_pos, p.term_off.data_ptr(), p.n_terms, p.bucket.data_ptr(),
-        p.maxlen, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("chain_scan kernel launch failed: %s (%d)"
-                           % (lib.chain_scan_error_string(err).decode(),
-                              err))
+    _check(lib, lib.chain_scan_launch(
+        text.data_ptr(), N, p.class_of.data_ptr(), p.single.data_ptr(),
+        p.n_cls, p.term_cls.data_ptr(), p.n_pos, p.term_off.data_ptr(),
+        p.n_terms, p.pair.data_ptr(), p.maxlen, out.data_ptr(), geo["tile"],
+        geo["grid"], stream), "kernel launch")
     launches["chain_scan"] += 1
     return out
 

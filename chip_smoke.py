@@ -25,11 +25,14 @@ exits non-zero:
      memory-mode seed states); then the chain_scan kernel against
      chain_scan_reference over term sets (1 term, config 5's 100, terms
      of 31-128 bytes, a full-byte-range set, a set whose terms run past
-     the text's end into its zero pad; each with and without -i) and
-     texts (N = 1, 31, 32, 33, 4095, 4096, 4097, 8 MB), and the
-     qgram_filter kernel against qgram_reference on 2-gram, LONG and -i
-     member sets at the same N; phase 4 repeats every check at the main
-     path's shapes;
+     the text's end into its zero pad, one-byte terms beside longer
+     ones, a set at the 96-class cap; each with and without -i) and
+     texts (N = 1, 15, 16, 17, 31, 32, 33, 4095, 4096, 4097, 8 MB), on
+     views 1-15 bytes past an aligned address, and at 8 MB with one
+     block an SM, so that each block walks several tiles; and the
+     qgram_filter kernel against qgram_reference on
+     2-gram, LONG and -i member sets at the same N; phase 4 repeats
+     every check at the main path's shapes;
   4. main path: a --mb MB ASCII corpus made from --seed, searched through
      agrep_tpu_torch.api.fileagrep with BASELINE configs 1-4 (the file
      is over the streaming threshold, so each run is chunked; config 4,
@@ -47,8 +50,10 @@ exits non-zero:
      the q-gram kernel and no chain kernel);
   5. kernels: mask_scan's launch geometry (split, tiles a block, threads,
      dynamic shared memory; registers and spills from ptxas) and its
-     time against its bound at all five main-path shapes, each on a line
-     of its own; then one JSON line with each kernel's launches on the
+     time against its bound at all five main-path shapes, and chain_scan's
+     launch geometry (grid, blocks an SM, tile, threads, dynamic shared
+     memory; registers and spills) at its four, each on a
+     line of its own; then one JSON line with each kernel's launches on the
      main path, its time, its plain version's time and its bound on this
      card.
 
@@ -700,9 +705,23 @@ def chain_sets(pats100) -> list:
                         b"\x80\x00\x7f", b"\n\n", b"ab\x00c"]),
         # plant() ends every text in FE FD: these run into the zero pad
         ("zero pad", [b"\xfe\xfd\x00\x00", b"\xfd\x00", b"hello"]),
+        # one-byte terms match whatever follows them
+        ("one-byte", [b"Q", b"\n", b"hello", b"ab", b"~", b"xyz\x00"]),
+        ("96 classes", cap_classes(rng)),
     ]
     return [(name + (" -i" if fold else ""), terms, fold)
             for name, terms in sets for fold in (False, True)]
+
+
+def cap_classes(rng) -> list:
+    """Terms of 2-7 bytes that hold every byte 32..127 once (96 classes,
+    the chain kernel's cap), three one-byte terms and a 128-byte term."""
+    import numpy as np
+    order = rng.permutation(np.arange(32, 128, dtype=np.uint8))
+    cuts = np.cumsum(rng.integers(2, 8, 48))
+    terms = [bytes(c) for c in np.split(order, cuts[cuts < 96]) if len(c)]
+    return terms + [b"!", b"@", b"~", bytes(rng.integers(
+        32, 128, 128).astype(np.uint8))]
 
 
 def qgram_sets() -> list:
@@ -720,7 +739,7 @@ def qgram_sets() -> list:
             ("2-gram -i", words(30, 3, 7), True)]
 
 
-PARITY_SIZES = (1, 31, 32, 33, 4095, 4096, 4097)
+PARITY_SIZES = (1, 15, 16, 17, 31, 32, 33, 4095, 4096, 4097)
 
 
 def phase_parity_multi(device: str, seed: int, big: int, pats100) -> tuple:
@@ -750,7 +769,6 @@ def phase_parity_multi(device: str, seed: int, big: int, pats100) -> tuple:
                       (w, hex(int(got[w]) & 0xFFFFFFFF),
                        hex(int(want[w]) & 0xFFFFFFFF)) for w in where]))
             failed.append((kname, name, n))
-        return _set_bits(want)
 
     for name, terms, fold in chain_sets(pats100):
         tr = _fold_tr(fold)
@@ -764,14 +782,33 @@ def phase_parity_multi(device: str, seed: int, big: int, pats100) -> tuple:
             src = base_bytes if name.startswith("full") else base
             text = kernels.to_device(plant(src[n].copy(), terms, rng, fold),
                                      device)
-            hits += check("chain_scan", name, n,
-                          chain_kernel.chain_scan(text, p),
-                          chain_kernel.chain_scan_reference(text, p))
+            want = chain_kernel.chain_scan_reference(text, p)
+            check("chain_scan", name, n, chain_kernel.chain_scan(text, p),
+                  want)
+            hits += _set_bits(want)
+            # at 8 MB one block an SM, so that each block walks several
+            # tiles
+            if n == big:
+                check("chain_scan", name + " blocks/SM=1", n,
+                      chain_kernel._launch(text, p, blocks_per_sm=1), want)
+            # views 1-15 bytes past an aligned address, in a buffer whose
+            # bytes around the view are not 0
+            buf = torch.full((n + 32,), 0xA5, dtype=torch.uint8,
+                             device=device)
+            for o in range(1, 16):
+                view = buf[o:o + n]
+                view.copy_(text)
+                check("chain_scan", name + " offset %d" % o, n,
+                      chain_kernel.chain_scan(view, p), want)
+                view.fill_(0xA5)
         torch.cuda.synchronize()
+        geo = chain_kernel.launch_geometry(big, p, device, blocks_per_sm=1)
         print("parity: chain %-16s %3d terms, %4d positions, %2d classes, "
-              "N=%s equal bit for bit (%d starts) %.1f s"
+              "N=%s equal bit for bit (%d starts), and on views at offsets "
+              "1-15; at 8 MB blocks/SM=1 walks %.1f tiles a block %.1f s"
               % (name, len(terms), sum(len(t) for t in prog[1]),
                  len(prog[0]), list(sizes), hits,
+                 geo["tiles"] / geo["grid"],
                  time.perf_counter() - t0))
     for name, terms, fold in qgram_sets():
         tr = _fold_tr(fold)
@@ -783,9 +820,10 @@ def phase_parity_multi(device: str, seed: int, big: int, pats100) -> tuple:
         for n in sizes:
             text = kernels.to_device(plant(base[n].copy(), terms, rng, fold),
                                      device)
-            hits += check("qgram_filter", name, n,
-                          qgram_kernel.qgram_filter(text, words),
-                          qgram_kernel.qgram_reference(text, words))
+            want = qgram_kernel.qgram_reference(text, words)
+            check("qgram_filter", name, n,
+                  qgram_kernel.qgram_filter(text, words), want)
+            hits += _set_bits(want)
         torch.cuda.synchronize()
         print("parity: qgram %-10s %2d terms, LONG=%d, %4d member grams, "
               "N=%s equal bit for bit (%d candidates) %.1f s"
@@ -1050,6 +1088,8 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                                  % (name, kname, N, diff))
         if kname == "chain_scan":
             bms, by = chain_bound(N)
+            res[name]["geometry"] = chain_kernel.launch_geometry(N, args[1],
+                                                                 device)
         elif kname == "qgram_filter":
             bms, by = qgram_bound(N)
         else:
@@ -1110,6 +1150,27 @@ def mask_scan_geometry_line(res) -> str:
                 max(regs, default="n/a"), spills, len(regs)))
 
 
+CHAIN_SHAPES = ("config5", "config5c", "memagrep5", "bool5")
+
+
+def chain_scan_geometry_line(res) -> str:
+    """chain_scan's launch at each main-path shape, and the registers and
+    spills ptxas reported for its kernels."""
+    from agrep_tpu_torch.ops import _cuda
+    log = _cuda.build_logs.get("chain_scan", "")
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+    spills = sum(int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log))
+    return ("geometry: chain_scan %s | registers max %s, spill bytes %d "
+            "(ptxas, %d kernels)" % (" | ".join(
+                "%s grid=%d (%d blocks/SM) tile=%d threads=%d dynamic "
+                "shared=%d B tiles=%d"
+                % (n, g["grid"], g["blocks_per_sm"], g["tile"], g["threads"],
+                   g["smem_bytes"], g["tiles"])
+                for n in CHAIN_SHAPES for g in [res[n]["geometry"]]),
+                max(regs, default="n/a"), spills, len(regs)))
+
+
 def mask_scan_times_line(res, card: str) -> str:
     return "times: mask_scan %s | card: %s" % (" | ".join(
         "%s %.4f ms per %d B launch, %.1f %% of its %.4f ms bound (%s)"
@@ -1152,6 +1213,7 @@ def main(argv=None) -> int:
                        res["config5q"])
     print(mask_scan_geometry_line(res))
     print(mask_scan_times_line(res, card))
+    print(chain_scan_geometry_line(res))
     line = {"kernels": [{
         "name": "mask_scan",
         "route": "cuda",
