@@ -10,10 +10,11 @@ together, and then linked:
          -Xcompiler -fPIC -Xptxas -v -c [-D...] -o <unit>.o csrc/<name>.cu
     nvcc -shared -o lib<name>-<hash>.so <unit>.o ...
 
-The library's name carries a hash of the source, so an edited source is
-never served by a stale library.  The link goes to a temporary name that
-is renamed into place, so concurrent processes never load half a file.
-A missing nvcc or a failed compile raises: nothing falls back.
+The library's name carries a hash of the source and of every header
+under csrc/ (*.cuh), so an edited source is never served by a stale
+library.  The link goes to a temporary name that is renamed into place,
+so concurrent processes never load half a file.  A missing nvcc or a
+failed compile raises: nothing falls back.
 """
 
 from __future__ import annotations
@@ -65,9 +66,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, "lib%s-%s.so" % (name, digest))
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [name + ".cu"] + headers:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, "lib%s-%s.so" % (name, h.hexdigest()[:16]))
 
 
 def _check(proc, what: str, log: str) -> None:
@@ -121,3 +125,22 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(build_all([name])[name])
             _libs[name] = lib
         return lib
+
+
+def check(lib, kernel: str, err: int, what: str) -> None:
+    """Raises on a non-zero cudaError_t from the C entry point of
+    kernel's library (its <kernel>_error_string names the error)."""
+    if err != 0:
+        msg = getattr(lib, kernel + "_error_string")(err).decode()
+        raise RuntimeError("%s %s failed: %s (%d)" % (kernel, what, msg, err))
+
+
+def query(lib, kernel: str, fn: str, index: int, n_out: int, *args) -> tuple:
+    """The n_out ints that the library's C function fn(*args, int*, ...)
+    writes, called on CUDA device `index` (a geometry query)."""
+    import torch
+    vals = [ctypes.c_int() for _ in range(n_out)]
+    with torch.cuda.device(index):
+        check(lib, kernel, getattr(lib, fn)(
+            *args, *(ctypes.byref(v) for v in vals)), "geometry")
+    return tuple(v.value for v in vals)

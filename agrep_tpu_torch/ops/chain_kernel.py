@@ -28,6 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import _cuda
 from .kernels import _sm_count
 
 # compile caps of the -f engine's chain program; past them the q-gram
@@ -205,7 +206,6 @@ def chain_scan(text: torch.Tensor, p: ChainProgram) -> torch.Tensor:
 
 
 def _bind():
-    from . import _cuda
     lib = _cuda.load("chain_scan")
     if not getattr(lib, "_bound", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -221,13 +221,6 @@ def _bind():
     return lib
 
 
-def _check(lib, err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError("chain_scan %s failed: %s (%d)"
-                           % (what, lib.chain_scan_error_string(err)
-                              .decode(), err))
-
-
 def launch_geometry(N: int, p: ChainProgram, device,
                     tile: int | None = None,
                     blocks_per_sm: int | None = None) -> dict:
@@ -238,7 +231,7 @@ def launch_geometry(N: int, p: ChainProgram, device,
     lib = _bind()
     tile = TILE if tile is None else tile
     threads, smem, fits = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    _check(lib, lib.chain_scan_geometry(
+    _cuda.check(lib, "chain_scan", lib.chain_scan_geometry(
         p.n_cls, p.n_pos, p.n_terms, tile, ctypes.byref(threads),
         ctypes.byref(smem), ctypes.byref(fits)), "geometry")
     if blocks_per_sm is None:
@@ -260,7 +253,7 @@ def _launch(text: torch.Tensor, p: ChainProgram, tile: int | None = None,
     geo = launch_geometry(N, p, text.device, tile, blocks_per_sm)
     out = torch.empty(-(-N // 32), dtype=torch.int32, device=text.device)
     stream = torch.cuda.current_stream(text.device).cuda_stream
-    _check(lib, lib.chain_scan_launch(
+    _cuda.check(lib, "chain_scan", lib.chain_scan_launch(
         text.data_ptr(), N, p.class_of.data_ptr(), p.single.data_ptr(),
         p.n_cls, p.term_cls.data_ptr(), p.n_pos, p.term_off.data_ptr(),
         p.n_terms, p.pair.data_ptr(), p.maxlen, out.data_ptr(), geo["tile"],

@@ -22,11 +22,14 @@ p), held in an int32 tensor.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
+from . import _cuda
 from .chain_kernel import pack_bits, plane_positions
+from .kernels import _sm_count
 
 # Launches of each kernel since the counts were last set to 0.
 launches = {"qgram_filter": 0}
@@ -83,29 +86,57 @@ def qgram_filter(text: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
 
 
 def _bind():
-    from . import _cuda
     lib = _cuda.load("qgram_filter")
     if not getattr(lib, "_bound", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        ip = ctypes.POINTER(ctypes.c_int)
         lib.qgram_filter_launch.restype = i
-        lib.qgram_filter_launch.argtypes = [p, ll, p, p, p]
+        lib.qgram_filter_launch.argtypes = [p, ll, p, p, i, p]
+        lib.qgram_filter_geometry.restype = i
+        lib.qgram_filter_geometry.argtypes = [ip, ip]
         lib.qgram_filter_error_string.restype = ctypes.c_char_p
         lib.qgram_filter_error_string.argtypes = [i]
         lib._bound = True
     return lib
 
 
-def _launch(text: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _kernel_geometry(index: int) -> tuple:
+    """(threads a block, blocks an SM holds) on device `index`, asked of
+    the CUDA runtime once."""
+    return _cuda.query(_bind(), "qgram_filter", "qgram_filter_geometry",
+                       index, 2)
+
+
+def launch_geometry(N: int, device, blocks_per_sm: int | None = None
+                    ) -> dict:
+    """What _launch runs for a filter of N bytes on a CUDA device:
+    threads a block (a thread a 32-position word), blocks an SM (by
+    default all that the SM holds, from the CUDA occupancy calculator)
+    and the grid (never more blocks than the words fill)."""
+    index = torch.device(device).index or 0
+    threads, fits = _kernel_geometry(index)
+    if blocks_per_sm is None:
+        blocks_per_sm = fits
+    n_words = -(-N // 32)
+    return {"threads": threads, "blocks_per_sm": blocks_per_sm,
+            "fits_per_sm": fits, "words": n_words,
+            "grid": max(1, min(-(-n_words // threads),
+                               blocks_per_sm * _sm_count(index)))}
+
+
+def _launch(text: torch.Tensor, words: torch.Tensor,
+            blocks_per_sm: int | None = None) -> torch.Tensor:
+    """The kernel on text's device; blocks_per_sm defaults to
+    launch_geometry's choice."""
     lib = _bind()
     N = text.numel()
+    geo = launch_geometry(N, text.device, blocks_per_sm)
     out = torch.empty(-(-N // 32), dtype=torch.int32, device=text.device)
     stream = torch.cuda.current_stream(text.device).cuda_stream
-    err = lib.qgram_filter_launch(text.data_ptr(), N, words.data_ptr(),
-                                  out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("qgram_filter kernel launch failed: %s (%d)"
-                           % (lib.qgram_filter_error_string(err).decode(),
-                              err))
+    _cuda.check(lib, "qgram_filter", lib.qgram_filter_launch(
+        text.data_ptr(), N, words.data_ptr(), out.data_ptr(), geo["grid"],
+        stream), "kernel launch")
     launches["qgram_filter"] += 1
     return out
 

@@ -20,15 +20,25 @@ line (lens[r] == 0) takes its verdict straight from init.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from . import renfa
+from . import _cuda, renfa
+from .kernels import _sm_count
 
 MAX_D = 4                       # compile/query.py's late error caps D
 _CELLS = 1 << 24                # plain version: lane cells per pass
+
+# Forms of the kernel's Next tables (csrc/renfa_lanes.cu): one table of
+# 2^(M-1) words, or four byte tables.
+FORMS = {"one": 0, "bytes": 1}
+MAX_ONE_BITS = 15               # one table: at most 2^15 words, 128 KB
+# Threads a block; tools/torch_renfa_lanes_time.py times both forms,
+# every block size and blocks an SM at the main path's shapes.
+THREADS = 512
 
 # Launches of each kernel since the counts were last set to 0.
 launches = {"renfa_lanes": 0}
@@ -107,37 +117,87 @@ def renfa_lines(text: torch.Tensor, starts: torch.Tensor,
     return renfa_lines_reference(text, starts, lens, m, init)
 
 
+def forms(M: int) -> list:
+    """Every Next form the kernel takes for a machine of M positions:
+    the one table up to MAX_ONE_BITS index bits (M - 1), the byte tables
+    at any M (csrc/renfa_lanes.cu form_ok)."""
+    return (["one"] if max(M - 1, 0) <= MAX_ONE_BITS else []) + ["bytes"]
+
+
+def table_form(M: int) -> str:
+    """The Next form the wrapper launches for M positions: the first of
+    forms(M)."""
+    return forms(M)[0]
+
+
 def _bind():
-    from . import _cuda
     lib = _cuda.load("renfa_lanes")
     if not getattr(lib, "_bound", False):
         p, i, u, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                        ctypes.c_longlong)
+        ip = ctypes.POINTER(ctypes.c_int)
         lib.renfa_lanes_launch.restype = i
         lib.renfa_lanes_launch.argtypes = [
             p, ll, p, p, ll, p, u, u, u, i, i,
-            ctypes.POINTER(ctypes.c_uint32), p, p]
+            ctypes.POINTER(ctypes.c_uint32), p, i, i, i, i, p]
+        lib.renfa_lanes_geometry.restype = i
+        lib.renfa_lanes_geometry.argtypes = [i, i, i, i, ip, ip, ip, ip]
         lib.renfa_lanes_error_string.restype = ctypes.c_char_p
         lib.renfa_lanes_error_string.argtypes = [i]
         lib._bound = True
     return lib
 
 
-def _launch(text, starts, lens, m: RegexMachine, init) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _kernel_geometry(D: int, M: int, form: str, threads: int,
+                     index: int) -> tuple:
+    """(dynamic shared bytes, blocks an SM holds, registers, local bytes)
+    of the kernel of D and form on device `index`, asked of the CUDA
+    runtime once."""
+    return _cuda.query(_bind(), "renfa_lanes", "renfa_lanes_geometry",
+                       index, 4, D, M, FORMS[form], threads)
+
+
+def launch_geometry(R: int, m: RegexMachine, device, form: str | None = None,
+                    threads: int | None = None,
+                    blocks_per_sm: int | None = None) -> dict:
+    """What _launch runs for R lines on a CUDA device: the Next form, its
+    table bytes, threads a block, blocks an SM (by default all that the
+    SM holds at the form's shared bytes, from the CUDA occupancy
+    calculator), the grid (never more blocks than the lines fill), and
+    the kernel's registers and local (spill) bytes a thread."""
+    form = table_form(m.M) if form is None else form
+    threads = THREADS if threads is None else threads
+    index = torch.device(device).index or 0
+    smem, fits, regs, local = _kernel_geometry(m.D, m.M, form, threads,
+                                               index)
+    if blocks_per_sm is None:
+        blocks_per_sm = fits
+    return {"form": form, "table_bytes": smem - 4 * 256,
+            "smem_bytes": smem, "threads": threads,
+            "blocks_per_sm": blocks_per_sm, "fits_per_sm": fits,
+            "grid": max(1, min(-(-R // threads),
+                               blocks_per_sm * _sm_count(index))),
+            "regs": regs, "local_bytes": local}
+
+
+def _launch(text, starts, lens, m: RegexMachine, init,
+            form: str | None = None, threads: int | None = None,
+            blocks_per_sm: int | None = None) -> torch.Tensor:
+    """The kernel on text's device; form, threads and blocks_per_sm
+    default to launch_geometry's choice."""
     lib = _bind()
     R = starts.numel()
+    geo = launch_geometry(R, m, text.device, form, threads, blocks_per_sm)
     out = torch.empty(R, dtype=torch.uint8, device=text.device)
     ini = (ctypes.c_uint32 * (MAX_D + 1))(
         *[int(v) & renfa.U32 for v in init])
     stream = torch.cuda.current_stream(text.device).cuda_stream
-    err = lib.renfa_lanes_launch(
+    _cuda.check(lib, "renfa_lanes", lib.renfa_lanes_launch(
         text.data_ptr(), text.numel(), starts.data_ptr(), lens.data_ptr(),
         R, m.tables.data_ptr(), m.head_bit, m.init1, m.no_err,
-        int(m.tail), m.D, ini, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError("renfa_lanes kernel launch failed: %s (%d)"
-                           % (lib.renfa_lanes_error_string(err).decode(),
-                              err))
+        int(m.tail), m.D, ini, out.data_ptr(), m.M, FORMS[geo["form"]],
+        geo["threads"], geo["grid"], stream), "kernel launch")
     launches["renfa_lanes"] += 1
     return out.view(torch.bool)
 

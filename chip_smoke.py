@@ -19,10 +19,15 @@ exits non-zero:
      on machines with a sticky bit, which take whole tiles and whose
      split the launcher must refuse; then
      the renfa_lanes kernel against renfa_lines_reference, bit for bit,
-     over regex machines (D = 0..4, -i, anchors, 29 positions) and line
-     sets (R = 1, 31, 32, 33, 4097, empty lines, lengths at the length
-     buckets' edges, a line over 49152 bytes, a launch from the
-     memory-mode seed states); then the chain_scan kernel against
+     over regex machines (D = 0..4, -i, anchors, M - 1 from 0 to 30,
+     15 and 16 among them) and line sets (R = 1, 31, 32, 33, 4097, empty
+     lines, lengths at the length buckets' edges, a line over 49152
+     bytes, a launch from the memory-mode seed states, lines of 0-33
+     bytes starting at every offset mod 16 with the last newline the
+     text's last byte, with every Next form and on views 1-15 bytes past
+     an aligned address, and 100,000 lines on one block of 128 threads
+     an SM, so that every warp walks many runs); then the chain_scan
+     kernel against
      chain_scan_reference over term sets (1 term, config 5's 100, terms
      of 31-128 bytes, a full-byte-range set, a set whose terms run past
      the text's end into its zero pad, one-byte terms beside longer
@@ -31,8 +36,10 @@ exits non-zero:
      views 1-15 bytes past an aligned address, and at 8 MB with one
      block an SM, so that each block walks several tiles; and the
      qgram_filter kernel against qgram_reference on
-     2-gram, LONG and -i member sets at the same N; phase 4 repeats
-     every check at the main path's shapes;
+     2-gram, LONG and -i member sets at N = 1..33, 4065..4097 (every N
+     mod 32), the sizes above and 8 MB (there with one block an SM too),
+     each on views at offsets 1-15 too; phase 4 repeats every check at
+     the main path's shapes;
   4. main path: a --mb MB ASCII corpus made from --seed, searched through
      agrep_tpu_torch.api.fileagrep with BASELINE configs 1-4 (the file
      is over the streaming threshold, so each run is chunked; config 4,
@@ -50,12 +57,14 @@ exits non-zero:
      the q-gram kernel and no chain kernel);
   5. kernels: mask_scan's launch geometry (split, tiles a block, threads,
      dynamic shared memory; registers and spills from ptxas) and its
-     time against its bound at all five main-path shapes, and chain_scan's
+     time against its bound at all five main-path shapes, chain_scan's
      launch geometry (grid, blocks an SM, tile, threads, dynamic shared
-     memory; registers and spills) at its four, each on a
-     line of its own; then one JSON line with each kernel's launches on the
-     main path, its time, its plain version's time and its bound on this
-     card.
+     memory; registers and spills) at its four, renfa_lanes' (Next form,
+     table bytes, threads, blocks an SM, grid, registers, spills) and
+     time at its two, qgram_filter's (threads, blocks an SM, grid) and
+     time at config5q's, each on a line of its own; then one JSON line
+     with each kernel's launches on the main path, its time, its plain
+     version's time and its bound on this card.
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device,
 or without the agrep_tpu_torch package beside it, the script exits
@@ -247,14 +256,19 @@ def halo(consts: dict, D: int, L: int) -> int:
 # tests/test_conformance_more.py that compile to the regex engine,
 # config 4's pattern at D = 0..4, anchors, and 29 positions (compile
 # takes at most 30)
+WIDE_REGEX = "abcdefghijklmnopqrstuvwxy(z|0)"     # 29 positions
 REGEX_SPECS = [
     ("ab*c", 0), ("a(bc|de)f", 1), ("[a-d]x*[0-9]", 1), ("ab*c", 2),
     ("x.*y", 1), ("wo(r|t)king", 2),
     ("a(b|d)c", 3), ("colou|or", 2), ("h(el)*lo", 1), ("ab.*ld", 4),
     (REGEX, 0), (REGEX, 1), (REGEX, 2), (REGEX, 3), (REGEX, 4),
     ("^wo(r|t)king", 1), ("ab*c$", 0), ("^h(el)*lo$", 3),
-    ("abcdefghijklmnopqrstuvwxy(z|0)", 0),
-    ("abcdefghijklmnopqrstuvwxy(z|0)", 2),
+    (WIDE_REGEX, 0), (WIDE_REGEX, 2),
+    # 16 and 17 positions: M - 1 = 15 (the one-table form's largest) and
+    # 16 (the smallest of the wide form); 31, which a '?' gives (maskgen
+    # counts it as a position) and only the byte-table form takes
+    ("abcdefghijkl(m|n)", 2), ("abcdefghijklm(n|o)", 1),
+    ("abcdefghijklmnopqrstuvwx(y|z)?0?", 1),
 ]
 RE_PLANTS = [b"abbbc", b"adef", b"ax3", b"xqqy", b"working", b"wotking",
              b"colour", b"hellello", b"approximate", b"APPROXIMATION",
@@ -268,10 +282,33 @@ EDGE_LENS = [0, 30, 31, 32, 126, 127, 128, 510, 511, 512, 2046, 2047,
 LONG_LENS = [8191, 8192, 49153]
 
 
+def synthetic_mc(M: int, D: int, seed: int) -> dict:
+    """A regex machine of M positions with random follow bits, mask and
+    no_err bits, for the M that compile_query never makes (it makes
+    3..29): the kernel takes every M from 1 to 30."""
+    import types
+
+    import numpy as np
+
+    from agrep_tpu_torch.ops import renfa
+    rng = np.random.default_rng(seed)
+    fb = np.zeros(33, dtype=np.uint32)
+    fb[:M] = rng.integers(0, 1 << M, M, dtype=np.uint64).astype(np.uint32)
+    auto = types.SimpleNamespace(m=M, follow_bits=fb, head_bit=1 << (M - 1))
+    mask = rng.integers(0, 1 << 32, 256, dtype=np.uint64).astype(np.uint32)
+    return renfa.machine_from_automaton(
+        auto, mask, int(rng.integers(0, 1 << 32)) | 1, D, True, True)
+
+
+# synthetic machines: M - 1 = 0, 1 and 29
+SYNTHETIC_M = [(1, 1), (2, 0), (30, 2)]
+
+
 def regex_machines():
     """(name, re_mc, extra line sets) of every regex machine phase 3
-    holds the lanes kernel to.  The plain version steps one column at a
-    time, so the bucket-edge lines go to five machines and the long
+    holds the lanes kernel to, M - 1 from 0 to 30 (15 and 16 either side
+    of the one-table form's edge).  The plain version steps one column
+    at a time, so the bucket-edge lines go to five machines and the long
     lines to one."""
     from agrep_tpu_torch.compile.query import compile_query
     from agrep_tpu_torch.options import Options
@@ -279,13 +316,16 @@ def regex_machines():
     for pat, d in REGEX_SPECS:
         q = compile_query(pat, Options(D=d, approx=d > 0))
         extra = []
-        if pat in (REGEX, REGEX_SPECS[-1][0]) and d % 2 == 0:
+        if pat in (REGEX, WIDE_REGEX) and d % 2 == 0:
             extra.append("edges")
         if (pat, d) == (REGEX, 0):
             extra.append("long")
         out.append(("%s D%d" % (pat, d), q.re_mc, extra))
     q = compile_query(REGEX, Options(D=2, approx=True, nocase="i"))
     out.append(("%s D2 -i" % REGEX, q.re_mc, []))
+    for M, d in SYNTHETIC_M:
+        out.append(("synthetic M=%d D%d" % (M, d), synthetic_mc(M, d, M),
+                    []))
     return out
 
 
@@ -384,25 +424,28 @@ def nxt_ops(M: int) -> tuple:
 
 def regex_byte_ops(D: int, M: int) -> tuple:
     """(int32 operations, shared loads) of one text byte of the lanes
-    machine at its least, with the ORs and ANDs fused into LOP3s: the
-    byte's extract from a wide load and its scale to a CMask address
-    (2) and the CMask load; level 0 is nxt and (nxt & cm) | (init1 & s)
-    (2 LOP3); level k is two nxt (the r0 OR fused into an index) and the
-    seven-input combine (3 LOP3).  The loop's control, amortized by
+    machine at its least, with the ORs and ANDs fused into LOP3s.  nxt is
+    an OR over the set bits of its argument, so re1's nxt(s[k-1] |
+    nw[k-1]) is nxt(s[k-1]) | nxt(nw[k-1]), both already at hand when
+    each state's nxt is carried beside it: a byte takes one nxt a level.
+    The byte's extract from a wide load and its scale to a CMask address
+    (2) and the CMask load; level 0 is (n & cm) | (init1 & s) (2 LOP3)
+    and the new state's nxt; level k is the eight-input combine (4 LOP3)
+    and the new state's nxt.  The loop's control, amortized by
     unrolling, is not counted."""
     no, nl = nxt_ops(M)
-    return 2 + no + 2 + D * (2 * no + 3), 1 + nl * (2 * D + 1)
+    return 2 + 2 + no + D * (4 + no), 1 + nl * (D + 1)
 
 
 def regex_verdict_ops(tail: bool, M: int) -> tuple:
     """(int32 operations, shared loads) of a line's verdict at its
-    newline at its least: CMask['\\n'] is a constant; nxt and 2 LOP3
-    form ad; the tail step is nxt and a LOP3 that takes the & 1 too
-    (without it, the & 1 alone)."""
+    newline at its least: CMask['\\n'] is a constant and nxt(s[D]) is
+    carried; 2 LOP3 form ad; the tail step is nxt and a LOP3 that takes
+    the & 1 too (without it, the & 1 alone)."""
     no, nl = nxt_ops(M)
     if tail:
-        return 2 * no + 3, 2 * nl
-    return no + 3, nl
+        return no + 3, nl
+    return 3, 0
 
 
 def regex_bound(m, n_text: int, lens) -> tuple:
@@ -475,20 +518,56 @@ def qgram_bound(N: int) -> tuple:
     return t_bytes * 1e3, "bytes"
 
 
+# clock cycles the card spins a timed call before time_kernel's first
+# event (about 0.1 ms at 1.98 GHz)
+SPIN_CYCLES = 200000
+
+
 def time_kernel(fn, reps: int = 5) -> float:
     """ms per call of fn on the card: CUDA events around reps calls after
-    one warm-up call."""
+    one warm-up call.  The card first spins (SPIN_CYCLES a call, doubled
+    up to 4 times while too short), so that the host has queued every
+    call before the first event: the events then hold the calls' device
+    time, not the host's time to launch them.  That the spin outlasted
+    the queuing is checked -- the first event must still be pending once
+    the last call is queued -- and a timing whose spin never did raises,
+    as does an fn that waits for the card."""
     import torch
     fn()
     torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
+    for k in range(5):
+        torch.cuda._sleep(SPIN_CYCLES * reps << k)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        queued_first = not a.query()
+        torch.cuda.synchronize()
+        if queued_first:
+            return a.elapsed_time(b) / reps
+    raise RuntimeError("time_kernel: the card finished its spin of %d "
+                       "cycles before the host had queued %d calls"
+                       % (SPIN_CYCLES * reps << 4, reps))
+
+
+def profiled_ms(fn, kernel: str, reps: int):
+    """Device ms per launch of the kernels whose name holds `kernel`, as
+    torch.profiler's CUDA activity reads them over reps calls of fn, or
+    None when the trace holds no device time for them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if kernel in e.key]
+    total = sum(getattr(e, "device_time_total", 0) for e in evs)
+    count = sum(e.count for e in evs)
+    return total / count / 1e3 if count and total else None
 
 
 # ---------------------------------------------------------------------
@@ -618,9 +697,40 @@ def phase_parity(device: str, seed: int, big: int) -> float:
     return float(worst)
 
 
+def offset_lines(rng):
+    """Lines of lengths 0-33 (around the kernel's 16-byte pieces) and
+    47-49, 63-65, line i starting at i mod 16 (bytes between the lines
+    pad them there), the last line's newline the text's last byte.
+    Returns (text, starts, lens)."""
+    import numpy as np
+    lens = list(range(34)) + [47, 48, 49, 63, 64, 65]
+    lens += [int(x) for x in rng.integers(0, 66, 24)]
+    text = bytearray()
+    starts = []
+    for i, ln in enumerate(lens):
+        text += b"x" * ((i - len(text)) % 16)
+        starts.append(len(text))
+        line = bytearray(rng.integers(97, 123, ln, dtype=np.uint8))
+        p = RE_PLANTS[i % len(RE_PLANTS)]
+        if len(p) <= ln:
+            off = 0 if i % 2 else ln - len(p)
+            line[off:off + len(p)] = p
+        text += line + b"\n"
+    return (np.frombuffer(bytes(text), np.uint8).copy(),
+            np.array(starts, dtype=np.int64), np.array(lens, dtype=np.int64))
+
+
+# the persistent-grid check: this many short lines, 128 threads a block
+# and one block an SM, so that every warp walks many runs of 32 lines
+GRID_LINES = 100000
+
+
 def phase_parity_regex(device: str, seed: int) -> float:
     """Lanes-kernel verdicts vs plain verdicts on every regex machine and
-    line set; returns the largest |kernel - plain| (0 or fail)."""
+    line set, with the wrapper's own launch, with every Next form on the
+    lines at every offset mod 16 (on views 1-15 bytes past an aligned
+    address too), and with one block of 128 threads an SM over
+    GRID_LINES lines; returns the largest |kernel - plain| (0 or fail)."""
     import numpy as np
     import torch
 
@@ -638,12 +748,26 @@ def phase_parity_regex(device: str, seed: int) -> float:
     for name, ls in (("edges", EDGE_LENS), ("long", LONG_LENS)):
         t, st = make_lines(ls, rng)
         sets[name] = (t, st, np.asarray(ls, dtype=np.int64))
+    sets["offsets"] = offset_lines(rng)
+    glens = np.sort(rng.integers(0, 60, GRID_LINES))
+    t, st = make_lines(glens, rng)
+    sets["grid"] = (t, st, glens)
     dev_sets = {k: (kernels.to_device(t, device),
                     torch.from_numpy(st).to(device),
                     torch.from_numpy(ln).to(device))
                 for k, (t, st, ln) in sets.items()}
+    # the offsets set again on views 1-15 bytes past an aligned address,
+    # in a buffer whose bytes around the view are not newlines
+    t_off = dev_sets["offsets"][0]
+    for o in range(1, 16):
+        buf = torch.full((t_off.numel() + 32,), 0xA5, dtype=torch.uint8,
+                         device=device)
+        buf[o:o + t_off.numel()] = t_off
+        dev_sets["offsets@%d" % o] = ((buf[o:o + t_off.numel()],)
+                                      + dev_sets["offsets"][1:])
     worst = 0
     failed = []
+    walks = None
     for name, mc, extra in regex_machines():
         m = renfa_kernel.machine_from_mc(mc, device)
         cont, _ = renfa.step_newline(list(mc["inits"]),
@@ -652,15 +776,27 @@ def phase_parity_regex(device: str, seed: int) -> float:
         # Init[0] at every level, re1() the Init[k] closures
         seed0 = ([int(mc["init0"])] * (m.D + 1) if m.M <= 15
                  else list(mc["inits"]))
-        runs = [(k, cont) for k in sets if k.startswith("R=")]
-        runs.append(("R=33", seed0))
-        runs += [(k, cont) for k in extra]
+        # (label, set, init, launch arguments past the wrapper's)
+        runs = [(k, k, cont, None) for k in sets
+                if k.startswith("R=")]
+        runs.append(("R=33 seed", "R=33", seed0, None))
+        runs += [(k, k, cont, None) for k in extra]
+        runs += [("offsets %s" % f, "offsets", cont, {"form": f})
+                 for f in renfa_kernel.forms(m.M)]
+        runs += [("offsets@%d" % o, "offsets@%d" % o, cont, None)
+                 for o in range(1, 16)]
+        runs.append(("grid 1x128", "grid", cont,
+                     {"threads": 128, "blocks_per_sm": 1}))
         t0 = time.perf_counter()
         n_true = 0
         bad = []
-        for key, init in runs:
+        for label, key, init, kw in runs:
             text_d, st_d, ln_d = dev_sets[key]
-            got = renfa_kernel.renfa_lines(text_d, st_d, ln_d, m, init)
+            if kw is None:
+                got = renfa_kernel.renfa_lines(text_d, st_d, ln_d, m, init)
+            else:
+                got = renfa_kernel._launch(text_d, st_d, ln_d, m, init,
+                                           **kw)
             want = renfa_kernel.renfa_lines_reference(text_d, st_d, ln_d,
                                                       m, init)
             diff = int((got.to(torch.int64) - want.to(torch.int64))
@@ -669,21 +805,27 @@ def phase_parity_regex(device: str, seed: int) -> float:
             n_true += int(want.sum().item())
             if diff:
                 where = (got != want).nonzero()[:4, 0].tolist()
-                bad.append(key)
-                print("parity: regex %s %s%s MISMATCH; first (line, "
-                      "start, len, kernel, plain): %s"
-                      % (name, key, " seed" if init is seed0 else "", [
+                bad.append(label)
+                print("parity: regex %s %s MISMATCH; first (line, start, "
+                      "len, kernel, plain): %s"
+                      % (name, label, [
                           (r, int(st_d[r]), int(ln_d[r]), bool(got[r]),
                            bool(want[r])) for r in where]))
         torch.cuda.synchronize()
+        if walks is None:
+            g = renfa_kernel.launch_geometry(GRID_LINES, m, device,
+                                             threads=128, blocks_per_sm=1)
+            walks = GRID_LINES / 32 / (g["grid"] * g["threads"] // 32)
         if bad:
             failed.append((name, bad))
             continue
-        print("parity: regex %-38s M=%-2d %s equal bit for bit (%d true "
-              "verdicts) %.1f s"
-              % (name, m.M, [k + (" seed" if v is seed0 else "")
-                             for k, v in runs], n_true,
-                 time.perf_counter() - t0))
+        print("parity: regex %-38s M=%-2d form %s, %s equal bit for bit "
+              "(%d true verdicts) %.1f s"
+              % (name, m.M, renfa_kernel.table_form(m.M),
+                 [r[0] for r in runs if not r[0].startswith("offsets@")]
+                 + ["offsets@1-15"], n_true, time.perf_counter() - t0))
+    print("parity: regex grid 1x128 walks %.1f runs of 32 lines a warp"
+          % walks)
     if failed:
         raise AssertionError("lanes verdicts differ from "
                              "renfa_lines_reference: %s" % failed)
@@ -810,6 +952,12 @@ def phase_parity_multi(device: str, seed: int, big: int, pats100) -> tuple:
                  len(prog[0]), list(sizes), hits,
                  geo["tiles"] / geo["grid"],
                  time.perf_counter() - t0))
+    # every N mod 32 (so mod 16 too), short and past 4 KB, and 8 MB
+    qsizes = sorted(set(PARITY_SIZES) | set(range(1, 34))
+                    | set(range(4065, 4098))) + [big]
+    for n in qsizes:
+        if n not in base:
+            base[n] = random_text(n, rng)
     for name, terms, fold in qgram_sets():
         tr = _fold_tr(fold)
         tb = multi.build_qgram_tables(terms, tr)
@@ -817,18 +965,34 @@ def phase_parity_multi(device: str, seed: int, big: int, pats100) -> tuple:
         words = qgram_kernel.words_tensor(proj, device)
         t0 = time.perf_counter()
         hits = 0
-        for n in sizes:
+        for n in qsizes:
             text = kernels.to_device(plant(base[n].copy(), terms, rng, fold),
                                      device)
             want = qgram_kernel.qgram_reference(text, words)
             check("qgram_filter", name, n,
                   qgram_kernel.qgram_filter(text, words), want)
             hits += _set_bits(want)
+            if n == big:
+                check("qgram_filter", name + " blocks/SM=1", n,
+                      qgram_kernel._launch(text, words, blocks_per_sm=1),
+                      want)
+            # views 1-15 bytes past an aligned address, in a buffer whose
+            # bytes around the view are not 0
+            buf = torch.full((n + 32,), 0xA5, dtype=torch.uint8,
+                             device=device)
+            for o in range(1, 16):
+                view = buf[o:o + n]
+                view.copy_(text)
+                check("qgram_filter", name + " offset %d" % o, n,
+                      qgram_kernel.qgram_filter(view, words), want)
+                view.fill_(0xA5)
         torch.cuda.synchronize()
         print("parity: qgram %-10s %2d terms, LONG=%d, %4d member grams, "
-              "N=%s equal bit for bit (%d candidates) %.1f s"
-              % (name, len(terms), tb.long_, int(proj.sum()), list(sizes),
-                 hits, time.perf_counter() - t0))
+              "N=1..33, 4065..4097, %s equal bit for bit (%d candidates), "
+              "and on views at offsets 1-15; at 8 MB also blocks/SM=1 %.1f s"
+              % (name, len(terms), tb.long_, int(proj.sum()),
+                 [n for n in qsizes if 33 < n < 4065 or n > 4097], hits,
+                 time.perf_counter() - t0))
     if failed:
         raise AssertionError("multi-pattern kernels differ from their "
                              "plain versions: %s" % failed)
@@ -1061,11 +1225,12 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                                  "renfa_lines_reference on %d bytes"
                                  % seg.numel())
         bms, by = regex_bound(m, seg.numel(), lens)
+        geo = renfa_kernel.launch_geometry(len(lens), m, device)
         for n in names:
             res[n].update(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                           bound_by=by, shape_b=seg.numel(),
                           max_abs_err=diff, lines=len(lens),
-                          true=int(verdicts.sum().item()))
+                          true=int(verdicts.sum().item()), geometry=geo)
 
     # the config 5 runs' kernels alone, on the inputs the main path gave
     # their wrappers (each run's last call), against their plain versions
@@ -1092,6 +1257,7 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                                                                  device)
         elif kname == "qgram_filter":
             bms, by = qgram_bound(N)
+            res[name]["geometry"] = qgram_kernel.launch_geometry(N, device)
         else:
             bms, by = bound(args[1], N, args[2], args[3], out)
             res[name]["geometry"] = kernels.launch_geometry(N, *args[1:],
@@ -1171,12 +1337,42 @@ def chain_scan_geometry_line(res) -> str:
                 max(regs, default="n/a"), spills, len(regs)))
 
 
-def mask_scan_times_line(res, card: str) -> str:
-    return "times: mask_scan %s | card: %s" % (" | ".join(
+def renfa_lanes_geometry_line(res) -> str:
+    """renfa_lanes' launch at its two main-path shapes: Next form, table
+    bytes, threads, blocks an SM, grid, and the kernel's registers and
+    local (spill) bytes a thread (cudaFuncGetAttributes); and the spills
+    ptxas reported over all its kernels."""
+    from agrep_tpu_torch.ops import _cuda
+    log = _cuda.build_logs.get("renfa_lanes", "")
+    spills = sum(int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log))
+    return ("geometry: renfa_lanes %s | spill bytes %d (ptxas, %d kernels)"
+            % (" | ".join(
+                "%s %d lines form=%s table=%d B threads=%d blocks/SM=%d "
+                "grid=%d registers=%d local=%d B"
+                % (n, res[n]["lines"], g["form"], g["table_bytes"],
+                   g["threads"], g["blocks_per_sm"], g["grid"], g["regs"],
+                   g["local_bytes"])
+                for n in ("config4", "memagrep4")
+                for g in [res[n]["geometry"]]), spills,
+               len(re.findall(r"Used (\d+) registers", log))))
+
+
+def qgram_filter_geometry_line(res) -> str:
+    g = res["config5q"]["geometry"]
+    return ("geometry: qgram_filter config5q %d words threads=%d "
+            "blocks/SM=%d grid=%d" % (g["words"], g["threads"],
+                                      g["blocks_per_sm"], g["grid"]))
+
+
+def times_line(res, kname: str, names, card: str) -> str:
+    return "times: %s %s | card: %s" % (kname, " | ".join(
         "%s %.4f ms per %d B launch, %.1f %% of its %.4f ms bound (%s)"
         % (n, r["ms"], r["shape_b"], 100 * r["bound_ms"] / r["ms"],
            r["bound_ms"], r["bound_by"])
-        for n in MASK_SHAPES for r in [res[n]]), card)
+        for n in names for r in [res[n]]), card)
+
+
 
 
 def main(argv=None) -> int:
@@ -1212,8 +1408,12 @@ def main(argv=None) -> int:
     c2, c4, c5, c5q = (res["config2"], res["config4"], res["config5"],
                        res["config5q"])
     print(mask_scan_geometry_line(res))
-    print(mask_scan_times_line(res, card))
+    print(times_line(res, "mask_scan", MASK_SHAPES, card))
     print(chain_scan_geometry_line(res))
+    print(renfa_lanes_geometry_line(res))
+    print(times_line(res, "renfa_lanes", ("config4", "memagrep4"), card))
+    print(qgram_filter_geometry_line(res))
+    print(times_line(res, "qgram_filter", ("config5q",), card))
     line = {"kernels": [{
         "name": "mask_scan",
         "route": "cuda",
