@@ -15,6 +15,7 @@ import numpy as np
 from .compile.query import CompiledQuery, compile_query
 from .ops import scan as scan_ops
 from .options import AgrepError, Options, compat_check, parse_args
+from .parallel import multihost
 from .runtime.engine import Executor
 from .runtime.output import (OutputOverflow, Sink, make_buffer_sink,
                              make_stream_sink)
@@ -179,24 +180,21 @@ def fileagrep(argv: list[str], output=None, verbose_total=True) -> int:
         return -1
     if q.opts.recursive:
         from .runtime.walker import run_recursive
-        ret = run_recursive(q, q.files, output)
+        if multihost.requested():
+            # -r stays on rank 0, as the partitioned run's serial modes
+            # do; the other ranks only join the count
+            rank, _ = multihost.init_multihost()
+            ret = multihost.global_count(
+                run_recursive(q, q.files, output) if rank == 0 else 0)
+        else:
+            ret = run_recursive(q, q.files, output)
     else:
         ret = q.search_files(q.files, output)
     if q.opts.verbose > 0 and verbose_total:
-        if is_primary():
+        if multihost.is_primary():
             out = output if output is not None else sys.stdout.buffer
             out.write(b"Grand Total: %d match(es) found.\n" % ret)
     return ret
-
-
-def is_primary() -> bool:
-    """True on the output-owning process: always single-process, and
-    rank 0 when torch.distributed is initialized -- gates the Grand
-    Total line."""
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank() == 0
-    return True
 
 
 def memagrep(argv: list[str], data: bytes, output=None) -> int:

@@ -135,6 +135,14 @@ def check(lib, kernel: str, err: int, what: str) -> None:
         raise RuntimeError("%s %s failed: %s (%d)" % (kernel, what, msg, err))
 
 
+def device_index(device) -> int:
+    """The CUDA device of a tensor's device or a device spec: its own
+    index, or the current device where it names none ("cuda")."""
+    import torch
+    index = torch.device(device).index
+    return torch.cuda.current_device() if index is None else index
+
+
 def query(lib, kernel: str, fn: str, index: int, n_out: int, *args) -> tuple:
     """The n_out ints that the library's C function fn(*args, int*, ...)
     writes, called on CUDA device `index` (a geometry query)."""

@@ -228,20 +228,18 @@ def launch_geometry(N: int, p: ChainProgram, device,
     positions a tile, threads a block, blocks an SM (by default all
     that the SM holds, from the CUDA occupancy calculator), the grid
     (never more blocks than tiles) and dynamic shared bytes a block."""
-    lib = _bind()
     tile = TILE if tile is None else tile
-    threads, smem, fits = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    _cuda.check(lib, "chain_scan", lib.chain_scan_geometry(
-        p.n_cls, p.n_pos, p.n_terms, tile, ctypes.byref(threads),
-        ctypes.byref(smem), ctypes.byref(fits)), "geometry")
+    index = _cuda.device_index(device)
+    threads, smem, fits = _cuda.query(_bind(), "chain_scan",
+                                      "chain_scan_geometry", index, 3,
+                                      p.n_cls, p.n_pos, p.n_terms, tile)
     if blocks_per_sm is None:
-        blocks_per_sm = fits.value
+        blocks_per_sm = fits
     n_tiles = -(-N // tile)
-    dev = torch.device(device)
-    return {"tile": tile, "threads": threads.value, "smem_bytes": smem.value,
-            "blocks_per_sm": blocks_per_sm, "fits_per_sm": fits.value,
+    return {"tile": tile, "threads": threads, "smem_bytes": smem,
+            "blocks_per_sm": blocks_per_sm, "fits_per_sm": fits,
             "tiles": n_tiles,
-            "grid": min(n_tiles, blocks_per_sm * _sm_count(dev.index or 0))}
+            "grid": min(n_tiles, blocks_per_sm * _sm_count(index))}
 
 
 def _launch(text: torch.Tensor, p: ChainProgram, tile: int | None = None,
@@ -253,11 +251,14 @@ def _launch(text: torch.Tensor, p: ChainProgram, tile: int | None = None,
     geo = launch_geometry(N, p, text.device, tile, blocks_per_sm)
     out = torch.empty(-(-N // 32), dtype=torch.int32, device=text.device)
     stream = torch.cuda.current_stream(text.device).cuda_stream
-    _cuda.check(lib, "chain_scan", lib.chain_scan_launch(
-        text.data_ptr(), N, p.class_of.data_ptr(), p.single.data_ptr(),
-        p.n_cls, p.term_cls.data_ptr(), p.n_pos, p.term_off.data_ptr(),
-        p.n_terms, p.pair.data_ptr(), p.maxlen, out.data_ptr(), geo["tile"],
-        geo["grid"], stream), "kernel launch")
+    # the runtime launches on its current device: make it the tensor's
+    index = _cuda.device_index(text.device)
+    with torch.cuda.device(index):
+        _cuda.check(lib, "chain_scan", lib.chain_scan_launch(
+            text.data_ptr(), N, p.class_of.data_ptr(), p.single.data_ptr(),
+            p.n_cls, p.term_cls.data_ptr(), p.n_pos, p.term_off.data_ptr(),
+            p.n_terms, p.pair.data_ptr(), p.maxlen, out.data_ptr(),
+            geo["tile"], geo["grid"], stream), "kernel launch")
     launches["chain_scan"] += 1
     return out
 

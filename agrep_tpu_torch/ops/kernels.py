@@ -31,6 +31,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import _cuda
+
 MAX_D = 8
 MAX_PLANES = 32
 _VARIANT_CODE = {"sgrep": 0, "bitap": 1}     # the cost wiring is code 2
@@ -210,11 +212,11 @@ def launch_geometry(N: int, m: Machine, W: int, L: int, device,
     tiles a block, threads a block, blocks, dynamic shared bytes a
     block."""
     T, _ = geometry(N, W, L)
-    dev = torch.device(device)
     if tpb is None:
         tpb = TILES_PER_BLOCK
     if s is None:
-        s = choose_split(m, T, W, L, _sm_count(dev.index or 0), tpb)
+        s = choose_split(m, T, W, L,
+                         _sm_count(_cuda.device_index(device)), tpb)
     return {"s": s, "tiles_per_block": tpb, "threads": s * tpb,
             "blocks": -(-T // tpb),
             "smem_bytes": shared_bytes(W, L, s, tpb, len(m.hit_masks))}
@@ -245,7 +247,6 @@ def mask_scan(text: torch.Tensor, m: Machine, W: int, L: int
 
 
 def _bind():
-    from . import _cuda
     lib = _cuda.load("mask_scan")
     if not getattr(lib, "_bound", False):
         p, i, u, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
@@ -279,11 +280,14 @@ def _launch(text: torch.Tensor, m: Machine, W: int, L: int,
     pos = (ctypes.c_int * MAX_PLANES)(
         *[hm.bit_length() - 1 for hm in m.hit_masks])
     stream = torch.cuda.current_stream(text.device).cuda_stream
-    err = lib.mask_scan_launch(
-        text.data_ptr(), N, m.table.data_ptr(), out.data_ptr(), T, W, L,
-        m.D, code, m.init0, m.init1_ns, m.noerr, m.d_endpos, m.d_mask,
-        m.hit_masks[0], ci, cs, cd, n_hit, pos, geo["s"],
-        geo["tiles_per_block"], stream)
+    # the runtime launches on its current device: make it the tensor's
+    index = _cuda.device_index(text.device)
+    with torch.cuda.device(index):
+        err = lib.mask_scan_launch(
+            text.data_ptr(), N, m.table.data_ptr(), out.data_ptr(), T, W, L,
+            m.D, code, m.init0, m.init1_ns, m.noerr, m.d_endpos, m.d_mask,
+            m.hit_masks[0], ci, cs, cd, n_hit, pos, geo["s"],
+            geo["tiles_per_block"], stream)
     if err != 0:
         raise RuntimeError("mask_scan kernel launch failed: %s (%d)"
                            % (lib.mask_scan_error_string(err).decode(),

@@ -114,7 +114,7 @@ def launch_geometry(N: int, device, blocks_per_sm: int | None = None
     threads a block (a thread a 32-position word), blocks an SM (by
     default all that the SM holds, from the CUDA occupancy calculator)
     and the grid (never more blocks than the words fill)."""
-    index = torch.device(device).index or 0
+    index = _cuda.device_index(device)
     threads, fits = _kernel_geometry(index)
     if blocks_per_sm is None:
         blocks_per_sm = fits
@@ -134,9 +134,12 @@ def _launch(text: torch.Tensor, words: torch.Tensor,
     geo = launch_geometry(N, text.device, blocks_per_sm)
     out = torch.empty(-(-N // 32), dtype=torch.int32, device=text.device)
     stream = torch.cuda.current_stream(text.device).cuda_stream
-    _cuda.check(lib, "qgram_filter", lib.qgram_filter_launch(
-        text.data_ptr(), N, words.data_ptr(), out.data_ptr(), geo["grid"],
-        stream), "kernel launch")
+    # the runtime launches on its current device: make it the tensor's
+    index = _cuda.device_index(text.device)
+    with torch.cuda.device(index):
+        _cuda.check(lib, "qgram_filter", lib.qgram_filter_launch(
+            text.data_ptr(), N, words.data_ptr(), out.data_ptr(), geo["grid"],
+            stream), "kernel launch")
     launches["qgram_filter"] += 1
     return out
 

@@ -168,7 +168,7 @@ def launch_geometry(R: int, m: RegexMachine, device, form: str | None = None,
     the kernel's registers and local (spill) bytes a thread."""
     form = table_form(m.M) if form is None else form
     threads = THREADS if threads is None else threads
-    index = torch.device(device).index or 0
+    index = _cuda.device_index(device)
     smem, fits, regs, local = _kernel_geometry(m.D, m.M, form, threads,
                                                index)
     if blocks_per_sm is None:
@@ -193,11 +193,14 @@ def _launch(text, starts, lens, m: RegexMachine, init,
     ini = (ctypes.c_uint32 * (MAX_D + 1))(
         *[int(v) & renfa.U32 for v in init])
     stream = torch.cuda.current_stream(text.device).cuda_stream
-    _cuda.check(lib, "renfa_lanes", lib.renfa_lanes_launch(
-        text.data_ptr(), text.numel(), starts.data_ptr(), lens.data_ptr(),
-        R, m.tables.data_ptr(), m.head_bit, m.init1, m.no_err,
-        int(m.tail), m.D, ini, out.data_ptr(), m.M, FORMS[geo["form"]],
-        geo["threads"], geo["grid"], stream), "kernel launch")
+    # the runtime launches on its current device: make it the tensor's
+    index = _cuda.device_index(text.device)
+    with torch.cuda.device(index):
+        _cuda.check(lib, "renfa_lanes", lib.renfa_lanes_launch(
+            text.data_ptr(), text.numel(), starts.data_ptr(), lens.data_ptr(),
+            R, m.tables.data_ptr(), m.head_bit, m.init1, m.no_err,
+            int(m.tail), m.D, ini, out.data_ptr(), m.M, FORMS[geo["form"]],
+            geo["threads"], geo["grid"], stream), "kernel launch")
     launches["renfa_lanes"] += 1
     return out.view(torch.bool)
 

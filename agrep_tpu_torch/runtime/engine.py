@@ -23,6 +23,7 @@ import numpy as np
 
 from ..options import Options
 from ..ops import scan as scan_ops
+from ..parallel import multihost
 from .output import Sink, output_bitap_record, output_sgrep_record
 from .stream_io import ByteStream, open_bytes
 
@@ -2537,6 +2538,9 @@ class Executor:
 
     def run_files(self, files: list[str], _mh: dict | None = None) -> int:
         q, o, sink = self.q, self.q.opts, self.sink
+        if (_mh is None and not getattr(self, "_mh_active", False)
+                and multihost.requested()):
+            return self._run_files_multihost(files)
         # under a multi-process run this process scans only its
         # assigned files, but all GLOBAL formatting state (FNAME,
         # file numbering, the clamp simulator's heap alignment) is
@@ -2662,12 +2666,21 @@ class Executor:
             # the reference's implicit cost model made explicit
             # (SURVEY.md section 5, tracing): AGREP_TORCH_STATS=1
             dt = _time.perf_counter() - t0
-            print("agrep-tpu stats: engine=%s files=%d bytes=%d "
-                  "matches=%d wall=%.3fs (%.1f MB/s) backend=%s"
-                  % (q.engine_class, len(files), bytes_scanned,
+            from ..ops import chain_kernel, kernels, qgram_kernel
+            from ..ops import renfa_kernel
+            # kernel launches of this process so far
+            launched = {**kernels.launches, **renfa_kernel.launches,
+                        **chain_kernel.launches, **qgram_kernel.launches}
+            print("agrep-tpu stats: rank=%d/%d engine=%s files=%d bytes=%d "
+                  "matches=%d wall=%.3fs (%.1f MB/s) backend=%s "
+                  "launches=%s"
+                  % (multihost.process_index(), multihost.process_count(),
+                     q.engine_class, len(files), bytes_scanned,
                      sink.num_matched, dt,
                      bytes_scanned / max(dt, 1e-9) / 1e6,
-                     scan_ops._BACKEND), file=sys.stderr)
+                     scan_ops._BACKEND,
+                     ",".join("%s:%d" % kv for kv in launched.items())),
+                  file=sys.stderr)
             trace.report()
 
         if _mh:
@@ -2678,6 +2691,219 @@ class Executor:
             self._best_match(files)
         sink.finish()
         return sink.num_matched
+
+    def _run_files_multihost(self, files: list[str]) -> int:
+        """Partitioned execution under torch.distributed (SURVEY.md
+        section 5 'distributed communication backend').
+
+        Each process scans files[i] with i % nproc == process_index,
+        rendering output into per-file buffers; the buffers are
+        all-gathered and re-assembled in GLOBAL file order (the
+        reference's single-process ordering, agrep.c:3229-3231), the
+        match count is summed across processes (exit-code contract,
+        main.c:89-96), and only process 0 writes the merged stream.
+        Round 5 partitions two previously-serial modes: global -L
+        limits run limit-free in parallel, then the merge walks the
+        gathered per-file counts in global order, keeps whole files
+        before the cutoff and re-runs the straddling file with the
+        remaining quota on its owner; mgrep -v count lines (cumulative
+        total_line, agrep.c:3445-3486) defer formatting to the merge,
+        which replays the per-file line totals in global order.  Only
+        -B (interactive rescans) and -r stay on process 0.  A failed
+        initialisation raises: no rank falls back to searching every
+        file alone."""
+        pid, nproc = multihost.init_multihost()
+        q, o = self.q, self.q.opts
+        mg_inv_count = (o.invert and q.engine_class == "mgrep"
+                        and o.count)
+        limits_g = o.limit_output > 0 or o.limit_total_file > 0
+        serial = (o.bestmatch or o.recursive
+                  or (limits_g and o.fileout)
+                  or (mg_inv_count and (o.fileout or limits_g
+                                        or o.limit_per_file > 0)))
+        real_sink = self.sink
+        if serial:
+            # cross-file-coupled modes: process 0 runs the normal
+            # single-process path; others only join the reduction
+            self._mh_active = True
+            try:
+                local = self.run_files(files) if pid == 0 else 0
+            finally:
+                self._mh_active = False
+            _, total = multihost.merge_outputs(b"", [], local)
+            real_sink.num_matched = total
+            return total
+        buf = bytearray()
+        marks: list = []
+        capture = Sink(buf.extend, o)
+
+        def boundary(gi):
+            marks.append((gi, len(buf)))
+
+        mine = multihost.assign_files(files, nproc, pid)
+        file_counts: list = []
+        saved_limits = (o.limit_output, o.limit_total_file)
+        if limits_g:
+            # pass 1 runs limit-free (per-file -L stays local); the
+            # merge imposes the global cutoffs
+            o.limit_output = 0
+            o.limit_total_file = 0
+        self.sink = capture
+        try:
+            self.run_files([f for _, f in mine],
+                           _mh={"global_files": files,
+                                "indices": [i for i, _ in mine],
+                                "boundary": boundary,
+                                "file_counts": file_counts,
+                                "mg_inv_defer": mg_inv_count})
+        finally:
+            self.sink = real_sink
+            o.limit_output, o.limit_total_file = saved_limits
+        pieces, total = multihost.gather_pieces(
+            bytes(buf), marks, capture.num_matched)
+        merged = b"".join(b for _, b in pieces)
+        # gathered (gi, matched_delta, total_line_after) rows drive
+        # both deferred count-line formatting and the limit cutoff
+        rows = multihost.allgather_rows(np.asarray(
+            [(gi, nf, tl) for gi, nf, tl in file_counts],
+            dtype=np.int64).reshape(len(file_counts), 3))
+        per_file = {int(r[0]): (int(r[1]), int(r[2])) for r in rows}
+        if limits_g:
+            merged, total = self._mh_apply_limits(
+                files, per_file, dict(pieces), total)
+        if mg_inv_count:
+            merged = self._mh_format_inverse_counts(
+                files, per_file, merged)
+        if pid == 0:
+            # FIRSTOUTPUT fix-up (agrep.c:376, output():3820-3832):
+            # in record-print bitap modes the globally first printed
+            # record swallows its leading newline and owes a trailing
+            # one (EATFIRST) at end of search
+            if (q.engine_class == "bitap" and merged
+                    and not (o.count or o.silent or o.filename_only
+                             or o.fileout)
+                    and merged[:1] == b"\n"):
+                merged = merged[1:] + b"\n"
+            real_sink.write(merged)
+        real_sink.num_matched = total
+        return total
+
+    def _mh_format_inverse_counts(self, files, per_file,
+                                  merged: bytes) -> bytes:
+        """mgrep -v -c count lines, formatted at the merge: the
+        printed value is cumulative-total_line minus the file's
+        matched count (agrep.c:3445-3486; total_line never resets,
+        newmgrep.c:518,694).  total_line deltas are reconstructed
+        from each process's own cumulative sequence."""
+        q, o = self.q, self.q.opts
+        nproc = multihost.process_count()
+        # per-process cumulative -> per-file deltas
+        deltas = {}
+        last_by_proc: dict = {}
+        for gi in sorted(per_file):
+            owner = gi % nproc
+            prev = last_by_proc.get(owner, 0)
+            deltas[gi] = per_file[gi][1] - prev
+            last_by_proc[owner] = per_file[gi][1]
+        out = bytearray()
+        sink2 = Sink(out.extend, o)
+        sink2.fname = len(files) > 1
+        if o.no_filename:
+            sink2.fname = False
+        if o.always_filename:
+            sink2.fname = True
+        cum = 0
+        for gi in range(len(files)):
+            if gi not in per_file:
+                continue            # unreadable file: no count line
+            nf, _tl = per_file[gi]
+            cum += deltas[gi]
+            sink2.current_filename = (str(gi) if o.printfilenumber
+                                      else files[gi])
+            sink2.new_file = True
+            old_sink = self.sink
+            self.sink = sink2
+            try:
+                self._emit_count_line(cum - nf)
+            finally:
+                self.sink = old_sink
+        return bytes(out)
+
+    def _mh_apply_limits(self, files, per_file, pieces, total):
+        """Impose global -L cutoffs on the gathered per-file pieces:
+        walk files in global order accumulating matches; whole files
+        before the cutoff keep their pass-1 output, a match-straddling
+        file re-runs on its owner with the remaining quota (exactly
+        the bytes the reference's mid-scan stop emits), everything
+        after drops (agrep.c:3571-3575)."""
+        q, o = self.q, self.q.opts
+        pid = multihost.process_index()
+        cum = 0
+        files_matched = 0
+        cut_gi = None
+        quota = 0
+        for gi in range(len(files)):
+            if gi not in per_file:
+                continue
+            nf = per_file[gi][0]
+            if o.limit_output > 0 and cum + nf >= o.limit_output:
+                cut_gi = gi
+                quota = o.limit_output - cum
+                break
+            cum += nf
+            if nf > 0:
+                files_matched += 1
+                if (o.limit_total_file > 0
+                        and files_matched >= o.limit_total_file):
+                    cut_gi = gi
+                    quota = -1        # whole-file cut: keep gi as-is
+                    break
+        if cut_gi is None:
+            return b"".join(b for _, b in sorted(pieces.items())), total
+        out = bytearray()
+        new_total = 0
+        for gi in range(cut_gi):
+            if gi in pieces:
+                out.extend(pieces[gi])
+                new_total += per_file.get(gi, (0, 0))[0]
+        if quota < 0:
+            out.extend(pieces.get(cut_gi, b""))
+            new_total += per_file.get(cut_gi, (0, 0))[0]
+        else:
+            # the straddling file re-runs with the remaining quota on
+            # its owner; the piece is broadcast through merge_outputs
+            owner = cut_gi % multihost.process_count()
+            blob = b""
+            cnt = 0
+            if pid == owner:
+                b2 = bytearray()
+                cap2 = Sink(b2.extend, o)
+                cap2.fname = self.sink.fname
+                cap2.first_output = False
+                cap2.current_filename = (str(cut_gi)
+                                         if o.printfilenumber
+                                         else files[cut_gi])
+                cap2.new_file = True
+                saved = (o.limit_output, o.limit_total_file)
+                o.limit_output = quota
+                o.limit_total_file = 0
+                old_sink = self.sink
+                self.sink = cap2
+                try:
+                    self.run_files([files[cut_gi]],
+                                   _mh={"global_files": files,
+                                        "indices": [cut_gi],
+                                        "boundary": lambda gi2: None})
+                finally:
+                    self.sink = old_sink
+                    o.limit_output, o.limit_total_file = saved
+                blob = bytes(b2)
+                cnt = cap2.num_matched
+            rblob, rcnt = multihost.merge_outputs(
+                blob, [(cut_gi, 0)], cnt)
+            out.extend(rblob)
+            new_total += rcnt
+        return bytes(out), new_total
 
     def _scan_with_requeue(self, data, sink, size, stream_min) -> None:
         """One file's scan with failure re-queueing (SURVEY.md section

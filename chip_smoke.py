@@ -64,7 +64,29 @@ exits non-zero:
      time at its two, qgram_filter's (threads, blocks an SM, grid) and
      time at config5q's, each on a line of its own; then one JSON line
      with each kernel's launches on the main path, its time, its plain
-     version's time and its bound on this card.
+     version's time and its bound on this card;
+  6. scale-out: (a) phase 4's corpus cut into 4 shards with the
+     MAX_RECORD halo, on parallel.dist.make_mesh() (all four on cuda:0 on
+     a one-card machine), counted and located by distributed_scan_count /
+     _offsets with three machines (-n matching, -2 -n matching, config
+     3's cost wiring): totals, per-shard counts and offsets must equal
+     the single-stream scan_events on the card and on the numpy backend;
+     (b) entry.entry() against the plain version, and
+     entry.dryrun_multichip(4); (c) two `python -m agrep_tpu_torch.cli`
+     ranks (WORLD_SIZE=2, MASTER_ADDR=127.0.0.1, a free port, both bound
+     to cuda:0) over phase 4's two corpora, each cut into 8 files of
+     --mb/8 MB (over the 8 MB streaming threshold at the default size):
+     configs 1, 2, 4 (-n), 5 (-f 100 patterns -d '$$'), config5q (-c -f
+     400 patterns), -L 7:0:0 and mgrep -v -c -f; rank 0's stdout and both
+     exit codes must equal the port's single-process run on the card
+     (in this process; for configs 1 and 5 also one CLI process) and on
+     the numpy backend, rank 1 must print nothing, and each rank must
+     launch the search's kernel (the launch counts of its
+     AGREP_TORCH_STATS line).  Its walls (one process against two ranks,
+     the CLI processes' from start to exit) measure the partition's
+     overhead and start-up: both ranks share the one card.  BASELINE
+     config 5's sharded 10 GB corpus is cut to the two --mb corpora on
+     one card, for the run's time limit.
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device,
 or without the agrep_tpu_torch package beside it, the script exits
@@ -1044,10 +1066,7 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
     from agrep_tpu_torch.ops import scan as scan_ops
     from agrep_tpu_torch.options import parse_args
 
-    counts = {"mask_scan": kernels.launches,
-              "renfa_lanes": renfa_kernel.launches,
-              "chain_scan": chain_kernel.launches,
-              "qgram_filter": qgram_kernel.launches}
+    counts = _launch_counts()
     n_bytes = mb << 20
     corpus = make_corpus(n_bytes, seed)
     records = make_records(corpus, seed)
@@ -1117,9 +1136,7 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
 
         # the main path, on the card: counts start at 0 here
         scan_ops.set_backend("torch")
-        for c in counts.values():
-            for k in c:
-                c[k] = 0
+        _zero(counts)
         for kname, (mod, fn) in real.items():
             setattr(mod, kname, recorder(kname, fn))
         got, inputs = {}, {}
@@ -1296,6 +1313,324 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------
+# phase 6: the sharded scan, the entry points, two ranks on the card
+# ---------------------------------------------------------------------
+
+DIST_MACHINES = [
+    ("D0", ["-n", "matching"]),
+    ("D2", ["-2", "-n", "matching"]),
+    ("costs", CONFIGS[2][1]),
+]
+DIST_SHARDS = 4
+RANK_FILES = 8
+# the searches two ranks run over phase 4's corpora, each cut into
+# RANK_FILES files: (name, argv before the files, corpus, kernel)
+RANK_RUNS = [
+    ("config1", CONFIGS[0][1], "corpus", "mask_scan"),
+    ("config2", CONFIGS[1][1], "corpus", "mask_scan"),
+    ("config4n", REGEX_CONFIGS[1][1], "corpus", "renfa_lanes"),
+    ("config5", ["-f", "{p100}"] + CONFIG5_DELIM, "records", "chain_scan"),
+    ("config5q", ["-c", "-f", "{p400}"], "records", "qgram_filter"),
+    ("limit", ["-L", "7:0:0", "matching"], "corpus", "mask_scan"),
+    ("mgrep_vc", ["-v", "-c", "-f", "{p100}"], "records", "chain_scan"),
+]
+
+
+def _zero(counts) -> None:
+    for c in counts.values():
+        for k in c:
+            c[k] = 0
+
+
+def _launch_counts():
+    from agrep_tpu_torch.ops import chain_kernel, kernels, qgram_kernel
+    from agrep_tpu_torch.ops import renfa_kernel
+    return {"mask_scan": kernels.launches,
+            "renfa_lanes": renfa_kernel.launches,
+            "chain_scan": chain_kernel.launches,
+            "qgram_filter": qgram_kernel.launches}
+
+
+def _launched(counts) -> dict:
+    return {k: v for c in counts.values() for k, v in c.items()}
+
+
+def phase_dist(corpus, card: str) -> None:
+    """(a) the corpus in DIST_SHARDS shards with the MAX_RECORD halo on
+    make_mesh() (every shard on cuda:0 on a one-card machine), counted
+    and located by distributed_scan_count / _offsets with each of
+    DIST_MACHINES; totals, per-shard counts and offsets must equal the
+    single-stream scan_events on the card and on the numpy backend."""
+    import numpy as np
+    import torch
+
+    from agrep_tpu_torch.compile.query import compile_query
+    from agrep_tpu_torch.ops import scan as scan_ops
+    from agrep_tpu_torch.options import parse_args
+    from agrep_tpu_torch.parallel import dist
+
+    counts = _launch_counts()
+    mesh = dist.make_mesh()
+    shards, starts = dist.shard_corpus(corpus, DIST_SHARDS)
+    shard_len = shards.shape[1] - dist.MAX_RECORD
+    n = len(corpus)
+    for name, argv in DIST_MACHINES:
+        opts, pattern, _ = parse_args(argv + ["x"])
+        q = compile_query(pattern, opts)
+        if q.engine_class != "bitap":
+            raise AssertionError("%s compiled to %s" % (name, q.engine_class))
+        consts = dict(q.consts)
+        endpos = np.uint32(q.consts["endpos"])
+        walls, launched = {}, {}
+        _zero(counts)
+        t0 = time.perf_counter()
+        total, locals_ = dist.distributed_scan_count(
+            shards, q.folded_mask, consts, q.D, mesh=mesh, costs=q.costs,
+            n_bytes=n)
+        walls["count"] = time.perf_counter() - t0
+        launched["count"] = _launched(counts)["mask_scan"]
+        _zero(counts)
+        t0 = time.perf_counter()
+        pos = dist.distributed_scan_offsets(
+            shards, starts, n, q.folded_mask, consts, q.D, mesh=mesh,
+            costs=q.costs)
+        walls["offsets"] = time.perf_counter() - t0
+        launched["offsets"] = _launched(counts)["mask_scan"]
+        refs = {}
+        for backend in ("torch", "numpy"):
+            scan_ops.set_backend(backend)
+            _zero(counts)
+            t0 = time.perf_counter()
+            ev = scan_ops.scan_events(corpus, q.folded_mask, q.consts, q.D,
+                                      "bitap", q.costs)
+            torch.cuda.synchronize()
+            walls[backend] = time.perf_counter() - t0
+            launched[backend] = _launched(counts)["mask_scan"]
+            refs[backend] = np.flatnonzero(ev & endpos)
+            del ev
+        scan_ops.set_backend("torch")
+        ref = refs["torch"]
+        per_shard = np.bincount(ref // shard_len, minlength=DIST_SHARDS)
+        if not (np.array_equal(ref, refs["numpy"]) and total == len(ref)
+                and np.array_equal(locals_, per_shard)
+                and np.array_equal(pos, ref)):
+            raise AssertionError(
+                "dist %s: sharded total %d, shards %s, %d offsets against "
+                "%d single-stream events on the card (shards %s), %d on "
+                "the numpy backend" % (name, total, locals_.tolist(),
+                                       len(pos), len(ref),
+                                       per_shard.tolist(),
+                                       len(refs["numpy"])))
+        if launched["count"] != DIST_SHARDS or \
+                launched["offsets"] != DIST_SHARDS or launched["torch"] < 1:
+            raise AssertionError("dist %s: mask_scan launches %s"
+                                 % (name, launched))
+        print("dist: %-5s %-30s %d shards of %d B (+%d B halo) on %s: "
+              "%d events (shards %s) equal to the single-stream scan on "
+              "the card and on the numpy backend | count %.3f s "
+              "(%d mask_scan launches), offsets %.3f s (%d) | "
+              "single-stream on the card %.3f s (%d launch), numpy "
+              "backend %.3f s | card: %s"
+              % (name, " ".join(argv), DIST_SHARDS, shard_len,
+                 dist.MAX_RECORD, ",".join(sorted({str(d) for d in mesh})),
+                 total, locals_.tolist(), walls["count"], launched["count"],
+                 walls["offsets"], launched["offsets"], walls["torch"],
+                 launched["torch"], walls["numpy"], card))
+
+
+def phase_entries() -> None:
+    """(b) entry(): one flagship mask_scan step on the card, against its
+    plain version; dryrun_multichip(DIST_SHARDS), which raises on any
+    difference."""
+    import torch
+
+    from agrep_tpu_torch import entry
+    from agrep_tpu_torch.ops import kernels
+
+    counts = _launch_counts()
+    _zero(counts)
+    fn, args = entry.entry()
+    planes = fn(*args)
+    if not args[0].is_cuda:
+        raise AssertionError("entry() is not on the card")
+    diff = _max_diff(planes, kernels.mask_scan_reference(args[0], args[1],
+                                                          entry.W, entry.L))
+    n_entry = _launched(counts)["mask_scan"]
+    if diff != 0 or n_entry != 1:
+        raise AssertionError("entry(): |kernel - plain| %d, %d launches"
+                             % (diff, n_entry))
+    _zero(counts)
+    entry.dryrun_multichip(DIST_SHARDS)
+    torch.cuda.synchronize()
+    n = _launched(counts)
+    if n["mask_scan"] < DIST_SHARDS or n["chain_scan"] < DIST_SHARDS:
+        raise AssertionError("dryrun_multichip launched %s" % n)
+    print("entry: entry() one mask_scan launch %s equal to plain; "
+          "dryrun_multichip(%d) launches %s"
+          % (tuple(planes.shape), DIST_SHARDS,
+             " ".join("%s=%d" % kv for kv in n.items())))
+
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _cli(argvs_envs, timeout: int = 300) -> list:
+    """Run `python -m agrep_tpu_torch.cli argv` once for each (argv,
+    extra env), all at once; [(stdout, stderr, rc)] and the wall from
+    the first start to the last exit."""
+    t0 = time.perf_counter()
+    procs = []
+    for argv, extra in argvs_envs:
+        env = dict(os.environ, AGREP_TORCH_BACKEND="torch",
+                   AGREP_TORCH_DEVICE="cuda", AGREP_TORCH_STATS="1",
+                   **extra)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "agrep_tpu_torch.cli", *argv],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            stdin=subprocess.DEVNULL, env=env, cwd=REPO))
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            outs.append((out, err.decode(errors="replace"), p.returncode))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs, time.perf_counter() - t0
+
+
+def _stats_launches(err: str) -> dict:
+    """The kernel launches of the last AGREP_TORCH_STATS line."""
+    found = re.findall(r"launches=(\S+)", err)
+    if not found:
+        raise AssertionError("no stats line on stderr:\n" + err[-2000:])
+    return {k: int(v) for k, v in (kv.split(":")
+                                   for kv in found[-1].split(","))}
+
+
+def _in_process(argv, backend: str):
+    """(rc, stdout bytes, wall s) of api.fileagrep in this process on a
+    scan backend."""
+    import torch
+
+    from agrep_tpu_torch import api
+    from agrep_tpu_torch.ops import scan as scan_ops
+    scan_ops.set_backend(backend)
+    try:
+        buf = io.BytesIO()
+        t0 = time.perf_counter()
+        rc = api.fileagrep(argv, output=buf) & 0xFF
+        torch.cuda.synchronize()
+        return rc, buf.getvalue(), time.perf_counter() - t0
+    finally:
+        scan_ops.set_backend("torch")
+
+
+# the searches whose one-process CLI run is timed from process start to
+# exit beside the two ranks': the smallest output and the largest
+CLI_WALL_RUNS = ("config1", "config5")
+
+
+def phase_ranks(corpus, records, pats, card: str) -> None:
+    """(c) two `python -m agrep_tpu_torch.cli` ranks (WORLD_SIZE=2,
+    MASTER_ADDR=127.0.0.1, a free port, both bound to cuda:0) on each
+    RANK_RUNS search; rank 0's stdout and both exit codes must equal the
+    port's single-process run on the card (in this process, and for
+    CLI_WALL_RUNS also as one CLI process) and on the numpy backend,
+    rank 1's stdout must be empty, and each rank must launch the
+    search's kernel (its AGREP_TORCH_STATS line)."""
+    counts = _launch_counts()
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        paths = {}
+        for name, data in (("corpus", corpus), ("records", records)):
+            step = -(-len(data) // RANK_FILES)
+            paths[name] = []
+            for i in range(RANK_FILES):
+                p = os.path.join(tmp, "%s%d.txt" % (name, i))
+                data[i * step:(i + 1) * step].tofile(p)
+                paths[name].append(p)
+        fmt = {}
+        for k in (100, 400):
+            fmt["p%d" % k] = os.path.join(tmp, "pats%d.txt" % k)
+            with open(fmt["p%d" % k], "wb") as fh:
+                fh.write(b"".join(w + b"\n" for w in pats[:k]))
+        walls = {"one": 0.0, "ranks": 0.0, "cli": 0.0, "cli_ranks": 0.0}
+        for name, head, which, kname in RANK_RUNS:
+            argv = [a.format(**fmt) for a in head] + paths[which]
+            _zero(counts)
+            rc_1, out_1, w_1 = _in_process(argv, "torch")
+            n_1 = _launched(counts)[kname]
+            want_rc, want, w_np = _in_process(argv, "numpy")
+            port = str(_free_port())
+            ranks, w2 = _cli([(argv, {
+                "WORLD_SIZE": "2", "RANK": str(r), "LOCAL_RANK": str(r),
+                "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port})
+                for r in range(2)])
+            (out0, err0, rc0), (out1, err1, rc1) = ranks
+            if (out_1, rc_1) != (want, want_rc) or n_1 < 1:
+                raise AssertionError(
+                    "ranks %s: the single-process run on the card (rc %d, "
+                    "%d B, %d %s launches) differs from the numpy backend "
+                    "(rc %d, %d B)" % (name, rc_1, len(out_1), n_1, kname,
+                                       want_rc, len(want)))
+            if out0 != want or out1 != b"" or rc0 != want_rc or \
+                    rc1 != want_rc:
+                raise AssertionError(
+                    "ranks %s: rank 0 rc %d, %d B; rank 1 rc %d, %d B; "
+                    "wanted rc %d, %d B from rank 0 and nothing from rank "
+                    "1\n%s\n%s" % (name, rc0, len(out0), rc1, len(out1),
+                                   want_rc, len(want), err0[-2000:],
+                                   err1[-2000:]))
+            n = [_stats_launches(e)[kname] for e in (err0, err1)]
+            if min(n) < 1:
+                raise AssertionError("ranks %s: launches of %s by rank %s"
+                                     % (name, kname, n))
+            cli = ""
+            if name in CLI_WALL_RUNS:
+                (single,), w_cli = _cli([(argv, {})])
+                if (single[0], single[2]) != (want, want_rc):
+                    raise AssertionError(
+                        "ranks %s: one CLI process on the card (rc %d, %d "
+                        "B) differs from the numpy backend\n%s"
+                        % (name, single[2], len(single[0]),
+                           single[1][-2000:]))
+                walls["cli"] += w_cli
+                walls["cli_ranks"] += w2
+                cli = ("; one CLI process %.3f s (%d launches)"
+                       % (w_cli, _stats_launches(single[1])[kname]))
+            walls["one"] += w_1
+            walls["ranks"] += w2
+            print("ranks: %-8s %-40s %d files of %d B: rc=%d out=%d B "
+                  "sha256=%s.. equal to one process on the card and to "
+                  "the numpy backend; rank 1 printed nothing | %s launches "
+                  "rank 0 %d, rank 1 %d (one process %d) | walls: one "
+                  "process in this one %.3f s, two CLI ranks from start "
+                  "to exit %.3f s%s; numpy backend %.3f s | card: %s"
+                  % (name, " ".join(head).format(p100="pats100",
+                                                 p400="pats400"),
+                     RANK_FILES, -(-len(corpus) // RANK_FILES), want_rc,
+                     len(want), hashlib.sha256(want).hexdigest()[:12],
+                     kname, n[0], n[1], n_1, w_1, w2, cli, w_np, card))
+        print("ranks: %d searches: one process in this one %.3f s, two "
+              "CLI ranks %.3f s from process start to exit; on %s, one "
+              "CLI process %.3f s, two ranks %.3f s.  Both ranks share "
+              "the one card, so these walls measure the partition's "
+              "overhead and the processes' start-up, not scaling"
+              % (len(RANK_RUNS), walls["one"], walls["ranks"],
+                 " and ".join(CLI_WALL_RUNS), walls["cli"],
+                 walls["cli_ranks"]))
+
 MASK_SHAPES = ("config1", "config2", "config3", "memagrep", "bool5m")
 
 
@@ -1414,6 +1749,13 @@ def main(argv=None) -> int:
     print(times_line(res, "renfa_lanes", ("config4", "memagrep4"), card))
     print(qgram_filter_geometry_line(res))
     print(times_line(res, "qgram_filter", ("config5q",), card))
+    t6 = time.perf_counter()
+    corpus = make_corpus(args.mb << 20, args.seed)
+    phase_dist(corpus, card)
+    phase_entries()
+    phase_ranks(corpus, make_records(corpus, args.seed),
+                make_patterns(400, args.seed), card)
+    print("phase 6: %.1f s" % (time.perf_counter() - t6))
     line = {"kernels": [{
         "name": "mask_scan",
         "route": "cuda",
