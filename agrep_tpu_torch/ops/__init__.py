@@ -14,4 +14,6 @@ chain_kernel -- the -f engine's exact multi-term start scan
 qgram_kernel -- the -f engine's 2-gram membership filter
             (csrc/qgram_filter.cu) and its plain version.
 _cuda    -- builds the CUDA sources with nvcc and loads them with ctypes.
+timing   -- the card's clock (CUDA events after a spin, torch.profiler)
+            and each kernel's bound.
 """

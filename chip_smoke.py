@@ -86,7 +86,11 @@ exits non-zero:
      the CLI processes' from start to exit) measure the partition's
      overhead and start-up: both ranks share the one card.  BASELINE
      config 5's sharded 10 GB corpus is cut to the two --mb corpora on
-     one card, for the run's time limit.
+     one card, for the run's time limit;
+  7. bench: agrep_tpu_torch.bench.main at --mb 32 --gate-mb 8
+     --para-mb 16, in this process: its JSON line is printed after
+     "bench: ", its conformance gate must pass, and the launch counts
+     (set to 0 just before it) must show every kernel launched.
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device,
 or without the agrep_tpu_torch package beside it, the script exits
@@ -108,15 +112,6 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 at 3.35 TB/s; 67 TFLOP/s fp32
-# outside the tensor cores is 132 SMs x 128 lanes x 2 (FMA) x 1.98 GHz, and
-# an SM has half as many int32 lanes: 132 x 64 x 1.98e9 int32 op/s.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# shared memory serves 128 B a clock per SM: 32 four-byte loads, issued
-# on the load/store pipe beside the int32 lanes
-SHARED_LOADS_PER_S = 132 * 32 * 1.98e9
-
 CONFIGS = [
     ("config1", ["-c", "hello"]),
     ("config2", ["-1", "-n", "matching"]),
@@ -135,14 +130,6 @@ PLANTS = [b"hello", b"matching", b"matchng", b"Approximate",
           b"aproximate", b"approximately", b"HELLO"]
 # a boolean term past the chain kernel's 128 bytes a term
 LONG_TERM = "hello" + "q" * 131
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 # ---------------------------------------------------------------------
@@ -368,228 +355,6 @@ def make_lines(lens, rng):
             off = int(starts[r]) + (0 if r % 2 else int(lens[r]) - len(p))
             text[off:off + len(p)] = np.frombuffer(p, dtype=np.uint8)
     return text, starts
-
-
-# ---------------------------------------------------------------------
-# work counts for the bound
-# ---------------------------------------------------------------------
-
-def level_ops(m) -> int:
-    """int32 operations of one pass over the D+1 levels, counted from
-    the expressions of kernels._levels."""
-    D = m.D
-    if m.variant == "sgrep":
-        return 3 + 8 * D            # level 0: >>, |, &; level k: 8
-    if m.costs is None:
-        return 4 + 9 * D            # level 0: >>, &, &, |; level k: 9
-    ci, cs, cd = m.costs
-    n = 0
-    for k in range(D + 1):
-        # (s >> 1) & cm | s & init1, the insert edge, and the error
-        # edges OR-ed together, then >> 1, & noerr, |
-        err = (k - cs >= 0) + (k - cd >= 0)
-        n += 4 + (k - ci >= 0) + (err + 2 if err else 0)
-    return n
-
-
-def ops_per_column(m) -> int:
-    """int32 operations of one window column: the table lookup, the
-    level pass, the event tests and the bit packing; for bitap also the
-    trigger test, the state select and the delimiter bit."""
-    n = 1 + level_ops(m) + 4 * len(m.hit_masks)
-    if m.variant == "sgrep":
-        return n + (1 if m.D else 0)       # the newline test
-    return n + 2 + (m.D + 1) + 2
-
-
-def restart_ops(m) -> int:
-    """Extra operations of one delimiter restart: a second level pass
-    and the d_mask gate."""
-    return level_ops(m) + 1
-
-
-def bound(m, N: int, W: int, L: int, planes) -> tuple:
-    """(bound_ms, bound_by) of one scan of N bytes: each input byte read
-    once and each plane word written once over HBM's rate, against the
-    int32 operations of every window column (plus the restarts this
-    input triggers) over the card's int32 rate."""
-    import torch
-    T, n_words = planes.shape[1], planes.shape[2]
-    n_bytes = N + 256 * 4 + planes.numel() * 4
-    triggers = 0
-    if m.variant == "bitap" and m.d_endpos:
-        p0 = planes[0].to(torch.int64)
-        triggers = int(sum(((p0 >> b) & 1).sum().item() for b in range(32)))
-    ops = T * (W + L) * ops_per_column(m) + triggers * restart_ops(m)
-    t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = ops / INT32_OPS_PER_S
-    if t_ops >= t_bytes:
-        return t_ops * 1e3, "operations"
-    return t_bytes * 1e3, "bytes"
-
-
-def nxt_ops(M: int) -> tuple:
-    """(int32 operations, shared loads) of one nxt at its least: a load
-    from the reference's tabulated Next (ops/renfa.py
-    next_tables_arrays), indexed by the state's bits 1..M-1.  Up to 15
-    index bits the table (128 KB at most) fits the 227 KB of shared
-    memory a block can take: one three-input logic op (LOP3) masks the
-    index, with an OR of two states fused in, one LEA scales it to an
-    address, one load.  Above 15, two half tables: two index and two
-    scale ops, one OR, two loads.  M <= 1: nxt is the constant head
-    bit."""
-    rel = max(M - 1, 0)
-    if rel == 0:
-        return 0, 0
-    return (2, 1) if rel <= 15 else (5, 2)
-
-
-def regex_byte_ops(D: int, M: int) -> tuple:
-    """(int32 operations, shared loads) of one text byte of the lanes
-    machine at its least, with the ORs and ANDs fused into LOP3s.  nxt is
-    an OR over the set bits of its argument, so re1's nxt(s[k-1] |
-    nw[k-1]) is nxt(s[k-1]) | nxt(nw[k-1]), both already at hand when
-    each state's nxt is carried beside it: a byte takes one nxt a level.
-    The byte's extract from a wide load and its scale to a CMask address
-    (2) and the CMask load; level 0 is (n & cm) | (init1 & s) (2 LOP3)
-    and the new state's nxt; level k is the eight-input combine (4 LOP3)
-    and the new state's nxt.  The loop's control, amortized by
-    unrolling, is not counted."""
-    no, nl = nxt_ops(M)
-    return 2 + 2 + no + D * (4 + no), 1 + nl * (D + 1)
-
-
-def regex_verdict_ops(tail: bool, M: int) -> tuple:
-    """(int32 operations, shared loads) of a line's verdict at its
-    newline at its least: CMask['\\n'] is a constant and nxt(s[D]) is
-    carried; 2 LOP3 form ad; the tail step is nxt and a LOP3 that takes
-    the & 1 too (without it, the & 1 alone)."""
-    no, nl = nxt_ops(M)
-    if tail:
-        return no + 3, nl
-    return 3, 0
-
-
-def regex_bound(m, n_text: int, lens) -> tuple:
-    """(bound_ms, bound_by) of one lanes launch over R lines, from the
-    function's least work (not this kernel's): the largest of the text
-    read once, 16 B of line index and 1 B of verdict a line and the
-    machine (CMask and the follow bits) over HBM's rate; the int32
-    operations of every line's bytes and verdict over the card's int32
-    rate; and their shared loads over the shared-memory rate."""
-    R = len(lens)
-    n_bytes = n_text + 17 * R + 256 * 4 + 4 * m.M
-    (bo, bl), (vo, vl) = (regex_byte_ops(m.D, m.M),
-                          regex_verdict_ops(m.tail, m.M))
-    n = int(lens.sum())
-    t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = max((n * bo + R * vo) / INT32_OPS_PER_S,
-                (n * bl + R * vl) / SHARED_LOADS_PER_S)
-    if t_ops >= t_bytes:
-        return t_ops * 1e3, "operations"
-    return t_bytes * 1e3, "bytes"
-
-
-def chain_ops() -> tuple:
-    """(int32 operations, shared loads) of one text byte of the chain
-    function at its least: a multi-string (Aho-Corasick) automaton over
-    the folded classes with its transition table in shared memory
-    (config 5's 784 states times 32 classes at 2 B an entry is 50 KB):
-    the byte's class load and the transition load, the next-state index
-    (one IMAD), the state's accept bit tested and merged into the output
-    word (2 LOP3/SHF).  Moving a match's bit from its end to its start
-    costs a few operations for each of the run's sparse matches, which
-    this count leaves out."""
-    return 3, 2
-
-
-def chain_bound(N: int) -> tuple:
-    """(bound_ms, bound_by) of one chain scan of N bytes: the text read
-    once and the start plane written once over HBM's rate, against
-    chain_ops over the int32 and shared-load rates.  The TPU kernel's
-    bit-plane form does about 80 operations a byte for config 5's terms:
-    that is one design's count, not the function's least work, and is
-    not the bound."""
-    ops, loads = chain_ops()
-    t_bytes = (N + 4 * -(-N // 32)) / HBM_BYTES_PER_S
-    t_ops = max(N * ops / INT32_OPS_PER_S, N * loads / SHARED_LOADS_PER_S)
-    if t_ops >= t_bytes:
-        return t_ops * 1e3, "operations"
-    return t_bytes * 1e3, "bytes"
-
-
-def qgram_ops() -> tuple:
-    """(int32 operations, shared loads) of one text byte of the q-gram
-    filter at its least: the byte's low 5 bits (kept for the next byte's
-    previous), the member word's load (its index is those bits), the
-    shift by the previous byte's bits and the bit's merge into the
-    output word (2 LOP3/SHF), and the byte's extract from a wide load."""
-    return 4, 1
-
-
-def qgram_bound(N: int) -> tuple:
-    """(bound_ms, bound_by) of one q-gram filter of N bytes: the text
-    read once, the 128 B member set and the candidate plane written once
-    over HBM's rate, against qgram_ops over the int32 and shared-load
-    rates."""
-    ops, loads = qgram_ops()
-    t_bytes = (N + 128 + 4 * -(-N // 32)) / HBM_BYTES_PER_S
-    t_ops = max(N * ops / INT32_OPS_PER_S, N * loads / SHARED_LOADS_PER_S)
-    if t_ops >= t_bytes:
-        return t_ops * 1e3, "operations"
-    return t_bytes * 1e3, "bytes"
-
-
-# clock cycles the card spins a timed call before time_kernel's first
-# event (about 0.1 ms at 1.98 GHz)
-SPIN_CYCLES = 200000
-
-
-def time_kernel(fn, reps: int = 5) -> float:
-    """ms per call of fn on the card: CUDA events around reps calls after
-    one warm-up call.  The card first spins (SPIN_CYCLES a call, doubled
-    up to 4 times while too short), so that the host has queued every
-    call before the first event: the events then hold the calls' device
-    time, not the host's time to launch them.  That the spin outlasted
-    the queuing is checked -- the first event must still be pending once
-    the last call is queued -- and a timing whose spin never did raises,
-    as does an fn that waits for the card."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    for k in range(5):
-        torch.cuda._sleep(SPIN_CYCLES * reps << k)
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        queued_first = not a.query()
-        torch.cuda.synchronize()
-        if queued_first:
-            return a.elapsed_time(b) / reps
-    raise RuntimeError("time_kernel: the card finished its spin of %d "
-                       "cycles before the host had queued %d calls"
-                       % (SPIN_CYCLES * reps << 4, reps))
-
-
-def profiled_ms(fn, kernel: str, reps: int):
-    """Device ms per launch of the kernels whose name holds `kernel`, as
-    torch.profiler's CUDA activity reads them over reps calls of fn, or
-    None when the trace holds no device time for them."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if kernel in e.key]
-    total = sum(getattr(e, "device_time_total", 0) for e in evs)
-    count = sum(e.count for e in evs)
-    return total / count / 1e3 if count and total else None
 
 
 # ---------------------------------------------------------------------
@@ -1064,6 +829,8 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
     from agrep_tpu_torch.ops import chain_kernel, kernels, qgram_kernel
     from agrep_tpu_torch.ops import renfa, renfa_kernel
     from agrep_tpu_torch.ops import scan as scan_ops
+    from agrep_tpu_torch.ops.timing import (bound, chain_bound, qgram_bound,
+                                            regex_bound, time_kernel)
     from agrep_tpu_torch.options import parse_args
 
     counts = _launch_counts()
@@ -1631,6 +1398,40 @@ def phase_ranks(corpus, records, pats, card: str) -> None:
                  " and ".join(CLI_WALL_RUNS), walls["cli"],
                  walls["cli_ranks"]))
 
+# ---------------------------------------------------------------------
+# phase 7: the port's bench, small
+# ---------------------------------------------------------------------
+
+BENCH_ARGV = ["--mb", "32", "--gate-mb", "8", "--para-mb", "16"]
+
+
+def phase_bench(card: str) -> None:
+    """agrep_tpu_torch.bench.main at BENCH_ARGV, in this process: its
+    conformance gate must pass and it must launch every kernel."""
+    import contextlib
+
+    from agrep_tpu_torch import bench
+    counts = _launch_counts()
+    _zero(counts)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main(BENCH_ARGV)
+    dt = time.perf_counter() - t0
+    line = buf.getvalue().strip().splitlines()[-1]
+    print("bench: %s" % line)
+    res = json.loads(line)
+    launched = _launched(counts)
+    print("bench: %s in %.1f s, rc=%d, launches %s | card: %s"
+          % (" ".join(BENCH_ARGV), dt, rc, launched, card))
+    if rc != 0 or res["conformance"] != "pass":
+        raise AssertionError("bench: conformance %r, rc %d"
+                             % (res["conformance"], rc))
+    idle = [k for k, n in launched.items() if n == 0]
+    if idle:
+        raise AssertionError("bench: launched no %s kernel" % idle)
+
+
 MASK_SHAPES = ("config1", "config2", "config3", "memagrep", "bool5m")
 
 
@@ -1724,6 +1525,7 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, REPO)
     from agrep_tpu_torch.ops import scan as scan_ops
+    from agrep_tpu_torch.ops.timing import card_line
     scan_ops.set_backend("torch")
     scan_ops.set_device("cuda")
     t_start = time.perf_counter()
@@ -1756,6 +1558,7 @@ def main(argv=None) -> int:
     phase_ranks(corpus, make_records(corpus, args.seed),
                 make_patterns(400, args.seed), card)
     print("phase 6: %.1f s" % (time.perf_counter() - t6))
+    phase_bench(card)
     line = {"kernels": [{
         "name": "mask_scan",
         "route": "cuda",

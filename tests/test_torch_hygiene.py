@@ -1,5 +1,6 @@
 """agrep_tpu_torch and chip_smoke.py stand alone: no JAX, no agrep_tpu,
-and no quiet CPU run when the GPU is asked for and missing."""
+nothing of the repo-root bench.py, and no quiet CPU run when the GPU is
+asked for and missing."""
 
 from __future__ import annotations
 
@@ -24,6 +25,8 @@ FORBIDDEN = [
     re.compile(r"\bagrep_tpu\."),
     re.compile(r"\bfrom\s+agrep_tpu\b(?!_torch)"),
     re.compile(r"\bimport\s+agrep_tpu\b(?!_torch)"),
+    re.compile(r"^\s*import\s+bench\b", re.M),
+    re.compile(r"^\s*from\s+bench\b", re.M),
 ]
 
 
@@ -50,6 +53,7 @@ IMPORT_ALL = r"""
 import importlib, sys
 sys.modules["jax"] = None            # any import of jax now fails
 sys.modules["agrep_tpu"] = None      # and so does any of agrep_tpu
+sys.modules["bench"] = None          # and of the repo-root bench.py
 sys.path.insert(0, {repo!r})
 names = {names!r}
 for name in names:
@@ -57,7 +61,7 @@ for name in names:
 import chip_smoke
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith(("jax.", "jaxlib", "agrep_tpu."))
-             or k == "agrep_tpu")
+             or k in ("agrep_tpu", "bench"))
 bad = [k for k in bad if sys.modules[k] is not None]
 print(len(names), bad)
 """

@@ -137,6 +137,8 @@ def build(srcs: dict) -> dict:
                                           p, i, i, p]
         lib.chain_scan_geometry.restype = i
         lib.chain_scan_geometry.argtypes = [i, i, i, i, ip, ip, ip]
+        lib.chain_scan_error_string.restype = ctypes.c_char_p
+        lib.chain_scan_error_string.argtypes = [i]
         libs[name] = lib
     return libs
 
@@ -152,10 +154,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("torch_chain_scan_phases: no CUDA device", file=sys.stderr)
         return 1
-    import chip_smoke
-    from agrep_tpu_torch.ops import chain_kernel
+    from agrep_tpu_torch.ops import _cuda, chain_kernel, timing
     from tools.torch_chain_scan_time import shapes
-    print(chip_smoke.card_line())
+    print(timing.card_line())
     with open(os.path.join(REPO, "agrep_tpu_torch", "csrc",
                            "chain_scan.cu")) as f:
         libs = build(variants(f.read()))
@@ -172,13 +173,13 @@ def main(argv=None) -> int:
         for vname, lib in libs.items():
             threads, smem, fits = (ctypes.c_int(), ctypes.c_int(),
                                    ctypes.c_int())
-            chain_kernel._check(lib, lib.chain_scan_geometry(
+            _cuda.check(lib, "chain_scan", lib.chain_scan_geometry(
                 p.n_cls, p.n_pos, p.n_terms, chain_kernel.TILE,
                 ctypes.byref(threads), ctypes.byref(smem),
                 ctypes.byref(fits)), "geometry")
 
             def launch(lib=lib, grid=n_sm * fits.value):
-                chain_kernel._check(lib, lib.chain_scan_launch(
+                _cuda.check(lib, "chain_scan", lib.chain_scan_launch(
                     text.data_ptr(), N, p.class_of.data_ptr(),
                     p.single.data_ptr(), p.n_cls, p.term_cls.data_ptr(),
                     p.n_pos, p.term_off.data_ptr(), p.n_terms,
@@ -188,14 +189,14 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             if vname == "kernel" and not torch.equal(out, want):
                 failed.append(name)
-            row.append("%s %.4f ms" % (vname, chip_smoke.time_kernel(
+            row.append("%s %.4f ms" % (vname, timing.time_kernel(
                 launch, args.reps)))
-        bms, by = chip_smoke.chain_bound(N)
+        bms, by = timing.chain_bound(N)
         print("phases: %-7s N=%d tile=%d | %s | bound %.4f ms (%s)"
               % (name, N, chain_kernel.TILE, " | ".join(row), bms, by))
         print("counts: %-7s %s (host, first 8 MB)" % (
             name, filter_counts(text[:8 << 20].cpu().numpy(), p)))
-    print("card: %s" % chip_smoke.card_line())
+    print("card: %s" % timing.card_line())
     if failed:
         print("mismatches: %s" % failed)
         return 1

@@ -10,7 +10,7 @@ memagrep5), and bool5's two terms over the records stream -- holds the
 kernel's plane bit for bit against chain_scan_reference for every
 candidate launch (start positions a tile, blocks an SM) and
 times each with CUDA events (one warm-up launch, then --reps launches),
-printing ms per launch and the share of chip_smoke.chain_bound().  The
+printing ms per launch and the share of timing.chain_bound().  The
 row of the wrapper's own choice (chain_kernel.TILE, every block an SM
 holds) is marked.  The first line is the card's
 name and power limit.  Exits non-zero without a CUDA device or on any
@@ -63,9 +63,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("torch_chain_scan_time: no CUDA device", file=sys.stderr)
         return 1
-    import chip_smoke
-    from agrep_tpu_torch.ops import _cuda, chain_kernel
-    print(chip_smoke.card_line())
+    from agrep_tpu_torch.ops import _cuda, chain_kernel, timing
+    print(timing.card_line())
     _cuda.build_all(["chain_scan"])
     log = _cuda.build_logs.get("chain_scan", "")
     regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
@@ -77,7 +76,7 @@ def main(argv=None) -> int:
     for name, text, p in shapes(args.mb, args.seed, "cuda"):
         N = text.numel()
         want = chain_kernel.chain_scan_reference(text, p)
-        bms, by = chip_smoke.chain_bound(N)
+        bms, by = timing.chain_bound(N)
         auto = chain_kernel.launch_geometry(N, p, "cuda")
         print("shape: %s N=%d, %d terms, %d positions, %d classes, maxlen "
               "%d; bound %.4f ms (%s); wrapper: tile=%d blocks/SM=%d"
@@ -96,7 +95,7 @@ def main(argv=None) -> int:
                     print("time: %s tile=%d blocks/SM=%d MISMATCH"
                           % (name, tile, b))
                     continue
-                ms = chip_smoke.time_kernel(
+                ms = timing.time_kernel(
                     lambda: chain_kernel._launch(text, p, tile, b), args.reps)
                 mark = (" <- wrapper" if (tile, b) == (
                     auto["tile"], auto["blocks_per_sm"]) else "")
@@ -104,7 +103,7 @@ def main(argv=None) -> int:
                       "smem=%-6d %.4f ms  %5.1f %% of bound%s"
                       % (name, tile, b, geo["grid"], geo["smem_bytes"], ms,
                          100 * bms / ms, mark))
-    print("card: %s" % chip_smoke.card_line())
+    print("card: %s" % timing.card_line())
     if failed:
         print("mismatches: %s" % failed)
         return 1

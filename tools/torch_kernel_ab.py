@@ -16,9 +16,9 @@ recorded from the main path's own run); renfa_lanes at config 4's
 chunk and the memagrep buffer; chain_scan at config 5's records stream
 (config5), behind one newline (memagrep5) and with bool5's two terms;
 qgram_filter at config5q's.  Every time comes from this checkout's
-chip_smoke.time_kernel and chip_smoke.profiled_ms -- CUDA events over
---reps launches after the card's checked spin, and torch.profiler's
-device time -- whatever the tree's own chip_smoke does.  The trees'
+timing.time_kernel and timing.profiled_ms (agrep_tpu_torch/ops/timing.py)
+-- CUDA events over --reps launches after the card's checked spin, and
+torch.profiler's device time -- whatever the tree's own timer does.  The trees'
 outputs at each shape must be equal (sha256 of the output bytes); the
 plain versions are not run here (chip_smoke holds each kernel to its
 plain version).  The first line is the card's name and power limit;
@@ -42,14 +42,20 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = ("mask_scan", "renfa_lanes", "chain_scan", "qgram_filter")
 
 
-def _helpers():
-    """This checkout's chip_smoke.py, loaded by path under another name
-    so that a tree's own chip_smoke is never the one used."""
-    spec = importlib.util.spec_from_file_location(
-        "ab_chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+def _load(name: str, path: str):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _helpers():
+    """(chip_smoke, timing) of this checkout, loaded by path under other
+    names, so that a tree's own chip_smoke.py and timing module are
+    never the ones used and a tree without them still runs."""
+    return (_load("ab_chip_smoke", os.path.join(REPO, "chip_smoke.py")),
+            _load("ab_timing", os.path.join(REPO, "agrep_tpu_torch", "ops",
+                                            "timing.py")))
 
 
 def shapes(cs, mb: int, seed: int, tmp: str, device: str = "cuda"):
@@ -154,7 +160,7 @@ def child(tree: str, args) -> int:
     line."""
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
-    cs = _helpers()
+    cs, timing = _helpers()
     import tempfile
 
     import torch
@@ -180,9 +186,9 @@ def child(tree: str, args) -> int:
                 "kernel": kname, "bytes": int(got.numel()
                                               * got.element_size()),
                 "sha256": digest,
-                "ms": cs.time_kernel(fn, args.reps),
-                "device_ms": cs.profiled_ms(fn, kname + "_kernel",
-                                            args.reps)}
+                "ms": timing.time_kernel(fn, args.reps),
+                "device_ms": timing.profiled_ms(fn, kname + "_kernel",
+                                                args.reps)}
     print(json.dumps({"tree": tree, "times": res, "libs": {
         k: os.path.basename(v) for k, v in paths.items()}}))
     return 0
@@ -204,8 +210,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_ab: no CUDA device", file=sys.stderr)
         return 1
-    cs = _helpers()
-    print(cs.card_line())
+    timing = _helpers()[1]
+    print(timing.card_line())
     runs = []
     for tree in map(os.path.abspath, args.trees):
         proc = subprocess.run(
@@ -234,7 +240,7 @@ def main(argv=None) -> int:
                 else "%.4f" % t["device_ms"]))
         print("ab: %-12s %-9s ms a launch, events/profiler: %s"
               % (r0["kernel"], name, " | ".join(cells)))
-    print("card: %s" % cs.card_line())
+    print("card: %s" % timing.card_line())
     print(json.dumps({"runs": runs}))
     if differ:
         print("torch_kernel_ab: outputs differ from the first run's: %s"

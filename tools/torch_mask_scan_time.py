@@ -10,7 +10,7 @@ configs 1-3 on one 32 MB chunk of chip_smoke's corpus, memagrep's whole
 mask_scan_reference for every candidate launch (sub-tiles a tile s,
 tiles a block) and times each with CUDA events (one warm-up launch, then
 --reps launches), printing ms per launch and the share of
-chip_smoke.bound().  The row the wrapper's own choice (choose_split)
+timing.bound().  The row the wrapper's own choice (choose_split)
 takes is marked.  The first line is the card's name and power limit.
 Candidates the launcher refuses (too many threads or too much shared
 memory a block, a split without a plan) are listed as refused.  Exits
@@ -84,9 +84,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("torch_mask_scan_time: no CUDA device", file=sys.stderr)
         return 1
-    import chip_smoke
-    from agrep_tpu_torch.ops import _cuda, kernels
-    print(chip_smoke.card_line())
+    from agrep_tpu_torch.ops import _cuda, kernels, timing
+    print(timing.card_line())
     _cuda.build_all(["mask_scan"])
     log = _cuda.build_logs.get("mask_scan", "")
     regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
@@ -98,7 +97,7 @@ def main(argv=None) -> int:
     failed = []
     for name, text, m, W, L in shapes(args.mb, args.seed, "cuda"):
         want = kernels.mask_scan_reference(text, m, W, L)
-        bms, by = chip_smoke.bound(m, text.numel(), W, L, want)
+        bms, by = timing.bound(m, text.numel(), W, L, want)
         T, _ = kernels.geometry(text.numel(), W, L)
         auto = kernels.launch_geometry(text.numel(), m, W, L, "cuda")
         print("shape: %s N=%d T=%d W=%d n_hit=%d D=%d %s; bound %.4f ms "
@@ -121,7 +120,7 @@ def main(argv=None) -> int:
                     failed.append((name, s, tpb))
                     print("time: %s s=%d tpb=%d MISMATCH" % (name, s, tpb))
                     continue
-                ms = chip_smoke.time_kernel(
+                ms = timing.time_kernel(
                     lambda: kernels._launch(text, m, W, L, s, tpb),
                     args.reps)
                 mark = (" <- choose_split" if (s, tpb) == (
@@ -130,7 +129,7 @@ def main(argv=None) -> int:
                       "smem=%-6d %.4f ms  %5.1f %% of bound%s"
                       % (name, s, tpb, geo["threads"], geo["blocks"],
                          geo["smem_bytes"], ms, 100 * bms / ms, mark))
-    print("card: %s" % chip_smoke.card_line())
+    print("card: %s" % timing.card_line())
     if failed:
         print("mismatches: %s" % failed)
         return 1

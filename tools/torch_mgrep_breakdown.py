@@ -123,11 +123,11 @@ def main(argv=None) -> int:
         return 1
     import chip_smoke as cs
     from agrep_tpu_torch import api
-    from agrep_tpu_torch.ops import _cuda
+    from agrep_tpu_torch.ops import _cuda, timing
     from agrep_tpu_torch.ops import scan as scan_ops
     scan_ops.set_backend("torch")
     scan_ops.set_device("cuda")
-    print(cs.card_line())
+    print(timing.card_line())
     _cuda.build_all(_cuda.SOURCES)
 
     corpus = cs.make_corpus(args.mb << 20, args.seed)

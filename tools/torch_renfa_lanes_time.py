@@ -19,12 +19,12 @@ lines (--bank-every), the shared-memory wavefronts a CMask and a table
 load take.  Every candidate's verdicts are held
 bit for bit against renfa_lines_reference before it is timed (CUDA
 events, one warm-up launch, then --reps launches), and each row prints
-ms per launch and the share of chip_smoke.regex_bound().  It also times
+ms per launch and the share of timing.regex_bound().  It also times
 one launch over chip_smoke's LONG_LENS lines (8191, 8192 and 49153
 bytes), the long-line tail of one thread a line, and qgram_filter at
 config5q's shape (chip_smoke's 400 patterns over its 100 MB records
 stream) for every blocks an SM, checked against qgram_reference, beside
-chip_smoke.qgram_bound().  The wrapper's own choices are marked.  The
+timing.qgram_bound().  The wrapper's own choices are marked.  The
 first line is the card's name and power limit.  Exits non-zero without a
 CUDA device or on any mismatch.
 """
@@ -140,7 +140,8 @@ def time_lanes(args, failed) -> None:
     import torch
 
     import chip_smoke
-    from agrep_tpu_torch.ops import renfa_kernel
+
+    from agrep_tpu_torch.ops import renfa_kernel, timing
     from agrep_tpu_torch.ops.scan import STREAM_CHUNK
     corpus = chip_smoke.make_corpus(args.mb << 20, args.seed)
     chunk = lines_of(corpus[:STREAM_CHUNK], "cuda")
@@ -152,7 +153,7 @@ def time_lanes(args, failed) -> None:
             ("wide", chunk, mw, cw)):
         R = len(lens)
         want = renfa_kernel.renfa_lines_reference(text, st, ln, m, init)
-        bms, by = chip_smoke.regex_bound(m, text.numel(), lens)
+        bms, by = timing.regex_bound(m, text.numel(), lens)
         auto = renfa_kernel.launch_geometry(R, m, "cuda")
         print("shape: %s %d B, %d lines, M=%d D=%d; bound %.4f ms (%s); "
               "wrapper: form=%s threads=%d blocks/SM=%d"
@@ -174,7 +175,7 @@ def time_lanes(args, failed) -> None:
                         print("time: %s form=%s threads=%d blocks/SM=%d "
                               "MISMATCH" % (name, form, threads, b))
                         continue
-                    ms = chip_smoke.time_kernel(
+                    ms = timing.time_kernel(
                         lambda: renfa_kernel._launch(
                             text, st, ln, m, init, form, threads, b),
                         args.reps)
@@ -192,12 +193,12 @@ def time_lanes(args, failed) -> None:
         # fill
         n0 = auto["grid"] * auto["threads"]
         st0 = torch.zeros(n0, dtype=torch.int64, device="cuda")
-        ms = chip_smoke.time_kernel(
+        ms = timing.time_kernel(
             lambda: renfa_kernel._launch(text, st0, st0, m, init), args.reps)
-        dev0 = chip_smoke.profiled_ms(
+        dev0 = timing.profiled_ms(
             lambda: renfa_kernel._launch(text, st0, st0, m, init),
             "renfa_lanes_kernel", args.reps)
-        dev = chip_smoke.profiled_ms(
+        dev = timing.profiled_ms(
             lambda: renfa_kernel._launch(text, st, ln, m, init),
             "renfa_lanes_kernel", args.reps)
         print("time: %-9s fixed cost (the wrapper's grid, %d empty lines): "
@@ -213,7 +214,7 @@ def time_lanes(args, failed) -> None:
     for d in range(renfa_kernel.MAX_D + 1):
         m, init = machine(chip_smoke.REGEX, d, "cuda")
         want = renfa_kernel.renfa_lines_reference(text, st, ln, m, init)
-        bms, by = chip_smoke.regex_bound(m, text.numel(), lens)
+        bms, by = timing.regex_bound(m, text.numel(), lens)
         fits = renfa_kernel.launch_geometry(len(lens), m, "cuda", "one",
                                             512)["fits_per_sm"]
         for b in sorted({1, 2, fits}):
@@ -222,7 +223,7 @@ def time_lanes(args, failed) -> None:
                 failed.append(("by D", d, b))
                 print("time: config4 D=%d blocks/SM=%d MISMATCH" % (d, b))
                 continue
-            ms = chip_smoke.time_kernel(
+            ms = timing.time_kernel(
                 lambda: renfa_kernel._launch(text, st, ln, m, init, "one",
                                              512, b), args.reps)
             print("time: config4 at D=%d form=one threads=512 blocks/SM=%d "
@@ -256,9 +257,9 @@ def time_lanes(args, failed) -> None:
         failed.append(("long",))
         print("time: long MISMATCH")
     else:
-        ms = chip_smoke.time_kernel(
+        ms = timing.time_kernel(
             lambda: renfa_kernel._launch(text, st, ln, m4, c4), args.reps)
-        bms, by = chip_smoke.regex_bound(m4, text.numel(), lens)
+        bms, by = timing.regex_bound(m4, text.numel(), lens)
         print("time: long lines %s, config 4's machine: %.4f ms a launch "
               "(%.2f ns a byte of the longest line); bound %.4f ms (%s)"
               % (list(chip_smoke.LONG_LENS), ms, 1e6 * ms / lens.max(), bms,
@@ -270,8 +271,9 @@ def time_qgram(args, failed) -> None:
     import torch
 
     import chip_smoke
+
     from agrep_tpu_torch.compile import multi
-    from agrep_tpu_torch.ops import kernels, qgram_kernel
+    from agrep_tpu_torch.ops import kernels, qgram_kernel, timing
     records = chip_smoke.make_records(
         chip_smoke.make_corpus(args.mb << 20, args.seed), args.seed)
     text = kernels.to_device(records, "cuda")
@@ -281,7 +283,7 @@ def time_qgram(args, failed) -> None:
                                       "cuda")
     N = text.numel()
     want = qgram_kernel.qgram_reference(text, words)
-    bms, by = chip_smoke.qgram_bound(N)
+    bms, by = timing.qgram_bound(N)
     auto = qgram_kernel.launch_geometry(N, "cuda")
     print("shape: config5q %d B, 400 patterns; bound %.4f ms (%s); wrapper: "
           "threads=%d blocks/SM=%d" % (N, bms, by, auto["threads"],
@@ -294,10 +296,10 @@ def time_qgram(args, failed) -> None:
             failed.append(("config5q", b))
             print("time: config5q blocks/SM=%d MISMATCH" % b)
             continue
-        ms = chip_smoke.time_kernel(
+        ms = timing.time_kernel(
             lambda: qgram_kernel._launch(text, words, b), args.reps)
         if b == auto["blocks_per_sm"]:
-            dev = chip_smoke.profiled_ms(
+            dev = timing.profiled_ms(
                 lambda: qgram_kernel._launch(text, words, b),
                 "qgram_filter_kernel", args.reps)
             print("time: config5q  qgram_filter wrapper's launch by the "
@@ -323,9 +325,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("torch_renfa_lanes_time: no CUDA device", file=sys.stderr)
         return 1
-    import chip_smoke
-    from agrep_tpu_torch.ops import _cuda
-    print(chip_smoke.card_line())
+    from agrep_tpu_torch.ops import _cuda, timing
+    print(timing.card_line())
     _cuda.build_all(["renfa_lanes", "qgram_filter"])
     for name in ("renfa_lanes", "qgram_filter"):
         log = _cuda.build_logs.get(name, "")
@@ -338,7 +339,7 @@ def main(argv=None) -> int:
     failed: list = []
     time_lanes(args, failed)
     time_qgram(args, failed)
-    print("card: %s" % chip_smoke.card_line())
+    print("card: %s" % timing.card_line())
     if failed:
         print("mismatches: %s" % failed)
         return 1
