@@ -395,11 +395,17 @@ def samples_ms(fn, cuda: bool) -> list:
     return out
 
 
+def _gbs(gbs: float) -> float:
+    """A rate to 3 decimals; under 1 GB/s to 3 significant digits, so
+    that a plain version's slow pass on the CPU never reads 0."""
+    return round(gbs, 3) if gbs >= 1 else float("%.3g" % gbs)
+
+
 def kernel_row(n_bytes: int, ms: list, bound: tuple, cuda: bool) -> dict:
     """A kernel row from its samples and its bound on the card; a CPU
     time is no share of the card's bound."""
     med = statistics.median(ms)
-    return {"gbs": round(n_bytes / med / 1e6, 3), "ms": med,
+    return {"gbs": _gbs(n_bytes / med / 1e6), "ms": med,
             "min_ms": min(ms), "max_ms": max(ms), "bound_ms": bound[0],
             "bound_by": bound[1],
             "share_of_bound": bound[0] / med if cuda else None}
@@ -498,7 +504,7 @@ def e2e_row(argv: list, path: str, exe: str | None) -> tuple:
         host_bps, want = e2e_bps(argv, path)
     ok = got == want and (exe is None
                           or got == oracle_run(exe, argv + [path]))
-    row = {"gbs": round(bps / 1e9, 3), "host_gbs": round(host_bps / 1e9, 3)}
+    row = {"gbs": _gbs(bps / 1e9), "host_gbs": _gbs(host_bps / 1e9)}
     return _ref(row, reference_bps(exe, path, argv)), ok
 
 

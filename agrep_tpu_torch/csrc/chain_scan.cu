@@ -17,17 +17,19 @@
 // 2 shared loads a byte (chip_smoke.py chain_ops), under that.  What each
 // part of the design does about it:
 //
-//   * Class-pair buckets.  The program (compile_chain caps it at 2400
-//     term positions, 96 classes, terms of at most 128 bytes) is a
-//     256-entry byte -> class table, the terms as strings of class ids
-//     sorted by their first two classes, and device_program's prefix-sum
-//     table over the pair (class of byte i, class of byte i + 1), NO_CLASS
-//     counting as class n_cls: (n_cls + 1)^2 + 1 u16 entries, 18.8 KB at
-//     the cap.  Bit 7 of a class id in shared memory flags a class that
-//     has a one-byte term: such a position matches whatever follows.  Any
-//     other position tests only the terms of its pair, from their third
-//     class on, each with early exit at its first mismatch, and no more
-//     terms once one matched.
+//   * Class-pair buckets.  The program is a 256-entry byte -> class
+//     table, the terms as strings of class ids sorted by their first two
+//     classes, and device_program's prefix-sum table over the pair (class
+//     of byte i, class of byte i + 1), NO_CLASS counting as class n_cls:
+//     (n_cls + 1)^2 + 1 i16 entries, 64 KB as words at 127 classes.  Its
+//     caps are those of these tables (i16 term offsets, 7-bit class ids)
+//     and of the shared memory a block may take; chain_kernel.fits holds
+//     them, and compile_chain and the Python launcher check it.  Bit 7
+//     of a class id in shared memory flags a class that has a one-byte
+//     term: such a position matches whatever follows.  Any other
+//     position tests only the terms of its pair, from their third class
+//     on, each with early exit at its first mismatch, and no more terms
+//     once one matched.
 //   * A candidate bitmap.  Each block sets one bit for every class
 //     triple a term starts with (row c0, word c0 ^ c1, bit c2: 4 KB,
 //     when the classes and NO_CLASS fit in 32), or, past 31 classes, for
@@ -53,11 +55,11 @@
 //     the program into dynamic shared memory once, then walk every
 //     gridDim.x-th tile of `tile` start positions.
 //   * 16-byte staging, double-buffered.  Each tile's bytes and its
-//     max(maxlen, 2) - 1 halo are copied with cp.async, 16 bytes a
-//     thread, from the aligned address at or below the tile's first byte
-//     into a raw buffer, while the block computes the previous tile; the
-//     chunks that reach past either end of the text are loaded byte by
-//     byte (bytes outside it as 0), so the text may start at any
+//     max(maxlen, 2) - 1 halo (halo()) are copied with cp.async, 16
+//     bytes a thread, from the aligned address at or below the tile's
+//     first byte into a raw buffer, while the block computes the previous
+//     tile; the chunks that reach past either end of the text are loaded
+//     byte by byte (bytes outside it as 0), so the text may start at any
 //     address and have any length.  The block then translates the raw
 //     bytes to class ids, four a thread at a time, into the class buffer.
 //
@@ -71,18 +73,10 @@
 namespace chain_scan {
 
 constexpr int kThreads = 256;
-constexpr int kMaxLen = 128;          // compile_chain's longest term
-constexpr int kMaxPositions = 2400;   // compile_chain's MAX_POSITIONS
-constexpr int kMaxClasses = 96;       // compile_chain's MAX_EQ_SETS
 constexpr int kNoClass = 255;         // class_of's id of a byte no term holds
 constexpr int kSingle = 0x80;         // flag: the class has a one-byte term
 constexpr int kMinTile = 1024;        // a warp's 32 words
 constexpr int kMaxTile = 65536;
-// A raw buffer holds a tile plus its halo, widened to whole 16-byte
-// chunks: up to 15 bytes before the tile's first byte, 127 of halo and 15
-// of round-up, and the translation reads one word past them: 160 bytes
-// past the tile.
-constexpr int kStageSlack = 160;
 
 struct Layout {
     int raw;        // bytes of one raw buffer; two sit at offset 0
@@ -102,18 +96,33 @@ __host__ __device__ inline int row_words(int n_cls) {
 
 __host__ __device__ inline int align16(int x) { return (x + 15) & ~15; }
 
-// Class words a tile needs: its span of positions, four a word, and one
-// more, which the last lane of the last warp reads.
-__host__ __device__ inline int class_words(int tile) {
-    return (tile + kMaxLen - 1 + 3) / 4 + 1;
+// Bytes a tile reads past its last start position: a term's length - 1,
+// at least 1 (the pair of the last position).
+__host__ __device__ inline int halo(int maxlen) {
+    return (maxlen > 2 ? maxlen : 2) - 1;
 }
 
+// Class words a tile needs: its span of positions, four a word, and one
+// more, which the last lane of the last warp reads.
+__host__ __device__ inline int class_words(int tile, int maxlen) {
+    return (tile + halo(maxlen) + 3) / 4 + 1;
+}
+
+// A raw buffer holds a tile plus its halo, widened to whole 16-byte
+// chunks (up to 15 bytes before the tile's first byte and 15 of
+// round-up), and the translation reads one word past the class words:
+// the halo and 32 bytes past the tile, 16-byte aligned.
+__host__ __device__ inline int stage_slack(int maxlen) {
+    return align16(halo(maxlen) + 32);
+}
+
+// chain_kernel.smem_bytes mirrors the total.
 __host__ __device__ inline Layout layout(int n_cls, int n_pos, int n_terms,
-                                         int tile) {
+                                         int maxlen, int tile) {
     const int pairs = (n_cls + 1) * (n_cls + 1);
-    const int cw = class_words(tile);
+    const int cw = class_words(tile, maxlen);
     Layout l;
-    l.raw = tile + kStageSlack;
+    l.raw = tile + stage_slack(maxlen);
     l.cls = 2 * l.raw;
     l.rows = l.cls + align16(4 * (cw + cw / 8 + 1));
     l.range = l.rows + align16(4 * (n_cls + 1) * row_words(n_cls));
@@ -200,7 +209,7 @@ chain_scan_kernel(const uint8_t* __restrict__ text, long long n,
                   const int16_t* __restrict__ pair, int maxlen, int tile,
                   uint32_t* __restrict__ out) {
     extern __shared__ __align__(16) uint8_t smem[];
-    const Layout l = layout(n_cls, n_pos, n_terms, tile);
+    const Layout l = layout(n_cls, n_pos, n_terms, maxlen, tile);
     uint32_t* s_cls = reinterpret_cast<uint32_t*>(smem + l.cls);
     uint32_t* s_rows = reinterpret_cast<uint32_t*>(smem + l.rows);
     uint32_t* s_range = reinterpret_cast<uint32_t*>(smem + l.range);
@@ -211,7 +220,7 @@ chain_scan_kernel(const uint8_t* __restrict__ text, long long n,
     const int stride = n_cls + 1, pairs = stride * stride;
     const long long n_tiles = (n + tile - 1) / tile;
     const long long n_words = (n + 31) >> 5;
-    const int span = tile + (maxlen > 2 ? maxlen : 2) - 1;
+    const int span = tile + halo(maxlen);
 
     // the first tile's copy goes out before the program loads
     long long t = blockIdx.x;
@@ -251,7 +260,7 @@ chain_scan_kernel(const uint8_t* __restrict__ text, long long n,
     for (int i = tid; i < n_cls * kRow; i += kThreads)
         if (single[i / kRow]) s_rows[i] = ~0u;
 
-    const int n_cw = class_words(tile);
+    const int n_cw = class_words(tile, maxlen);
     for (int k = 0; t < n_tiles; ++k, t += gridDim.x) {
         const uint8_t* raw = smem + (k & 1) * l.raw;
         if (t + gridDim.x < n_tiles)
@@ -331,10 +340,14 @@ void* kernel_for(int n_cls) {
         : reinterpret_cast<void*>(chain_scan_kernel<true>);
 }
 
-bool program_ok(int n_cls, int n_pos, int n_terms, int tile) {
-    return n_cls >= 1 && n_cls <= kMaxClasses && n_terms >= 1
-        && n_terms <= n_pos && n_pos <= kMaxPositions
-        && tile >= kMinTile && tile <= kMaxTile && tile % kMinTile == 0;
+// What the launch can encode at all: class ids below the kSingle flag,
+// i16 term offsets, no term longer than the terms' positions, a tile of
+// whole warps' words.  The caps inside these are chain_kernel.fits.
+bool encodable(int n_cls, int n_pos, int n_terms, int maxlen, int tile) {
+    return n_cls >= 1 && n_cls < kSingle && n_terms >= 1
+        && n_terms <= n_pos && n_pos <= INT16_MAX && maxlen >= 1
+        && maxlen <= n_pos && tile >= kMinTile && tile <= kMaxTile
+        && tile % kMinTile == 0;
 }
 
 }  // namespace
@@ -344,15 +357,26 @@ using namespace chain_scan;
 
 extern "C" {
 
+// The dynamic shared bytes a block of the current device may take
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin).  Returns a cudaError_t.
+int chain_scan_smem_optin(int* bytes) {
+    int device = 0;
+    const cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaDeviceGetAttribute(
+        bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+}
+
 // Geometry of a launch: threads a block, dynamic shared bytes a block and
 // how many such blocks one SM of the current device holds.  Returns a
 // cudaError_t (cudaErrorInvalidValue for arguments the kernel does not
 // take).
-int chain_scan_geometry(int n_cls, int n_pos, int n_terms, int tile,
-                        int* threads, int* smem_bytes, int* blocks_per_sm) {
-    if (!program_ok(n_cls, n_pos, n_terms, tile))
+int chain_scan_geometry(int n_cls, int n_pos, int n_terms, int maxlen,
+                        int tile, int* threads, int* smem_bytes,
+                        int* blocks_per_sm) {
+    if (!encodable(n_cls, n_pos, n_terms, maxlen, tile))
         return (int)cudaErrorInvalidValue;
-    const int smem = layout(n_cls, n_pos, n_terms, tile).total;
+    const int smem = layout(n_cls, n_pos, n_terms, maxlen, tile).total;
     const void* kernel = kernel_for(n_cls);
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -380,11 +404,11 @@ int chain_scan_launch(const uint8_t* text, long long n,
                       const int16_t* term_off, int n_terms,
                       const int16_t* pair, int maxlen, uint32_t* out,
                       int tile, int grid, void* stream) {
-    if (n < 1 || !program_ok(n_cls, n_pos, n_terms, tile) || maxlen < 1
-        || maxlen > kMaxLen || grid < 1)
+    if (n < 1 || !encodable(n_cls, n_pos, n_terms, maxlen, tile)
+        || grid < 1)
         return (int)cudaErrorInvalidValue;
     if (grid > (n + tile - 1) / tile) grid = (int)((n + tile - 1) / tile);
-    const int smem = layout(n_cls, n_pos, n_terms, tile).total;
+    const int smem = layout(n_cls, n_pos, n_terms, maxlen, tile).total;
     const cudaError_t err = cudaFuncSetAttribute(
         kernel_for(n_cls), cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);

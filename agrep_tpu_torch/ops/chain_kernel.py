@@ -14,10 +14,12 @@ turns the plane into positions.
 
 The match is exact: the engine (runtime/mgrep.py) only attributes term
 ids at true hits (compile/multi.py qgram_occurrences consumes the starts
-as cand_anchor_rel).  compile_chain() keeps the TPU engine's static caps:
-a term set past them compiles to None, and the engine then takes the
-q-gram filter (ops/qgram_kernel.py).  Planes are int32 tensors holding
-u32 words.
+as cand_anchor_rel), or counts the lines that hold a start where the
+plane is (lines_with_starts).  compile_chain() gives None past the CUDA
+program's caps (fits(): its i16 offsets, 7-bit class ids and the shared
+memory a block may take), and the engine then takes the q-gram filter
+(ops/qgram_kernel.py) or the mask machine.  Planes are int32 tensors
+holding u32 words.
 """
 
 from __future__ import annotations
@@ -31,12 +33,6 @@ import torch
 from . import _cuda
 from .kernels import _sm_count
 
-# compile caps of the -f engine's chain program; past them the q-gram
-# filter takes the term set
-MAX_POSITIONS = 2400      # total pattern chars across all terms
-MAX_EQ_SETS = 96          # distinct folded character classes
-MAX_CUBES = 8             # OR-of-AND cover terms per class
-MAX_TERM_LEN = 128
 NO_CLASS = 255            # class id of a byte that no term holds
 
 # Start positions a tile of the kernel's launch;
@@ -44,48 +40,72 @@ NO_CLASS = 255            # class id of a byte that no term holds
 # main path's shapes.
 TILE = 8192
 
+# The caps of a chain program, from what csrc/chain_scan.cu can hold; the
+# one place they live.  compile_chain gives None past them and the
+# launcher refuses a program past them (fits()).
+MAX_POSITIONS = (1 << 15) - 1   # term_off and pair are i16
+# A class id has 7 bits in shared memory (bit 7 flags a class with a
+# one-byte term) and NO_CLASS counts as class n_cls: 127 classes, whose
+# 128 ids the candidate bitmap's rows of four words cover.
+MAX_CLASSES = 127
+# cudaDevAttrMaxSharedMemoryPerBlockOptin of the H100 (227 KB), which
+# sizes MAX_TERM_LEN; the launcher checks the device's own.
+HOPPER_SMEM_OPTIN = 227 << 10
+
+
+def smem_bytes(n_cls: int, n_pos: int, n_terms: int, maxlen: int,
+               tile: int = TILE) -> int:
+    """Dynamic shared bytes a block of the kernel takes (csrc/chain_scan.cu
+    layout(): two raw buffers of a tile and its halo, the class buffer,
+    the candidate bitmap, the pair table, the term offsets, the byte map,
+    the term classes)."""
+    def a16(x):
+        return (x + 15) & ~15
+    halo = max(maxlen, 2) - 1
+    raw = tile + a16(halo + 32)
+    cw = (tile + halo + 3) // 4 + 1
+    row_words = 32 if n_cls < 32 else 4
+    return (2 * raw + a16(4 * (cw + cw // 8 + 1))
+            + a16(4 * (n_cls + 1) * row_words) + 4 * (n_cls + 1) ** 2
+            + a16(2 * (n_terms + 1)) + 4 * 256 + a16(n_pos))
+
+
+def _term_len_cap(smem: int) -> int:
+    """The longest term, a power of two, of a program that fits smem at
+    the class and position caps."""
+    cap = 1
+    while (2 * cap <= MAX_POSITIONS
+           and smem_bytes(MAX_CLASSES, MAX_POSITIONS, MAX_POSITIONS,
+                          2 * cap) <= smem):
+        cap *= 2
+    return cap
+
+
+MAX_TERM_LEN = _term_len_cap(HOPPER_SMEM_OPTIN)    # 8192
+
+
+def fits(n_cls: int, n_pos: int, n_terms: int, maxlen: int,
+         smem: int = HOPPER_SMEM_OPTIN, tile: int = TILE) -> bool:
+    """Whether the kernel takes a program of this size on a device whose
+    blocks may take smem shared bytes."""
+    return (1 <= n_cls <= MAX_CLASSES and 1 <= n_terms <= n_pos
+            and n_pos <= MAX_POSITIONS and 1 <= maxlen <= MAX_TERM_LEN
+            and smem_bytes(n_cls, n_pos, n_terms, maxlen, tile) <= smem)
+
+
 # Launches of each kernel since the counts were last set to 0.
 launches = {"chain_scan": 0}
-
-
-def _cube_cover(byte_set: frozenset) -> tuple | None:
-    """Cover a byte set by (mask, value) cubes: the cube contains all
-    bytes b with (b & mask) == value.  Greedy largest-cube-first;
-    returns None when the cover needs more than MAX_CUBES cubes."""
-    remaining = set(byte_set)
-    cubes = []
-    while remaining:
-        seed = min(remaining)
-        mask = 0xFF
-        # try to free each bit (largest win first is moot at 8 bits)
-        for b in range(8):
-            trial = mask & ~(1 << b)
-            # cube (trial, seed & trial) must lie inside the SET (not
-            # just inside `remaining`: overlap with prior cubes is fine)
-            width = 1 << (8 - bin(trial).count("1"))
-            val = seed & trial
-            members = [v for v in range(256)
-                       if (v & trial) == val]
-            if len(members) == width and all(m in byte_set
-                                             for m in members):
-                mask = trial
-        val = seed & mask
-        cubes.append((mask, val))
-        for v in range(256):
-            if (v & mask) == val:
-                remaining.discard(v)
-        if len(cubes) > MAX_CUBES:
-            return None
-    return tuple(cubes)
 
 
 def compile_chain(terms: list, tr: np.ndarray):
     """Static chain program for a term set under fold table tr.
 
     Returns (eq_specs, term_specs, term_ids, maxlen) or None when the
-    set exceeds the caps.  eq_specs[e] is the cube cover of folded
-    class e; term_specs[i] is the tuple of class indices of term_ids[i]'s
-    byte positions."""
+    set is past the caps (fits()).  eq_specs[e] is folded class e, its
+    bytes ascending (the preimage under tr of one folded byte);
+    term_specs[i] is the tuple of class indices of term_ids[i]'s byte
+    positions.  Classes and terms are numbered as agrep_tpu's
+    compile_chain numbers them."""
     tr = np.asarray(tr, dtype=np.uint8)
     # preimage classes of the fold map, computed once
     inv: dict = {}
@@ -95,29 +115,25 @@ def compile_chain(terms: list, tr: np.ndarray):
     eq_specs: list = []
     term_specs: list = []
     term_ids: list = []
-    total = 0
     maxlen = 0
     for tid, t in enumerate(terms):
         if not t:
             continue
-        if len(t) > MAX_TERM_LEN:
-            return None
         spec = []
         for ch in t:
             f = int(tr[ch])
             if f not in eq_index:
-                cubes = _cube_cover(frozenset(inv[f]))
-                if cubes is None:
-                    return None
                 eq_index[f] = len(eq_specs)
-                eq_specs.append(cubes)
+                eq_specs.append(tuple(inv[f]))
             spec.append(eq_index[f])
-        total += len(spec)
         maxlen = max(maxlen, len(spec))
         term_specs.append(tuple(spec))
         term_ids.append(tid)
-    if (not term_specs or total > MAX_POSITIONS
-            or len(eq_specs) > MAX_EQ_SETS):
+    # the kernel holds each distinct term once
+    distinct = set(term_specs)
+    if not term_specs or not fits(len(eq_specs),
+                                  sum(len(s) for s in distinct),
+                                  len(distinct), maxlen):
         return None
     return tuple(eq_specs), tuple(term_specs), tuple(term_ids), maxlen
 
@@ -147,22 +163,21 @@ class ChainProgram:
 
 
 def device_program(prog, device="cpu") -> ChainProgram:
-    """Kernel inputs from compile_chain's program: each cube cover gives
-    its class's bytes, duplicate terms collapse (the match is an OR)."""
+    """Kernel inputs from compile_chain's program: each class's bytes
+    map to its id, duplicate terms collapse (the match is an OR).
+    Raises for a program whose class ids or term offsets the u8 and i16
+    tables cannot hold; the caps inside those are fits()'s."""
     eq_specs, term_specs, _tids, maxlen = prog
     n_cls = len(eq_specs)
-    if n_cls > MAX_EQ_SETS:
-        raise ValueError("%d classes, the kernel takes %d"
-                         % (n_cls, MAX_EQ_SETS))
-    class_of = np.full(256, NO_CLASS, dtype=np.uint8)
-    for e, cubes in enumerate(eq_specs):
-        for mask, val in cubes:
-            for b in range(256):
-                if b & mask == val:
-                    class_of[b] = e
     specs = sorted(set(term_specs), key=lambda s: (len(s) == 1, s))
-    if sum(len(s) for s in specs) > MAX_POSITIONS or maxlen > MAX_TERM_LEN:
-        raise ValueError("term set past the chain kernel's caps")
+    n_pos = sum(len(s) for s in specs)
+    if n_cls >= NO_CLASS or n_pos > MAX_POSITIONS:
+        raise ValueError("%d classes and %d positions: the program's "
+                         "tables hold fewer than %d and at most %d"
+                         % (n_cls, n_pos, NO_CLASS, MAX_POSITIONS))
+    class_of = np.full(256, NO_CLASS, dtype=np.uint8)
+    for e, members in enumerate(eq_specs):
+        class_of[list(members)] = e
     term_cls = np.asarray([c for s in specs for c in s], dtype=np.uint8)
     term_off = np.concatenate(
         [[0], np.cumsum([len(s) for s in specs])]).astype(np.int16)
@@ -180,7 +195,7 @@ def device_program(prog, device="cpu") -> ChainProgram:
     return ChainProgram(class_of=dev(class_of), term_cls=dev(term_cls),
                         term_off=dev(term_off), pair=dev(pair),
                         single=dev(single), n_cls=n_cls,
-                        n_terms=len(specs), n_pos=len(term_cls),
+                        n_terms=len(specs), n_pos=n_pos,
                         maxlen=int(maxlen))
 
 
@@ -214,7 +229,9 @@ def _bind():
         lib.chain_scan_launch.argtypes = [p, ll, p, p, i, p, i, p, i, p, i,
                                           p, i, i, p]
         lib.chain_scan_geometry.restype = i
-        lib.chain_scan_geometry.argtypes = [i, i, i, i, ip, ip, ip]
+        lib.chain_scan_geometry.argtypes = [i, i, i, i, i, ip, ip, ip]
+        lib.chain_scan_smem_optin.restype = i
+        lib.chain_scan_smem_optin.argtypes = [ip]
         lib.chain_scan_error_string.restype = ctypes.c_char_p
         lib.chain_scan_error_string.argtypes = [i]
         lib._bound = True
@@ -227,17 +244,29 @@ def launch_geometry(N: int, p: ChainProgram, device,
     """What _launch runs for a scan of N bytes on a CUDA device: start
     positions a tile, threads a block, blocks an SM (by default all
     that the SM holds, from the CUDA occupancy calculator), the grid
-    (never more blocks than tiles) and dynamic shared bytes a block."""
+    (never more blocks than tiles) and dynamic shared bytes a block.
+    Raises ValueError for a program past the caps (fits(), with the
+    shared bytes a block of this device may take)."""
     tile = TILE if tile is None else tile
     index = _cuda.device_index(device)
-    threads, smem, fits = _cuda.query(_bind(), "chain_scan",
-                                      "chain_scan_geometry", index, 3,
-                                      p.n_cls, p.n_pos, p.n_terms, tile)
+    lib = _bind()
+    optin, = _cuda.query(lib, "chain_scan", "chain_scan_smem_optin", index,
+                         1)
+    if not fits(p.n_cls, p.n_pos, p.n_terms, p.maxlen, optin, tile):
+        raise ValueError(
+            "chain program of %d classes, %d positions, %d terms, a "
+            "%d-byte term is past the kernel's caps (%d classes, %d "
+            "positions, %d-byte terms, %d shared bytes a block)"
+            % (p.n_cls, p.n_pos, p.n_terms, p.maxlen, MAX_CLASSES,
+               MAX_POSITIONS, MAX_TERM_LEN, optin))
+    threads, smem, per_sm = _cuda.query(
+        lib, "chain_scan", "chain_scan_geometry", index, 3, p.n_cls,
+        p.n_pos, p.n_terms, p.maxlen, tile)
     if blocks_per_sm is None:
-        blocks_per_sm = fits
+        blocks_per_sm = per_sm
     n_tiles = -(-N // tile)
     return {"tile": tile, "threads": threads, "smem_bytes": smem,
-            "blocks_per_sm": blocks_per_sm, "fits_per_sm": fits,
+            "blocks_per_sm": blocks_per_sm, "fits_per_sm": per_sm,
             "tiles": n_tiles,
             "grid": min(n_tiles, blocks_per_sm * _sm_count(index))}
 
@@ -290,8 +319,10 @@ def plane_positions(plane: torch.Tensor, N: int) -> np.ndarray:
 def chain_scan_reference(text: torch.Tensor, p: ChainProgram
                          ) -> torch.Tensor:
     """Plain PyTorch version of the kernel, on any device: the text's
-    class ids (padded with byte 0's class), then per term one
-    vectorized compare and AND per position, ORed over the terms."""
+    class ids (padded with byte 0's class), then for the terms of each
+    length, a block of them at a time, one vectorized compare of every
+    term's k-th class with the classes k bytes on, ANDed over k and
+    ORed over the terms."""
     dev = text.device
     N = text.numel()
     cls = torch.full((N + p.maxlen,), int(p.class_of[0]),
@@ -300,12 +331,39 @@ def chain_scan_reference(text: torch.Tensor, p: ChainProgram
     hit = torch.zeros(N, dtype=torch.bool, device=dev)
     term_cls = p.term_cls.cpu().tolist()
     off = p.term_off.cpu().tolist()
+    by_len: dict = {}
     for t in range(p.n_terms):
-        m = torch.ones(N, dtype=torch.bool, device=dev)
-        for k, c in enumerate(term_cls[off[t]:off[t + 1]]):
-            m &= cls[k:k + N] == c
-        hit |= m
+        by_len.setdefault(off[t + 1] - off[t], []).append(
+            term_cls[off[t]:off[t + 1]])
+    rows = max(1, (1 << 24) // N)       # at most 16 M compares a step
+    for length, terms in by_len.items():
+        for i in range(0, len(terms), rows):
+            block = torch.tensor(terms[i:i + rows], dtype=torch.uint8,
+                                 device=dev)
+            m = torch.ones((len(block), N), dtype=torch.bool, device=dev)
+            for k in range(length):
+                m &= cls[None, k:k + N] == block[:, k:k + 1]
+            hit |= m.any(dim=0)
     return pack_bits(hit)
+
+
+def lines_with_starts(text: torch.Tensor, plane: torch.Tensor) -> int:
+    """Number of lines of text that hold a set bit of the start plane,
+    computed on the plane's device; one integer comes back.  A line ends
+    at each newline byte, and a start at position p lies in line
+    (newlines at positions <= p), as agrep_tpu counts `-c -f`
+    (np.searchsorted(nl, starts, side="right") and np.unique): a start
+    counts when the start before it lies in an earlier line."""
+    N = text.numel()
+    nz = torch.nonzero(plane).flatten()
+    shifts = torch.arange(32, dtype=torch.int32, device=plane.device)
+    bits = ((plane[nz, None] >> shifts) & 1) != 0
+    pos = (nz[:, None] * 32 + shifts)[bits]
+    pos = pos[pos < N]
+    line = torch.cumsum(text == 0x0A, 0, dtype=torch.int32)[pos]
+    new = torch.ones_like(line, dtype=torch.bool)
+    new[1:] = line[1:] != line[:-1]
+    return int(new.sum())
 
 
 def chain_match_starts(text: torch.Tensor, prog) -> np.ndarray:

@@ -10,9 +10,11 @@ mode, and the -P pattern-index decoration.
 The occurrence finding itself is dense and vectorized (the reference's
 hashed Boyer-Moore skip loop is a scalar-CPU idiom; on a GPU dense
 scanning wins -- SURVEY.md section 7).  On the torch backend a stream of
-at least DEVICE_MIN bytes is scanned on the device: a term set of any
-size by the exact chain kernel (ops/chain_kernel.py); past its static
-caps, a set of ONE_PASS_MIN or more terms by the q-gram filter kernel
+at least DEVICE_MIN bytes is scanned on the device: a term set within
+the exact chain kernel's caps (ops/chain_kernel.py fits(): 127 classes,
+32,767 term positions, 8,192-byte terms) by that kernel, whose starts a
+pure -c without -w counts by line on the device; past the caps, a set
+of ONE_PASS_MIN or more terms by the q-gram filter kernel
 (ops/qgram_kernel.py), whose candidates the native pass verifies, and a
 smaller set by the mask-machine kernel in packed bit-parallel words.
 The route is fixed by the query and the stream size.  The numpy backend,
@@ -592,33 +594,57 @@ class MgrepEngine:
         scan_ops.require_device()
         return kernels.to_device(stream, torch.device(scan_ops._DEVICE))
 
-    def _chain_starts(self, stream: np.ndarray) -> np.ndarray | None:
-        """Exact match-start positions from the chain kernel
-        (ops/chain_kernel.py), the one-pass -f scan on the device.
-        None when the device route does not take this stream, or when
-        the term set is past the kernel's static caps (compile_chain
-        gives None, once per engine): callers then take the q-gram
-        kernel or the host passes.  A failed launch raises."""
-        if not self._device_route(len(stream)):
-            return None
-        from ..ops import chain_kernel
-        from . import trace
+    def _chain_program(self):
+        """compile_chain's program of the terms, compiled once per
+        engine; None past the chain kernel's caps."""
         if not self._chain_tried:
+            from ..ops import chain_kernel
             self._chain_tried = True
             self._chain_prog = chain_kernel.compile_chain(
                 self.terms, self.tr)
-        if self._chain_prog is None:
+        return self._chain_prog
+
+    def _chain_plane(self, stream: np.ndarray):
+        """(text, start plane) of the chain kernel (ops/chain_kernel.py)
+        over the stream on the scan device, the one-pass -f scan; None
+        when the device route does not take this stream or the term set
+        is past the kernel's caps: callers then take the q-gram kernel,
+        the mask machine or the host passes.  A failed launch raises."""
+        if (not self._device_route(len(stream))
+                or self._chain_program() is None):
             return None
+        from ..ops import chain_kernel
+        from . import trace
         text = self._to_device(stream)
         if (self._chain_dev is None
                 or self._chain_dev.class_of.device != text.device):
             self._chain_dev = chain_kernel.device_program(
                 self._chain_prog, text.device)
-        starts = chain_kernel.chain_match_starts(text, self._chain_dev)
+        plane = chain_kernel.chain_scan(text, self._chain_dev)
         if trace.ENABLED:
             trace.add("chain_scans")
+        return text, plane
+
+    def _chain_starts(self, stream: np.ndarray) -> np.ndarray | None:
+        """Exact match-start positions from the chain kernel, on the
+        host; None as _chain_plane."""
+        got = self._chain_plane(stream)
+        if got is None:
+            return None
+        from ..ops import chain_kernel
+        from . import trace
+        starts = chain_kernel.plane_positions(got[1], len(stream))
+        if trace.ENABLED:
             trace.add("chain_hits", int(len(starts)))
         return starts
+
+    def _chain_counts(self, n: int) -> bool:
+        """Whether a pure -c of a stream of n bytes counts its lines
+        from the chain kernel's starts, as agrep_tpu's _first_match_count
+        does: on the device route, without -w, a term set within the
+        kernel's caps."""
+        return (self._device_route(n) and not self.q.opts.wordbound
+                and self._chain_program() is not None)
 
     def _qgram_positions(self, stream: np.ndarray,
                          proj: np.ndarray) -> np.ndarray:
@@ -928,11 +954,18 @@ class MgrepEngine:
     def _first_match_count(self, stream: np.ndarray, tb) -> int | None:
         """Matched-line COUNT via the native pass, no materialized
         occurrence table (one corpus walk, no output growth); None when
-        the native library is unavailable.  Only the host route counts
-        here: the pure-count path that calls it steps aside for the
-        device route."""
+        the native library is unavailable.  Where _chain_counts holds,
+        the count of lines that hold a chain-kernel start instead,
+        computed on the device."""
         if len(stream) < tb.p_size:
             return 0
+        if self._chain_counts(len(stream)):
+            # terms never contain \n here (the _fast_or_applicable
+            # gate), so a match lies inside one line and the count is
+            # the number of distinct lines holding an exact start
+            from ..ops import chain_kernel
+            text, plane = self._chain_plane(stream)
+            return chain_kernel.lines_with_starts(text, plane)
         from .. import native
         if native.get_lib() is None:
             return None
@@ -1447,11 +1480,14 @@ class MgrepEngine:
         # first-match-per-line pass.  Skipping the padded stream copy
         # and the newline index drops two O(file) allocations whose
         # first-touch page faults dominate wall time on large files.
+        # On the device route it counts from the chain kernel's starts
+        # (_chain_counts) or steps aside.
         if (not memory_mode and not q.delimiter_opt and self.p_size > 1
                 and o.count and not o.invert and not o.filename_only
                 and not o.silent and o.limit_output <= 0
                 and o.limit_per_file <= 0
-                and not self._device_route(len(data))
+                and (not self._device_route(len(data))
+                     or self._chain_counts(len(data)))
                 and self._fast_or_applicable(o, q)):
             if self._qgram_tables is None:
                 from ..compile import multi as multi_mod2

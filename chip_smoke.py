@@ -31,10 +31,16 @@ exits non-zero:
      chain_scan_reference over term sets (1 term, config 5's 100, terms
      of 31-128 bytes, a full-byte-range set, a set whose terms run past
      the text's end into its zero pad, one-byte terms beside longer
-     ones, a set at the 96-class cap; each with and without -i) and
-     texts (N = 1, 15, 16, 17, 31, 32, 33, 4095, 4096, 4097, 8 MB), on
-     views 1-15 bytes past an aligned address, and at 8 MB with one
-     block an SM, so that each block walks several tiles; and the
+     ones, 96 classes; past the TPU's caps up to the port's: 127
+     classes, config 5's 400 patterns, 32,767 positions, a term of
+     chain_kernel.MAX_TERM_LEN bytes; each with and without -i; and a
+     set under codepage 437's -i# class fold) and texts (N = 1, 15, 16,
+     17, 31, 32, 33, 4095, 4096, 4097, 8 MB), on views 1-15 bytes past
+     an aligned address, and at 8 MB with one block an SM, so that each
+     block walks several tiles, each set's shared bytes a block checked
+     against chain_kernel.smem_bytes and its 8 MB launch timed; two
+     programs just past the caps (128 classes, a term one byte past the
+     cap) must be refused by the launcher before a launch; and the
      qgram_filter kernel against qgram_reference on
      2-gram, LONG and -i member sets at N = 1..33, 4065..4097 (every N
      mod 32), the sizes above and 8 MB (there with one block an SM too),
@@ -48,23 +54,26 @@ exits non-zero:
      BASELINE config 5 on a second corpus, the first with a blank line
      every 8-16 lines: -f with 100 patterns over '$$' records (config5),
      the same as a count (config5c) and through memagrep (memagrep5), a
-     count with 400 patterns, past the chain kernel's caps (config5q),
-     a boolean AND over '$$' records (bool5, the chain kernel), and a
-     boolean with a term past the chain caps (bool5m, the mask
-     machine's packed term words); stdout and return codes must equal
-     the port's own numpy host backend, whose walls are printed beside
-     the GPU route's, and every run must launch its kernel (config5q
-     the q-gram kernel and no chain kernel);
+     count with 400 patterns (config5c400; both counts count the lines
+     that hold a chain start on the card: one line count a launch, no
+     start positions read back), a count with the 400 patterns holding
+     154 byte classes, past the chain kernel's caps (config5q), a
+     boolean AND over '$$' records (bool5, the chain kernel), and a
+     boolean with a term of 136 byte classes, past the chain caps
+     (bool5m, the mask machine's packed term words); stdout and return
+     codes must equal the port's own numpy host backend, whose walls are
+     printed beside the GPU route's, and every run must launch its
+     kernel (config5q the q-gram kernel and no chain kernel);
   5. kernels: mask_scan's launch geometry (split, tiles a block, threads,
      dynamic shared memory; registers and spills from ptxas) and its
      time against its bound at all five main-path shapes, chain_scan's
      launch geometry (grid, blocks an SM, tile, threads, dynamic shared
-     memory; registers and spills) at its four, renfa_lanes' (Next form,
-     table bytes, threads, blocks an SM, grid, registers, spills) and
-     time at its two, qgram_filter's (threads, blocks an SM, grid) and
-     time at config5q's, each on a line of its own; then one JSON line
-     with each kernel's launches on the main path, its time, its plain
-     version's time and its bound on this card;
+     memory; registers and spills) and time at its five, renfa_lanes'
+     (Next form, table bytes, threads, blocks an SM, grid, registers,
+     spills) and time at its two, qgram_filter's (threads, blocks an
+     SM, grid) and time at config5q's, each on a line of its own; then
+     one JSON line with each kernel's launches on the main path, its
+     time, its plain version's time and its bound on this card;
   6. scale-out: (a) phase 4's corpus cut into 4 shards with the
      MAX_RECORD halo, on parallel.dist.make_mesh() (all four on cuda:0 on
      a one-card machine), counted and located by distributed_scan_count /
@@ -77,10 +86,10 @@ exits non-zero:
      to cuda:0) over phase 4's two corpora, each cut into 8 files of
      --mb/8 MB (over the 8 MB streaming threshold at the default size):
      configs 1, 2, 4 (-n), 5 (-f 100 patterns -d '$$'), config5q (-c -f
-     400 patterns), -L 7:0:0 and mgrep -v -c -f; rank 0's stdout and both
-     exit codes must equal the port's single-process run on the card
-     (in this process; for configs 1 and 5 also one CLI process) and on
-     the numpy backend, rank 1 must print nothing, and each rank must
+     the 400 wide patterns), -L 7:0:0 and mgrep -v -c -f; rank 0's
+     stdout and both exit codes must equal the port's single-process
+     run on the card (in this process; for configs 1 and 5 also one CLI
+     process) and on the numpy backend, rank 1 must print nothing, and each rank must
      launch the search's kernel (the launch counts of its
      AGREP_TORCH_STATS line).  Its walls (one process against two ranks,
      the CLI processes' from start to exit) measure the partition's
@@ -128,8 +137,10 @@ FILLER = [b"the", b"quick", b"brown", b"fox", b"pattern", b"search",
           b"string", b"grep", b"over", b"lazy", b"dog"]
 PLANTS = [b"hello", b"matching", b"matchng", b"Approximate",
           b"aproximate", b"approximately", b"HELLO"]
-# a boolean term past the chain kernel's 128 bytes a term
-LONG_TERM = "hello" + "q" * 131
+# a boolean term of 136 byte classes, past the chain kernel's 127: the
+# argument as the CLI gets raw bytes 0xA0-0xFF from the command line
+WIDE_TERM = "hello" + os.fsdecode(b"ABCDEFGHIJKLMNOPQRSTUVWXYZ0123456789"
+                                  + bytes(range(0xA0, 0x100)))
 
 
 # ---------------------------------------------------------------------
@@ -180,6 +191,16 @@ def make_patterns(n: int, seed: int) -> list:
         if w not in pats and not any(w in f for f in FILLER + PLANTS):
             pats.append(w)
     return pats
+
+
+def wide_patterns(pats: list) -> list:
+    """The patterns with a byte 0x80-0xFF put in each one after the
+    PLANTS, so that a set of 135 or more patterns holds more byte classes
+    than the chain kernel's 127 (a list of binary signatures); matches
+    stay the PLANTS'."""
+    k = len(PLANTS)
+    return pats[:k] + [w[:2] + bytes([0x80 + i % 128]) + w[2:]
+                       for i, w in enumerate(pats[k:])]
 
 
 def plant(text, terms, rng, fold: bool):
@@ -619,14 +640,25 @@ def phase_parity_regex(device: str, seed: int) -> float:
     return float(worst)
 
 
-def chain_sets(pats100) -> list:
+def chain_sets(pats400) -> list:
     """(name, terms, fold) of every term set phase 3 holds the chain
-    kernel to, each with and without -i folding."""
+    kernel to, each with and without -i folding (fold True or False),
+    and one under codepage 437's -i# class fold (fold "cp437 -i#").  The
+    sets from "127 classes" on are past the TPU kernel's caps (96
+    classes, 2,400 positions, 128-byte terms), up to the port's
+    (chain_kernel.fits)."""
     import numpy as np
+    from agrep_tpu_torch.ops import chain_kernel
     rng = np.random.default_rng(5)
+    alnum = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz0123456789", np.uint8)
+    L = chain_kernel.MAX_TERM_LEN
+    n_words = chain_kernel.MAX_POSITIONS // 10
+    at_cap = sorted({bytes(rng.choice(alnum, 10)) for _ in range(n_words)})
+    at_cap += [b"hello" + b"z" * (chain_kernel.MAX_POSITIONS
+                                  - 10 * len(at_cap) - 5)]
     sets = [
         ("1 term", [b"hello"]),
-        ("100 terms", pats100),
+        ("100 terms", pats400[:100]),
         ("31..128 B", [bytes(rng.integers(97, 123, n).astype(np.uint8))
                        for n in (31, 32, 33, 64, 65, 128)]),
         # tests/test_chain_kernel.py test_full_byte_range's shape
@@ -636,21 +668,45 @@ def chain_sets(pats100) -> list:
         ("zero pad", [b"\xfe\xfd\x00\x00", b"\xfd\x00", b"hello"]),
         # one-byte terms match whatever follows them
         ("one-byte", [b"Q", b"\n", b"hello", b"ab", b"~", b"xyz\x00"]),
-        ("96 classes", cap_classes(rng)),
+        ("96 classes", cap_classes(rng, 32, 128)),
+        ("127 classes", cap_classes(rng, 1, 128)),
+        ("400 terms", pats400),
+        ("32767 positions", at_cap),
+        ("%d B term" % L, [bytes(rng.choice(alnum[:4], L)), b"hello",
+                           b"ab"]),
     ]
-    return [(name + (" -i" if fold else ""), terms, fold)
-            for name, terms in sets for fold in (False, True)]
+    out = [(name + (" -i" if fold else ""), terms, fold)
+           for name, terms in sets for fold in (False, True)]
+    letters = np.frombuffer(b"aeiouAEIOUxyz19" + bytes(range(0x80, 0xA6)),
+                            np.uint8)
+    return out + [("cp437 -i#", [bytes(rng.choice(letters, int(k)))
+                                 for k in rng.integers(2, 9, 40)],
+                   "cp437 -i#")]
 
 
-def cap_classes(rng) -> list:
-    """Terms of 2-7 bytes that hold every byte 32..127 once (96 classes,
-    the chain kernel's cap), three one-byte terms and a 128-byte term."""
+def cap_classes(rng, lo: int, hi: int) -> list:
+    """Terms of 2-7 bytes that hold every byte lo..hi - 1 once (one class
+    each), three one-byte terms and a 128-byte term."""
     import numpy as np
-    order = rng.permutation(np.arange(32, 128, dtype=np.uint8))
-    cuts = np.cumsum(rng.integers(2, 8, 48))
-    terms = [bytes(c) for c in np.split(order, cuts[cuts < 96]) if len(c)]
+    order = rng.permutation(np.arange(lo, hi, dtype=np.uint8))
+    cuts = np.cumsum(rng.integers(2, 8, hi - lo))
+    terms = [bytes(c) for c in np.split(order, cuts[cuts < hi - lo])
+             if len(c)]
     return terms + [b"!", b"@", b"~", bytes(rng.integers(
-        32, 128, 128).astype(np.uint8))]
+        lo, hi, 128).astype(np.uint8))]
+
+
+def chain_past_caps() -> list:
+    """(name, program) of chain programs just past the port's caps, built
+    by hand (compile_chain gives None for their term sets)."""
+    from agrep_tpu_torch.ops import chain_kernel
+    L = chain_kernel.MAX_TERM_LEN + 1
+    return [
+        ("128 classes", (tuple((b,) for b in range(128)),
+                         tuple((2 * i, 2 * i + 1) for i in range(64)),
+                         tuple(range(64)), 2)),
+        ("%d B term" % L, (((ord("x"),),), ((0,) * L,), (0,), L)),
+    ]
 
 
 def qgram_sets() -> list:
@@ -671,15 +727,20 @@ def qgram_sets() -> list:
 PARITY_SIZES = (1, 15, 16, 17, 31, 32, 33, 4095, 4096, 4097)
 
 
-def phase_parity_multi(device: str, seed: int, big: int, pats100) -> tuple:
+def phase_parity_multi(device: str, seed: int, big: int, pats400) -> tuple:
     """chain_scan planes vs chain_scan_reference planes, and qgram_filter
     planes vs qgram_reference planes, on every set and size; returns the
-    largest |kernel - plain| word difference of each (0 or fail)."""
+    largest |kernel - plain| word difference of each (0 or fail).  Each
+    chain set's shared bytes must be chain_kernel.smem_bytes', and its
+    kernel is timed at `big` bytes; a program past the caps must be
+    refused before it launches."""
     import numpy as np
     import torch
 
+    from agrep_tpu_torch import codepage
     from agrep_tpu_torch.compile import multi
     from agrep_tpu_torch.ops import chain_kernel, kernels, qgram_kernel
+    from agrep_tpu_torch.ops.timing import chain_bound, time_kernel
     from agrep_tpu_torch.runtime.mgrep import _fold_tr
     rng = np.random.default_rng(seed)
     sizes = PARITY_SIZES + (big,)
@@ -699,27 +760,32 @@ def phase_parity_multi(device: str, seed: int, big: int, pats100) -> tuple:
                        hex(int(want[w]) & 0xFFFFFFFF)) for w in where]))
             failed.append((kname, name, n))
 
-    for name, terms, fold in chain_sets(pats100):
-        tr = _fold_tr(fold)
+    for name, terms, fold in chain_sets(pats400):
+        tr = (codepage.build_lut(437, "#") if fold == "cp437 -i#"
+              else _fold_tr(fold))
+        fold = fold is True
         prog = chain_kernel.compile_chain(terms, tr)
         if prog is None:
             raise AssertionError("chain set %s does not compile" % name)
         p = chain_kernel.device_program(prog, device)
+        # at most 100 of the terms planted, a few copies of each
+        planted = terms[::-(-len(terms) // 100)]
         t0 = time.perf_counter()
         hits = 0
         for n in sizes:
             src = base_bytes if name.startswith("full") else base
-            text = kernels.to_device(plant(src[n].copy(), terms, rng, fold),
-                                     device)
+            text = kernels.to_device(plant(src[n].copy(), planted, rng,
+                                           fold), device)
             want = chain_kernel.chain_scan_reference(text, p)
             check("chain_scan", name, n, chain_kernel.chain_scan(text, p),
                   want)
             hits += _set_bits(want)
             # at 8 MB one block an SM, so that each block walks several
-            # tiles
+            # tiles; and the kernel's time there
             if n == big:
                 check("chain_scan", name + " blocks/SM=1", n,
                       chain_kernel._launch(text, p, blocks_per_sm=1), want)
+                ms = time_kernel(lambda: chain_kernel.chain_scan(text, p))
             # views 1-15 bytes past an aligned address, in a buffer whose
             # bytes around the view are not 0
             buf = torch.full((n + 32,), 0xA5, dtype=torch.uint8,
@@ -731,14 +797,39 @@ def phase_parity_multi(device: str, seed: int, big: int, pats100) -> tuple:
                       chain_kernel.chain_scan(view, p), want)
                 view.fill_(0xA5)
         torch.cuda.synchronize()
-        geo = chain_kernel.launch_geometry(big, p, device, blocks_per_sm=1)
-        print("parity: chain %-16s %3d terms, %4d positions, %2d classes, "
-              "N=%s equal bit for bit (%d starts), and on views at offsets "
-              "1-15; at 8 MB blocks/SM=1 walks %.1f tiles a block %.1f s"
-              % (name, len(terms), sum(len(t) for t in prog[1]),
-                 len(prog[0]), list(sizes), hits,
-                 geo["tiles"] / geo["grid"],
+        geo = chain_kernel.launch_geometry(big, p, device)
+        smem = chain_kernel.smem_bytes(p.n_cls, p.n_pos, p.n_terms,
+                                       p.maxlen)
+        if geo["smem_bytes"] != smem:
+            failed.append(("chain_scan", name + " shared bytes %d, "
+                           "smem_bytes %d" % (geo["smem_bytes"], smem), big))
+        one = chain_kernel.launch_geometry(big, p, device, blocks_per_sm=1)
+        bms, by = chain_bound(big)
+        print("parity: chain %-21s %4d terms, %5d positions, %3d classes, "
+              "longest %4d B, N=%s equal bit for bit (%d starts), and on "
+              "views at offsets 1-15; at 8 MB blocks/SM=1 walks %.1f tiles "
+              "a block; %d shared B a block, %d blocks/SM, %.4f ms per 8 MB "
+              "launch, %.1f %% of its %.4f ms bound (%s) %.1f s"
+              % (name, p.n_terms, p.n_pos, p.n_cls, p.maxlen, list(sizes),
+                 hits, one["tiles"] / one["grid"], smem,
+                 geo["blocks_per_sm"], ms, 100 * bms / ms, bms, by,
                  time.perf_counter() - t0))
+    # past the caps: compile_chain refuses the set, and the launcher a
+    # program built by hand, before any launch
+    text = kernels.to_device(base[4096], device)
+    for name, prog in chain_past_caps():
+        p = chain_kernel.device_program(prog, device)
+        before = chain_kernel.launches["chain_scan"]
+        try:
+            chain_kernel.chain_scan(text, p)
+            refused = False
+        except ValueError:
+            refused = chain_kernel.launches["chain_scan"] == before
+        if not refused:
+            failed.append(("chain_scan", name + " not refused", 4096))
+        print("parity: chain %s (%d classes, %d positions, longest %d B) "
+              "refused by the launcher before a launch: %s"
+              % (name, p.n_cls, p.n_pos, p.maxlen, refused))
     # every N mod 32 (so mod 16 too), short and past 4 KB, and 8 MB
     qsizes = sorted(set(PARITY_SIZES) | set(range(1, 34))
                     | set(range(4065, 4098))) + [big]
@@ -856,6 +947,17 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
             return fn(*args)
         return call
 
+    # calls of the pure count's line count and of the read-back of start
+    # positions, which the occurrence route takes
+    reads = {"lines_with_starts": 0, "plane_positions": 0}
+    real_reads = {k: getattr(chain_kernel, k) for k in reads}
+
+    def read_counter(name, fn):
+        def call(*args):
+            reads[name] += 1
+            return fn(*args)
+        return call
+
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         path = os.path.join(tmp, "corpus.txt")
         corpus.tofile(path)
@@ -863,9 +965,11 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
         records.tofile(rec)
         p100 = os.path.join(tmp, "pats100.txt")
         p400 = os.path.join(tmp, "pats400.txt")
-        for f, k in ((p100, 100), (p400, 400)):
+        p400w = os.path.join(tmp, "pats400w.txt")
+        for f, ws in ((p100, pats[:100]), (p400, pats),
+                      (p400w, wide_patterns(pats))):
             with open(f, "wb") as fh:
-                fh.write(b"".join(w + b"\n" for w in pats[:k]))
+                fh.write(b"".join(w + b"\n" for w in ws))
         runs = ([(name, api.fileagrep, argv + [path], None, "mask_scan")
                  for name, argv in CONFIGS]
                 + [(name, api.fileagrep, argv + [path], None, "renfa_lanes")
@@ -877,39 +981,49 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                      "mask_scan"))
         runs.append(("memagrep4", api.memagrep, REGEX_CONFIGS[0][1],
                      mem_data, "renfa_lanes"))
-        # BASELINE config 5 on its records corpus: 100 patterns take the
-        # chain kernel, 400 (past its caps) the q-gram kernel, a boolean
-        # of two terms the chain kernel too, and a boolean with a term
-        # past the chain caps the mask machine's packed term words
+        # BASELINE config 5 on its records corpus: 100 and 400 patterns
+        # take the chain kernel (the pure -c counts its starts by line on
+        # the card), 400 with 154 byte classes (past its caps) the q-gram
+        # kernel, a boolean of two terms the chain kernel too, and a
+        # boolean with a term past the chain caps the mask machine's
+        # packed term words
         c5 = ["-f", p100] + CONFIG5_DELIM
         runs += [
             ("config5", api.fileagrep, c5 + [rec], None, "chain_scan"),
             ("config5c", api.fileagrep, ["-c", "-f", p100, rec], None,
              "chain_scan"),
-            ("config5q", api.fileagrep, ["-c", "-f", p400, rec], None,
+            ("config5c400", api.fileagrep, ["-c", "-f", p400, rec], None,
+             "chain_scan"),
+            ("config5q", api.fileagrep, ["-c", "-f", p400w, rec], None,
              "qgram_filter"),
             ("memagrep5", api.memagrep, c5, mem_records, "chain_scan"),
             ("bool5", api.fileagrep, CONFIG5_DELIM + ["hello;lazy", rec],
              None, "chain_scan"),
             ("bool5m", api.fileagrep,
-             CONFIG5_DELIM + ["hello;matching," + LONG_TERM, rec], None,
+             CONFIG5_DELIM + ["hello;matching," + WIDE_TERM, rec], None,
              "mask_scan"),
         ]
-        progs = {k: chain_kernel.compile_chain(
-            pats[:k], np.arange(256, dtype=np.uint8)) for k in (100, 400)}
-        if progs[100] is None or progs[400] is not None:
-            raise AssertionError("config 5's 100 patterns must compile to "
-                                 "a chain program and its 400 must not")
+        ident = np.arange(256, dtype=np.uint8)
+        if (chain_kernel.compile_chain(pats[:100], ident) is None
+                or chain_kernel.compile_chain(pats, ident) is None
+                or chain_kernel.compile_chain(wide_patterns(pats), ident)
+                is not None):
+            raise AssertionError("config 5's 100 and 400 patterns must "
+                                 "compile to a chain program and the 400 "
+                                 "wide ones must not")
 
         # the main path, on the card: counts start at 0 here
         scan_ops.set_backend("torch")
         _zero(counts)
         for kname, (mod, fn) in real.items():
             setattr(mod, kname, recorder(kname, fn))
+        for name, fn in real_reads.items():
+            setattr(chain_kernel, name, read_counter(name, fn))
         got, inputs = {}, {}
         try:
             for name, fn, argv, data, kname in runs:
                 before = {k: c[k] for k, c in counts.items()}
+                reads_before = dict(reads)
                 seen.clear()
                 t0 = time.perf_counter()
                 got[name] = _run(fn, argv, data)
@@ -922,12 +1036,22 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                 if name == "config5q" and n["chain_scan"]:
                     raise AssertionError("config5q launched the chain "
                                          "kernel past its caps")
+                r = {k: reads[k] - reads_before[k] for k in reads}
+                if name.startswith("config5c") and (
+                        r["lines_with_starts"] != n["chain_scan"]
+                        or r["plane_positions"]):
+                    raise AssertionError(
+                        "%s: the pure count read %s back for %d chain "
+                        "launches, not one line count a launch"
+                        % (name, r, n["chain_scan"]))
                 inputs[name] = dict(seen)
                 res[name] = {"wall_s": wall, "launches": n[kname],
-                             "kernel": kname}
+                             "kernel": kname, "reads": r}
         finally:
             for kname, (mod, fn) in real.items():
                 setattr(mod, kname, fn)
+            for name, fn in real_reads.items():
+                setattr(chain_kernel, name, fn)
         main_launches = {k: c[k] for k, c in counts.items()}
 
         # the same runs on the port's exact host backend (native C passes)
@@ -1024,7 +1148,7 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
     launch_fns = {"chain_scan": chain_kernel._launch,
                   "qgram_filter": qgram_kernel._launch,
                   "mask_scan": kernels._launch}
-    for name, _fn, _argv, _data, kname in runs[-6:]:
+    for name, _fn, _argv, _data, kname in runs[-7:]:
         args = inputs[name][kname]
         N = args[0].numel()
         ms = time_kernel(lambda: launch_fns[kname](*args))
@@ -1052,23 +1176,28 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
 
     for name, fn, argv, data, kname in runs:
         r = res[name]
-        src = "records " if name.endswith(("5", "5c", "5q", "5m")) else ""
+        src = ("records " if name.endswith(("5", "5c", "5c400", "5q", "5m"))
+               else "")
         where = ("%d MB %sbuffer" % (mb, src) if data is not None
                  else "%d MB %sfile" % (mb, src))
         print("main: %-9s %-38s %s rc=%d out=%d B sha256=%s.. GPU route "
               "wall=%.3f s (%.3f GB/s), numpy backend wall=%.3f s | %s "
               "launches=%d | kernel %.4f ms per %d B launch (%.1f GB/s, "
               "equal to plain), plain %.1f ms, bound %.4f ms (%s) | card: %s"
-              % (name, " ".join(argv[:len(argv) - (data is None)]), where,
+              % (name, " ".join(argv[:len(argv) - (data is None)]).replace(
+                  WIDE_TERM, "hello<136 classes>"), where,
                  got[name][1], got[name][2], got[name][0][:12],
                  r["wall_s"], n_bytes / r["wall_s"] / 1e9,
                  r["host_wall_s"], kname, r["launches"], r["ms"],
                  r["shape_b"], r["shape_b"] / r["ms"] / 1e6,
                  r["plain_ms"], r["bound_ms"], r["bound_by"], card))
-    for name in ("config5", "config5q", "bool5", "bool5m"):
+    for name in ("config5", "config5c400", "config5q", "bool5", "bool5m"):
         r = res[name]
         print("main: the %s kernel's %d B launch of %s sets %d bits"
               % (r["kernel"], r["shape_b"], name, r["set_bits"]))
+    for name in ("config5c", "config5c400"):
+        print("main: %s counted its lines on the card: %s" % (
+            name, res[name]["reads"]))
     for name in ("config4", "memagrep4"):
         r = res[name]
         print("main: the lanes kernel's %d B launch of %s holds %d lines, "
@@ -1098,7 +1227,7 @@ RANK_RUNS = [
     ("config2", CONFIGS[1][1], "corpus", "mask_scan"),
     ("config4n", REGEX_CONFIGS[1][1], "corpus", "renfa_lanes"),
     ("config5", ["-f", "{p100}"] + CONFIG5_DELIM, "records", "chain_scan"),
-    ("config5q", ["-c", "-f", "{p400}"], "records", "qgram_filter"),
+    ("config5q", ["-c", "-f", "{p400w}"], "records", "qgram_filter"),
     ("limit", ["-L", "7:0:0", "matching"], "corpus", "mask_scan"),
     ("mgrep_vc", ["-v", "-c", "-f", "{p100}"], "records", "chain_scan"),
 ]
@@ -1328,10 +1457,10 @@ def phase_ranks(corpus, records, pats, card: str) -> None:
                 data[i * step:(i + 1) * step].tofile(p)
                 paths[name].append(p)
         fmt = {}
-        for k in (100, 400):
-            fmt["p%d" % k] = os.path.join(tmp, "pats%d.txt" % k)
-            with open(fmt["p%d" % k], "wb") as fh:
-                fh.write(b"".join(w + b"\n" for w in pats[:k]))
+        for k, ws in (("p100", pats[:100]), ("p400w", wide_patterns(pats))):
+            fmt[k] = os.path.join(tmp, "pats%s.txt" % k[1:])
+            with open(fmt[k], "wb") as fh:
+                fh.write(b"".join(w + b"\n" for w in ws))
         walls = {"one": 0.0, "ranks": 0.0, "cli": 0.0, "cli_ranks": 0.0}
         for name, head, which, kname in RANK_RUNS:
             argv = [a.format(**fmt) for a in head] + paths[which]
@@ -1385,7 +1514,7 @@ def phase_ranks(corpus, records, pats, card: str) -> None:
                   "process in this one %.3f s, two CLI ranks from start "
                   "to exit %.3f s%s; numpy backend %.3f s | card: %s"
                   % (name, " ".join(head).format(p100="pats100",
-                                                 p400="pats400"),
+                                                 p400w="pats400w"),
                      RANK_FILES, -(-len(corpus) // RANK_FILES), want_rc,
                      len(want), hashlib.sha256(want).hexdigest()[:12],
                      kname, n[0], n[1], n_1, w_1, w2, cli, w_np, card))
@@ -1452,7 +1581,7 @@ def mask_scan_geometry_line(res) -> str:
                 max(regs, default="n/a"), spills, len(regs)))
 
 
-CHAIN_SHAPES = ("config5", "config5c", "memagrep5", "bool5")
+CHAIN_SHAPES = ("config5", "config5c", "config5c400", "memagrep5", "bool5")
 
 
 def chain_scan_geometry_line(res) -> str:
@@ -1539,7 +1668,7 @@ def main(argv=None) -> int:
     err = phase_parity("cuda", args.seed, 8 << 20)
     err_re = phase_parity_regex("cuda", args.seed)
     err_chain, err_qgram = phase_parity_multi(
-        "cuda", args.seed, 8 << 20, make_patterns(100, args.seed))
+        "cuda", args.seed, 8 << 20, make_patterns(400, args.seed))
     res = phase_main("cuda", args.seed, args.mb, card)
 
     c2, c4, c5, c5q = (res["config2"], res["config4"], res["config5"],
@@ -1547,6 +1676,7 @@ def main(argv=None) -> int:
     print(mask_scan_geometry_line(res))
     print(times_line(res, "mask_scan", MASK_SHAPES, card))
     print(chain_scan_geometry_line(res))
+    print(times_line(res, "chain_scan", CHAIN_SHAPES, card))
     print(renfa_lanes_geometry_line(res))
     print(times_line(res, "renfa_lanes", ("config4", "memagrep4"), card))
     print(qgram_filter_geometry_line(res))
@@ -1592,8 +1722,8 @@ def main(argv=None) -> int:
         "source": "agrep_tpu_torch/csrc/chain_scan.cu",
         "replaces": "agrep_tpu/ops/chain_kernel.py:233",
         "launches": res["launches"]["chain_scan"],
-        "max_abs_err": max([err_chain] + [res[n]["max_abs_err"] for n in (
-            "config5", "config5c", "memagrep5", "bool5")]),
+        "max_abs_err": max([err_chain] + [res[n]["max_abs_err"]
+                                          for n in CHAIN_SHAPES]),
         "ms": c5["ms"],
         "plain_ms": c5["plain_ms"],
         "bound_ms": c5["bound_ms"],

@@ -19,8 +19,9 @@ on:
 
   * the term sets of tests/test_torch_mgrep.py (whose plain version that
     file holds against the Pallas kernel on the same inputs);
-  * one-byte terms beside longer ones, a set at the 96-class cap, terms
-    of 128 bytes ending at byte N - 1;
+  * one-byte terms beside longer ones, a set at the TPU's 96-class cap,
+    terms of 128 bytes ending at byte N - 1 (tests/test_torch_chain_caps.py
+    runs the model on programs up to the port's caps);
   * N = 1, 2, 15-17, 31-33, 4095-4097 and TILE's edges, and texts that
     start 0-15 bytes past a 16-byte boundary.
 
@@ -38,11 +39,22 @@ import torch
 
 from agrep_tpu.ops import chain_kernel as j_chain
 from agrep_tpu_torch.ops import chain_kernel as t_chain
-from agrep_tpu_torch.ops.chain_kernel import MAX_TERM_LEN, NO_CLASS, TILE
-from tests.test_torch_mgrep import CHAIN_CASES
+from agrep_tpu_torch.ops.chain_kernel import NO_CLASS, TILE
+from tests.test_torch_mgrep import CHAIN_CASES, port_form
 
 SINGLE = 0x80           # the kernel's flag: the class has a one-byte term
-STAGE_SLACK = 160       # bytes a raw buffer holds past its tile
+
+
+def halo(maxlen: int) -> int:
+    """Bytes a tile reads past its last start position."""
+    return max(maxlen, 2) - 1
+
+
+def stage_slack(maxlen: int) -> int:
+    """Bytes a raw buffer holds past its tile: the halo, up to 15 bytes
+    before the tile's first byte, 15 of round-up to whole chunks and the
+    word the translation reads past the class words, 16-byte aligned."""
+    return (halo(maxlen) + 32 + 15) & ~15
 
 
 def kernel_model(text: np.ndarray, p, tile: int = TILE,
@@ -76,21 +88,23 @@ def kernel_model(text: np.ndarray, p, tile: int = TILE,
             bitmap[s3[0], s3[1], :] = True
     bitmap[np.flatnonzero(single)] = True
     # staging: each tile's 16-byte chunks into its raw buffer
-    span = tile + max(p.maxlen, 2) - 1
+    slack = stage_slack(p.maxlen)
+    span = tile + halo(p.maxlen)
     n_tiles = -(-N // tile)
     g0 = np.arange(n_tiles) * tile
     a0 = (offset + g0) & ~15
     shift = offset + g0 - a0
     chunks = (shift + span + 15) >> 4
-    mem = np.zeros(offset + n_tiles * tile + 2 * STAGE_SLACK, np.uint8)
+    mem = np.zeros(offset + n_tiles * tile + 2 * slack, np.uint8)
     mem[offset:offset + N] = text
-    col = np.arange(tile + STAGE_SLACK)[None, :]
+    col = np.arange(tile + slack)[None, :]
     noise = np.random.default_rng(N).integers(0, 256, (n_tiles, col.size))
     raw = np.where(col < 16 * chunks[:, None], mem[a0[:, None] + col], noise)
     # translation into the class buffer: class word w of the tile at
     # word w + w // 8, the skipped words noise
-    n_cw = (tile + MAX_TERM_LEN - 1 + 3) // 4 + 1
-    assert (shift + 4 * n_cw + 4 <= tile + STAGE_SLACK).all()
+    n_cw = (tile + halo(p.maxlen) + 3) // 4 + 1
+    assert (shift + 4 * n_cw + 4 <= tile + slack).all()
+    assert (16 * chunks <= tile + slack).all()
     b = np.arange(4 * n_cw)
     cls = np.random.default_rng(N + 1).integers(
         0, stride, (n_tiles, 4 * (n_cw + n_cw // 8 + 1)))
@@ -261,13 +275,15 @@ def test_model_unaligned_text(offset):
 ], ids=["edges", "cap96", "long128_end"])
 def test_model_equals_pallas_interpret(pallas, make, terms, sizes):
     prog = t_chain.compile_chain(terms, ident_tr())
+    j_prog = j_chain.compile_chain(terms, ident_tr())
+    assert prog == port_form(j_prog)
     p = t_chain.device_program(prog)
     if make is _cap96_text:
-        assert p.n_cls == t_chain.MAX_EQ_SETS
+        assert p.n_cls == 96
     for n in sizes:
         text = make(n)
         got = starts(kernel_model(text, p), n)
-        assert np.array_equal(got, pallas(text, prog)), n
+        assert np.array_equal(got, pallas(text, j_prog)), n
         assert len(got) > 0
 
 
@@ -298,5 +314,5 @@ def test_device_program_tables(name, terms):
     ones = {s[0] for s in specs if len(s) == 1}
     assert set(np.flatnonzero(p.single.numpy())) == ones
     if name == "cap96":
-        assert C == t_chain.MAX_EQ_SETS and len(pair) == 97 ** 2 + 1
-        assert ones and p.maxlen == t_chain.MAX_TERM_LEN
+        assert C == 96 and len(pair) == 97 ** 2 + 1
+        assert ones and p.maxlen == 128

@@ -277,6 +277,8 @@ def test_kernel_wrappers_take_the_device_of_the_tensor(monkeypatch):
 
     def query(lib, kernel, fn, index, n_out, *args):
         seen.append((kernel, index))
+        if fn == "chain_scan_smem_optin":
+            return (chain_kernel.HOPPER_SMEM_OPTIN,)
         return (256, 32768, 4)
 
     for mod in (kernels, renfa_kernel, chain_kernel, qgram_kernel):
@@ -303,6 +305,7 @@ def test_kernel_wrappers_take_the_device_of_the_tensor(monkeypatch):
         chain_kernel.launch_geometry(1 << 20, prog, dev)
         renfa_kernel.launch_geometry(1000, rm, dev)
         qgram_kernel.launch_geometry(1 << 20, dev)
-        assert seen == [("sm", want), ("chain_scan", want), ("sm", want),
+        assert seen == [("sm", want), ("chain_scan", want),
+                        ("chain_scan", want), ("sm", want),
                         ("renfa_lanes", want), ("sm", want),
                         ("qgram_filter", want), ("sm", want)], seen

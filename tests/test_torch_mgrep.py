@@ -4,17 +4,20 @@
     qgram_candidates (the plain versions, on CPU tensors) against
     agrep_tpu's Pallas chain and q-gram kernels run in interpret mode, on
     the shapes of tests/test_chain_kernel.py and
-    tests/test_multi_onepass.py; compile_chain's program and its None on
-    the oversize sets;
+    tests/test_multi_onepass.py; compile_chain's program (agrep_tpu's,
+    each cube cover as the bytes it covers) and its None past the
+    port's caps;
   * the wrapper: a CPU tensor runs the plain version, text and program
     on different devices raise;
   * the CLI: agrep_tpu_torch.api on the torch backend with
     AGREP_TORCH_DEVICE=cpu against agrep_tpu.api on its numpy backend, in
-    process (as tests/test_torch_cli.py): -f with 100 patterns on a
-    corpus over the device route's 64 KiB, -d '$$', 600 patterns (past
-    the chain caps: the q-gram route), -m through memagrep, boolean
-    'a;b', 'a,b' and a {..}~ tree; a spy shows which kernel wrapper each
-    route reached.
+    process (as tests/test_torch_cli.py): -f with 100 and 600 patterns
+    on a corpus over the device route's 64 KiB (the chain route), -d
+    '$$', 600 patterns of 128 or more byte classes (past the chain caps:
+    the q-gram route), -m through memagrep, boolean 'a;b', 'a,b' and a
+    {..}~ tree, with a 136-byte term (the chain route) and with a term
+    of 137 classes (the mask machine); a spy shows which kernel wrapper
+    each route reached.
 
 Every comparison is exact: these are integer machines.  The CUDA kernels
 themselves are held against their plain versions by chip_smoke.py on the
@@ -24,7 +27,9 @@ GPU.
 from __future__ import annotations
 
 import io
+import os
 import random
+import string
 
 import numpy as np
 import pytest
@@ -72,6 +77,18 @@ def fold_tr():
 
 def _u8(b: bytes) -> np.ndarray:
     return np.frombuffer(b, dtype=np.uint8).copy()
+
+
+def port_form(prog):
+    """agrep_tpu's chain program in the port's form: each class's cube
+    cover as the bytes it covers, ascending (None stays None)."""
+    if prog is None:
+        return None
+    eq_specs, term_specs, term_ids, maxlen = prog
+    classes = tuple(tuple(b for b in range(256)
+                          if any(b & m == v for m, v in cubes))
+                    for cubes in eq_specs)
+    return classes, term_specs, term_ids, maxlen
 
 
 # ---------------------------------------------------------------------
@@ -162,9 +179,10 @@ CHAIN_CASES = {
 def test_chain_starts_equal_pallas_interpret(case):
     stream, terms, tr = CHAIN_CASES[case]()
     prog = t_chain.compile_chain(terms, tr)
+    j_prog = j_chain.compile_chain(terms, tr)
     assert prog is not None
-    assert prog == j_chain.compile_chain(terms, tr)
-    want = j_chain.chain_match_starts(stream, prog, interpret=True)
+    assert prog == port_form(j_prog)
+    want = j_chain.chain_match_starts(stream, j_prog, interpret=True)
     got = t_chain.chain_match_starts(torch.from_numpy(stream), prog)
     assert got.dtype == np.int64
     assert np.array_equal(got, want)
@@ -181,17 +199,28 @@ SETS = {
     "97_classes": [bytes([c]) for c in range(97)],
     "96_classes": [bytes([c]) for c in range(96)],
     "empty_slots": [b"", b"ab", b""],
+    # past the port's caps (chain_kernel.fits), under either fold
+    "x8193": [b"x" * 8193],
+    "128_classes": [bytes([c]) for c in range(128, 256)],
+    "32768_positions": [b"%07d\x80" % i for i in range(4096)],
 }
+PAST_TPU_CAPS = ("x129", "3000_positions", "97_classes", "x8193",
+                 "128_classes", "32768_positions")
+PAST_PORT_CAPS = ("x8193", "128_classes", "32768_positions")
 
 
 @pytest.mark.parametrize("name", list(SETS))
 @pytest.mark.parametrize("fold", [False, True], ids=["ident", "fold"])
 def test_compile_chain_equals_agrep_tpu(name, fold):
+    """Where agrep_tpu compiles a set the port's program equals its;
+    past the TPU's caps the port compiles up to its own."""
     tr = fold_tr() if fold else ident_tr()
     got = t_chain.compile_chain(SETS[name], tr)
-    assert got == j_chain.compile_chain(SETS[name], tr)
-    assert (got is None) == (name in ("x129", "3000_positions",
-                                      "97_classes"))
+    want = j_chain.compile_chain(SETS[name], tr)
+    assert (want is None) == (name in PAST_TPU_CAPS)
+    assert (got is None) == (name in PAST_PORT_CAPS)
+    if want is not None:
+        assert got == port_form(want)
 
 
 def test_chain_device_program_and_wrapper():
@@ -341,12 +370,22 @@ def _patterns_100():
 
 def _patterns_600():
     """tests/test_multi_onepass.py's 600-pattern file: 3,600 term
-    positions, past the chain kernel's 2,400."""
+    positions, past the TPU chain kernel's 2,400 and within the port's
+    caps."""
     rnd = random.Random(3)
     words = ["alpha", "beta", "kernel", "device", "zeta"]
     pats = [rnd.choice(words) for _ in range(10)]
     return pats + ["qz" + rnd.choice(words) + str(i % 97)
                    for i in range(590)]
+
+
+def _patterns_600_wide():
+    """The 600 patterns with a byte 0x80-0xFF in each of the 590 absent
+    ones: 128 classes more than the letters and digits, past the chain
+    kernel's 127."""
+    pats = _patterns_600()
+    return pats[:10] + [p[:2] + chr(0x80 + i % 128) + p[2:]
+                        for i, p in enumerate(pats[10:])]
 
 
 @pytest.fixture(scope="module")
@@ -356,8 +395,10 @@ def mp(tmp_path_factory):
         "corpus": _write_corpus(d / "corpus.txt", 4000),
         "records": _write_corpus(d / "records.txt", 4000, blank_every=11),
     }
-    for name, pats in (("p100", _patterns_100()), ("p600", _patterns_600())):
-        (d / (name + ".txt")).write_text("".join(p + "\n" for p in pats))
+    for name, pats in (("p100", _patterns_100()), ("p600", _patterns_600()),
+                       ("p600w", _patterns_600_wide())):
+        (d / (name + ".txt")).write_bytes(
+            "".join(p + "\n" for p in pats).encode("latin-1"))
         files[name] = str(d / (name + ".txt"))
     return files
 
@@ -431,8 +472,21 @@ def test_records_take_the_chain_route(mp, spy, flags):
 @pytest.mark.parametrize("flags", [["-c"], ["-P"], ["-d", "$$"]],
                          ids=["c", "P", "d"])
 def test_600_patterns_take_the_qgram_route(mp, spy, flags):
+    """Past the chain caps (154 classes) 24 or more terms take the
+    q-gram kernel."""
+    assert t_chain.compile_chain(
+        [p.encode("latin-1") for p in _patterns_600_wide()],
+        ident_tr()) is None
     corpus = mp["records"] if "-d" in flags else mp["corpus"]
-    _both(flags + ["-f", mp["p600"], corpus], spy, "qgram_filter")
+    _both(flags + ["-f", mp["p600w"], corpus], spy, "qgram_filter")
+
+
+@pytest.mark.parametrize("flags", [["-c"], ["-P"], ["-d", "$$"]],
+                         ids=["c", "P", "d"])
+def test_600_patterns_take_the_chain_route(mp, spy, flags):
+    """3,600 term positions, past the TPU caps, take the chain kernel."""
+    corpus = mp["records"] if "-d" in flags else mp["corpus"]
+    _both(flags + ["-f", mp["p600"], corpus], spy, "chain_scan")
 
 
 @pytest.mark.parametrize("argv", [["-c"], [], ["-d", "$$"]],
@@ -459,20 +513,35 @@ def test_booleans_take_the_chain_route(mp, spy, argv):
     _both(argv + [corpus], spy, "chain_scan")
 
 
-# a term of 136 bytes, past the chain kernel's 128, in each boolean
+def _with_term(term):
+    return [["-c", "alpha;kernel," + term], ["alpha,zeta," + term],
+            ["-c", "{alpha,beta};~" + term],
+            ["-d", "$$", "delta;iota," + term],
+            ["{search;match},~Theta," + term]]
+
+
+# a term of 136 bytes, past the TPU chain kernel's 128, in each boolean
 LONG_TERM = "kernel" + "q" * 130
-BOOLEANS_LONG = [["-c", "alpha;kernel," + LONG_TERM],
-                 ["alpha,zeta," + LONG_TERM],
-                 ["-c", "{alpha,beta};~" + LONG_TERM],
-                 ["-d", "$$", "delta;iota," + LONG_TERM],
-                 ["{search;match},~Theta," + LONG_TERM]]
+# a term of 137 classes, past the chain kernel's 127: the argument as
+# the CLI gets raw bytes 0xA0-0xFF from the command line
+WIDE_TERM = os.fsdecode((string.ascii_uppercase + string.digits).encode()
+                        + bytes(range(0xA0, 0x100)))
+WIDE_TERM = "kernel" + WIDE_TERM
 
 
-@pytest.mark.parametrize("argv", BOOLEANS_LONG, ids=BOOL_IDS)
+@pytest.mark.parametrize("argv", _with_term(LONG_TERM), ids=BOOL_IDS)
+def test_booleans_with_a_long_term_take_the_chain_route(mp, spy, argv):
+    corpus = mp["records"] if "-d" in argv else mp["corpus"]
+    _both(argv + [corpus], spy, "chain_scan")
+
+
+@pytest.mark.parametrize("argv", _with_term(WIDE_TERM), ids=BOOL_IDS)
 def test_booleans_take_the_mask_machine(mp, spy, argv):
     """Past the chain caps a boolean's short terms take the mask
     machine's packed term words (the long one the native single-term
     search)."""
+    assert t_chain.compile_chain([os.fsencode(WIDE_TERM)],
+                                 ident_tr()) is None
     corpus = mp["records"] if "-d" in argv else mp["corpus"]
     _both(argv + [corpus], spy, "mask_scan")
 
@@ -490,7 +559,8 @@ def test_small_stream_stays_on_the_host(tmp_path, spy):
 def test_numpy_backend_matches_agrep_tpu(mp, spy):
     t_scan.set_backend("numpy")
     for argv in (["-c", "-f", mp["p100"], mp["corpus"]],
-                 ["-d", "$$", "-f", mp["p600"], mp["records"]]):
+                 ["-d", "$$", "-f", mp["p600"], mp["records"]],
+                 ["-d", "$$", "-f", mp["p600w"], mp["records"]]):
         got = _run(t_api, TAgrepError, TOverflow, argv)
         assert got == _run(j_api, JAgrepError, JOverflow, argv), argv
     assert not any(spy.values()), spy

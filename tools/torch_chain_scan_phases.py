@@ -136,7 +136,7 @@ def build(srcs: dict) -> dict:
         lib.chain_scan_launch.argtypes = [p, ll, p, p, i, p, i, p, i, p, i,
                                           p, i, i, p]
         lib.chain_scan_geometry.restype = i
-        lib.chain_scan_geometry.argtypes = [i, i, i, i, ip, ip, ip]
+        lib.chain_scan_geometry.argtypes = [i, i, i, i, i, ip, ip, ip]
         lib.chain_scan_error_string.restype = ctypes.c_char_p
         lib.chain_scan_error_string.argtypes = [i]
         libs[name] = lib
@@ -174,7 +174,7 @@ def main(argv=None) -> int:
             threads, smem, fits = (ctypes.c_int(), ctypes.c_int(),
                                    ctypes.c_int())
             _cuda.check(lib, "chain_scan", lib.chain_scan_geometry(
-                p.n_cls, p.n_pos, p.n_terms, chain_kernel.TILE,
+                p.n_cls, p.n_pos, p.n_terms, p.maxlen, chain_kernel.TILE,
                 ctypes.byref(threads), ctypes.byref(smem),
                 ctypes.byref(fits)), "geometry")
 

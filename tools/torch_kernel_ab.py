@@ -109,7 +109,7 @@ def shapes(cs, mb: int, seed: int, tmp: str, device: str = "cuda"):
     scan_ops.set_backend("torch")
     kernels.mask_scan = recorder
     try:
-        api.fileagrep(cs.CONFIG5_DELIM + ["hello;matching," + cs.LONG_TERM,
+        api.fileagrep(cs.CONFIG5_DELIM + ["hello;matching," + cs.WIDE_TERM,
                                           rec_path], output=io.BytesIO())
     finally:
         kernels.mask_scan = real
@@ -148,8 +148,8 @@ def shapes(cs, mb: int, seed: int, tmp: str, device: str = "cuda"):
         out.append((name, "chain_scan",
                     lambda t=t, p=p: chain_kernel._launch(t, p)))
     words = qgram_kernel.words_tensor(
-        multi.member_projection_1024(multi.build_qgram_tables(pats, tr)),
-        device)
+        multi.member_projection_1024(multi.build_qgram_tables(
+            cs.wide_patterns(pats), tr)), device)
     out.append(("config5q", "qgram_filter",
                 lambda: qgram_kernel._launch(rec, words)))
     return out

@@ -59,12 +59,13 @@ def shapes(mb: int, seed: int, device: str):
         m = kernels.machine_from_arrays(*args, device=device)
         out.append((name, mem if name == "memagrep" else chunk, m,
                     chip_smoke.halo(args[1], q.D, L), L))
-    # bool5m: 'hello;matching,<136 B>' past the chain caps; the long term
-    # goes to the host, the other two to one packed word (two hit bits)
+    # bool5m: 'hello;matching,<136 classes>' past the chain caps; the
+    # long term goes to the host, the other two to one packed word (two
+    # hit bits)
     records = kernels.to_device(chip_smoke.make_records(corpus, seed),
                                 device)
     groups, _ = pack_terms([b"hello", b"matching",
-                            chip_smoke.LONG_TERM.encode()],
+                            os.fsencode(chip_smoke.WIDE_TERM)],
                            np.arange(256, dtype=np.uint8))
     g = groups[0]
     m = kernels.machine_from_arrays(g.mask, g.consts, 0, "bitap", None,

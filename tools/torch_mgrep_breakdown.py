@@ -15,8 +15,8 @@ Makes chip_smoke.py's config-5 corpus (its lines with a blank line every
     compiling no chain program); one warm-up run, then one timed run of
     each, outputs compared;
   * unless --routes-only, for each of chip_smoke's config-5 runs
-    (config5, config5c, config5q, memagrep5, bool5, bool5m) on the torch
-    backend and the GPU: one warm-up run, then one timed run (host
+    (config5, config5c, config5c400, config5q, memagrep5, bool5, bool5m)
+    on the torch backend and the GPU: one warm-up run, then one timed run (host
     clock, ended by a synchronize); one run under torch.profiler: the
     device time of every CUDA kernel and copy, by name, and their sum
     over the timed wall (the card's busy share); one run under cProfile:
@@ -144,15 +144,19 @@ def main(argv=None) -> int:
             with open(f, "wb") as fh:
                 fh.write(b"".join(w + b"\n" for w in pats[:k]))
         p100, p400 = files[100], files[400]
+        p400w = os.path.join(tmp, "pats400w.txt")
+        with open(p400w, "wb") as fh:
+            fh.write(b"".join(w + b"\n" for w in cs.wide_patterns(pats)))
         c5 = ["-f", p100] + cs.CONFIG5_DELIM
         mem = b"\n" + records.tobytes()
         runs = [("config5", c5 + [rec], None),
                 ("config5c", ["-c", "-f", p100, rec], None),
-                ("config5q", ["-c", "-f", p400, rec], None),
+                ("config5c400", ["-c", "-f", p400, rec], None),
+                ("config5q", ["-c", "-f", p400w, rec], None),
                 ("memagrep5", c5, mem),
                 ("bool5", cs.CONFIG5_DELIM + ["hello;lazy", rec], None),
                 ("bool5m", cs.CONFIG5_DELIM
-                 + ["hello;matching," + cs.LONG_TERM, rec], None)]
+                 + ["hello;matching," + cs.WIDE_TERM, rec], None)]
 
         def run(argv, data):
             buf = io.BytesIO()
