@@ -128,6 +128,12 @@ def get_lib():
         u8p, i64, u8p, i32p, i64p, i64p, u8p, i64p, u8p, i64,
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
         u8p, i64, i64p, i64, i64, i64p, i64p, i64]
+    lib.qgram_first_per_anchor_at.restype = i64
+    lib.qgram_first_per_anchor_at.argtypes = [
+        u8p, i64, u32p, i64, i64, u8p, i32p, i64p, i64p, u8p, i64p, u8p,
+        i64,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        u8p, i64, i64p, i64, i64, i64p, i64p, i64]
     lib.mgrep_or_count_walk.restype = i64
     lib.mgrep_or_count_walk.argtypes = [
         u8p, i64, u8p, i64, u8p, i32p, ctypes.c_int32, i64,
@@ -594,58 +600,47 @@ def qgram_occ_at(stream: np.ndarray, anchors: np.ndarray,
             np.concatenate([x[1] for x in parts]))
 
 
-def qgram_first_per_anchor(stream: np.ndarray, member: np.ndarray,
-                           hash_id: np.ndarray, bucket_off: np.ndarray,
-                           bucket_tids: np.ndarray,
-                           term_bytes: np.ndarray,
-                           term_off: np.ndarray, tr: np.ndarray,
-                           p: int, longf: bool, shortf: bool,
-                           wordbound: bool,
-                           delim: bytes | None = None,
-                           marks: np.ndarray | None = None,
-                           maxs: int = 0):
-    """Highest-tid verified win per anchor; None when the native
-    library is unavailable.  delim+marks enable the replay-invisible
-    skip (see the C comment)."""
-    lib = get_lib()
-    if lib is None:
-        return None
+def _per_anchor_tables(member, hash_id, bucket_off, bucket_tids,
+                       term_bytes, term_off, tr, p, longf, shortf,
+                       wordbound, delim):
+    """The q-gram tables and delimiter arguments of the per-anchor
+    passes, as the C ABI takes them."""
     dp = np.ascontiguousarray(np.frombuffer(
         delim if delim else b"\n", dtype=np.uint8))
-    dlen = len(delim) if delim else 0
+    return (np.ascontiguousarray(member.astype(np.uint8)),
+            np.ascontiguousarray(hash_id.astype(np.int32)),
+            np.ascontiguousarray(bucket_off.astype(np.int64)),
+            np.ascontiguousarray(bucket_tids.astype(np.int64)),
+            np.ascontiguousarray(term_bytes),
+            np.ascontiguousarray(term_off.astype(np.int64)),
+            np.ascontiguousarray(tr), p, int(longf), int(shortf),
+            int(wordbound), dp, len(delim) if delim else 0)
+
+
+def _per_anchor_rows(fn, key, n_s, marks, dlen, maxs, term_off, p, view):
+    """Rows of the C pass fn over [0, n_s): view(lo, hi) gives fn's
+    leading arguments for the stream's bytes [lo, hi); with a delimiter
+    and a stream of AGREP_TORCH_PAR_MIN bytes or more, chunked at region
+    marks and run side by side (ctypes releases the GIL)."""
     mk = (np.ascontiguousarray(marks, dtype=np.int64)
           if marks is not None else np.zeros(0, dtype=np.int64))
-    s = np.ascontiguousarray(stream)
-    tables = (
-        np.ascontiguousarray(member.astype(np.uint8)),
-        np.ascontiguousarray(hash_id.astype(np.int32)),
-        np.ascontiguousarray(bucket_off.astype(np.int64)),
-        np.ascontiguousarray(bucket_tids.astype(np.int64)),
-        np.ascontiguousarray(term_bytes),
-        np.ascontiguousarray(term_off.astype(np.int64)),
-        np.ascontiguousarray(tr), p, int(longf), int(shortf),
-        int(wordbound), dp, dlen)
 
-    def one(buf, mk_loc, key):
-        out_a = _scratch(("qgram_a", key), 1 << 20)
-        out_t = _scratch(("qgram_t", key), 1 << 20)
-        args = (buf, len(buf)) + tables + (mk_loc, len(mk_loc),
-                                           int(maxs))
-        cnt = lib.qgram_first_per_anchor(*args, out_a, out_t,
-                                         len(out_a))
+    def one(lo, hi, mk_loc, k):
+        out_a = _scratch((key, "a", k), 1 << 20)
+        out_t = _scratch((key, "t", k), 1 << 20)
+        args = view(lo, hi) + (mk_loc, len(mk_loc), int(maxs))
+        cnt = fn(*args, out_a, out_t, len(out_a))
         if cnt > len(out_a):
-            out_a = _scratch(("qgram_a", key), int(cnt) + 16)
-            out_t = _scratch(("qgram_t", key), int(cnt) + 16)
-            cnt = lib.qgram_first_per_anchor(*args, out_a, out_t,
-                                             len(out_a))
+            out_a = _scratch((key, "a", k), int(cnt) + 16)
+            out_t = _scratch((key, "t", k), int(cnt) + 16)
+            cnt = fn(*args, out_a, out_t, len(out_a))
         return out_a[:cnt], out_t[:cnt]
 
-    n_s = len(s)
     nthreads = min(4, os.cpu_count() or 1)
     par_min = int(os.environ.get("AGREP_TORCH_PAR_MIN", str(8 << 20)))
     if dlen == 0 or nthreads <= 1 or n_s < par_min or len(mk) < \
             4 * nthreads:
-        a, t = one(s, mk, 0)
+        a, t = one(0, n_s, mk, 0)
         return a.copy(), t.copy()
     # Chunk at region-mark boundaries: jump pruning never crosses a
     # region end (bound < te1), and detection is position-local, so a
@@ -664,7 +659,7 @@ def qgram_first_per_anchor(stream: np.ndarray, member: np.ndarray,
         lo_e = max(lo - ctx, 0)
         hi_e = min(hi + maxlen + dlen + 8, n_s)
         mk_loc = mk[(mk > lo_e) & (mk < hi_e)] - lo_e
-        a, t = one(s[lo_e:hi_e], np.ascontiguousarray(mk_loc), k)
+        a, t = one(lo_e, hi_e, np.ascontiguousarray(mk_loc), k)
         a = a + lo_e
         keep = (a >= lo) & (a < hi)
         return a[keep].copy(), t[keep].copy()
@@ -674,6 +669,73 @@ def qgram_first_per_anchor(stream: np.ndarray, member: np.ndarray,
         parts = list(ex.map(chunk, range(len(cuts) - 1)))
     return (np.concatenate([x[0] for x in parts]),
             np.concatenate([x[1] for x in parts]))
+
+
+def qgram_first_per_anchor(stream: np.ndarray, member: np.ndarray,
+                           hash_id: np.ndarray, bucket_off: np.ndarray,
+                           bucket_tids: np.ndarray,
+                           term_bytes: np.ndarray,
+                           term_off: np.ndarray, tr: np.ndarray,
+                           p: int, longf: bool, shortf: bool,
+                           wordbound: bool,
+                           delim: bytes | None = None,
+                           marks: np.ndarray | None = None,
+                           maxs: int = 0):
+    """Highest-tid verified win per anchor; None when the native
+    library is unavailable.  delim+marks enable the replay-invisible
+    skip (see the C comment)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    s = np.ascontiguousarray(stream)
+    tables = _per_anchor_tables(member, hash_id, bucket_off, bucket_tids,
+                                term_bytes, term_off, tr, p, longf, shortf,
+                                wordbound, delim)
+
+    def view(lo, hi):
+        return (s[lo:hi], hi - lo) + tables
+
+    return _per_anchor_rows(lib.qgram_first_per_anchor, "qgram_fpa",
+                            len(s), marks, tables[-1], maxs, term_off, p,
+                            view)
+
+
+def qgram_first_per_anchor_at(stream: np.ndarray, plane: np.ndarray,
+                              shift: int, member: np.ndarray,
+                              hash_id: np.ndarray, bucket_off: np.ndarray,
+                              bucket_tids: np.ndarray,
+                              term_bytes: np.ndarray,
+                              term_off: np.ndarray, tr: np.ndarray,
+                              p: int, longf: bool, shortf: bool,
+                              wordbound: bool,
+                              delim: bytes | None = None,
+                              marks: np.ndarray | None = None,
+                              maxs: int = 0):
+    """qgram_first_per_anchor's rows at the candidate anchors of a bit
+    plane only (u32 words; bit b of word w is anchor 32 w + b + shift),
+    e.g. the device chain kernel's start plane with shift p - 1: the
+    rows the whole-stream pass gives where the plane holds every anchor
+    that verifies, chunked alike; None when the native library is
+    unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    s = np.ascontiguousarray(stream)
+    words = np.ascontiguousarray(plane).view(np.uint32)
+    tables = _per_anchor_tables(member, hash_id, bucket_off, bucket_tids,
+                                term_bytes, term_off, tr, p, longf, shortf,
+                                wordbound, delim)
+
+    def view(lo, hi):
+        # the words holding anchors [lo, hi), re-based on lo
+        w0 = max((lo - shift) // 32, 0)
+        w1 = min(-(-(hi - shift) // 32), len(words))
+        return ((s[lo:hi], hi - lo, words[w0:max(w0, w1)],
+                 max(w1 - w0, 0), 32 * w0 + shift - lo) + tables)
+
+    return _per_anchor_rows(lib.qgram_first_per_anchor_at, "qgram_fpa_at",
+                            len(s), marks, tables[-1], maxs, term_off, p,
+                            view)
 
 
 def mgrep_or_count_walk(stream: np.ndarray, delim: bytes,

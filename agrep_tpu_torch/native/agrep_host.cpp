@@ -16,6 +16,7 @@
 #include <cstdint>
 #include <cstring>
 #include <vector>
+#include <algorithm>
 
 #if defined(__x86_64__)
 #include <immintrin.h>
@@ -917,18 +918,93 @@ int64_t qgram_first_per_line(
     return cnt;
 }
 
+// Highest-tid term verified at anchor a (>= p - 1), -1 when none:
+// the gram hash's membership, then its bucket from the highest pattern
+// index down (newmgrep.c f_prep1 bucket order); wordbound optional.
+static inline int64_t qgram_first_win(
+    const uint8_t* buf, int64_t n, int64_t a, const uint8_t* member,
+    const int32_t* hash_id, const int64_t* bucket_off,
+    const int64_t* bucket_tids, const uint8_t* term_bytes,
+    const int64_t* term_off, const uint8_t* tr, int64_t p,
+    int32_t longf, int32_t shortf, int32_t wordbound) {
+    auto isaln = [](uint8_t c) {
+        return (c >= '0' && c <= '9') || (c >= 'A' && c <= 'Z')
+            || (c >= 'a' && c <= 'z');
+    };
+    uint32_t h;
+    if (shortf) {
+        h = tr[buf[a]];
+    } else {
+        h = ((uint32_t)(buf[a] & 31) << 5) | (buf[a - 1] & 31);
+        if (longf)
+            h = ((h << 5) | (buf[a - 2] & 31)) & 32767u;
+    }
+    if (!member[h]) return -1;
+    int32_t b = hash_id[h];
+    for (int64_t j = bucket_off[b + 1] - 1; j >= bucket_off[b]; j--) {
+        int64_t tid = bucket_tids[j];
+        const uint8_t* t = term_bytes + term_off[tid];
+        int64_t L = term_off[tid + 1] - term_off[tid];
+        int64_t s = a - (p - 1);
+        if (s + L > n) continue;
+        int64_t k = 0;
+        while (k < L && tr[buf[s + k]] == tr[t[k]]) k++;
+        if (k < L) continue;
+        if (wordbound) {
+            uint8_t after = (s + L < n) ? buf[s + L] : 0;
+            uint8_t before = (s > 0) ? buf[s - 1] : 0;
+            if (isaln(after) || isaln(before)) continue;
+        }
+        return tid;
+    }
+    return -1;
+}
+
+// The least anchor the -d replay can still observe after a win at a
+// (a + 1 when every later anchor may be): after consuming an anchor
+// the replay resumes its event search at nv >= min(next delimiter
+// start, region end + 1) - dlen + 1, so anchors below that bound are
+// invisible whichever way the block-trim quirks resolve.  The bound
+// keeps a safety margin (maxs + 4) -- keeping extra anchors is always
+// safe, the python walk does its own searchsorted jumps.  marks =
+// sorted region ends (buffer coords); binary-searched per win.
+static inline int64_t qgram_resume_at(
+    const uint8_t* buf, int64_t n, int64_t a, const uint8_t* dpat,
+    int64_t dlen, const int64_t* marks, int64_t n_marks, int64_t maxs) {
+    // A delimiter just before/at this anchor means an earlier consumed
+    // event's resume point (nv = that delimiter + step) can still land
+    // in (a, a + maxs] -- and from there observe any event we'd prune.
+    // Only a delimiter-free tail makes the zone unobservable.
+    int64_t lo0 = a - maxs - dlen - 2;
+    if (lo0 < 0) lo0 = 0;
+    int64_t span = a + dlen - lo0;
+    if (span > n - lo0) span = n - lo0;
+    if (span >= dlen
+        && memmem(buf + lo0, (size_t)span, dpat, (size_t)dlen) != nullptr)
+        return a + 1;   // no jump: recent delimiter context
+    // next delimiter start at or after a + 1
+    int64_t ds = n + 1;
+    if (a + 1 + dlen <= n) {
+        const void* q = memmem(buf + a + 1, (size_t)(n - a - 1), dpat,
+                               (size_t)dlen);
+        if (q) ds = (int64_t)((const uint8_t*)q - buf);
+    }
+    // first region end > a
+    int64_t lo = 0, hi = n_marks;
+    while (lo < hi) {
+        int64_t mid = (lo + hi) / 2;
+        if (marks[mid] > a) hi = mid;
+        else lo = mid + 1;
+    }
+    int64_t te1 = (lo < n_marks) ? marks[lo] + 1 : n;
+    int64_t bound = (ds < te1 ? ds : te1) - dlen - maxs - 4;
+    return bound > a + 1 ? bound : a + 1;
+}
+
 // First (= highest-tid) verified win per ANCHOR: the event stream of
 // the -d anchor-driven replay (runtime/mgrep.py walk_region consumes
-// one max-tid row per anchor).  wordbound optional.
-//
-// When dlen > 0, wins that can never be OBSERVED by the replay are
-// skipped: after consuming an anchor the replay resumes its event
-// search at nv >= min(next delimiter start, region end + 1) - dlen +
-// 1, so anchors below that bound are invisible whichever way the
-// block-trim quirks resolve.  We resume at that bound minus a safety
-// margin (maxs + 4) -- keeping extra anchors is always safe, the
-// python walk does its own searchsorted jumps.  marks = sorted region
-// ends (buffer coords); binary-searched per win.
+// one max-tid row per anchor).  wordbound optional.  When dlen > 0,
+// wins the replay can never observe are skipped (qgram_resume_at).
 // Returns TOTAL wins; only the first cap are written.
 int64_t qgram_first_per_anchor(
     const uint8_t* buf, int64_t n, const uint8_t* member,
@@ -941,10 +1017,6 @@ int64_t qgram_first_per_anchor(
     int64_t* out_anchor, int64_t* out_tid, int64_t cap) {
     int64_t cnt = 0;
     if (n < p) return 0;
-    auto isaln = [](uint8_t c) {
-        return (c >= '0' && c <= '9') || (c >= 'A' && c <= 'Z')
-            || (c >= 'a' && c <= 'z');
-    };
     const bool simd = !shortf;
     QScan qs(buf, n, member, longf);
     for (int64_t a = p - 1; a < n; a++) {
@@ -952,75 +1024,74 @@ int64_t qgram_first_per_anchor(
             a = qs.next(a);
             if (a >= n) break;
         }
-        uint32_t h;
-        if (shortf) {
-            h = tr[buf[a]];
-        } else {
-            h = ((uint32_t)(buf[a] & 31) << 5) | (buf[a - 1] & 31);
-            if (longf)
-                h = ((h << 5) | (buf[a - 2] & 31)) & 32767u;
+        int64_t tid = qgram_first_win(buf, n, a, member, hash_id,
+                                      bucket_off, bucket_tids, term_bytes,
+                                      term_off, tr, p, longf, shortf,
+                                      wordbound);
+        if (tid < 0) continue;
+        if (cnt < cap) {
+            out_anchor[cnt] = a;
+            out_tid[cnt] = tid;
         }
-        if (!member[h]) continue;
-        int32_t b = hash_id[h];
-        for (int64_t j = bucket_off[b + 1] - 1; j >= bucket_off[b];
-             j--) {
-            int64_t tid = bucket_tids[j];
-            const uint8_t* t = term_bytes + term_off[tid];
-            int64_t L = term_off[tid + 1] - term_off[tid];
-            int64_t s = a - (p - 1);
-            if (s + L > n) continue;
-            int64_t k = 0;
-            while (k < L && tr[buf[s + k]] == tr[t[k]]) k++;
-            if (k < L) continue;
-            if (wordbound) {
-                uint8_t after = (s + L < n) ? buf[s + L] : 0;
-                uint8_t before = (s > 0) ? buf[s - 1] : 0;
-                if (isaln(after) || isaln(before)) continue;
-            }
-            if (cnt < cap) {
-                out_anchor[cnt] = a;
-                out_tid[cnt] = tid;
-            }
-            cnt++;
-            if (dlen > 0) {
-                // A delimiter just before/at this anchor means an
-                // earlier consumed event's resume point (nv = that
-                // delimiter + step) can still land in (a, a + maxs] --
-                // and from there observe any event we'd prune.  Only
-                // a delimiter-free tail makes the zone unobservable.
-                int64_t lo0 = a - maxs - dlen - 2;
-                if (lo0 < 0) lo0 = 0;
-                int64_t span = a + dlen - lo0;
-                if (span > n - lo0) span = n - lo0;
-                if (span >= dlen
-                    && memmem(buf + lo0, (size_t)span, dpat,
-                              (size_t)dlen) != nullptr) {
-                    break;   // no jump: recent delimiter context
-                }
-                // next delimiter start at or after a + 1
-                int64_t ds = n + 1;
-                if (a + 1 + dlen <= n) {
-                    const void* q = memmem(buf + a + 1,
-                                           (size_t)(n - a - 1),
-                                           dpat, (size_t)dlen);
-                    if (q) ds = (int64_t)((const uint8_t*)q - buf);
-                }
-                // first region end > a
-                int64_t lo = 0, hi = n_marks;
-                while (lo < hi) {
-                    int64_t mid = (lo + hi) / 2;
-                    if (marks[mid] > a) hi = mid;
-                    else lo = mid + 1;
-                }
-                int64_t te1 = (lo < n_marks) ? marks[lo] + 1 : n;
-                int64_t bound = (ds < te1 ? ds : te1)
-                                - dlen - maxs - 4;
-                if (bound > a + 1) a = bound - 1;  // loop a++
-            }
-            break;
-        }
+        cnt++;
+        if (dlen > 0)
+            a = qgram_resume_at(buf, n, a, dpat, dlen, marks, n_marks,
+                                maxs) - 1;   // loop a++
     }
     return cnt;
+}
+
+// qgram_first_per_anchor over given candidate anchors only, as a bit
+// plane: anchor 32 * w + b + shift for each set bit b of plane[w] (the
+// device chain kernel's start plane with shift p - 1, or the q-gram
+// kernel's candidate plane with shift 0), walked in ascending order.
+// The same rows as the whole-stream pass where the plane holds every
+// anchor that verifies, and the same skip, applied by passing over the
+// plane's bits below the resume bound.  Returns TOTAL wins; only the
+// first cap are written.
+int64_t qgram_first_per_anchor_at(
+    const uint8_t* buf, int64_t n, const uint32_t* plane, int64_t n_words,
+    int64_t shift, const uint8_t* member, const int32_t* hash_id,
+    const int64_t* bucket_off, const int64_t* bucket_tids,
+    const uint8_t* term_bytes, const int64_t* term_off,
+    const uint8_t* tr, int64_t p, int32_t longf, int32_t shortf,
+    int32_t wordbound, const uint8_t* dpat, int64_t dlen,
+    const int64_t* marks, int64_t n_marks, int64_t maxs,
+    int64_t* out_anchor, int64_t* out_tid, int64_t cap) {
+    int64_t cnt = 0;
+    int64_t w = 0;
+    uint32_t bits = n_words > 0 ? plane[0] : 0u;
+    for (;;) {
+        while (bits == 0) {
+            if (++w >= n_words) return cnt;
+            bits = plane[w];
+        }
+        int64_t a = w * 32 + __builtin_ctz(bits) + shift;
+        bits &= bits - 1;
+        if (a >= n) return cnt;
+        if (a < p - 1) continue;
+        int64_t tid = qgram_first_win(buf, n, a, member, hash_id,
+                                      bucket_off, bucket_tids, term_bytes,
+                                      term_off, tr, p, longf, shortf,
+                                      wordbound);
+        if (tid < 0) continue;
+        if (cnt < cap) {
+            out_anchor[cnt] = a;
+            out_tid[cnt] = tid;
+        }
+        cnt++;
+        if (dlen > 0) {
+            int64_t next = qgram_resume_at(buf, n, a, dpat, dlen, marks,
+                                           n_marks, maxs) - shift;
+            int64_t nw = next >> 5;
+            if (nw >= n_words) return cnt;
+            if (nw > w) {
+                w = nw;
+                bits = plane[w];
+            }
+            bits &= ~0u << (next & 31);
+        }
+    }
 }
 
 // Exact-pattern scan: memmem over the stream (what bm()'s skip loop
@@ -1507,8 +1578,6 @@ int64_t qgram_occ_at(
 }
 
 }  // extern "C"
-
-#include <algorithm>
 
 // ---------------------------------------------------------------
 // Flat-OR -d record-count walk

@@ -15,11 +15,14 @@ the exact chain kernel's caps (ops/chain_kernel.py fits(): 127 classes,
 32,767 term positions, 8,192-byte terms) by that kernel, whose starts a
 pure -c without -w counts by line on the device; past the caps, a set
 of ONE_PASS_MIN or more terms by the q-gram filter kernel
-(ops/qgram_kernel.py), whose candidates the native pass verifies, and a
-smaller set by the mask-machine kernel in packed bit-parallel words.
-The route is fixed by the query and the stream size.  The numpy backend,
-and every stream under DEVICE_MIN, takes the host passes (the native C
-twins, else vectorized numpy).
+(ops/qgram_kernel.py), and a smaller set by the mask-machine kernel in
+packed bit-parallel words.  The native passes attribute the kernels'
+anchors (a chain start + p_size - 1, or a q-gram candidate) to terms:
+the -d flat-OR path takes one max-term row an anchor
+(qgram_first_per_anchor_at), every other path the full occurrence
+table (qgram_occ_at).  The route is fixed by the backend, the query and
+the stream size.  The numpy backend, and every stream under DEVICE_MIN,
+takes the host passes (the native C twins, else vectorized numpy).
 """
 
 from __future__ import annotations
@@ -646,17 +649,47 @@ class MgrepEngine:
         return (self._device_route(n) and not self.q.opts.wordbound
                 and self._chain_program() is not None)
 
-    def _qgram_positions(self, stream: np.ndarray,
-                         proj: np.ndarray) -> np.ndarray:
-        """Candidate positions of the q-gram kernel
-        (ops/qgram_kernel.py) over the stream, on the scan device: the
+    def _qgram_plane(self, stream: np.ndarray, proj: np.ndarray):
+        """(text, candidate plane) of the q-gram kernel
+        (ops/qgram_kernel.py) over the stream on the scan device: the
         2-gram member filter for term sets past the chain caps."""
         from ..ops import qgram_kernel
         from . import trace
-        pos = qgram_kernel.qgram_candidates(self._to_device(stream), proj)
+        text = self._to_device(stream)
+        plane = qgram_kernel.qgram_filter(
+            text, qgram_kernel.words_tensor(proj, text.device))
         if trace.ENABLED:
             trace.add("qgram_scans")
-        return pos
+        return text, plane
+
+    def _qgram_positions(self, stream: np.ndarray,
+                         proj: np.ndarray) -> np.ndarray:
+        """Candidate positions of the q-gram kernel over the stream, on
+        the host."""
+        from ..ops import chain_kernel
+        text, plane = self._qgram_plane(stream, proj)
+        return chain_kernel.plane_positions(plane, text.numel())
+
+    def _device_anchors(self, stream: np.ndarray, tb):
+        """(plane, shift) of the -d first-per-anchor pass's candidate
+        anchors, from the card, as a u32 bit plane on the host (bit b of
+        word w is anchor 32 w + b + shift): the chain kernel's start
+        plane within its caps (shift p_size - 1); past them, with
+        ONE_PASS_MIN or more live terms, the q-gram kernel's candidate
+        plane (shift 0).  None for a SHORT set or fewer terms past the
+        caps: those keep the occurrence table's route."""
+        got = self._chain_plane(stream)
+        shift = tb.p_size - 1
+        if got is None:
+            if sum(1 for t in self.terms if t) < ONE_PASS_MIN:
+                return None
+            from ..compile import multi as multi_mod
+            proj = multi_mod.member_projection_1024(tb)
+            if proj is None:
+                return None
+            got = self._qgram_plane(stream, proj)
+            shift = 0
+        return got[1].cpu().numpy(), shift
 
     def _apply_seam_rules(self, occ_a, occ_i, occ_s, marks, stream,
                           seam_ctx, virt_append):
@@ -1175,12 +1208,14 @@ class MgrepEngine:
         loop, and the lexsort are skipped entirely.
 
         The main C pass runs directly over the stream (no whole-file
-        ext concatenate); two SMALL edge windows reproduce the leading
-        memcpy'd-delimiter context (start < p) and -- when the EOF
-        rescan's appended delimiter is kept virtual (virt_append) --
-        the tail crossings into it.  Returns (occ_a, occ_i, occ_s) in
-        stream coordinates (wordbound already applied), or None when
-        ineligible."""
+        ext concatenate); on the device route it walks only the card's
+        anchors (_device_anchors, qgram_first_per_anchor_at).  Two SMALL
+        edge windows reproduce the leading memcpy'd-delimiter context
+        (start < p) and -- when the EOF rescan's appended delimiter is
+        kept virtual (virt_append) -- the tail crossings into it.
+        Returns (occ_a, occ_i, occ_s) in stream coordinates (wordbound
+        already applied), or None when ineligible (on the device route
+        also where the card gives no anchors)."""
         q = self.q
         if (q.bool_tree is not None or q.bool_op == "and"
                 or o.multi_output or self.p_size <= 1):
@@ -1200,15 +1235,22 @@ class MgrepEngine:
         maxlen = max((len(t) for t in self.terms if t), default=p)
         b_off, b_tids, t_bytes, t_off = self._qgram_csr_tables(tb)
 
-        def cpass(buf, jump, marks=None):
-            return native.qgram_first_per_anchor(
-                buf, tb.member, tb.hash_id, b_off, b_tids, t_bytes,
-                t_off, self.tr, p, bool(tb.long_), bool(tb.short),
-                bool(o.wordbound), delim=(q.delim if jump else None),
-                marks=marks, maxs=self.p_size)
+        def cpass(buf, jump, marks=None, anchors=None):
+            tables = (tb.member, tb.hash_id, b_off, b_tids, t_bytes, t_off,
+                      self.tr, p, bool(tb.long_), bool(tb.short),
+                      bool(o.wordbound))
+            kw = dict(delim=(q.delim if jump else None), marks=marks,
+                      maxs=self.p_size)
+            if anchors is None:
+                return native.qgram_first_per_anchor(buf, *tables, **kw)
+            return native.qgram_first_per_anchor_at(buf, *anchors, *tables,
+                                                    **kw)
 
+        dev = self._device_route(n)
         ctx_h = maxlen + p + dl + 8
         if n <= ctx_h + 16:
+            if dev:
+                return None     # the table path takes it on the card
             # tiny stream: one legacy-shaped buffer covers everything
             parts = [dref, stream] + ([dref] if virt_append else [])
             buf = np.concatenate(parts)
@@ -1222,7 +1264,14 @@ class MgrepEngine:
 
         marks = (np.asarray(delim_marks, dtype=np.int64)
                  if delim_marks else None)
-        out = cpass(stream, True, marks)
+        anchors = None
+        if dev:
+            # the main pass walks the card's anchors only: a position
+            # that is no candidate never verifies
+            anchors = self._device_anchors(stream, tb)
+            if anchors is None:
+                return None
+        out = cpass(stream, True, marks, anchors)
         if out is None:
             return None
         a_m, t_m = out
@@ -1337,10 +1386,14 @@ class MgrepEngine:
         tb = self._qgram_tables
         if dev:
             # the exact chain scan: starts have no false positives, so
-            # qgram_occurrences degenerates to sparse term-id
-            # attribution at true hits
+            # the native pass only attributes term ids at true hits
             starts = self._chain_starts(stream)
             if starts is not None:
+                rows = self._verified_at(stream, tb,
+                                         starts + (tb.p_size - 1))
+                if rows is not None:
+                    return self._occ_from_pairs(rows[0], rows[1],
+                                                tb.p_size)
                 return multi_mod.qgram_occurrences(
                     stream, self.terms, self.tr, tb,
                     cand_anchor_rel=starts)
@@ -1674,14 +1727,10 @@ class MgrepEngine:
         # bytes, so search over delim+stream and shift starts by -dl.
         occ_cols = None
         if q.delimiter_opt and not memory_mode:
-            if self._device_route(len(stream)):
-                # the device route: the ext path's _all_occurrences
-                # scans on the card, and the -d record machinery
-                # attributes its starts
-                occ_cols = None
-            else:
-                occ_cols = self._first_per_anchor_cols(
-                    stream, dl, o, delim_marks, virt_append)
+            # one max-term row an anchor; on the device route its main
+            # pass walks the card's anchors (_device_anchors)
+            occ_cols = self._first_per_anchor_cols(
+                stream, dl, o, delim_marks, virt_append)
             if occ_cols is None:
                 if virt_append:
                     # the fast path owned the virtual tail; the

@@ -63,7 +63,11 @@ exits non-zero:
      (bool5m, the mask machine's packed term words); stdout and return
      codes must equal the port's own numpy host backend, whose walls are
      printed beside the GPU route's, and every run must launch its
-     kernel (config5q the q-gram kernel and no chain kernel);
+     kernel (config5q the q-gram kernel and no chain kernel); with
+     tracing on, every -d run must leave the counter qgram_candidates
+     at 0 (no call of compile/multi.py's qgram_occurrences), and config5
+     must take its records' rows from the native pass over the card's
+     anchors (native.qgram_first_per_anchor_at);
   5. kernels: mask_scan's launch geometry (split, tiles a block, threads,
      dynamic shared memory; registers and spills from ptxas) and its
      time against its bound at all five main-path shapes, chain_scan's
@@ -969,6 +973,18 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
             return fn(*args)
         return call
 
+    # calls of the -d flat-OR path's pass over the card's anchors, and
+    # the trace counter of compile/multi.py's qgram_occurrences, which
+    # no -d run may reach
+    from agrep_tpu_torch import native
+    from agrep_tpu_torch.runtime import trace
+    at_calls = [0]
+    real_at = native.qgram_first_per_anchor_at
+
+    def at_counted(*args, **kw):
+        at_calls[0] += 1
+        return real_at(*args, **kw)
+
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         path = os.path.join(tmp, "corpus.txt")
         corpus.tofile(path)
@@ -1030,11 +1046,16 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
             setattr(mod, kname, recorder(kname, fn))
         for name, fn in real_reads.items():
             setattr(chain_kernel, name, read_counter(name, fn))
+        native.qgram_first_per_anchor_at = at_counted
+        trace_was = trace.ENABLED
+        trace.ENABLED = True
         got, inputs = {}, {}
         try:
             for name, fn, argv, data, kname in runs:
                 before = {k: c[k] for k, c in counts.items()}
                 reads_before = dict(reads)
+                at_before = at_calls[0]
+                trace.counters.pop("qgram_candidates", None)
                 seen.clear()
                 t0 = time.perf_counter()
                 got[name] = _run(fn, argv, data)
@@ -1044,6 +1065,16 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                 if n[kname] == 0:
                     raise AssertionError("%s: the main path launched no %s "
                                          "kernel" % (name, kname))
+                records = "-d" in argv
+                qcand = trace.counters.get("qgram_candidates", 0)
+                if records and qcand:
+                    raise AssertionError(
+                        "%s: a -d run reached qgram_occurrences (%d "
+                        "candidates)" % (name, qcand))
+                at_n = at_calls[0] - at_before
+                if name == "config5" and not at_n:
+                    raise AssertionError("config5: the -d flat-OR path did "
+                                         "not walk the card's anchors")
                 if name == "config5q" and n["chain_scan"]:
                     raise AssertionError("config5q launched the chain "
                                          "kernel past its caps")
@@ -1057,12 +1088,16 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                         % (name, r, n["chain_scan"]))
                 inputs[name] = dict(seen)
                 res[name] = {"wall_s": wall, "launches": n[kname],
-                             "kernel": kname, "reads": r}
+                             "kernel": kname, "reads": r,
+                             "records": records, "qgram_candidates": qcand,
+                             "anchor_passes": at_n}
         finally:
             for kname, (mod, fn) in real.items():
                 setattr(mod, kname, fn)
             for name, fn in real_reads.items():
                 setattr(chain_kernel, name, fn)
+            native.qgram_first_per_anchor_at = real_at
+            trace.ENABLED = trace_was
         main_launches = {k: c[k] for k, c in counts.items()}
 
         # the same runs on the port's exact host backend (native C passes)
@@ -1209,6 +1244,14 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
     for name in ("config5c", "config5c400"):
         print("main: %s counted its lines on the card: %s" % (
             name, res[name]["reads"]))
+    for name, _fn, _argv, _data, kname in runs:
+        r = res[name]
+        if r["records"]:
+            print("main: -d run %s: %s launches %d, passes over the card's "
+                  "anchors %d, qgram_candidates %d; GPU route wall %.3f s, "
+                  "numpy backend wall %.3f s"
+                  % (name, kname, r["launches"], r["anchor_passes"],
+                     r["qgram_candidates"], r["wall_s"], r["host_wall_s"]))
     for name in ("config4", "memagrep4"):
         r = res[name]
         print("main: the lanes kernel's %d B launch of %s holds %d lines, "

@@ -2,10 +2,13 @@
 """Where the time of agrep_tpu_torch's multi-pattern runs goes, on one GPU.
 
     python3 tools/torch_mgrep_breakdown.py [--seed N] [--mb 100] [--top 12]
-                                           [--routes-only]
+                                           [--para-mb 128] [--runs a,b,...]
 
 Makes chip_smoke.py's config-5 corpus (its lines with a blank line every
-8-16 lines) and pattern files from --seed, then:
+8-16 lines) and pattern files from --seed, and the bench's records input
+(agrep_tpu_torch/bench.py's make_para_corpus, --para-mb MB of '$$'
+paragraphs, and its 100-pattern file), then, for each name of --runs
+(all by default):
 
   * routes: for small term sets (bool5's two terms, two planted terms,
     and -f with 5 and 20 patterns, all over '$$' records) the engine's
@@ -14,10 +17,12 @@ Makes chip_smoke.py's config-5 corpus (its lines with a blank line every
     term words (the route a set past the chain caps takes, forced by
     compiling no chain program); one warm-up run, then one timed run of
     each, outputs compared;
-  * unless --routes-only, for each of chip_smoke's config-5 runs
-    (config5, config5c, config5c400, config5q, memagrep5, bool5, bool5m)
-    on the torch backend and the GPU: one warm-up run, then one timed run (host
-    clock, ended by a synchronize); one run under torch.profiler: the
+  * each of chip_smoke's config-5 runs (config5, config5c, config5c400,
+    config5q, memagrep5, bool5, bool5m) and the bench's f100_records
+    (`-c -d '$$' -f` over the records input) on the torch backend and the
+    GPU: one warm-up run, then one timed run (host clock, ended by a
+    synchronize) and its GB/s; one timed run on the numpy backend (the
+    native host passes) beside it; one run under torch.profiler: the
     device time of every CUDA kernel and copy, by name, and their sum
     over the timed wall (the card's busy share); one run under cProfile:
     the --top functions by their own host time.
@@ -109,20 +114,32 @@ def compare_routes(sets, run) -> None:
         chain_kernel.compile_chain = real_compile
 
 
+RUNS = ("routes", "config5", "config5c", "config5c400", "config5q",
+        "memagrep5", "bool5", "bool5m", "f100_records")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mb", type=int, default=100)
     ap.add_argument("--top", type=int, default=12)
-    ap.add_argument("--routes-only", action="store_true")
+    ap.add_argument("--para-mb", type=int, default=128,
+                    help="the bench's records input in MB (default 128, "
+                         "the bench's own)")
+    ap.add_argument("--runs", default=",".join(RUNS),
+                    help="comma-separated names among %s" % ", ".join(RUNS))
     args = ap.parse_args(argv)
+    names = args.runs.split(",")
+    unknown = set(names) - set(RUNS)
+    if unknown:
+        ap.error("unknown runs: %s" % ", ".join(sorted(unknown)))
 
     import torch
     if not torch.cuda.is_available():
         print("torch_mgrep_breakdown: no CUDA device", file=sys.stderr)
         return 1
     import chip_smoke as cs
-    from agrep_tpu_torch import api
+    from agrep_tpu_torch import api, bench
     from agrep_tpu_torch.ops import _cuda, timing
     from agrep_tpu_torch.ops import scan as scan_ops
     scan_ops.set_backend("torch")
@@ -149,6 +166,8 @@ def main(argv=None) -> int:
             fh.write(b"".join(w + b"\n" for w in cs.wide_patterns(pats)))
         c5 = ["-f", p100] + cs.CONFIG5_DELIM
         mem = b"\n" + records.tobytes()
+        para = bench.make_para_corpus(tmp, args.para_mb)
+        bench_pats = bench.make_patfile(tmp)
         runs = [("config5", c5 + [rec], None),
                 ("config5c", ["-c", "-f", p100, rec], None),
                 ("config5c400", ["-c", "-f", p400, rec], None),
@@ -156,7 +175,9 @@ def main(argv=None) -> int:
                 ("memagrep5", c5, mem),
                 ("bool5", cs.CONFIG5_DELIM + ["hello;lazy", rec], None),
                 ("bool5m", cs.CONFIG5_DELIM
-                 + ["hello;matching," + cs.WIDE_TERM, rec], None)]
+                 + ["hello;matching," + cs.WIDE_TERM, rec], None),
+                ("f100_records", ["-c", "-d", "$$", "-f", bench_pats, para],
+                 None)]
 
         def run(argv, data):
             buf = io.BytesIO()
@@ -167,19 +188,37 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             return buf.getvalue()
 
-        compare_routes([
-            ("bool5", cs.CONFIG5_DELIM + ["hello;lazy", rec], 2),
-            ("bool5p", cs.CONFIG5_DELIM + ["hello;matching", rec], 2),
-            ("f5", cs.CONFIG5_DELIM + ["-f", files[5], rec], 5),
-            ("f20", cs.CONFIG5_DELIM + ["-f", files[20], rec], 20)], run)
-        if args.routes_only:
-            return 0
+        if "routes" in names:
+            compare_routes([
+                ("bool5", cs.CONFIG5_DELIM + ["hello;lazy", rec], 2),
+                ("bool5p", cs.CONFIG5_DELIM + ["hello;matching", rec], 2),
+                ("f5", cs.CONFIG5_DELIM + ["-f", files[5], rec], 5),
+                ("f20", cs.CONFIG5_DELIM + ["-f", files[20], rec], 20)],
+                run)
 
         for name, argv, data in runs:
-            run(argv, data)
+            if name not in names:
+                continue
+            n_bytes = len(data) if data is not None \
+                else os.path.getsize(argv[-1])
+            out = run(argv, data)
             t0 = time.perf_counter()
             run(argv, data)
             wall = time.perf_counter() - t0
+            scan_ops.set_backend("numpy")
+            try:
+                t0 = time.perf_counter()
+                host_out = run(argv, data)
+                host_wall = time.perf_counter() - t0
+            finally:
+                scan_ops.set_backend("torch")
+            if host_out != out:
+                raise AssertionError("%s: the GPU route's output differs "
+                                     "from the numpy backend's" % name)
+            print("%s: %d B; wall %.3f s (%.3f GB/s) on the GPU route, "
+                  "%.3f s (%.3f GB/s) on the numpy backend; outputs equal"
+                  % (name, n_bytes, wall, n_bytes / wall / 1e9, host_wall,
+                     n_bytes / host_wall / 1e9))
             acts = [torch.profiler.ProfilerActivity.CPU,
                     torch.profiler.ProfilerActivity.CUDA]
             with torch.profiler.profile(activities=acts,
