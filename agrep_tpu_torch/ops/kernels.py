@@ -19,6 +19,12 @@ wrapper picks s with choose_split: 1 for a machine whose dependence
 window is unbounded, else the least s with which every SM holds
 FILL_THREADS_PER_SM threads at once.  A block stages its tiles' bytes in
 shared memory, so the threads an SM holds grow with s.
+
+event_pairs() reads the planes back as sparse (position, event word)
+pairs in stream order: on a CUDA tensor through csrc/event_pairs.cu, so
+that only the pairs cross to the host, on a CPU tensor through
+event_pairs_reference().  planes_to_events() is the dense host read-back
+that agrep_tpu runs, kept as the plain form the tests compare with.
 """
 
 from __future__ import annotations
@@ -52,7 +58,7 @@ SM_THREADS = 2048
 SM_BLOCKS = 32
 
 # Launches of each kernel since the counts were last set to 0.
-launches = {"mask_scan": 0}
+launches = {"mask_scan": 0, "event_pairs": 0}
 
 
 @dataclass(frozen=True)
@@ -399,6 +405,192 @@ def mask_scan_reference(text: torch.Tensor, m: Machine, W: int, L: int
                 planes[p, :, j >> 5] = acc[p]
                 acc[p] = torch.zeros_like(acc[p])
     return planes.to(torch.uint32)
+
+
+# the planes event_pairs takes: the delimiter plane and MAX_PLANES hit
+# planes
+EVENT_PLANES = 1 + MAX_PLANES
+
+
+def event_vals(m: Machine) -> list:
+    """The event word each of mask_scan's planes adds to a column whose
+    bit is set: d_endpos for plane 0 (0 for sgrep, whose events are the
+    0/1 pulse), and each hit mask (1 for sgrep) for the hit planes."""
+    if m.variant == "sgrep":
+        return [0, 1]
+    return [m.d_endpos] + list(m.hit_masks)
+
+
+def _check_pairs_args(planes, vals, W: int, L: int, N: int,
+                      keep_from: int) -> None:
+    if planes.dtype != torch.uint32 or planes.dim() != 3:
+        raise TypeError("planes must be a 3-D uint32 tensor, got %s %r"
+                        % (planes.dtype, tuple(planes.shape)))
+    if vals.dtype != torch.uint32 or vals.dim() != 1:
+        raise TypeError("vals must be a 1-D uint32 tensor, got %s %r"
+                        % (vals.dtype, tuple(vals.shape)))
+    if not (planes.is_contiguous() and vals.is_contiguous()):
+        raise ValueError("planes and vals must be contiguous")
+    if planes.device != vals.device:
+        raise ValueError("planes on %s but vals on %s"
+                         % (planes.device, vals.device))
+    P = planes.shape[0]
+    if not 1 <= P <= EVENT_PLANES or vals.numel() != P:
+        raise ValueError("%d planes and %d values: need 1..%d planes and "
+                         "one value each" % (P, vals.numel(), EVENT_PLANES))
+    if L < 32 or L % 32 or not 0 <= W <= L:
+        raise ValueError("tile L=%d must be a multiple of 32 and the halo "
+                         "W=%d lie in [0, L]" % (L, W))
+    if N < 0 or keep_from < 0:
+        raise ValueError("N=%d and keep_from=%d must not be negative"
+                         % (N, keep_from))
+    if tuple(planes.shape[1:]) != geometry(N, W, L):
+        raise ValueError("planes %r are not [P, T, n_words] = [P, %d, %d] "
+                         "of a scan of %d bytes"
+                         % ((tuple(planes.shape),) + geometry(N, W, L)
+                            + (N,)))
+
+
+def event_pairs(planes: torch.Tensor, vals: torch.Tensor, W: int, L: int,
+                N: int, keep_from: int = 0) -> tuple:
+    """(pos int64[K], word uint32[K]) on the planes' device: one pair for
+    each text position p in [keep_from, N) whose OR of vals[i] over the
+    planes i with p's bit set is not 0, ascending by p (module
+    docstring for the planes' layout).  A CUDA tensor goes to the kernel,
+    a CPU tensor to event_pairs_reference."""
+    _check_pairs_args(planes, vals, W, L, N, keep_from)
+    if planes.is_cuda:
+        return _pairs_launch(planes, vals, W, L, N, keep_from)
+    if planes.device.type == "cpu":
+        return event_pairs_reference(planes, vals, W, L, N, keep_from)
+    raise ValueError("no event-pairs kernel for device %s" % planes.device)
+
+
+def _pairs_bind():
+    lib = _cuda.load("event_pairs")
+    if not getattr(lib, "_bound", False):
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.event_pairs_count.restype = i
+        lib.event_pairs_count.argtypes = [p, i, ll, i, p, i, i, ll, ll, p,
+                                          i, p]
+        lib.event_pairs_write.restype = i
+        lib.event_pairs_write.argtypes = [p, i, ll, i, p, i, i, ll, ll, p,
+                                          p, p, i, p]
+        lib.event_pairs_geometry.restype = i
+        lib.event_pairs_geometry.argtypes = [ip, ip]
+        lib.event_pairs_error_string.restype = ctypes.c_char_p
+        lib.event_pairs_error_string.argtypes = [i]
+        lib._bound = True
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _pairs_words_per_block(index: int) -> int:
+    return _cuda.query(_pairs_bind(), "event_pairs", "event_pairs_geometry",
+                       index, 2)[1]
+
+
+def pairs_grid(N: int, keep_from: int, device) -> int:
+    """Blocks of each of event_pairs' two passes: the stream words (32
+    positions each) from keep_from's to N's, a block's share at a time;
+    0 when no position is kept."""
+    if N <= keep_from:
+        return 0
+    words = -(-N // 32) - keep_from // 32
+    return -(-words // _pairs_words_per_block(_cuda.device_index(device)))
+
+
+def _pairs_args(planes, vals, W, L, N, keep_from):
+    P, T, n_words = planes.shape
+    return (planes.data_ptr(), P, T, n_words, vals.data_ptr(), W, L, N,
+            keep_from)
+
+
+def _pairs_count(planes, vals, W, L, N, keep_from, grid) -> torch.Tensor:
+    """Pass 1 on the planes' device: the pairs of each block, int64."""
+    lib = _pairs_bind()
+    counts = torch.empty(grid, dtype=torch.int64, device=planes.device)
+    stream = torch.cuda.current_stream(planes.device).cuda_stream
+    with torch.cuda.device(_cuda.device_index(planes.device)):
+        _cuda.check(lib, "event_pairs", lib.event_pairs_count(
+            *_pairs_args(planes, vals, W, L, N, keep_from),
+            counts.data_ptr(), grid, stream), "count launch")
+    return counts
+
+
+def _pairs_write(planes, vals, W, L, N, keep_from, grid, offsets, pos,
+                 word) -> None:
+    """Pass 2 on the planes' device: the pairs into pos and word from
+    each block's offset."""
+    lib = _pairs_bind()
+    stream = torch.cuda.current_stream(planes.device).cuda_stream
+    with torch.cuda.device(_cuda.device_index(planes.device)):
+        _cuda.check(lib, "event_pairs", lib.event_pairs_write(
+            *_pairs_args(planes, vals, W, L, N, keep_from),
+            offsets.data_ptr(), pos.data_ptr(), word.data_ptr(), grid,
+            stream), "write launch")
+
+
+def pairs_passes(planes, vals, W, L, N, keep_from, pos, word) -> None:
+    """Both passes into pos and word, which hold the K pairs of an
+    earlier call: the kernel's device work without the host's read of K
+    (for timing it on the card)."""
+    grid = pairs_grid(N, keep_from, planes.device)
+    counts = _pairs_count(planes, vals, W, L, N, keep_from, grid)
+    incl = torch.cumsum(counts, 0)
+    _pairs_write(planes, vals, W, L, N, keep_from, grid, incl - counts,
+                 pos, word)
+
+
+def _pairs_launch(planes, vals, W, L, N, keep_from) -> tuple:
+    """The kernel's two passes on the planes' device, with the host's
+    read of K between them."""
+    dev = planes.device
+    grid = pairs_grid(N, keep_from, dev)
+    if grid == 0:
+        return (torch.empty(0, dtype=torch.int64, device=dev),
+                torch.empty(0, dtype=torch.uint32, device=dev))
+    counts = _pairs_count(planes, vals, W, L, N, keep_from, grid)
+    incl = torch.cumsum(counts, 0)
+    K = int(incl[-1].item())
+    pos = torch.empty(K, dtype=torch.int64, device=dev)
+    word = torch.empty(K, dtype=torch.uint32, device=dev)
+    if K:
+        _pairs_write(planes, vals, W, L, N, keep_from, grid, incl - counts,
+                     pos, word)
+    launches["event_pairs"] += 1
+    return pos, word
+
+
+def event_pairs_reference(planes: torch.Tensor, vals: torch.Tensor, W: int,
+                          L: int, N: int, keep_from: int = 0) -> tuple:
+    """Plain PyTorch version of the kernel, on any device: the nonzero
+    words of the OR of the planes whose value is not 0, expanded to
+    their 32 columns.  Words are int64 holding u32 values (CPU torch has
+    no >> on uint32)."""
+    dev = planes.device
+    v = [int(x) & 0xFFFFFFFF for x in vals.tolist()]
+    active = [i for i, x in enumerate(v) if x]
+    if not active or N <= keep_from:
+        return (torch.empty(0, dtype=torch.int64, device=dev),
+                torch.empty(0, dtype=torch.uint32, device=dev))
+    # [T, nw] each; CUDA has no advanced indexing of uint32
+    words = [planes[i].to(torch.int64) & 0xFFFFFFFF for i in active]
+    any_w = words[0]
+    for w in words[1:]:
+        any_w = any_w | w
+    nz = torch.nonzero(any_w)                                # [M, 2]
+    shifts = torch.arange(32, dtype=torch.int64, device=dev)
+    ev = torch.zeros((len(nz), 32), dtype=torch.int64, device=dev)
+    for k, i in enumerate(active):
+        bits = (words[k][nz[:, 0], nz[:, 1]][:, None] >> shifts) & 1
+        ev = ev | bits * v[i]
+    col = nz[:, 1:] * 32 + shifts                            # [M, 32]
+    pos = nz[:, :1] * L + col - W
+    keep = ((ev != 0) & (col >= W) & (col < W + L) & (pos < N)
+            & (pos >= keep_from))
+    return pos[keep], ev[keep].to(torch.uint32)
 
 
 def planes_to_events(delim_p: np.ndarray, hit_p: np.ndarray,

@@ -25,9 +25,13 @@ Backends (AGREP_TORCH_BACKEND, or set_backend()):
   'numpy'   -- the exact host backend (vectorized numpy, plus the native
               C twin for large inputs), chosen explicitly.
 
-Output: a uint32 event word per input byte; bit layout equals the mask
-machine's word (delimiter bit = d_endpos, part pulses = endposition
-bits).  For 'sgrep', bit 0 = match pulse.
+Output: scan_event_pairs gives the sparse (position, event word) pairs
+of the bytes whose word is not 0, in stream order; scan_events the
+dense uint32 event word per input byte, built from them.  The word's bit
+layout equals the mask machine's (delimiter bit = d_endpos, part pulses
+= endposition bits).  For 'sgrep', bit 0 = match pulse.  On the torch
+backend the pairs are compacted where the planes lie (ops/kernels.py
+event_pairs), and only they cross to the host.
 """
 
 from __future__ import annotations
@@ -92,49 +96,57 @@ def _pad_and_window(text: np.ndarray, W: int, L: int):
     return np.concatenate([halo, body], axis=1), T
 
 
-def scan_events(text: np.ndarray, mask_table: np.ndarray, consts: dict,
-                D: int, variant: str = "bitap",
-                costs: tuple | None = None,
-                tile: int = DEFAULT_TILE) -> np.ndarray:
-    """Scan a byte stream; returns a uint32 event word per byte.
+def _halo(consts: dict, D: int, tile: int) -> int:
+    return min(max(consts.get("m", 32) + D + 2, 48), tile)
+
+
+def _bounded(consts: dict, variant: str) -> bool:
+    """True when a cold start W bytes early gives the exact state: no
+    sticky/wildcard bits (init1_ns == init0); the sgrep machine always."""
+    return (variant == "sgrep"
+            or consts.get("init1_ns") == consts.get("init0"))
+
+
+def scan_event_pairs(text: np.ndarray, mask_table: np.ndarray,
+                     consts: dict, D: int, variant: str = "bitap",
+                     costs: tuple | None = None, keep_from: int = 0,
+                     tile: int = DEFAULT_TILE) -> tuple:
+    """Scan a byte stream; returns the sparse events (pos int64[],
+    ev uint32[]) at positions >= keep_from, ascending, one pair for each
+    byte whose event word is not 0.
 
     text: uint8[N] (host); mask_table: uint32[256] (pre-folded);
     consts: dict from bitword.machine_constants (bitap) or
     {'endpos': final-bit, 'm': m} (sgrep).
     """
     N = int(text.shape[0])
-    if N == 0:
-        return np.zeros(0, dtype=np.uint32)
+    if N <= keep_from:
+        return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.uint32)
     from ..runtime import trace
     if trace.ENABLED:
         trace.add("device_scans")
         trace.add("scan_bytes", N)
-    m = consts.get("m", 32)
-    W = min(max(m + D + 2, 48), tile)
+    W = _halo(consts, D, tile)
     L = tile
     if _BACKEND == "torch":
         if trace.ENABLED:
             trace.add("kernel_scans")
-        return _scan_torch(text, mask_table, consts, D, W, L, N, variant,
-                           costs)
+        with trace.stage("device_scan"):
+            return _scan_torch(text, mask_table, consts, D, W, L, N,
+                               variant, costs, keep_from)
     if _BACKEND != "numpy":
         raise ValueError("AGREP_TORCH_BACKEND must be one of %s, got %r"
                          % (BACKENDS, _BACKEND))
-    if N >= (1 << 20):
+    if N >= (1 << 20) and _bounded(consts, variant):
         # sequential C twin of the windowed machine: exact whenever
-        # the dependence window is bounded (no sticky/wildcard bits,
-        # i.e. init1_ns == init0; the sgrep machine is always bounded)
-        bounded = (variant == "sgrep"
-                   or consts.get("init1_ns") == consts.get("init0"))
-        if bounded:
-            from .. import native
-            pairs = native.bitap_scan_events(text, mask_table, consts,
-                                             D, variant, costs)
-            if pairs is not None:
-                pos, words = pairs
-                ev_out = np.zeros(N, dtype=np.uint32)
-                ev_out[pos] = words
-                return ev_out
+        # the dependence window is bounded
+        from .. import native
+        pairs = native.bitap_scan_events(text, mask_table, consts,
+                                         D, variant, costs)
+        if pairs is not None:
+            pos, words = pairs
+            keep = pos >= keep_from
+            return pos[keep].astype(np.int64), words[keep].copy()
     windows, T = _pad_and_window(text, W, L)
     cvec = np.asarray([
         consts.get("init0", 0), consts.get("init1_ns", 0),
@@ -142,7 +154,23 @@ def scan_events(text: np.ndarray, mask_table: np.ndarray, consts: dict,
         consts.get("endpos", 0), consts.get("d_mask", 0xFFFFFFFF),
         0, 0], dtype=np.uint32)
     ev = _scan_windows_np(windows, mask_table, cvec, D, W, variant, costs)
-    return np.asarray(ev)[:, W:].reshape(-1)[:N]
+    ev = np.asarray(ev)[:, W:].reshape(-1)[:N]
+    pos = np.flatnonzero(ev[keep_from:]) + keep_from
+    return pos.astype(np.int64), ev[pos]
+
+
+def scan_events(text: np.ndarray, mask_table: np.ndarray, consts: dict,
+                D: int, variant: str = "bitap",
+                costs: tuple | None = None,
+                tile: int = DEFAULT_TILE) -> np.ndarray:
+    """Scan a byte stream; returns a uint32 event word per byte: the
+    pairs of scan_event_pairs, written into zeros."""
+    N = int(text.shape[0])
+    pos, ev = scan_event_pairs(text, mask_table, consts, D, variant,
+                               costs, 0, tile)
+    events = np.zeros(N, dtype=np.uint32)
+    events[pos] = ev
+    return events
 
 
 STREAM_CHUNK = int(os.environ.get("AGREP_TORCH_CHUNK_MB", "32")) << 20
@@ -164,10 +192,8 @@ def scan_event_list(reader, n: int, mask_table: np.ndarray, consts: dict,
     raises; nothing is re-run on another backend."""
     if chunk is None:
         chunk = STREAM_CHUNK
-    m = consts.get("m", 32)
-    W = min(max(m + D + 2, 48), tile)
-    bounded = (variant == "sgrep"
-               or consts.get("init1_ns") == consts.get("init0"))
+    W = _halo(consts, D, tile)
+    bounded = _bounded(consts, variant)
     g0 = 0
     while g0 < n:
         g1 = min(n, g0 + chunk)
@@ -185,11 +211,9 @@ def scan_event_list(reader, n: int, mask_table: np.ndarray, consts: dict,
                     words[keep].copy()
                 g0 = g1
                 continue
-        ev = scan_events(text, mask_table, consts, D, variant, costs,
-                         tile)
-        ev = ev[g0 - lo:]
-        p = np.flatnonzero(ev)
-        yield p.astype(np.int64) + g0, ev[p]
+        pos, ev = scan_event_pairs(text, mask_table, consts, D, variant,
+                                   costs, g0 - lo, tile)
+        yield pos + lo, ev
         g0 = g1
 
 
@@ -197,10 +221,12 @@ def scan_event_list(reader, n: int, mask_table: np.ndarray, consts: dict,
 # torch backend
 # ---------------------------------------------------------------------
 
-def _scan_torch(text, mask_table, consts, D, W, L, N, variant, costs):
+def _scan_torch(text, mask_table, consts, D, W, L, N, variant, costs,
+                keep_from):
     """The mask-machine kernel (CUDA) or its plain PyTorch version
-    (CPU), then the packed planes rebuilt into event words on the host,
-    exactly as the TPU path rebuilds them."""
+    (CPU), then its planes compacted into (position, event word) pairs
+    where they lie (kernels.event_pairs); only the pairs come to the
+    host."""
     import torch
 
     from . import kernels
@@ -211,23 +237,10 @@ def _scan_torch(text, mask_table, consts, D, W, L, N, variant, costs):
     mach = kernels.machine_from_arrays(mask_table, consts, D, variant,
                                        costs, dev)
     planes = kernels.mask_scan(kernels.to_device(text, dev), mach, W, L)
-    planes = planes.cpu().numpy()
-    d, hs = planes[0], planes[1:]
-    if variant == "sgrep":
-        # sgrep events are the 0/1 pulse convention (bit 0)
-        return kernels.planes_to_events(
-            np.zeros_like(d), hs[0], {"d_endpos": 0, "endpos": 1},
-            W, L, N)
-    if len(hs) == 1:
-        return kernels.planes_to_events(d, hs[0], consts, W, L, N)
-    ev = kernels.planes_to_events(
-        d, np.zeros_like(d), {"d_endpos": consts.get("d_endpos", 0),
-                              "endpos": 0}, W, L, N)
-    for bv, hp in zip(mach.hit_masks, hs):
-        ev |= kernels.planes_to_events(
-            np.zeros_like(d), hp, {"d_endpos": 0, "endpos": bv},
-            W, L, N)
-    return ev
+    vals = torch.from_numpy(np.asarray(kernels.event_vals(mach),
+                                       dtype=np.uint32)).to(dev)
+    pos, ev = kernels.event_pairs(planes, vals, W, L, N, keep_from)
+    return pos.cpu().numpy(), ev.cpu().numpy()
 
 
 def scan_lanes(lanes: np.ndarray, lens: np.ndarray, mask_table: np.ndarray,

@@ -2,7 +2,7 @@
 
 card_line names the card; time_kernel and profiled_ms time a call on it
 (CUDA events after a spin, and torch.profiler's device time);
-level_ops ... qgram_bound count the least work of each kernel's function
+level_ops ... pairs_bound count the least work of each kernel's function
 at its inputs and turn it into (bound_ms, bound_by) at the peak rates of
 one H100 below.  chip_smoke.py, agrep_tpu_torch.bench and the timing
 tools under tools/ use them.
@@ -226,6 +226,35 @@ def qgram_bound(N: int) -> tuple:
     ops, loads = qgram_ops()
     t_bytes = (N + 128 + 4 * -(-N // 32)) / HBM_BYTES_PER_S
     t_ops = max(N * ops / INT32_OPS_PER_S, N * loads / SHARED_LOADS_PER_S)
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
+def pairs_ops(n_active: int) -> tuple:
+    """(int32 operations of a 32-position stream word, of a pair) of the
+    event read-back at its least: for each plane whose value is not 0 the
+    funnel shift that aligns its bits and their OR (2), then the kept
+    mask's AND and the popcount (2); for each pair the set bit's find and
+    clear (2), each active plane's test and OR of its value (2) and the
+    position's add (1).  The plane words' loads and the pairs' stores are
+    bytes."""
+    return 2 * n_active + 2, 3 + 2 * n_active
+
+
+def pairs_bound(vals, N: int, keep_from: int, K: int) -> tuple:
+    """(bound_ms, bound_by) of one event read-back of a scan of N bytes:
+    the plane bits of the kept positions [keep_from, N) of every plane
+    whose value is not 0 read once (a bit a position), the values read
+    once and the K pairs (8 B position, 4 B word) written once over HBM's
+    rate, against pairs_ops over the card's int32 rate."""
+    v = [int(x) for x in vals.tolist()]
+    active = sum(1 for x in v if x)
+    kept = max(N - keep_from, 0)
+    n_bytes = active * -(-kept // 8) + 4 * len(v) + 12 * K
+    word_ops, pair_ops = pairs_ops(active)
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = (-(-kept // 32) * word_ops + K * pair_ops) / INT32_OPS_PER_S
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations"
     return t_bytes * 1e3, "bytes"

@@ -345,11 +345,11 @@ class BitapEngine:
                 events = _bitap_sticky_seq_events(q, stream, D)
             else:
                 events = _bitap_record_lane_events(q, stream, D)
+            pos = np.flatnonzero(events)
+            ev = events[pos]
         else:
-            events = scan_ops.scan_events(
+            pos, ev = scan_ops.scan_event_pairs(
                 stream, q.folded_mask, q.consts, D, "bitap", q.costs)
-        pos = np.flatnonzero(events)
-        ev = events[pos]
         cbo_extra = np.zeros(len(pos), dtype=np.int64)
         if inject_at is not None:
             # remap to the real stream: the glitch byte exists only in
@@ -975,9 +975,9 @@ class SgrepEngine:
                 pp = pairs[0]
                 pos = pp[pp >= (g0 - lo)] + lo
             else:
-                ev = scan_ops.scan_events(text, q.sg_mask, q.sg_consts,
-                                          D, "sgrep")[g0 - lo:]
-                pos = np.flatnonzero(ev) + g0
+                pos = scan_ops.scan_event_pairs(
+                    text, q.sg_mask, q.sg_consts, D, "sgrep",
+                    keep_from=g0 - lo)[0] + lo
             from .. import native as _nat
             nld = _nat.find_delims_all(body, b"\n")
             nl = ((nld + g0) if nld is not None
@@ -1180,10 +1180,9 @@ class SgrepEngine:
                 pp = pairs[0]
                 pos = pp[pp >= (g0 - lo)] + lo
             else:
-                ev = scan_ops.scan_events(
-                    text, q.sg_mask, q.sg_consts, 0,
-                    "sgrep")[g0 - lo:]
-                pos = np.flatnonzero(ev) + g0
+                pos = scan_ops.scan_event_pairs(
+                    text, q.sg_mask, q.sg_consts, 0, "sgrep",
+                    keep_from=g0 - lo)[0] + lo
             body = text[g0 - lo:]
             nld = native.find_delims_all(body, b"\n")
             nl = ((nld + g0) if nld is not None
@@ -1454,9 +1453,8 @@ class SgrepEngine:
                         amk_bufs[g2 + base] = np.asarray(
                             vb2.buf[s2:e2 + 2]).copy()
         else:
-            events = scan_ops.scan_events(
-                stream, q.sg_mask, q.sg_consts, D, "sgrep")
-            pos = np.flatnonzero(events)
+            pos = scan_ops.scan_event_pairs(
+                stream, q.sg_mask, q.sg_consts, D, "sgrep")[0]
         m = q.sg_m
 
         sg_trims = None

@@ -1424,10 +1424,9 @@ class MgrepEngine:
             from ..ops import scan as scan_ops
             groups, leftover_ids = pack_terms(self.terms, self.tr)
             for g in groups:
-                ev = scan_ops.scan_events(stream, g.mask, g.consts, 0,
-                                          "bitap", None)
-                pos = np.flatnonzero(ev)
-                w = ev[pos]
+                pos, w = scan_ops.scan_event_pairs(stream, g.mask,
+                                                   g.consts, 0, "bitap",
+                                                   None)
                 for tid, bit, ln in zip(g.term_ids, g.term_bits,
                                         g.term_lens):
                     sel = pos[(w & np.uint32(bit)) != 0]

@@ -8,9 +8,10 @@ exits non-zero:
 
   1. card: the GPU's name and power limit (nvidia-smi) and the torch and
      CUDA versions;
-  2. build: compiles the four kernel sources (csrc/mask_scan.cu,
-     renfa_lanes.cu, chain_scan.cu, qgram_filter.cu) with nvcc, every
-     compile unit of all four started together, and times the build;
+  2. build: compiles the five kernel sources (csrc/mask_scan.cu,
+     renfa_lanes.cu, chain_scan.cu, qgram_filter.cu, event_pairs.cu) with
+     nvcc, every compile unit of all five started together, and times the
+     build;
   3. parity: the mask_scan kernel against its plain PyTorch version
      (mask_scan_reference) on the card, bit for bit, over every variant,
      D, cost wiring, endpos shape and edge size the kernel takes (sizes
@@ -44,8 +45,14 @@ exits non-zero:
      qgram_filter kernel against qgram_reference on
      2-gram, LONG and -i member sets at N = 1..33, 4065..4097 (every N
      mod 32), the sizes above and 8 MB (there with one block an SM too),
-     each on views at offsets 1-15 too; phase 4 repeats every check at
-     the main path's shapes;
+     each on views at offsets 1-15 too; and the event_pairs kernel against
+     event_pairs_reference, bit for bit, with keep_from 0 and W, on every
+     mask machine's kernel planes at N = 0, 1, L-1, L, L+1 and 3L+17, on
+     planes with no bit, every bit (a pair at every kept position) and
+     random bits over 33 planes at those sizes, and on config 2's 32 MB
+     chunk (its planes, and all-set planes of its geometry), each with
+     its planes and values also as views 1-15 elements past an aligned
+     address; phase 4 repeats every check at the main path's shapes;
   4. main path: a --mb MB ASCII corpus made from --seed, searched through
      agrep_tpu_torch.api.fileagrep with BASELINE configs 1-4 (the file
      is over the streaming threshold, so each run is chunked; config 4,
@@ -67,7 +74,9 @@ exits non-zero:
      tracing on, every -d run must leave the counter qgram_candidates
      at 0 (no call of compile/multi.py's qgram_occurrences), and config5
      must take its records' rows from the native pass over the card's
-     anchors (native.qgram_first_per_anchor_at);
+     anchors (native.qgram_first_per_anchor_at); configs 1-3, memagrep
+     and bool5m must read their events back through event_pairs, and no
+     run may call the host's planes_to_events (both wrapped and counted);
   5. kernels: mask_scan's launch geometry (split, tiles a block, threads,
      dynamic shared memory; registers and spills from ptxas) and its
      time against its bound at all five main-path shapes, chain_scan's
@@ -75,9 +84,14 @@ exits non-zero:
      memory; registers and spills) and time at its five, renfa_lanes'
      (Next form, table bytes, threads, blocks an SM, grid, registers,
      spills) and time at its two, qgram_filter's (threads, blocks an
-     SM, grid) and time at config5q's, each on a line of its own; then
-     one JSON line with each kernel's launches on the main path, its
-     time, its plain version's time and its bound on this card;
+     SM, grid) and time at config5q's, event_pairs' (pairs, planes, grid;
+     its two passes' device time, the wrapper's with the host's read of
+     K, the plain version's and a library composite's: unpack by shifts,
+     then torch.nonzero) at configs 1-3's 32 MB chunk, the memagrep
+     buffer and bool5m's last stream, each checked bit for bit against
+     the plain version and the composite first, each on a line of its
+     own; then one JSON line with each kernel's launches on the main path,
+     its time, its plain version's time and its bound on this card;
   6. scale-out: (a) phase 4's corpus cut into 4 shards with the
      MAX_RECORD halo, on parallel.dist.make_mesh() (all four on cuda:0 on
      a one-card machine), counted and located by distributed_scan_count /
@@ -655,6 +669,155 @@ def phase_parity_regex(device: str, seed: int) -> float:
     return float(worst)
 
 
+# event_pairs' parity sizes (N) and view offsets (elements past an
+# aligned address)
+PAIRS_SIZES = (0, 1, 1023, 1024, 1025, 3 * 1024 + 17)
+PAIRS_OFFSETS = (0, 1, 3, 15)
+
+
+def pairs_vals(m, device):
+    """The event word of each of mask_scan's planes, as event_pairs takes
+    them (kernels.event_vals)."""
+    import numpy as np
+    import torch
+
+    from agrep_tpu_torch.ops import kernels
+    return torch.from_numpy(np.asarray(kernels.event_vals(m),
+                                       dtype=np.uint32)).to(device)
+
+
+def _view(t, off: int):
+    """t's values in a view off elements past the start of a larger
+    buffer of t's dtype."""
+    import torch
+    buf = torch.empty(t.numel() + off + 7, dtype=t.dtype, device=t.device)
+    v = buf[off:off + t.numel()].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+def _pairs_diff(got, want) -> int:
+    """Largest |kernel - plain| over the pairs' positions and words; a
+    different number of pairs counts as a difference of the larger
+    count."""
+    (gp, gw), (wp, ww) = got, want
+    if gp.numel() != wp.numel() or gw.numel() != ww.numel():
+        return max(gp.numel(), wp.numel(), 1)
+    if gp.numel() == 0:
+        return 0
+    return max(_max_diff(gp, wp), _max_diff(gw, ww))
+
+
+def pairs_cases(device: str, seed: int):
+    """(name, planes, vals, W, N) of every shape phase 3 holds
+    event_pairs to: every parity machine's kernel planes at PAIRS_SIZES;
+    planes with no bit, every bit and random bits (33 planes, the
+    delimiter value and 32 one-bit hit values) there too; and config 2's
+    32 MB chunk of the main-path corpus, its planes and all-set planes of
+    its geometry."""
+    import numpy as np
+    import torch
+
+    from agrep_tpu_torch.compile.query import compile_query
+    from agrep_tpu_torch.ops import kernels
+    from agrep_tpu_torch.ops.scan import DEFAULT_TILE as L
+    from agrep_tpu_torch.ops.scan import STREAM_CHUNK
+    from agrep_tpu_torch.options import parse_args
+    rng = np.random.default_rng(seed)
+    for name, table, consts, D, variant, costs in parity_machines():
+        m = kernels.machine_from_arrays(table, consts, D, variant, costs,
+                                        device)
+        W = halo(consts, D, L)
+        vals = pairs_vals(m, device)
+        for N in PAIRS_SIZES:
+            if N == 0:
+                planes = torch.zeros((vals.numel(),)
+                                     + kernels.geometry(0, W, L),
+                                     dtype=torch.int32,
+                                     device=device).view(torch.uint32)
+            else:
+                planes = kernels.mask_scan(
+                    kernels.to_device(random_text(N, rng), device), m, W, L)
+            yield name, planes, vals, W, N
+    W = 56
+    for fill in ("empty", "full", "random33"):
+        for N in PAIRS_SIZES:
+            shape = kernels.geometry(N, W, L)
+            if fill == "random33":
+                v = [0x4000] + [1 << b for b in range(32)]
+                a = (rng.integers(0, 1 << 32, (33,) + shape, dtype=np.uint64)
+                     & rng.integers(0, 1 << 32, (33,) + shape,
+                                    dtype=np.uint64)).astype(np.uint32)
+            else:
+                v = [0x200, 1]
+                a = np.full((2,) + shape,
+                            0xFFFFFFFF if fill == "full" else 0,
+                            dtype=np.uint32)
+            yield (fill, torch.from_numpy(a).to(device),
+                   torch.from_numpy(np.asarray(v, dtype=np.uint32))
+                   .to(device), W, N)
+    opts, pattern, _ = parse_args(CONFIGS[1][1] + ["x"])
+    q = compile_query(pattern, opts)
+    m = kernels.machine_from_arrays(q.folded_mask, q.consts, q.D, "bitap",
+                                    q.costs, device)
+    W = halo(q.consts, q.D, L)
+    text = kernels.to_device(make_corpus(STREAM_CHUNK, seed), device)
+    planes = kernels.mask_scan(text, m, W, L)
+    yield "config2_chunk", planes, pairs_vals(m, device), W, text.numel()
+    yield ("config2_chunk_full",
+           torch.full(planes.shape, -1, dtype=torch.int32,
+                      device=device).view(torch.uint32),
+           pairs_vals(m, device), W, text.numel())
+
+
+def phase_parity_pairs(device: str, seed: int) -> float:
+    """event_pairs against event_pairs_reference on the card, bit for
+    bit, on every shape of pairs_cases with keep_from 0 and W, and with
+    the planes and values as views PAIRS_OFFSETS elements past an aligned
+    address; all-set planes must give a pair at every kept position.
+    Returns the largest |kernel - plain| (0 or fail)."""
+    import torch
+
+    from agrep_tpu_torch.ops import kernels
+    from agrep_tpu_torch.ops.scan import DEFAULT_TILE as L
+    worst = 0
+    failed = []
+    t0 = time.perf_counter()
+    shapes = {}
+    for name, planes, vals, W, N in pairs_cases(device, seed):
+        big = N > 3 * L + 17
+        for kf in (0, W):
+            want = kernels.event_pairs_reference(planes, vals, W, L, N, kf)
+            K = want[0].numel()
+            if "full" in name and K != max(N - kf, 0):
+                failed.append((name, N, kf, "K=%d" % K))
+            for off in (PAIRS_OFFSETS[:2] if big else PAIRS_OFFSETS):
+                p, v = ((planes, vals) if off == 0
+                        else (_view(planes, off), _view(vals, off)))
+                got = kernels.event_pairs(p, v, W, L, N, kf)
+                diff = _pairs_diff(got, want)
+                worst = max(worst, diff)
+                if diff:
+                    failed.append((name, N, kf, off, diff))
+            sh = shapes.setdefault(name, [0, set(), set(), set()])
+            sh[0] += K
+            sh[1].add(N)
+            sh[2].add(planes.shape[0])
+            sh[3].update(PAIRS_OFFSETS[:2] if big else PAIRS_OFFSETS)
+        del planes
+    torch.cuda.synchronize()
+    for name, (K, sizes, n_planes, offs) in shapes.items():
+        print("parity: event_pairs %-20s N=%s planes=%s keep_from 0 and W, "
+              "views at %s: %d pairs, equal bit for bit"
+              % (name, sorted(sizes), sorted(n_planes), sorted(offs), K))
+    print("parity: event_pairs %d shapes in %.1f s"
+          % (len(shapes), time.perf_counter() - t0))
+    if failed:
+        raise AssertionError("event_pairs differs from "
+                             "event_pairs_reference: %s" % failed[:20])
+    return float(worst)
+
+
 def chain_sets(pats400) -> list:
     """(name, terms, fold) of every term set phase 3 holds the chain
     kernel to, each with and without -i folding (fold True or False),
@@ -926,6 +1089,80 @@ def _max_diff(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
+# the runs that must read their events back through event_pairs
+PAIRS_RUNS = ("config1", "config2", "config3", "memagrep", "bool5m")
+
+
+def _host_ms(fn, reps: int = 5) -> float:
+    """Median ms of reps calls of fn on the host's clock, each ended by a
+    synchronize, after one warm-up call: for a call that waits for the
+    card itself (a read of its result's size)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return sorted(ts)[len(ts) // 2]
+
+
+def pairs_library(planes, vals, W: int, L: int, N: int, keep_from: int):
+    """The function of event_pairs as a composite of PyTorch calls on the
+    card (the yardstick of library_ms; the port never calls it): every
+    plane's bytes unpacked by shifts into a dense column mask, the body
+    columns cut out, the values OR-ed in, then torch.nonzero."""
+    import torch
+    P, T, nw = planes.shape
+    shifts = torch.arange(8, dtype=torch.uint8, device=planes.device)
+    bits = (planes.view(torch.uint8).view(P, T, 4 * nw, 1) >> shifts) & 1
+    cols = bits.view(P, T, 32 * nw)[:, :, W:W + L].reshape(P, -1)[:, :N]
+    v = vals.to(torch.int64)
+    ev = torch.zeros(N, dtype=torch.int64, device=planes.device)
+    for i in range(P):
+        ev |= cols[i].to(torch.int64) * v[i]
+    ev[:keep_from] = 0
+    pos = torch.nonzero(ev).flatten()
+    return pos, ev[pos].to(torch.uint32)
+
+
+def pairs_alone(name, planes, vals, W: int, L: int, N: int,
+                keep_from: int) -> dict:
+    """event_pairs at one main-path shape: the kernel against its plain
+    version and against pairs_library, bit for bit; the kernel's device
+    time (both passes, without the host's read of K, by time_kernel),
+    the wrapper's time with that read, the plain version's, the
+    library composite's (host clock, synchronized) and the bound."""
+    from agrep_tpu_torch.ops import kernels
+    from agrep_tpu_torch.ops.timing import pairs_bound, time_kernel
+    got = kernels._pairs_launch(planes, vals, W, L, N, keep_from)
+    diff = max(_pairs_diff(got, kernels.event_pairs_reference(
+        planes, vals, W, L, N, keep_from)), _pairs_diff(
+            got, pairs_library(planes, vals, W, L, N, keep_from)))
+    if diff:
+        raise AssertionError("%s: event_pairs differs from its plain "
+                             "version or the library composite on %d bytes "
+                             "(max |diff| %d)" % (name, N, diff))
+    pos, word = got
+    K = pos.numel()
+    ms = time_kernel(lambda: kernels.pairs_passes(planes, vals, W, L, N,
+                                                  keep_from, pos, word))
+    wrapper_ms = _host_ms(lambda: kernels._pairs_launch(planes, vals, W, L,
+                                                        N, keep_from))
+    plain_ms = _time_plain(lambda: kernels.event_pairs_reference(
+        planes, vals, W, L, N, keep_from))
+    library_ms = _host_ms(lambda: pairs_library(planes, vals, W, L, N,
+                                                keep_from))
+    bms, by = pairs_bound(vals, N, keep_from, K)
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
+            "K": K, "shape_b": N, "planes": planes.shape[0],
+            "grid": kernels.pairs_grid(N, keep_from, planes.device),
+            "max_abs_err": diff}
+
+
 def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
     import numpy as np
     import torch
@@ -954,7 +1191,8 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
     seen: dict = {}
     real = {"chain_scan": (chain_kernel, chain_kernel.chain_scan),
             "qgram_filter": (qgram_kernel, qgram_kernel.qgram_filter),
-            "mask_scan": (kernels, kernels.mask_scan)}
+            "mask_scan": (kernels, kernels.mask_scan),
+            "event_pairs": (kernels, kernels.event_pairs)}
 
     def recorder(kname, fn):
         def call(*args):
@@ -984,6 +1222,15 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
     def at_counted(*args, **kw):
         at_calls[0] += 1
         return real_at(*args, **kw)
+
+    # calls of the dense host read-back, which the torch route no longer
+    # makes
+    p2e_calls = [0]
+    real_p2e = kernels.planes_to_events
+
+    def p2e_counted(*args, **kw):
+        p2e_calls[0] += 1
+        return real_p2e(*args, **kw)
 
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         path = os.path.join(tmp, "corpus.txt")
@@ -1047,6 +1294,7 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
         for name, fn in real_reads.items():
             setattr(chain_kernel, name, read_counter(name, fn))
         native.qgram_first_per_anchor_at = at_counted
+        kernels.planes_to_events = p2e_counted
         trace_was = trace.ENABLED
         trace.ENABLED = True
         got, inputs = {}, {}
@@ -1055,6 +1303,7 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                 before = {k: c[k] for k, c in counts.items()}
                 reads_before = dict(reads)
                 at_before = at_calls[0]
+                p2e_before = p2e_calls[0]
                 trace.counters.pop("qgram_candidates", None)
                 seen.clear()
                 t0 = time.perf_counter()
@@ -1065,6 +1314,14 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                 if n[kname] == 0:
                     raise AssertionError("%s: the main path launched no %s "
                                          "kernel" % (name, kname))
+                p2e_n = p2e_calls[0] - p2e_before
+                if p2e_n:
+                    raise AssertionError("%s: the torch route called the "
+                                         "host's planes_to_events %d times"
+                                         % (name, p2e_n))
+                if name in PAIRS_RUNS and n["event_pairs"] == 0:
+                    raise AssertionError("%s: the main path read its events "
+                                         "back without event_pairs" % name)
                 records = "-d" in argv
                 qcand = trace.counters.get("qgram_candidates", 0)
                 if records and qcand:
@@ -1088,6 +1345,7 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                         % (name, r, n["chain_scan"]))
                 inputs[name] = dict(seen)
                 res[name] = {"wall_s": wall, "launches": n[kname],
+                             "pairs_launches": n["event_pairs"],
                              "kernel": kname, "reads": r,
                              "records": records, "qgram_candidates": qcand,
                              "anchor_passes": at_n}
@@ -1097,6 +1355,7 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
             for name, fn in real_reads.items():
                 setattr(chain_kernel, name, fn)
             native.qgram_first_per_anchor_at = real_at
+            kernels.planes_to_events = real_p2e
             trace.ENABLED = trace_was
         main_launches = {k: c[k] for k, c in counts.items()}
 
@@ -1147,7 +1406,9 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
         res[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                          bound_by=by, shape_b=t.numel(), max_abs_err=diff,
                          geometry=kernels.launch_geometry(t.numel(), m, W,
-                                                          L, device))
+                                                          L, device),
+                         pairs=pairs_alone(name, planes, pairs_vals(m, device),
+                                           W, L, t.numel(), 0))
 
     # the lanes kernel alone on the same chunk and on the memagrep
     # buffer, each split into its lines in the length order the engine
@@ -1219,6 +1480,9 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
         res[name].update(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                          bound_by=by, shape_b=N, max_abs_err=diff,
                          set_bits=_set_bits(out))
+        if name == "bool5m":
+            res[name]["pairs"] = pairs_alone(
+                name, *inputs[name]["event_pairs"])
 
     for name, fn, argv, data, kname in runs:
         r = res[name]
@@ -1252,6 +1516,11 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                   "numpy backend wall %.3f s"
                   % (name, kname, r["launches"], r["anchor_passes"],
                      r["qgram_candidates"], r["wall_s"], r["host_wall_s"]))
+    for name in PAIRS_RUNS:
+        r = res[name]
+        print("main: %s read its events back through event_pairs (%d "
+              "launches), planes_to_events called 0 times" % (
+                  name, r["pairs_launches"]))
     for name in ("config4", "memagrep4"):
         r = res[name]
         print("main: the lanes kernel's %d B launch of %s holds %d lines, "
@@ -1297,6 +1566,7 @@ def _launch_counts():
     from agrep_tpu_torch.ops import chain_kernel, kernels, qgram_kernel
     from agrep_tpu_torch.ops import renfa_kernel
     return {"mask_scan": kernels.launches,
+            "event_pairs": kernels.launches,
             "renfa_lanes": renfa_kernel.launches,
             "chain_scan": chain_kernel.launches,
             "qgram_filter": qgram_kernel.launches}
@@ -1726,6 +1996,19 @@ def qgram_filter_geometry_line(res) -> str:
                                       g["blocks_per_sm"], g["grid"]))
 
 
+def event_pairs_line(res, card: str) -> str:
+    """event_pairs at each of PAIRS_RUNS' shapes: pairs, planes, grid,
+    the kernel's device ms against its bound, the wrapper's ms with the
+    host's read of K, the plain version's and the library composite's."""
+    return "times: event_pairs %s | card: %s" % (" | ".join(
+        "%s %d B %d planes %d pairs grid=%d: %.4f ms (%.1f %% of its %.4f "
+        "ms bound, %s), wrapper %.4f ms, plain %.2f ms, library %.3f ms"
+        % (n, p["shape_b"], p["planes"], p["K"], p["grid"], p["ms"],
+           100 * p["bound_ms"] / p["ms"], p["bound_ms"], p["bound_by"],
+           p["wrapper_ms"], p["plain_ms"], p["library_ms"])
+        for n in PAIRS_RUNS for p in [res[n]["pairs"]]), card)
+
+
 def times_line(res, kname: str, names, card: str) -> str:
     return "times: %s %s | card: %s" % (kname, " | ".join(
         "%s %.4f ms per %d B launch, %.1f %% of its %.4f ms bound (%s)"
@@ -1765,6 +2048,7 @@ def main(argv=None) -> int:
     err_re = phase_parity_regex("cuda", args.seed)
     err_chain, err_qgram = phase_parity_multi(
         "cuda", args.seed, 8 << 20, make_patterns(400, args.seed))
+    err_pairs = phase_parity_pairs("cuda", args.seed)
     res = phase_main("cuda", args.seed, args.mb, card)
 
     c2, c4, c5, c5q = (res["config2"], res["config4"], res["config5"],
@@ -1777,6 +2061,7 @@ def main(argv=None) -> int:
     print(times_line(res, "renfa_lanes", ("config4", "memagrep4"), card))
     print(qgram_filter_geometry_line(res))
     print(times_line(res, "qgram_filter", ("config5q",), card))
+    print(event_pairs_line(res, card))
     t6 = time.perf_counter()
     corpus = make_corpus(args.mb << 20, args.seed)
     phase_dist(corpus, card)
@@ -1842,10 +2127,28 @@ def main(argv=None) -> int:
         # no single PyTorch call packs a gathered bit set into words; the
         # gather alone is the plain version's first step
         "library_ms": None,
+    }, {
+        "name": "event_pairs",
+        "route": "cuda",
+        "source": "agrep_tpu_torch/csrc/event_pairs.cu",
+        # the host read-back it replaces (no Pallas kernel: a device stage
+        # the port adds beside the TPU kernels)
+        "replaces": "agrep_tpu/ops/kernels.py:521",
+        "launches": res["launches"]["event_pairs"],
+        "max_abs_err": max([err_pairs] + [res[n]["pairs"]["max_abs_err"]
+                                          for n in PAIRS_RUNS]),
+        "ms": c2["pairs"]["ms"],
+        "plain_ms": c2["pairs"]["plain_ms"],
+        "bound_ms": c2["pairs"]["bound_ms"],
+        "bound_by": c2["pairs"]["bound_by"],
+        # no one PyTorch call compacts bit planes into pairs: the
+        # composite pairs_library (unpack by shifts, torch.nonzero)
+        "library_ms": c2["pairs"]["library_ms"],
     }]}
     print("kernels: times are per launch at the main path's %d B chunk "
-          "of config2 (%s) and of config4 (%s), at config5's %d B stream "
-          "(chain_scan) and config5q's %d B stream (qgram_filter); "
+          "of config2 (%s; event_pairs: both passes on the card, without "
+          "the host's read of K) and of config4 (%s), at config5's %d B "
+          "stream (chain_scan) and config5q's %d B stream (qgram_filter); "
           "launches are all main-path runs; card: %s"
           % (c2["shape_b"], " ".join(CONFIGS[1][1]),
              " ".join(REGEX_CONFIGS[0][1]), c5["shape_b"], c5q["shape_b"],

@@ -57,10 +57,13 @@ def test_device_route_takes_the_multi_pattern_kernels(runners, tmp_path,
 
 def test_seed_7040_runs_over_its_limit(runners, tmp_path):
     """The grown stratified seed 7040 (-D2 -I2 -S2 -d '\\n' -t -c -f, 120
-    terms over 168 KB of dense short records) keeps agrep_tpu's record
-    replay busy far past any limit (ROADMAP Queue 2 item e): the sweep
-    reports it as over its limit, with its seed and side, and not as a
-    pass or a divergence."""
+    terms over 168 KB of dense short records) runs into the reference's
+    own -d -t infinite loop, which agrep_tpu reproduces faithfully
+    (docs/CONFORMANCE.md, "-d -t infinite-loop pathology"): its record
+    replay stays at one anchor at the end of a 32 KB block and never
+    advances (ROADMAP Queue 3, not a port fault).  The sweep reports it
+    as over its limit, with its seed and side, and not as a pass or a
+    divergence."""
     res = sweep.check_case(0, 7040, str(tmp_path), "stratified", True,
                            runners, limit=2.0)
     assert res["status"] == "over_limit" and res["side"] == "ref", res

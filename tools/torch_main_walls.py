@@ -1,0 +1,229 @@
+#!/usr/bin/env python3
+"""Walls and stage timers of the main path's runs in two or more checkouts
+of the port, each checkout in a process of its own.
+
+    python3 tools/torch_main_walls.py TREE [TREE ...] [--seed N] [--mb 100]
+                                      [--reps 3]
+
+Each TREE is the root of a checkout holding agrep_tpu_torch/ (an
+unpacked `git archive` of a commit, say); the trees run in the order
+given, so `A B B A` runs A, B, B, A.  Each run builds its tree's kernels
+and native library, makes chip_smoke's corpora from --seed (this
+checkout's chip_smoke.py, loaded by path), and runs BASELINE configs 1-3
+(`-c hello`, `-1 -n matching`, `-3 -D2 -I1 -S1 -w -i approximate`) on
+the --mb MB file, memagrep `-c hello` on the same bytes in memory, and
+bool5m (`-d '$$' 'hello;matching,<a term of 136 byte classes>'`) on the
+records file, through the tree's agrep_tpu_torch.api, with
+AGREP_TORCH_STATS=2: one warm-up run, then --reps timed runs on the GPU
+route (each ended by a synchronize) and --reps on the tree's numpy host
+backend.  For each GPU run it keeps the tree's stage timers
+(runtime/trace.py: `scan`, the engines' whole search; `compile`; and any
+stage the tree adds) and the host time inside the tree's
+ops/scan.py::_scan_torch, the device layer (the text's copy to the card,
+the kernel, the read-back; its wrapper here, in both trees alike), and
+the launches of each kernel.  The GPU route's output must equal the
+numpy backend's, and every tree's the first tree's (sha256 and exit
+code).  The first line is the card's name and power limit; then one
+`walls:` and one `stages:` line a run, with every tree's medians, and a
+last JSON line with every sample.  Exits non-zero without a CUDA
+device, when a run fails or when outputs differ.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import importlib.util
+import io
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _load(name: str, path: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _helpers():
+    """(chip_smoke, timing) of this checkout, loaded by path under other
+    names, so that a tree's own chip_smoke.py and timing module are never
+    the ones used."""
+    return (_load("walls_chip_smoke", os.path.join(REPO, "chip_smoke.py")),
+            _load("walls_timing", os.path.join(REPO, "agrep_tpu_torch", "ops",
+                                               "timing.py")))
+
+
+def runs(cs, path: str, rec: str, data: bytes) -> list:
+    """(name, api function name, argv, in-memory data or None)."""
+    return [
+        ("config1", "fileagrep", cs.CONFIGS[0][1] + [path], None),
+        ("config2", "fileagrep", cs.CONFIGS[1][1] + [path], None),
+        ("config3", "fileagrep", cs.CONFIGS[2][1] + [path], None),
+        ("memagrep", "memagrep", cs.CONFIGS[0][1], data),
+        ("bool5m", "fileagrep",
+         cs.CONFIG5_DELIM + ["hello;matching," + cs.WIDE_TERM, rec], None),
+    ]
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def child(tree: str, args) -> int:
+    """One run: every run of `runs` with tree's package; prints one JSON
+    line."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    cs = _helpers()[0]
+    import tempfile
+
+    import torch
+
+    import agrep_tpu_torch
+    from agrep_tpu_torch import api, native
+    from agrep_tpu_torch.ops import _cuda, kernels
+    from agrep_tpu_torch.ops import scan as scan_ops
+    from agrep_tpu_torch.runtime import trace
+    if os.path.dirname(os.path.abspath(agrep_tpu_torch.__file__)) != \
+            os.path.join(tree, "agrep_tpu_torch"):
+        raise AssertionError("agrep_tpu_torch imported from %s, not %s"
+                             % (agrep_tpu_torch.__file__, tree))
+    if not trace.DETAILED:
+        raise AssertionError("AGREP_TORCH_STATS=2 is not set")
+    _cuda.build_all(list(_cuda.SOURCES))
+    if native.get_lib() is None:
+        raise RuntimeError("the native host library did not build")
+    scan_ops.set_device("cuda")
+    layer = [0.0]
+    real = scan_ops._scan_torch
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **kw)
+        finally:
+            layer[0] += time.perf_counter() - t0
+    scan_ops._scan_torch = timed
+
+    corpus = cs.make_corpus(args.mb << 20, args.seed)
+    records = cs.make_records(corpus, args.seed)
+    build = os.path.join(tree, "build")
+    os.makedirs(build, exist_ok=True)
+    out = {}
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        path = os.path.join(tmp, "corpus.txt")
+        corpus.tofile(path)
+        rec = os.path.join(tmp, "records.txt")
+        records.tofile(rec)
+        for name, fn_name, argv, data in runs(cs, path, rec,
+                                              b"\n" + corpus.tobytes()):
+            fn = getattr(api, fn_name)
+
+            def once():
+                buf = io.BytesIO()
+                t0 = time.perf_counter()
+                rc = (fn(argv, output=buf) if data is None
+                      else fn(argv, data, output=buf))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                return wall, (hashlib.sha256(buf.getvalue()).hexdigest(),
+                              rc & 0xFF)
+            r = {"gpu": [], "numpy": [], "stages": [], "layer_s": [],
+                 "launches": []}
+            scan_ops.set_backend("torch")
+            _, digest = once()
+            for _ in range(args.reps):
+                trace.reset()
+                layer[0] = 0.0
+                before = dict(kernels.launches)
+                wall, d = once()
+                if d != digest:
+                    raise AssertionError("%s: GPU runs differ" % name)
+                r["gpu"].append(wall)
+                r["stages"].append(dict(trace.timers))
+                r["layer_s"].append(layer[0])
+                r["launches"].append({k: v - before.get(k, 0)
+                                      for k, v in kernels.launches.items()})
+            scan_ops.set_backend("numpy")
+            for _ in range(args.reps):
+                wall, d = once()
+                if d != digest:
+                    raise AssertionError(
+                        "%s: stdout sha256/rc %s on the GPU, %s on the "
+                        "numpy backend" % (name, digest, d))
+                r["numpy"].append(wall)
+            r["digest"] = digest
+            out[name] = r
+    print(json.dumps({"tree": tree, "runs": out}))
+    return 0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("trees", nargs="+", help="checkout roots, in order")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mb", type=int, default=100)
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--child", action="store_true",
+                    help="run the one tree given in this process")
+    args = ap.parse_args(argv)
+    if args.child:
+        return child(args.trees[0], args)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_main_walls: no CUDA device", file=sys.stderr)
+        return 1
+    timing = _helpers()[1]
+    print(timing.card_line())
+    env = dict(os.environ, AGREP_TORCH_STATS="2")
+    done = []
+    for tree in map(os.path.abspath, args.trees):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--child", tree,
+             "--seed", str(args.seed), "--mb", str(args.mb), "--reps",
+             str(args.reps)], capture_output=True, text=True,
+            cwd=tree, env=env)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:] + proc.stderr[-8000:])
+            print("torch_main_walls: the run of %s failed (exit %d)"
+                  % (tree, proc.returncode), file=sys.stderr)
+            return 1
+        done.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    differ = []
+    for name, r0 in done[0]["runs"].items():
+        walls, stages = [], []
+        for i, d in enumerate(done):
+            r = d["runs"][name]
+            if r["digest"] != r0["digest"]:
+                differ.append((name, i + 1))
+            tag = os.path.basename(os.path.normpath(d["tree"]))
+            walls.append("%s %.3f [numpy %.3f]" % (
+                tag, _median(r["gpu"]), _median(r["numpy"])))
+            keys = sorted({k for st in r["stages"] for k in st})
+            stages.append("%s %s device layer=%.3fs launches=%s" % (
+                tag, " ".join("%s=%.3fs" % (k, _median(
+                    [st.get(k, 0.0) for st in r["stages"]])) for k in keys),
+                _median(r["layer_s"]),
+                ",".join("%s:%d" % kv for kv in r["launches"][-1].items())))
+        print("walls: %-8s median of %d s, GPU route [numpy backend]: %s"
+              % (name, len(r0["gpu"]), " | ".join(walls)))
+        print("stages: %-8s medians: %s" % (name, " | ".join(stages)))
+    print("card: %s" % timing.card_line())
+    print(json.dumps({"runs": done}))
+    if differ:
+        print("torch_main_walls: outputs differ from the first run's: %s"
+              % differ, file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
