@@ -25,6 +25,11 @@ pairs in stream order: on a CUDA tensor through csrc/event_pairs.cu, so
 that only the pairs cross to the host, on a CPU tensor through
 event_pairs_reference().  planes_to_events() is the dense host read-back
 that agrep_tpu runs, kept as the plain form the tests compare with.
+
+record_verdicts() cuts those pairs into the bitap engine's records where
+they lie and returns only the rows of the records that fire: on a CUDA
+tensor through csrc/record_verdicts.cu, on a CPU tensor through
+record_verdicts_reference().
 """
 
 from __future__ import annotations
@@ -58,7 +63,7 @@ SM_THREADS = 2048
 SM_BLOCKS = 32
 
 # Launches of each kernel since the counts were last set to 0.
-launches = {"mask_scan": 0, "event_pairs": 0}
+launches = {"mask_scan": 0, "event_pairs": 0, "record_verdicts": 0}
 
 
 @dataclass(frozen=True)
@@ -591,6 +596,191 @@ def event_pairs_reference(planes: torch.Tensor, vals: torch.Tensor, W: int,
     keep = ((ev != 0) & (col >= W) & (col < W + L) & (pos < N)
             & (pos >= keep_from))
     return pos[keep], ev[keep].to(torch.uint32)
+
+
+def _check_records_args(pos, word) -> None:
+    if pos.dtype != torch.int64 or pos.dim() != 1:
+        raise TypeError("pos must be a 1-D int64 tensor, got %s %r"
+                        % (pos.dtype, tuple(pos.shape)))
+    if word.dtype != torch.uint32 or word.dim() != 1:
+        raise TypeError("word must be a 1-D uint32 tensor, got %s %r"
+                        % (word.dtype, tuple(word.shape)))
+    if not (pos.is_contiguous() and word.is_contiguous()):
+        raise ValueError("pos and word must be contiguous")
+    if pos.device != word.device:
+        raise ValueError("pos on %s but word on %s"
+                         % (pos.device, word.device))
+    if pos.numel() != word.numel():
+        raise ValueError("%d positions but %d words"
+                         % (pos.numel(), word.numel()))
+
+
+def record_verdicts(pos: torch.Tensor, word: torch.Tensor, endpos: int,
+                    d_endpos: int, skip_pos: int = -1,
+                    and_flag: bool = False, invert: bool = False,
+                    acc: int = 0) -> tuple:
+    """The records of a stream's event pairs that fire, as the bitap
+    engine cuts them: (rows int64 [R, 3] on the pairs' device, summary).
+
+    pos/word: event_pairs' pairs, ascending.  The pair at skip_pos (the
+    glitch byte, or -1) is dropped first.  A pair ORs word & endpos into
+    its record's acc, and a pair with word & d_endpos set ends the record
+    (its own hit counts in it).  A record fires when, with and_flag,
+    (acc & endpos) == endpos or invert, and else when (acc != 0) ^ invert.
+    acc is the carry from the stream's earlier pairs: the hit bits since
+    their last record end.
+
+    Each row is (ordinal of the record's end among this call's ends, the
+    end's position, the position of the end before it or -1), in stream
+    order.  summary = (record ends, last end's position or -1, the hit
+    bits after it: the next call's acc).  A CUDA tensor goes to the
+    kernel, a CPU tensor to record_verdicts_reference."""
+    _check_records_args(pos, word)
+    args = _records_args(endpos, d_endpos, skip_pos, and_flag, invert, acc)
+    if pos.is_cuda:
+        return _records_launch(pos, word, *args)
+    if pos.device.type == "cpu":
+        return record_verdicts_reference(pos, word, *args)
+    raise ValueError("no record-verdicts kernel for device %s" % pos.device)
+
+
+def _records_args(endpos, d_endpos, skip_pos, and_flag, invert,
+                  acc) -> tuple:
+    """The scalar arguments as the kernel takes them: u32 masks, the acc
+    held to endpos' bits."""
+    return (_u32(endpos), _u32(d_endpos), int(skip_pos), int(and_flag),
+            int(invert), _u32(acc) & _u32(endpos))
+
+
+def _records_bind():
+    lib = _cuda.load("record_verdicts")
+    if not getattr(lib, "_bound", False):
+        p, i, u, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
+                       ctypes.c_longlong)
+        ip = ctypes.POINTER(ctypes.c_int)
+        head = [p, p, ll, u, u, ll, i, i, u]
+        lib.record_verdicts_summarize.restype = i
+        lib.record_verdicts_summarize.argtypes = head + [p, i, p]
+        lib.record_verdicts_combine.restype = i
+        lib.record_verdicts_combine.argtypes = head + [p, p, p, i, p]
+        lib.record_verdicts_write.restype = i
+        lib.record_verdicts_write.argtypes = head + [p, p, i, p]
+        lib.record_verdicts_geometry.restype = i
+        lib.record_verdicts_geometry.argtypes = [ip, ip, ip]
+        lib.record_verdicts_error_string.restype = ctypes.c_char_p
+        lib.record_verdicts_error_string.argtypes = [i]
+        lib._bound = True
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _records_geometry(index: int) -> tuple:
+    """(pairs a block, bytes of a block summary) of the kernel."""
+    return _cuda.query(_records_bind(), "record_verdicts",
+                       "record_verdicts_geometry", index, 3)[1:]
+
+
+def records_grid(K: int, device) -> int:
+    """Blocks of record_verdicts' first and last passes over K pairs."""
+    per = _records_geometry(_cuda.device_index(device))[0]
+    return -(-K // per)
+
+
+def _records_call(fn: str, pos, word, args, *rest) -> None:
+    """One pass of the kernel on the pairs' device and current stream."""
+    lib = _records_bind()
+    stream = torch.cuda.current_stream(pos.device).cuda_stream
+    with torch.cuda.device(_cuda.device_index(pos.device)):
+        _cuda.check(lib, "record_verdicts", getattr(
+            lib, "record_verdicts_" + fn)(
+                pos.data_ptr(), word.data_ptr(), pos.numel(), *args, *rest,
+                stream), fn + " launch")
+
+
+def _records_summary(pos, word, args, grid) -> tuple:
+    """Passes 1 and 2: (each block's incoming prefix, the summary int64
+    [4] = record ends, last end, acc after it, rows), on the card."""
+    sum_bytes = _records_geometry(_cuda.device_index(pos.device))[1]
+    dev = pos.device
+    sums = torch.empty(grid * sum_bytes // 8, dtype=torch.int64, device=dev)
+    pre = torch.empty_like(sums)
+    summary = torch.empty(4, dtype=torch.int64, device=dev)
+    _records_call("summarize", pos, word, args, sums.data_ptr(), grid)
+    _records_call("combine", pos, word, args, sums.data_ptr(),
+                  pre.data_ptr(), summary.data_ptr(), grid)
+    return pre, summary
+
+
+def records_passes(pos, word, endpos, d_endpos, skip_pos, and_flag, invert,
+                   acc, rows) -> None:
+    """The three passes into rows, which holds the rows of an earlier
+    call on the same pairs: the kernel's device work without the host's
+    read of the summary (for timing it on the card)."""
+    args = _records_args(endpos, d_endpos, skip_pos, and_flag, invert, acc)
+    grid = records_grid(pos.numel(), pos.device)
+    pre, _summary = _records_summary(pos, word, args, grid)
+    _records_call("write", pos, word, args, pre.data_ptr(), rows.data_ptr(),
+                  grid)
+
+
+def _records_launch(pos, word, endpos, d_endpos, skip_pos, and_flag,
+                    invert, acc) -> tuple:
+    """The kernel's three passes on the pairs' device, with the host's
+    read of the summary between the second and the third."""
+    dev = pos.device
+    args = _records_args(endpos, d_endpos, skip_pos, and_flag, invert, acc)
+    if pos.numel() == 0:
+        return torch.empty((0, 3), dtype=torch.int64, device=dev), \
+            (0, -1, args[-1])
+    grid = records_grid(pos.numel(), dev)
+    pre, summary = _records_summary(pos, word, args, grid)
+    n_ends, last, acc_out, R = summary.tolist()
+    rows = torch.empty((R, 3), dtype=torch.int64, device=dev)
+    if R:
+        _records_call("write", pos, word, args, pre.data_ptr(),
+                      rows.data_ptr(), grid)
+    launches["record_verdicts"] += 1
+    return rows, (n_ends, last, acc_out)
+
+
+def record_verdicts_reference(pos: torch.Tensor, word: torch.Tensor,
+                              endpos: int, d_endpos: int,
+                              skip_pos: int = -1, and_flag: bool = False,
+                              invert: bool = False, acc: int = 0) -> tuple:
+    """Plain PyTorch version of the kernel, on any device: each pair's
+    record is the number of record ends before it, and a record's acc is
+    the OR of its pairs' hit bits, taken a bit of endpos at a time by a
+    scatter_reduce.  Words are int64 holding u32 values (CPU torch has no
+    >> on uint32)."""
+    dev = pos.device
+    endpos, d_endpos = _u32(endpos), _u32(d_endpos)
+    keep = pos != skip_pos
+    p = pos[keep]
+    w = word.to(torch.int64)[keep] & 0xFFFFFFFF
+    is_end = (w & d_endpos) != 0
+    ends = torch.nonzero(is_end).flatten()
+    E = ends.numel()
+    before = torch.cumsum(is_end.to(torch.int64), 0) - is_end.to(torch.int64)
+    accs = torch.zeros(E + 1, dtype=torch.int64, device=dev)
+    accs[0] = _u32(acc) & endpos
+    for b in range(32):
+        if endpos >> b & 1:
+            bit = (w >> b) & 1
+            anyb = torch.zeros(E + 1, dtype=torch.int64, device=dev)
+            anyb.scatter_reduce_(0, before, bit, "amax")
+            accs |= anyb << b
+    rec = accs[:E]
+    if and_flag:
+        fire = ((rec & endpos) == endpos) | bool(invert)
+    else:
+        fire = (rec != 0) ^ bool(invert)
+    k = torch.nonzero(fire).flatten()
+    end_pos = p[ends]
+    prev = torch.cat([torch.full((1,), -1, dtype=torch.int64, device=dev),
+                      end_pos[:-1]])
+    rows = torch.stack([k, end_pos[k], prev[k]], 1)
+    last = int(end_pos[-1].item()) if E else -1
+    return rows, (E, last, int(accs[E].item()))
 
 
 def planes_to_events(delim_p: np.ndarray, hit_p: np.ndarray,

@@ -31,7 +31,11 @@ dense uint32 event word per input byte, built from them.  The word's bit
 layout equals the mask machine's (delimiter bit = d_endpos, part pulses
 = endposition bits).  For 'sgrep', bit 0 = match pulse.  On the torch
 backend the pairs are compacted where the planes lie (ops/kernels.py
-event_pairs), and only they cross to the host.
+event_pairs), and only they cross to the host.  For the bitap engine,
+scan_record_verdicts and scan_record_list go one step further on the
+torch backend: the pairs are cut into records on the scan device
+(ops/kernels.py record_verdicts), and only the rows of the records that
+fire cross to the host.
 """
 
 from __future__ import annotations
@@ -217,16 +221,89 @@ def scan_event_list(reader, n: int, mask_table: np.ndarray, consts: dict,
         g0 = g1
 
 
+def records_on_device() -> bool:
+    """True where the bitap engine takes its records from the scan
+    (scan_record_verdicts, scan_record_list: the torch backend), False
+    where it cuts the scan's events into records itself (the numpy
+    backend)."""
+    if _BACKEND not in BACKENDS:
+        raise ValueError("AGREP_TORCH_BACKEND must be one of %s, got %r"
+                         % (BACKENDS, _BACKEND))
+    return _BACKEND == "torch"
+
+
+def scan_record_list(reader, n: int, mask_table: np.ndarray, consts: dict,
+                     D: int, costs: tuple | None = None, skip_pos: int = -1,
+                     and_flag: bool = False, invert: bool = False,
+                     tile: int = DEFAULT_TILE, chunk: int | None = None):
+    """The bitap engine's records of a byte source that fire, chunk by
+    chunk as scan_event_list scans it: yields int64 [R, 3] rows a chunk,
+    in stream order, each (ordinal of the record's end among the
+    stream's record ends, the end's stream position, the stream position
+    of the end before it or -1 where there is none).
+
+    The scan's event pairs are cut into records on the scan device
+    (kernels.record_verdicts, with the pair at skip_pos dropped, and_flag
+    and invert its verdict), each chunk from the carry of the chunks
+    before it; only the rows cross to the host.  Torch backend only: the
+    numpy backend's engines cut the events themselves."""
+    if _BACKEND != "torch":
+        raise ValueError("the record verdicts run on the torch backend, "
+                         "not on %r" % (_BACKEND,))
+    if chunk is None:
+        chunk = STREAM_CHUNK
+    from ..runtime import trace
+    W = _halo(consts, D, tile)
+    acc, base, last = 0, 0, -1
+    g0 = 0
+    while g0 < n:
+        g1 = min(n, g0 + chunk)
+        lo = g0 - W if g0 >= W else 0
+        text = reader(lo, g1)
+        if trace.ENABLED:
+            trace.add("device_scans")
+            trace.add("scan_bytes", len(text))
+            trace.add("kernel_scans")
+        with trace.stage("device_scan"):
+            rows, (n_ends, c_last, acc) = _records_torch(
+                text, mask_table, consts, D, W, tile, len(text), costs,
+                g0 - lo, skip_pos - lo if skip_pos >= lo else -1, and_flag,
+                invert, acc)
+        if len(rows):
+            rows[:, :2] += (base, lo)
+            first = rows[:, 2] < 0
+            rows[:, 2] += lo
+            rows[first, 2] = last
+        if n_ends:
+            last = c_last + lo
+        base += n_ends
+        yield rows
+        g0 = g1
+
+
+def scan_record_verdicts(text: np.ndarray, mask_table: np.ndarray,
+                         consts: dict, D: int, costs: tuple | None = None,
+                         skip_pos: int = -1, and_flag: bool = False,
+                         invert: bool = False,
+                         tile: int = DEFAULT_TILE) -> np.ndarray:
+    """scan_record_list's rows of one whole stream (one chunk)."""
+    n = int(text.shape[0])
+    batches = list(scan_record_list(lambda lo, hi: text[lo:hi], n,
+                                    mask_table, consts, D, costs, skip_pos,
+                                    and_flag, invert, tile, max(n, 1)))
+    return batches[0] if batches else np.zeros((0, 3), dtype=np.int64)
+
+
 # ---------------------------------------------------------------------
 # torch backend
 # ---------------------------------------------------------------------
 
-def _scan_torch(text, mask_table, consts, D, W, L, N, variant, costs,
-                keep_from):
+def _pairs_torch(text, mask_table, consts, D, W, L, N, variant, costs,
+                 keep_from):
     """The mask-machine kernel (CUDA) or its plain PyTorch version
     (CPU), then its planes compacted into (position, event word) pairs
-    where they lie (kernels.event_pairs); only the pairs come to the
-    host."""
+    where they lie (kernels.event_pairs); the pairs stay on the scan
+    device."""
     import torch
 
     from . import kernels
@@ -239,8 +316,34 @@ def _scan_torch(text, mask_table, consts, D, W, L, N, variant, costs,
     planes = kernels.mask_scan(kernels.to_device(text, dev), mach, W, L)
     vals = torch.from_numpy(np.asarray(kernels.event_vals(mach),
                                        dtype=np.uint32)).to(dev)
-    pos, ev = kernels.event_pairs(planes, vals, W, L, N, keep_from)
+    return kernels.event_pairs(planes, vals, W, L, N, keep_from)
+
+
+def _scan_torch(text, mask_table, consts, D, W, L, N, variant, costs,
+                keep_from):
+    """_pairs_torch's pairs, brought to the host."""
+    pos, ev = _pairs_torch(text, mask_table, consts, D, W, L, N, variant,
+                           costs, keep_from)
     return pos.cpu().numpy(), ev.cpu().numpy()
+
+
+def _records_torch(text, mask_table, consts, D, W, L, N, costs, keep_from,
+                   skip_pos, and_flag, invert, acc):
+    """_pairs_torch's bitap pairs cut into records where they lie
+    (kernels.record_verdicts); only the rows of the records that fire,
+    and the summary, come to the host."""
+    from . import kernels
+    from ..runtime import trace
+    pos, ev = _pairs_torch(text, mask_table, consts, D, W, L, N, "bitap",
+                           costs, keep_from)
+    rows, summary = kernels.record_verdicts(
+        pos, ev, consts["endpos"], consts["d_endpos"], skip_pos, and_flag,
+        invert, acc)
+    rows = rows.cpu().numpy()
+    if trace.ENABLED:
+        trace.add("record_pairs", pos.numel())
+        trace.add("record_rows", len(rows))
+    return rows, summary
 
 
 def scan_lanes(lanes: np.ndarray, lens: np.ndarray, mask_table: np.ndarray,

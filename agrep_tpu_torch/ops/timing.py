@@ -2,7 +2,7 @@
 
 card_line names the card; time_kernel and profiled_ms time a call on it
 (CUDA events after a spin, and torch.profiler's device time);
-level_ops ... pairs_bound count the least work of each kernel's function
+level_ops ... records_bound count the least work of each kernel's function
 at its inputs and turn it into (bound_ms, bound_by) at the peak rates of
 one H100 below.  chip_smoke.py, agrep_tpu_torch.bench and the timing
 tools under tools/ use them.
@@ -263,6 +263,26 @@ def pairs_bound(vals, N: int, keep_from: int, K: int) -> tuple:
 # clock cycles the card spins a timed call before time_kernel's first
 # event (about 0.1 ms at 1.98 GHz)
 SPIN_CYCLES = 200000
+
+
+def records_ops() -> int:
+    """int32 operations a pair of the record cut at its least: the skip
+    test (1), the hit bits' AND and OR into the record's acc (2), the
+    delimiter bit's test (1) and, at a record end, the verdict's compare
+    (1).  The pairs' loads and the rows' stores are bytes."""
+    return 5
+
+
+def records_bound(K: int, R: int) -> tuple:
+    """(bound_ms, bound_by) of one record cut of K event pairs into R rows
+    that fire: the pairs (8 B position, 4 B word) read once, the rows
+    (three int64) and the 32-byte summary written once over HBM's rate,
+    against records_ops a pair over the card's int32 rate."""
+    t_bytes = (12 * K + 24 * R + 32) / HBM_BYTES_PER_S
+    t_ops = K * records_ops() / INT32_OPS_PER_S
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
 
 
 def time_kernel(fn, reps: int = 5) -> float:

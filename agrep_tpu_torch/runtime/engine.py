@@ -103,6 +103,9 @@ class BitapEngine:
             self._count_chunked(machine, outs, inject_at, sink, D,
                                 len(data))
             return
+        if scan_ops.records_on_device():
+            return self._walk_rows(self._device_rows(machine, inject_at, D),
+                                   outs, data, inject_at, sink)
 
         lasti = 1                      # record start (output coords)
         prev_pk = None                 # previous delimiter position
@@ -177,6 +180,9 @@ class BitapEngine:
         stream at delimiter pulses (cumsum over hit pulses) and count
         segments with >= 1 hit whose record starts before the appended
         delimiter (the bitap.c:213 guard)."""
+        if scan_ops.records_on_device():
+            return self._count_rows(self._device_rows(machine, inject_at, D),
+                                    inject_at, sink, n_data)
         q = self.q
         c = q.consts
         dl = len(q.delim)
@@ -223,6 +229,102 @@ class BitapEngine:
                           & (starts <= pk - dl)).sum())
             last_delim_out = int(pk[-1])
         sink.num_matched += count
+
+    def _device_rows(self, machine: ByteStream, inject_at, D: int):
+        """scan_record_list's rows of the machine's stream, the glitch
+        byte's pair dropped: the records that fire, cut on the card."""
+        q = self.q
+        return scan_ops.scan_record_list(
+            machine.read, len(machine), q.folded_mask, q.consts, D, q.costs,
+            -1 if inject_at is None else inject_at, q.and_flag,
+            q.opts.invert)
+
+    def _search_rows(self, stream: np.ndarray, data: np.ndarray, inject_at,
+                     sink: Sink, D: int) -> None:
+        """search_stream on the torch backend: the card cuts the whole
+        stream's events into records (scan_record_verdicts), and the host
+        counts or prints the rows of those that fire."""
+        q, o = self.q, self.q.opts
+        rows = scan_ops.scan_record_verdicts(
+            stream, q.folded_mask, q.consts, D, q.costs,
+            -1 if inject_at is None else inject_at, q.and_flag, o.invert)
+        if inject_at is not None:
+            stream = np.concatenate([stream[:inject_at],
+                                     stream[inject_at + 1:]])
+        if (o.count and not o.filename_only and not o.fileout
+                and not q.and_flag and o.limit_output <= 0
+                and o.limit_per_file <= 0 and o.limit_total_file <= 0):
+            self._count_rows([rows], inject_at, sink, len(data))
+            return
+        self._walk_rows([rows], stream, data, inject_at, sink)
+
+    def _count_rows(self, batches, inject_at, sink: Sink,
+                    n_data: int) -> None:
+        """The vectorized count over the rows of the records that fire:
+        a record counts when it starts before the appended delimiter
+        (the bitap.c:213 guard) and its span is not empty (output():3812
+        i1 > i2)."""
+        dl = len(self.q.delim)
+        count = 0
+        for rows in batches:
+            end, prev = rows[:, 1], rows[:, 2]
+            if inject_at is not None:
+                end = end - (end > inject_at)
+                prev = prev - (prev > inject_at)
+            start = np.where(prev < 0, 1, prev + 1 - dl)
+            count += int(np.count_nonzero((start < n_data)
+                                          & (start <= end - dl)))
+        sink.num_matched += count
+
+    def _walk_rows(self, batches, buf, data, inject_at, sink: Sink) -> None:
+        """The print walk over the rows of the records that fire
+        (ordinal, end, previous end; machine positions): the host keeps
+        the record numbers, the guards, the clamp simulation, the printer
+        and the limits, as the per-event walks do."""
+        q, o = self.q, self.q.opts
+        dl = len(q.delim)
+        j0 = 0
+        if q.delimiter_opt and bytes(bytearray(data[:dl])) == q.delim:
+            j0 = -1
+        dl_off = dl if q.delimiter_opt else 1
+        data_end = len(data)
+        for rows in batches:
+            for k, p_m, prev in rows.tolist():
+                extra = 0
+                if inject_at is not None:
+                    extra = 1 if p_m > inject_at else 0
+                    prev -= 1 if prev > inject_at else 0
+                pk = p_m - extra
+                if o.filename_only and (sink.new_file
+                                        or not o.post_filter):
+                    sink.num_matched += 1
+                    sink.write_str("%s\n" % sink.current_filename)
+                    sink.new_file = False
+                    return
+                p_ref = prev + 1 - dl if prev >= 0 else None
+                lasti = 1 if p_ref is None else p_ref
+                if lasti >= data_end:
+                    continue
+                byte_offset = pk + 1 - dl_off + extra
+                synth = _bitap_clamped_synth(
+                    buf, p_ref, pk,
+                    asearch_mode=q.D > 0 and not q.opts.jump,
+                    align=getattr(q, "sim_align", 112))
+                if synth is not None:
+                    synth, was_clamped = synth
+                    if was_clamped:
+                        sink.truncate = True
+                    output_bitap_record(
+                        sink, synth, 0, len(synth) - 1 - dl, k + 1 + j0,
+                        byte_offset, dl, q.delimiter_opt, q.delim,
+                        q.outtail)
+                else:
+                    output_bitap_record(
+                        sink, buf, lasti, pk - dl, k + 1 + j0,
+                        byte_offset, dl, q.delimiter_opt, q.delim,
+                        q.outtail)
+                if _limits_reached(o, sink):
+                    return
 
     def _memory_search(self, data: np.ndarray, sink: Sink,
                        D: int) -> None:
@@ -332,6 +434,8 @@ class BitapEngine:
                     np.frombuffer(b"\n", dtype=np.uint8), data,
                     np.frombuffer(tail_pat, dtype=np.uint8)])
         c = q.consts
+        if scan_ops.records_on_device() and self.supports_streaming():
+            return self._search_rows(stream, data, inject_at, sink, D)
         if q.opts.cost_insert == 0 or (q.tables is not None
                                        and q.tables.wildmask != 0):
             # -p supersequence (Init1 = ~0, bitap.c:123) and '#'

@@ -8,10 +8,10 @@ exits non-zero:
 
   1. card: the GPU's name and power limit (nvidia-smi) and the torch and
      CUDA versions;
-  2. build: compiles the five kernel sources (csrc/mask_scan.cu,
-     renfa_lanes.cu, chain_scan.cu, qgram_filter.cu, event_pairs.cu) with
-     nvcc, every compile unit of all five started together, and times the
-     build;
+  2. build: compiles the six kernel sources (csrc/mask_scan.cu,
+     renfa_lanes.cu, chain_scan.cu, qgram_filter.cu, event_pairs.cu,
+     record_verdicts.cu) with nvcc, every compile unit of all six started
+     together, and times the build;
   3. parity: the mask_scan kernel against its plain PyTorch version
      (mask_scan_reference) on the card, bit for bit, over every variant,
      D, cost wiring, endpos shape and edge size the kernel takes (sizes
@@ -52,7 +52,16 @@ exits non-zero:
      random bits over 33 planes at those sizes, and on config 2's 32 MB
      chunk (its planes, and all-set planes of its geometry), each with
      its planes and values also as views 1-15 elements past an aligned
-     address; phase 4 repeats every check at the main path's shapes;
+     address; and the record_verdicts kernel against
+     record_verdicts_reference, bit for bit (rows and summary), with AND
+     and OR, with and without -v, with and without a dropped pair, from
+     an acc of 0 and of endpos, on pair streams of K = 0, 1, 2047, 2048
+     (every pair a record end), 2049 (hits on record ends), 5000, 600,000
+     (no record end, more blocks than the combining block's threads) and
+     1,000,000 under one and three hit bits, and on config 2's and config
+     3's pairs over a 32 MB chunk, each also as views 1-15 elements past
+     an aligned address; phase 4 repeats every check at the main path's
+     shapes;
   4. main path: a --mb MB ASCII corpus made from --seed, searched through
      agrep_tpu_torch.api.fileagrep with BASELINE configs 1-4 (the file
      is over the streaming threshold, so each run is chunked; config 4,
@@ -77,6 +86,11 @@ exits non-zero:
      anchors (native.qgram_first_per_anchor_at); configs 1-3, memagrep
      and bool5m must read their events back through event_pairs, and no
      run may call the host's planes_to_events (both wrapped and counted);
+     configs 2, 3 and config2c (config 2 as a count: CONFIG2C) must cut
+     their records through record_verdicts (wrapped and counted), and the
+     rows they read back (trace counter record_rows) must be the records
+     that fire, as record_verdicts_reference counts them on the same
+     pairs;
   5. kernels: mask_scan's launch geometry (split, tiles a block, threads,
      dynamic shared memory; registers and spills from ptxas) and its
      time against its bound at all five main-path shapes, chain_scan's
@@ -88,9 +102,13 @@ exits non-zero:
      its two passes' device time, the wrapper's with the host's read of
      K, the plain version's and a library composite's: unpack by shifts,
      then torch.nonzero) at configs 1-3's 32 MB chunk, the memagrep
-     buffer and bool5m's last stream, each checked bit for bit against
-     the plain version and the composite first, each on a line of its
-     own; then one JSON line with each kernel's launches on the main path,
+     buffer and bool5m's last stream, and record_verdicts' (pairs, rows,
+     grid; its three passes' device time, the wrapper's with the host's
+     read of the summary, the plain version's and a library composite's:
+     torch.cumsum of the delimiter flags, scatter_add of the hit flags) at
+     the first 32 MB chunk's pairs of configs 2, 3 and config2c, each
+     checked bit for bit against the plain version and the composite
+     first, each on a line of its own; then one JSON line with each kernel's launches on the main path,
      its time, its plain version's time and its bound on this card;
   6. scale-out: (a) phase 4's corpus cut into 4 shards with the
      MAX_RECORD halo, on parallel.dist.make_mesh() (all four on cuda:0 on
@@ -155,6 +173,10 @@ CONFIGS = [
     ("config2", ["-1", "-n", "matching"]),
     ("config3", ["-3", "-D2", "-I1", "-S1", "-w", "-i", "approximate"]),
 ]
+# config 2 as a count: `-1 -c matching` alone takes the sgrep engine
+# (checksg's fast path), which cuts no bitap records; -n keeps the mask
+# machine (agrep warns that -n is ignored with -c)
+CONFIG2C = ("config2c", ["-1", "-n", "-c", "matching"])
 REGEX = "appro[a-z]*mat(e|ion)"          # BASELINE config 4
 REGEX_CONFIGS = [
     ("config4", ["-2", "-c", REGEX]),
@@ -818,6 +840,137 @@ def phase_parity_pairs(device: str, seed: int) -> float:
     return float(worst)
 
 
+# record_verdicts' parity streams: (name, pairs K, hit and end shares)
+RECORD_STREAMS = [
+    ("empty", 0, 0.5, 0.5),
+    ("one_hit_end", 1, 1.0, 1.0),
+    ("one_end", 1, 0.0, 1.0),
+    ("one_hit", 1, 1.0, 0.0),
+    ("no_end", 2047, 0.3, 0.0),
+    ("every_end", 2048, 0.3, 1.0),
+    ("hits_on_ends", 2049, 1.0, 0.5),
+    ("random", 5000, 0.2, 0.3),
+    ("no_end_big", 600_000, 0.01, 0.0),
+    ("random_big", 1_000_000, 0.05, 0.2),
+]
+# (endpos, d_endpos) of the synthetic streams: one hit bit, three
+RECORD_MASKS = [(0x1, 0x100), (0x2A, 0x400)]
+RECORD_OFFSETS = (0, 1, 3, 15)
+
+
+def record_stream(rng, K: int, endpos: int, d_endpos: int, p_hit: float,
+                  p_end: float):
+    """K ascending positions and their words: a random non-empty subset
+    of endpos' bits with share p_hit, d_endpos with share p_end, noise
+    bits outside both."""
+    import numpy as np
+    pos = np.cumsum(rng.integers(1, 20, K)).astype(np.int64)
+    bits = [1 << b for b in range(32) if endpos >> b & 1]
+    pick = rng.integers(1, 1 << len(bits), K)
+    hit = np.zeros(K, dtype=np.int64)
+    for j, b in enumerate(bits):
+        hit |= ((pick >> j) & 1) * b
+    word = (np.where(rng.random(K) < p_hit, hit, 0)
+            | np.where(rng.random(K) < p_end, d_endpos, 0)
+            | (rng.integers(0, 1 << 32, K) & 0x00F000F0 & ~(endpos | d_endpos)))
+    return pos, word.astype(np.uint32)
+
+
+def chunk_pairs(device: str, seed: int, argv):
+    """The (pos, word) pairs and the machine constants of a bitap query
+    over the main-path corpus's first STREAM_CHUNK bytes, as the card's
+    main path leaves them (mask_scan, then event_pairs)."""
+    from agrep_tpu_torch.compile.query import compile_query
+    from agrep_tpu_torch.ops import kernels
+    from agrep_tpu_torch.ops.scan import DEFAULT_TILE as L
+    from agrep_tpu_torch.ops.scan import STREAM_CHUNK
+    from agrep_tpu_torch.options import parse_args
+    opts, pattern, _ = parse_args(argv + ["x"])
+    q = compile_query(pattern, opts)
+    m = kernels.machine_from_arrays(q.folded_mask, q.consts, q.D, "bitap",
+                                    q.costs, device)
+    W = halo(q.consts, q.D, L)
+    text = kernels.to_device(make_corpus(STREAM_CHUNK, seed), device)
+    planes = kernels.mask_scan(text, m, W, L)
+    pos, word = kernels.event_pairs(planes, pairs_vals(m, device), W, L,
+                                    text.numel())
+    return pos, word, int(q.consts["endpos"]), int(q.consts["d_endpos"])
+
+
+def _rows_diff(got, want) -> int:
+    """Largest |kernel - plain| over the rows and the summary; a different
+    number of rows counts as a difference of the larger count."""
+    (gr, gs), (wr, ws) = got, want
+    if gr.shape != wr.shape:
+        return max(gr.shape[0], wr.shape[0], 1)
+    diff = max(abs(a - b) for a, b in zip(gs, ws))
+    if gr.numel():
+        diff = max(diff, _max_diff(gr, wr))
+    return diff
+
+
+def records_cases(device: str, seed: int):
+    """(name, pos, word, endpos, d_endpos) of every stream phase 3 holds
+    record_verdicts to: RECORD_STREAMS under each of RECORD_MASKS, and
+    config 2's and config 3's pairs over a STREAM_CHUNK chunk."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    for endpos, d_endpos in RECORD_MASKS:
+        for name, K, p_hit, p_end in RECORD_STREAMS:
+            pos, word = record_stream(rng, K, endpos, d_endpos, p_hit,
+                                      p_end)
+            yield ("%s/%d-bit" % (name, bin(endpos).count("1")),
+                   torch.from_numpy(pos).to(device),
+                   torch.from_numpy(word).to(device), endpos, d_endpos)
+    for name, argv in CONFIGS[1:]:
+        yield (name + "_chunk",) + chunk_pairs(device, seed, argv)
+
+
+def phase_parity_records(device: str, seed: int) -> float:
+    """record_verdicts against record_verdicts_reference on the card, bit
+    for bit (rows and summary), on every stream of records_cases with
+    and_flag and invert each off and on, with no pair dropped and with
+    the middle pair dropped, from an acc of 0 and of endpos, and with
+    the pairs as views RECORD_OFFSETS elements past an aligned address.
+    Returns the largest |kernel - plain| (0 or fail)."""
+    import torch
+
+    from agrep_tpu_torch.ops import kernels
+    worst = 0
+    failed = []
+    t0 = time.perf_counter()
+    for name, pos, word, endpos, d_endpos in records_cases(device, seed):
+        K = pos.numel()
+        rows = 0
+        for and_flag in (False, True):
+            for invert in (False, True):
+                for skip in ((-1, int(pos[K // 2].item())) if K else (-1,)):
+                    for acc in (0, endpos):
+                        args = (endpos, d_endpos, skip, and_flag, invert,
+                                acc)
+                        want = kernels.record_verdicts_reference(pos, word,
+                                                                 *args)
+                        rows += want[0].shape[0]
+                        for off in RECORD_OFFSETS:
+                            p, w = ((pos, word) if off == 0
+                                    else (_view(pos, off), _view(word, off)))
+                            diff = _rows_diff(kernels.record_verdicts(
+                                p, w, *args), want)
+                            worst = max(worst, diff)
+                            if diff:
+                                failed.append((name, args, off, diff))
+        print("parity: record_verdicts %-22s K=%d, AND and OR, -v, skip, "
+              "acc, views at %s: %d rows, equal bit for bit"
+              % (name, K, list(RECORD_OFFSETS), rows))
+    torch.cuda.synchronize()
+    print("parity: record_verdicts in %.1f s" % (time.perf_counter() - t0))
+    if failed:
+        raise AssertionError("record_verdicts differs from "
+                             "record_verdicts_reference: %s" % failed[:20])
+    return float(worst)
+
+
 def chain_sets(pats400) -> list:
     """(name, terms, fold) of every term set phase 3 holds the chain
     kernel to, each with and without -i folding (fold True or False),
@@ -1163,6 +1316,98 @@ def pairs_alone(name, planes, vals, W: int, L: int, N: int,
             "max_abs_err": diff}
 
 
+# the runs whose bitap records the card must cut (record_verdicts)
+RECORD_RUNS = ("config2", "config2c", "config3")
+
+
+def records_cut(name, launches: int, calls, counters) -> dict:
+    """The checks of a RECORD_RUNS run: it launched record_verdicts, and
+    the rows it read back (trace counter record_rows) are the records
+    that fire, as record_verdicts_reference counts them on the same
+    pairs, of the pairs cut on the card (record_pairs)."""
+    from agrep_tpu_torch.ops import kernels
+    if launches == 0 or not calls:
+        raise AssertionError("%s: the main path cut its records without "
+                             "record_verdicts" % name)
+    fire = sum(kernels.record_verdicts_reference(*a)[0].shape[0]
+               for a in calls)
+    pairs = sum(a[0].numel() for a in calls)
+    rows = counters.get("record_rows", 0)
+    if rows != fire or counters.get("record_pairs", 0) != pairs:
+        raise AssertionError(
+            "%s: %d rows read back of %d pairs (record_pairs %d), where %d "
+            "records fire" % (name, rows, pairs,
+                              counters.get("record_pairs", 0), fire))
+    return {"launches": launches, "rows": rows, "pairs": pairs,
+            "fire": fire}
+
+
+def records_library(pos, word, endpos: int, d_endpos: int, skip_pos: int,
+                    and_flag: bool, invert: bool, acc: int):
+    """The function of record_verdicts as a composite of PyTorch calls on
+    the card (the yardstick of library_ms; the port never calls it): a
+    torch.cumsum of the delimiter flags numbers each pair's record, a
+    scatter_add of each endpos bit's flags counts its hits a record,
+    then the verdicts, and the rows by torch.nonzero."""
+    import torch
+    keep = pos != skip_pos
+    p = pos[keep]
+    w = word.to(torch.int64)[keep] & 0xFFFFFFFF
+    end = (w & d_endpos) != 0
+    rec = torch.cumsum(end.to(torch.int64), 0)
+    rec -= end.to(torch.int64)
+    ends = torch.nonzero(end).flatten()
+    E = ends.numel()
+    accs = torch.zeros(E + 1, dtype=torch.int64, device=pos.device)
+    accs[0] = acc & endpos
+    for b in range(32):
+        if endpos >> b & 1:
+            hits = torch.zeros(E + 1, dtype=torch.int64, device=pos.device)
+            hits.scatter_add_(0, rec, (w >> b) & 1)
+            accs |= (hits > 0).to(torch.int64) << b
+    racc = accs[:E]
+    fire = ((((racc & endpos) == endpos) | invert) if and_flag
+            else ((racc != 0) ^ invert))
+    k = torch.nonzero(fire).flatten()
+    ep = p[ends]
+    prev = torch.cat([ep.new_full((1,), -1), ep[:-1]])
+    last = int(ep[-1].item()) if E else -1
+    return (torch.stack([k, ep[k], prev[k]], 1),
+            (E, last, int(accs[E].item())))
+
+
+def records_alone(name, pos, word, endpos, d_endpos, skip_pos, and_flag,
+                  invert, acc) -> dict:
+    """record_verdicts at one main-path input: the kernel against its
+    plain version and against records_library, bit for bit; its device
+    time (three passes, without the host's read of the summary, by
+    time_kernel), the wrapper's time with that read, the plain version's,
+    the library composite's (host clock, synchronized) and the bound."""
+    from agrep_tpu_torch.ops import kernels
+    from agrep_tpu_torch.ops.timing import records_bound, time_kernel
+    args = (endpos, d_endpos, skip_pos, and_flag, invert, acc)
+    got = kernels._records_launch(pos, word, *args)
+    diff = max(_rows_diff(got, kernels.record_verdicts_reference(
+        pos, word, *args)), _rows_diff(got, records_library(pos, word,
+                                                            *args)))
+    if diff:
+        raise AssertionError("%s: record_verdicts differs from its plain "
+                             "version or the library composite on %d pairs "
+                             "(max |diff| %d)" % (name, pos.numel(), diff))
+    rows = got[0]
+    ms = time_kernel(lambda: kernels.records_passes(pos, word, *args, rows))
+    wrapper_ms = _host_ms(lambda: kernels._records_launch(pos, word, *args))
+    plain_ms = _time_plain(lambda: kernels.record_verdicts_reference(
+        pos, word, *args))
+    library_ms = _host_ms(lambda: records_library(pos, word, *args))
+    bms, by = records_bound(pos.numel(), rows.shape[0])
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
+            "K": pos.numel(), "R": rows.shape[0],
+            "grid": kernels.records_grid(pos.numel(), pos.device),
+            "max_abs_err": diff}
+
+
 def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
     import numpy as np
     import torch
@@ -1192,11 +1437,16 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
     real = {"chain_scan": (chain_kernel, chain_kernel.chain_scan),
             "qgram_filter": (qgram_kernel, qgram_kernel.qgram_filter),
             "mask_scan": (kernels, kernels.mask_scan),
-            "event_pairs": (kernels, kernels.event_pairs)}
+            "event_pairs": (kernels, kernels.event_pairs),
+            "record_verdicts": (kernels, kernels.record_verdicts)}
+    # the inputs of every record_verdicts call of the run
+    rv_calls: list = []
 
     def recorder(kname, fn):
         def call(*args):
             seen[kname] = args
+            if kname == "record_verdicts":
+                rv_calls.append(args)
             return fn(*args)
         return call
 
@@ -1245,7 +1495,7 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
             with open(f, "wb") as fh:
                 fh.write(b"".join(w + b"\n" for w in ws))
         runs = ([(name, api.fileagrep, argv + [path], None, "mask_scan")
-                 for name, argv in CONFIGS]
+                 for name, argv in CONFIGS + [CONFIG2C]]
                 + [(name, api.fileagrep, argv + [path], None, "renfa_lanes")
                    for name, argv in REGEX_CONFIGS])
         # memory mode of the bitap engine is a per-byte host loop
@@ -1304,8 +1554,11 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                 reads_before = dict(reads)
                 at_before = at_calls[0]
                 p2e_before = p2e_calls[0]
-                trace.counters.pop("qgram_candidates", None)
+                for k in ("qgram_candidates", "record_rows",
+                          "record_pairs"):
+                    trace.counters.pop(k, None)
                 seen.clear()
+                rv_calls.clear()
                 t0 = time.perf_counter()
                 got[name] = _run(fn, argv, data)
                 torch.cuda.synchronize()
@@ -1349,6 +1602,12 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                              "kernel": kname, "reads": r,
                              "records": records, "qgram_candidates": qcand,
                              "anchor_passes": at_n}
+                if name in RECORD_RUNS:
+                    res[name]["cut"] = records_cut(
+                        name, n["record_verdicts"], rv_calls,
+                        trace.counters)
+                    inputs[name]["record_verdicts"] = rv_calls[0]
+                rv_calls.clear()
         finally:
             for kname, (mod, fn) in real.items():
                 setattr(mod, kname, fn)
@@ -1378,7 +1637,7 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
     chunk = corpus[:scan_ops.STREAM_CHUNK]
     text = kernels.to_device(chunk, device)
     mem_text = kernels.to_device(np.frombuffer(mem_data, np.uint8), device)
-    for name, argv in CONFIGS + [("memagrep", CONFIGS[0][1])]:
+    for name, argv in CONFIGS + [CONFIG2C, ("memagrep", CONFIGS[0][1])]:
         opts, pattern, _ = parse_args(argv + ["x"])
         q = compile_query(pattern, opts)
         if q.engine_class == "sgrep":
@@ -1484,6 +1743,11 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
             res[name]["pairs"] = pairs_alone(
                 name, *inputs[name]["event_pairs"])
 
+    # the record cut alone at the first chunk's pairs of each record run
+    for name in RECORD_RUNS:
+        res[name]["verdicts"] = records_alone(
+            name, *inputs[name]["record_verdicts"])
+
     for name, fn, argv, data, kname in runs:
         r = res[name]
         src = ("records " if name.endswith(("5", "5c", "5c400", "5q", "5m"))
@@ -1521,6 +1785,12 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
         print("main: %s read its events back through event_pairs (%d "
               "launches), planes_to_events called 0 times" % (
                   name, r["pairs_launches"]))
+    for name in RECORD_RUNS:
+        c = res[name]["cut"]
+        print("main: %s cut its records through record_verdicts (%d "
+              "launches): %d rows read back of %d pairs, the records that "
+              "fire (record_verdicts_reference on the same pairs: %d)"
+              % (name, c["launches"], c["rows"], c["pairs"], c["fire"]))
     for name in ("config4", "memagrep4"):
         r = res[name]
         print("main: the lanes kernel's %d B launch of %s holds %d lines, "
@@ -1567,6 +1837,7 @@ def _launch_counts():
     from agrep_tpu_torch.ops import renfa_kernel
     return {"mask_scan": kernels.launches,
             "event_pairs": kernels.launches,
+            "record_verdicts": kernels.launches,
             "renfa_lanes": renfa_kernel.launches,
             "chain_scan": chain_kernel.launches,
             "qgram_filter": qgram_kernel.launches}
@@ -2009,6 +2280,20 @@ def event_pairs_line(res, card: str) -> str:
         for n in PAIRS_RUNS for p in [res[n]["pairs"]]), card)
 
 
+def record_verdicts_line(res, card: str) -> str:
+    """record_verdicts at each of RECORD_RUNS' first chunks: pairs, rows,
+    grid, the three passes' device ms against the bound, the wrapper's ms
+    with the host's read of the summary, the plain version's and the
+    library composite's."""
+    return "times: record_verdicts %s | card: %s" % (" | ".join(
+        "%s %d pairs %d rows grid=%d: %.4f ms (%.1f %% of its %.4f ms "
+        "bound, %s), wrapper %.4f ms, plain %.2f ms, library %.3f ms"
+        % (n, r["K"], r["R"], r["grid"], r["ms"],
+           100 * r["bound_ms"] / r["ms"], r["bound_ms"], r["bound_by"],
+           r["wrapper_ms"], r["plain_ms"], r["library_ms"])
+        for n in RECORD_RUNS for r in [res[n]["verdicts"]]), card)
+
+
 def times_line(res, kname: str, names, card: str) -> str:
     return "times: %s %s | card: %s" % (kname, " | ".join(
         "%s %.4f ms per %d B launch, %.1f %% of its %.4f ms bound (%s)"
@@ -2049,6 +2334,7 @@ def main(argv=None) -> int:
     err_chain, err_qgram = phase_parity_multi(
         "cuda", args.seed, 8 << 20, make_patterns(400, args.seed))
     err_pairs = phase_parity_pairs("cuda", args.seed)
+    err_records = phase_parity_records("cuda", args.seed)
     res = phase_main("cuda", args.seed, args.mb, card)
 
     c2, c4, c5, c5q = (res["config2"], res["config4"], res["config5"],
@@ -2062,6 +2348,7 @@ def main(argv=None) -> int:
     print(qgram_filter_geometry_line(res))
     print(times_line(res, "qgram_filter", ("config5q",), card))
     print(event_pairs_line(res, card))
+    print(record_verdicts_line(res, card))
     t6 = time.perf_counter()
     corpus = make_corpus(args.mb << 20, args.seed)
     phase_dist(corpus, card)
@@ -2144,10 +2431,30 @@ def main(argv=None) -> int:
         # no one PyTorch call compacts bit planes into pairs: the
         # composite pairs_library (unpack by shifts, torch.nonzero)
         "library_ms": c2["pairs"]["library_ms"],
+    }, {
+        "name": "record_verdicts",
+        "route": "cuda",
+        "source": "agrep_tpu_torch/csrc/record_verdicts.cu",
+        # the host walk it replaces (no Pallas kernel: a device stage the
+        # port adds beside the TPU kernels)
+        "replaces": "agrep_tpu/runtime/engine.py:109",
+        "launches": res["launches"]["record_verdicts"],
+        "max_abs_err": max([err_records]
+                           + [res[n]["verdicts"]["max_abs_err"]
+                              for n in RECORD_RUNS]),
+        "ms": c2["verdicts"]["ms"],
+        "plain_ms": c2["verdicts"]["plain_ms"],
+        "bound_ms": c2["verdicts"]["bound_ms"],
+        "bound_by": c2["verdicts"]["bound_by"],
+        # no one PyTorch call cuts records: the composite records_library
+        # (torch.cumsum of the delimiter flags, scatter_add of the hits)
+        "library_ms": c2["verdicts"]["library_ms"],
     }]}
     print("kernels: times are per launch at the main path's %d B chunk "
           "of config2 (%s; event_pairs: both passes on the card, without "
-          "the host's read of K) and of config4 (%s), at config5's %d B "
+          "the host's read of K; record_verdicts: its three passes over "
+          "that chunk's pairs, without the host's read of the summary) "
+          "and of config4 (%s), at config5's %d B "
           "stream (chain_scan) and config5q's %d B stream (qgram_filter); "
           "launches are all main-path runs; card: %s"
           % (c2["shape_b"], " ".join(CONFIGS[1][1]),

@@ -3,25 +3,29 @@
 of the port, each checkout in a process of its own.
 
     python3 tools/torch_main_walls.py TREE [TREE ...] [--seed N] [--mb 100]
-                                      [--reps 3]
+                                      [--reps 3] [--runs NAME,...]
 
 Each TREE is the root of a checkout holding agrep_tpu_torch/ (an
 unpacked `git archive` of a commit, say); the trees run in the order
 given, so `A B B A` runs A, B, B, A.  Each run builds its tree's kernels
 and native library, makes chip_smoke's corpora from --seed (this
-checkout's chip_smoke.py, loaded by path), and runs BASELINE configs 1-3
-(`-c hello`, `-1 -n matching`, `-3 -D2 -I1 -S1 -w -i approximate`) on
+checkout's chip_smoke.py, loaded by path), and runs --runs of: BASELINE
+configs 1-3 (`-c hello`, `-1 -n matching`, `-3 -D2 -I1 -S1 -w -i
+approximate`) and config2c (config 2 as a count, chip_smoke.CONFIG2C) on
 the --mb MB file, memagrep `-c hello` on the same bytes in memory, and
 bool5m (`-d '$$' 'hello;matching,<a term of 136 byte classes>'`) on the
-records file, through the tree's agrep_tpu_torch.api, with
+records file (the default), and config2v (`-1 -v -n matching`, nearly
+every record printed; by name only), through the tree's
+agrep_tpu_torch.api, with
 AGREP_TORCH_STATS=2: one warm-up run, then --reps timed runs on the GPU
 route (each ended by a synchronize) and --reps on the tree's numpy host
 backend.  For each GPU run it keeps the tree's stage timers
 (runtime/trace.py: `scan`, the engines' whole search; `compile`; and any
 stage the tree adds) and the host time inside the tree's
-ops/scan.py::_scan_torch, the device layer (the text's copy to the card,
-the kernel, the read-back; its wrapper here, in both trees alike), and
-the launches of each kernel.  The GPU route's output must equal the
+ops/scan.py::_scan_torch and, where the tree has it, _records_torch,
+the device layer (the text's copy to the card, the kernels, the
+read-back; their wrappers here, in both trees alike), and the launches
+of each kernel.  The GPU route's output must equal the
 numpy backend's, and every tree's the first tree's (sha256 and exit
 code).  The first line is the card's name and power limit; then one
 `walls:` and one `stages:` line a run, with every tree's medians, and a
@@ -60,12 +64,18 @@ def _helpers():
                                                "timing.py")))
 
 
+DEFAULT_RUNS = "config1,config2,config3,config2c,memagrep,bool5m"
+
+
 def runs(cs, path: str, rec: str, data: bytes) -> list:
     """(name, api function name, argv, in-memory data or None)."""
     return [
         ("config1", "fileagrep", cs.CONFIGS[0][1] + [path], None),
         ("config2", "fileagrep", cs.CONFIGS[1][1] + [path], None),
         ("config3", "fileagrep", cs.CONFIGS[2][1] + [path], None),
+        ("config2c", "fileagrep", cs.CONFIG2C[1] + [path], None),
+        ("config2v", "fileagrep", ["-1", "-v", "-n", "matching", path],
+         None),
         ("memagrep", "memagrep", cs.CONFIGS[0][1], data),
         ("bool5m", "fileagrep",
          cs.CONFIG5_DELIM + ["hello;matching," + cs.WIDE_TERM, rec], None),
@@ -102,15 +112,18 @@ def child(tree: str, args) -> int:
         raise RuntimeError("the native host library did not build")
     scan_ops.set_device("cuda")
     layer = [0.0]
-    real = scan_ops._scan_torch
 
-    def timed(*a, **kw):
-        t0 = time.perf_counter()
-        try:
-            return real(*a, **kw)
-        finally:
-            layer[0] += time.perf_counter() - t0
-    scan_ops._scan_torch = timed
+    def timed(real):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **kw)
+            finally:
+                layer[0] += time.perf_counter() - t0
+        return call
+    for fn in ("_scan_torch", "_records_torch"):
+        if hasattr(scan_ops, fn):
+            setattr(scan_ops, fn, timed(getattr(scan_ops, fn)))
 
     corpus = cs.make_corpus(args.mb << 20, args.seed)
     records = cs.make_records(corpus, args.seed)
@@ -122,8 +135,11 @@ def child(tree: str, args) -> int:
         corpus.tofile(path)
         rec = os.path.join(tmp, "records.txt")
         records.tofile(rec)
+        chosen = args.runs.split(",")
         for name, fn_name, argv, data in runs(cs, path, rec,
                                               b"\n" + corpus.tobytes()):
+            if name not in chosen:
+                continue
             fn = getattr(api, fn_name)
 
             def once():
@@ -136,7 +152,7 @@ def child(tree: str, args) -> int:
                 return wall, (hashlib.sha256(buf.getvalue()).hexdigest(),
                               rc & 0xFF)
             r = {"gpu": [], "numpy": [], "stages": [], "layer_s": [],
-                 "launches": []}
+                 "launches": [], "counters": []}
             scan_ops.set_backend("torch")
             _, digest = once()
             for _ in range(args.reps):
@@ -148,6 +164,7 @@ def child(tree: str, args) -> int:
                     raise AssertionError("%s: GPU runs differ" % name)
                 r["gpu"].append(wall)
                 r["stages"].append(dict(trace.timers))
+                r["counters"].append(dict(trace.counters))
                 r["layer_s"].append(layer[0])
                 r["launches"].append({k: v - before.get(k, 0)
                                       for k, v in kernels.launches.items()})
@@ -171,6 +188,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mb", type=int, default=100)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--runs", default=DEFAULT_RUNS,
+                    help="comma-separated names of the runs")
     ap.add_argument("--child", action="store_true",
                     help="run the one tree given in this process")
     args = ap.parse_args(argv)
@@ -189,7 +208,8 @@ def main(argv=None) -> int:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--child", tree,
              "--seed", str(args.seed), "--mb", str(args.mb), "--reps",
-             str(args.reps)], capture_output=True, text=True,
+             str(args.reps), "--runs", args.runs], capture_output=True,
+            text=True,
             cwd=tree, env=env)
         if proc.returncode != 0:
             print(proc.stdout[-4000:] + proc.stderr[-8000:])
@@ -208,11 +228,14 @@ def main(argv=None) -> int:
             walls.append("%s %.3f [numpy %.3f]" % (
                 tag, _median(r["gpu"]), _median(r["numpy"])))
             keys = sorted({k for st in r["stages"] for k in st})
-            stages.append("%s %s device layer=%.3fs launches=%s" % (
+            cut = r.get("counters", [{}])[-1]
+            stages.append("%s %s device layer=%.3fs launches=%s%s" % (
                 tag, " ".join("%s=%.3fs" % (k, _median(
                     [st.get(k, 0.0) for st in r["stages"]])) for k in keys),
                 _median(r["layer_s"]),
-                ",".join("%s:%d" % kv for kv in r["launches"][-1].items())))
+                ",".join("%s:%d" % kv for kv in r["launches"][-1].items()),
+                "".join(" %s=%d" % (k, cut[k]) for k in
+                        ("record_pairs", "record_rows") if k in cut)))
         print("walls: %-8s median of %d s, GPU route [numpy backend]: %s"
               % (name, len(r0["gpu"]), " | ".join(walls)))
         print("stages: %-8s medians: %s" % (name, " | ".join(stages)))
