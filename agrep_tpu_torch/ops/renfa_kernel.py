@@ -15,6 +15,15 @@ forms
 with cm the mask of the byte there, and the verdict is ad & 1 -- the
 bit renfa.scan_records reads at a lane's newline column.  An empty
 line (lens[r] == 0) takes its verdict straight from init.
+
+line_index() cuts a text into its newline-terminated lines on the text's
+device and orders them for renfa_lines (csrc/line_index.cu), and
+line_rows() turns renfa_lines' verdicts into the count of the lines that
+fire and, for a print, their rows in stream order (csrc/line_rows.cu):
+the regex engine's line index, length sort and verdict read-back, kept
+where the text lies.  Each launches its kernel on a CUDA tensor and runs
+its plain PyTorch version (line_index_reference, line_rows_reference) on
+a CPU tensor.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,7 +54,7 @@ MAX_ONE_BITS = 15               # one table: at most 2^15 words, 128 KB
 THREADS = 512
 
 # Launches of each kernel since the counts were last set to 0.
-launches = {"renfa_lanes": 0}
+launches = {"renfa_lanes": 0, "line_index": 0, "line_rows": 0}
 
 
 @dataclass(frozen=True)
@@ -319,3 +329,325 @@ def renfa_lines_reference(text: torch.Tensor, starts: torch.Tensor,
             out[idx] = verdict
         i = j
     return out
+
+
+# ---------------------------------------------------------------------
+# line_index: a text's lines, in the order renfa_lines takes them
+# ---------------------------------------------------------------------
+
+# The length order's keys (csrc/line_index.cu len_key): the exact length
+# below EXACT_LEN, sixteen steps an octave up to LONG_LEN - 1, and every
+# line of LONG_LEN bytes or more in the last key.
+EXACT_LEN = 128
+LONG_LEN = 8192
+LEN_KEYS = 225
+
+
+class LineIndex(NamedTuple):
+    """A text's K newline-terminated lines (line j is [start_j, nl[j]),
+    start_0 = 0, start_j = nl[j-1] + 1 after), on the text's device."""
+    nl: torch.Tensor        # int64 [K]: the newlines' positions, in order
+    starts: torch.Tensor    # int64 [K]: the lines' starts in length order
+    lens: torch.Tensor      # int64 [K]: their lengths
+    ords: torch.Tensor      # int64 [K]: their stream ordinals
+    last: int               # nl[K-1], where the next chunk starts; -1
+
+
+def len_key(lens: torch.Tensor) -> torch.Tensor:
+    """The sort key of each length (int64): the length below EXACT_LEN;
+    EXACT_LEN + 16 (e - 7) + the four bits below the top one for a
+    length of top bit e up to LONG_LEN - 1; LEN_KEYS - 1 past that."""
+    e = 7 + sum((lens >= (1 << b)).to(torch.int64) for b in range(8, 13))
+    sub = torch.bitwise_right_shift(lens.clamp(max=LONG_LEN - 1), e - 4) & 15
+    key = torch.where(lens < EXACT_LEN, lens, EXACT_LEN + (e - 7) * 16 + sub)
+    return torch.where(lens >= LONG_LEN, torch.full_like(lens, LEN_KEYS - 1),
+                       key)
+
+
+def line_index(text: torch.Tensor) -> LineIndex:
+    """The lines of a 1-D uint8 text: their newlines in stream order, and
+    their starts, lengths and ordinals in length order, a stable sort by
+    len_key (a warp of renfa_lines walks lines of close lengths).  A CUDA
+    tensor goes to the kernel, a CPU tensor to line_index_reference."""
+    if text.dtype != torch.uint8 or text.dim() != 1:
+        raise TypeError("text must be a 1-D uint8 tensor, got %s %r"
+                        % (text.dtype, tuple(text.shape)))
+    if not text.is_contiguous():
+        raise ValueError("text must be contiguous")
+    if text.is_cuda:
+        return _index_launch(text)
+    if text.device.type == "cpu":
+        return line_index_reference(text)
+    raise ValueError("no line-index kernel for device %s" % text.device)
+
+
+def line_index_reference(text: torch.Tensor) -> LineIndex:
+    """Plain PyTorch version of the kernel, on any device: torch.nonzero
+    of the newlines, then a stable torch.sort of the lengths' keys."""
+    nl = torch.nonzero(text == 0x0A).flatten()
+    starts = torch.cat([nl.new_zeros(min(1, nl.numel())), nl[:-1] + 1])
+    lens = nl - starts
+    order = torch.sort(len_key(lens), stable=True).indices
+    return LineIndex(nl, starts[order], lens[order], order,
+                     int(nl[-1].item()) if nl.numel() else -1)
+
+
+def _index_bind():
+    lib = _cuda.load("line_index")
+    if not getattr(lib, "_bound", False):
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.line_index_text_grid.restype = ll
+        lib.line_index_text_grid.argtypes = [p, ll]
+        for fn, args in (("count", [p, ll, p, p, i, p]),
+                         ("write", [p, ll, p, p, i, p]),
+                         ("hist", [p, ll, p, i, p]),
+                         ("scatter", [p, ll, p, p, p, p, i, p])):
+            getattr(lib, "line_index_" + fn).restype = i
+            getattr(lib, "line_index_" + fn).argtypes = args
+        lib.line_index_geometry.restype = i
+        lib.line_index_geometry.argtypes = [ip, ip, ip, ip]
+        lib.line_index_error_string.restype = ctypes.c_char_p
+        lib.line_index_error_string.argtypes = [i]
+        lib._bound = True
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _index_geometry(index: int) -> tuple:
+    """(threads, text bytes a block, lines a block, keys) of the kernel."""
+    return _cuda.query(_index_bind(), "line_index", "line_index_geometry",
+                       index, 4)
+
+
+def index_grids(text: torch.Tensor, K: int) -> tuple:
+    """Blocks of line_index's text passes (1-2) and line passes (3-4)."""
+    lib = _index_bind()
+    per = _index_geometry(_cuda.device_index(text.device))[2]
+    return (lib.line_index_text_grid(text.data_ptr(), text.numel()),
+            -(-K // per))
+
+
+def _index_call(fn: str, dev, *args) -> None:
+    """One pass of the kernel on dev's current stream."""
+    lib = _index_bind()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(_cuda.device_index(dev)):
+        _cuda.check(lib, "line_index", getattr(lib, "line_index_" + fn)(
+            *args, stream), fn + " launch")
+
+
+def _index_count(text, grid) -> tuple:
+    """Pass 1: each block's newlines and last newline, int64 [grid]."""
+    dev = text.device
+    counts = torch.empty(grid, dtype=torch.int64, device=dev)
+    last = torch.empty(grid, dtype=torch.int64, device=dev)
+    _index_call("count", dev, text.data_ptr(), text.numel(),
+                counts.data_ptr(), last.data_ptr(), grid)
+    return counts, last
+
+
+def _index_lines(text, counts, incl, idx: LineIndex, grids) -> None:
+    """Passes 2-4 into idx's tensors (K = idx.nl.numel() > 0)."""
+    dev, K = text.device, idx.nl.numel()
+    _index_call("write", dev, text.data_ptr(), text.numel(),
+                (incl - counts).data_ptr(), idx.nl.data_ptr(), grids[0])
+    hist = torch.empty(LEN_KEYS * grids[1], dtype=torch.int32, device=dev)
+    _index_call("hist", dev, idx.nl.data_ptr(), K, hist.data_ptr(),
+                grids[1])
+    slots = torch.cumsum(hist, 0) - hist
+    _index_call("scatter", dev, idx.nl.data_ptr(), K, slots.data_ptr(),
+                idx.starts.data_ptr(), idx.lens.data_ptr(),
+                idx.ords.data_ptr(), grids[1])
+
+
+def index_passes(text: torch.Tensor, idx: LineIndex) -> None:
+    """Every pass into idx, an earlier call's index of the same text: the
+    kernel's device work without the host's read of K (for timing it on
+    the card)."""
+    grids = index_grids(text, idx.nl.numel())
+    counts, _last = _index_count(text, grids[0])
+    if idx.nl.numel():
+        _index_lines(text, counts, torch.cumsum(counts, 0), idx, grids)
+
+
+def _index_launch(text: torch.Tensor) -> LineIndex:
+    """The kernel's passes on the text's device, with the host's read of
+    K and the last newline after the first."""
+    dev = text.device
+    empty = torch.empty(0, dtype=torch.int64, device=dev)
+    if text.numel() == 0:
+        return LineIndex(empty, empty, empty, empty, -1)
+    grid = index_grids(text, 0)[0]
+    counts, last = _index_count(text, grid)
+    incl = torch.cumsum(counts, 0)
+    K, end = torch.stack([incl[-1], last.max()]).tolist()
+    idx = LineIndex(*(torch.empty(K, dtype=torch.int64, device=dev)
+                      for _ in range(4)), end)
+    if K:
+        _index_lines(text, counts, incl, idx, index_grids(text, K))
+    launches["line_index"] += 1
+    return idx
+
+
+# ---------------------------------------------------------------------
+# line_rows: the lines that fire, in stream order
+# ---------------------------------------------------------------------
+
+def line_rows(verdicts: torch.Tensor, ords: torch.Tensor, nl: torch.Tensor,
+              invert: bool, first: int, end: int, glitch: int = -1,
+              rows: bool = True) -> tuple:
+    """The lines that fire, from renfa_lines' verdicts over line_index's
+    order: (rows, count).  Line j fires when first <= j < end and its
+    verdict ^ invert.  verdicts: bool [K] in launch order; ords: int64
+    [K], each launched line's stream ordinal (a permutation of 0..K-1;
+    a value outside 0..K-1 names no line);
+    nl: int64 [K], the newlines in stream order.  rows: int64 [count, 3]
+    on the verdicts' device, one (j, start_j, nl[j]) a line that fires in
+    stream order, each position p past glitch (a byte the caller inserted
+    into the text, or -1) as p - 1; None where rows is False.  A CUDA
+    tensor goes to the kernel, a CPU tensor to line_rows_reference."""
+    if verdicts.dtype != torch.bool or verdicts.dim() != 1:
+        raise TypeError("verdicts must be a 1-D bool tensor, got %s %r"
+                        % (verdicts.dtype, tuple(verdicts.shape)))
+    for name, t in (("ords", ords), ("nl", nl)):
+        if t.dtype != torch.int64 or t.dim() != 1:
+            raise TypeError("%s must be a 1-D int64 tensor, got %s %r"
+                            % (name, t.dtype, tuple(t.shape)))
+    if not (verdicts.shape == ords.shape == nl.shape):
+        raise ValueError("verdicts %r, ords %r and nl %r differ in shape"
+                         % (tuple(verdicts.shape), tuple(ords.shape),
+                            tuple(nl.shape)))
+    if not (verdicts.is_contiguous() and ords.is_contiguous()
+            and nl.is_contiguous()):
+        raise ValueError("verdicts, ords and nl must be contiguous")
+    dev = verdicts.device
+    if ords.device != dev or nl.device != dev:
+        raise ValueError("verdicts on %s, ords on %s, nl on %s"
+                         % (dev, ords.device, nl.device))
+    if first < 0 or end > nl.numel() or glitch < -1:
+        raise ValueError("kept ordinals [%d, %d) of %d lines, glitch %d"
+                         % (first, end, nl.numel(), glitch))
+    args = (bool(invert), int(first), int(end), int(glitch), bool(rows))
+    if verdicts.is_cuda:
+        return _rows_launch(verdicts, ords, nl, *args)
+    if dev.type == "cpu":
+        return line_rows_reference(verdicts, ords, nl, *args)
+    raise ValueError("no line-rows kernel for device %s" % dev)
+
+
+def line_rows_reference(verdicts: torch.Tensor, ords: torch.Tensor,
+                        nl: torch.Tensor, invert: bool, first: int,
+                        end: int, glitch: int = -1,
+                        rows: bool = True) -> tuple:
+    """Plain PyTorch version of the kernel, on any device: the verdicts
+    scattered to their ordinals, torch.nonzero of those that fire, their
+    lines' starts and newlines gathered."""
+    K = nl.numel()
+    keep = (verdicts ^ bool(invert)) & (ords >= first) & (ords < end)
+    fire = torch.zeros(K, dtype=torch.bool, device=nl.device)
+    line = (ords >= 0) & (ords < K)        # a value past 0..K-1: no line
+    fire[ords[line]] = keep[line]
+    j = torch.nonzero(fire).flatten()
+    if not rows:
+        return None, j.numel()
+    start = torch.where(j > 0, nl[(j - 1).clamp(min=0)] + 1,
+                        torch.zeros_like(j))
+    pos = torch.stack([j, start, nl[j]], 1)
+    if glitch >= 0:
+        pos[:, 1:] -= (pos[:, 1:] > glitch).to(torch.int64)
+    return pos, j.numel()
+
+
+def _rows_bind():
+    lib = _cuda.load("line_rows")
+    if not getattr(lib, "_bound", False):
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        ip = ctypes.POINTER(ctypes.c_int)
+        head = [p, p, p, ll, i, ll, ll, ll, p]
+        for fn, args in (("flags", head + [i, p]),
+                         ("count", head + [p, i, p]),
+                         ("write", head + [p, p, i, p])):
+            getattr(lib, "line_rows_" + fn).restype = i
+            getattr(lib, "line_rows_" + fn).argtypes = args
+        lib.line_rows_geometry.restype = i
+        lib.line_rows_geometry.argtypes = [ip, ip, ip]
+        lib.line_rows_error_string.restype = ctypes.c_char_p
+        lib.line_rows_error_string.argtypes = [i]
+        lib._bound = True
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _rows_geometry(index: int) -> tuple:
+    """(threads, lines a block of pass 1, of passes 2-3) of the kernel."""
+    return _cuda.query(_rows_bind(), "line_rows", "line_rows_geometry",
+                       index, 3)
+
+
+def rows_grids(K: int, device) -> tuple:
+    """Blocks of line_rows' pass 1 and of passes 2-3 over K lines."""
+    _t, scatter, flags = _rows_geometry(_cuda.device_index(device))
+    return -(-K // scatter), -(-K // flags)
+
+
+def _rows_call(fn: str, verdicts, ords, nl, args, *rest) -> None:
+    """One pass of the kernel on the verdicts' device and current
+    stream."""
+    lib = _rows_bind()
+    dev = verdicts.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(_cuda.device_index(dev)):
+        _cuda.check(lib, "line_rows", getattr(lib, "line_rows_" + fn)(
+            verdicts.data_ptr(), ords.data_ptr(), nl.data_ptr(), nl.numel(),
+            *args, *rest, stream), fn + " launch")
+
+
+def _rows_counts(verdicts, ords, nl, args, grids) -> tuple:
+    """Passes 1-2: (flags, each block's lines that fire)."""
+    dev, K = nl.device, nl.numel()
+    flags = torch.zeros(-(-K // 16) * 16, dtype=torch.uint8, device=dev)
+    counts = torch.empty(grids[1], dtype=torch.int64, device=dev)
+    _rows_call("flags", verdicts, ords, nl, args, flags.data_ptr(),
+               grids[0])
+    _rows_call("count", verdicts, ords, nl, args, flags.data_ptr(),
+               counts.data_ptr(), grids[1])
+    return flags, counts
+
+
+def rows_passes(verdicts, ords, nl, invert, first, end, glitch,
+                out) -> None:
+    """Every pass into out, an earlier call's rows of the same lines
+    (None for a count): the kernel's device work without the host's read
+    of the count (for timing it on the card)."""
+    args = (int(invert), first, end, glitch)
+    grids = rows_grids(nl.numel(), nl.device)
+    flags, counts = _rows_counts(verdicts, ords, nl, args, grids)
+    incl = torch.cumsum(counts, 0)
+    if out is not None and out.shape[0]:
+        _rows_call("write", verdicts, ords, nl, args, flags.data_ptr(),
+                   (incl - counts).data_ptr(), out.data_ptr(), grids[1])
+
+
+def _rows_launch(verdicts, ords, nl, invert, first, end, glitch,
+                 rows) -> tuple:
+    """The kernel's passes on the verdicts' device, with the host's read
+    of the count after the second."""
+    dev, K = nl.device, nl.numel()
+    if K == 0:
+        return (torch.empty((0, 3), dtype=torch.int64, device=dev)
+                if rows else None), 0
+    args = (int(invert), first, end, glitch)
+    grids = rows_grids(K, dev)
+    flags, counts = _rows_counts(verdicts, ords, nl, args, grids)
+    incl = torch.cumsum(counts, 0)
+    R = int(incl[-1].item())
+    out = None
+    if rows:
+        out = torch.empty((R, 3), dtype=torch.int64, device=dev)
+        if R:
+            _rows_call("write", verdicts, ords, nl, args, flags.data_ptr(),
+                       (incl - counts).data_ptr(), out.data_ptr(),
+                       grids[1])
+    launches["line_rows"] += 1
+    return out, R

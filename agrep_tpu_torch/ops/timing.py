@@ -2,7 +2,7 @@
 
 card_line names the card; time_kernel and profiled_ms time a call on it
 (CUDA events after a spin, and torch.profiler's device time);
-level_ops ... records_bound count the least work of each kernel's function
+level_ops ... line_rows_bound count the least work of each kernel's function
 at its inputs and turn it into (bound_ms, bound_by) at the peak rates of
 one H100 below.  chip_smoke.py, agrep_tpu_torch.bench and the timing
 tools under tools/ use them.
@@ -283,6 +283,36 @@ def records_bound(K: int, R: int) -> tuple:
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations"
     return t_bytes * 1e3, "bytes"
+
+
+def _bound(n_bytes: int, ops: int) -> tuple:
+    """(bound_ms, bound_by) of n_bytes over HBM's rate against ops int32
+    operations over the card's int32 rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = ops / INT32_OPS_PER_S
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
+def line_index_bound(n_text: int, K: int) -> tuple:
+    """(bound_ms, bound_by) of one line index of an n_text-byte text with
+    K lines: the text read once and, a line, its newline's position (8 B)
+    and its start, length and ordinal in length order (24 B) written once
+    over HBM's rate, against the operations at their least: a four-byte
+    compare and the popcount of its matches each four bytes (2), and a
+    line's length, key (4), count and slot (2) and its three stores'
+    addresses (1)."""
+    return _bound(n_text + 32 * K, 2 * -(-n_text // 4) + 8 * K)
+
+
+def line_rows_bound(K: int, R: int) -> tuple:
+    """(bound_ms, bound_by) of one verdict read-back of K lines into R
+    rows: each line's verdict (1 B) and stream ordinal (8 B) read once,
+    each row's two newline positions (16 B) read and the row (24 B)
+    written once over HBM's rate, against a line's invert, range test
+    and flag store (3) and a row's two index moves and glitch tests (4)."""
+    return _bound(9 * K + 40 * R, 3 * K + 4 * R)
 
 
 def time_kernel(fn, reps: int = 5) -> float:

@@ -5,6 +5,13 @@ Lines are scanned record-parallel (ops.renfa): on the torch backend by
 the lanes kernel (ops.renfa_kernel.renfa_lines), on the numpy backend by
 the native C twin.  This module handles the line index, the sentinel
 check, and r_output's byte-exact decorations.
+
+On the torch backend the line index stays on the scan device too: a
+chunk (or the whole stream) goes up once, with the 49152 glitch byte
+inserted there, renfa_kernel.line_index cuts and orders its lines,
+renfa_lines takes them in that order, and renfa_kernel.line_rows sends
+back only the count of the lines that fire or, for a print, their rows
+(ordinal, start, newline) in stream order.
 """
 
 from __future__ import annotations
@@ -14,10 +21,11 @@ import os
 import numpy as np
 
 from ..ops import renfa, scan as scan_ops
+from . import trace
 from .output import Sink
 
 MAXLINE_BUCKETS = renfa.MAXLINE_BUCKETS
-CHUNK_R = 1 << 22               # lines per lanes launch / lane matrix
+CHUNK_R = 1 << 22               # lines per numpy lane matrix
 
 
 class RegexEngine:
@@ -57,38 +65,80 @@ class RegexEngine:
                 and not o.printpattern and not o.fileout
                 and not getattr(o, "multi_output", False))
 
-    def _upload(self, stream: np.ndarray):
-        """(text, machine) on the torch backend's device: the stream
-        goes up once, and every launch over it reuses both."""
+    def _to_device(self, seg: np.ndarray, inj: int = -1):
+        """seg on the torch backend's device, with a 0 byte inserted
+        before seg[inj] where inj >= 0 (the 49152 overrun glitch byte,
+        agrep.c block carry): the two pieces go up into their places, so
+        the host never copies seg."""
         import torch
 
-        from ..ops import kernels, renfa_kernel
+        from ..ops import kernels
         scan_ops.require_device()
-        text = kernels.to_device(stream, torch.device(scan_ops._DEVICE))
-        return text, renfa_kernel.machine_from_mc(self.mc, text.device)
+        dev = torch.device(scan_ops._DEVICE)
+        if inj < 0:
+            return kernels.to_device(seg, dev)
+        text = torch.empty(len(seg) + 1, dtype=torch.uint8, device=dev)
+        text[inj] = 0
+        for dst, src in ((text[:inj], seg[:inj]), (text[inj + 1:],
+                                                   seg[inj:])):
+            if len(src):
+                dst.copy_(kernels.to_device(src, "cpu"))
+        return text
 
-    def _kernel_verdicts(self, dev, line_start: np.ndarray,
-                         line_len: np.ndarray, init) -> np.ndarray:
-        """Per-line verdicts from the lanes kernel over dev = _upload()'s
-        (text, machine) (renfa_kernel.renfa_lines: the CUDA kernel, or
-        its plain PyTorch version on 'cpu'), every line starting from
-        init.  The lines go in length order, up to CHUNK_R a launch, so
-        a warp's lines have close lengths."""
-        import torch
-
+    def _fire(self, text, idx, init, first: int, end: int, glitch: int,
+              rows: bool):
+        """The lines of idx = line_index(text) that fire (renfa_lines
+        from the D+1 states init, then line_rows with ordinals [first,
+        end) kept and the glitch byte at text position glitch or -1):
+        (rows int64 [R, 3] on the host -- ordinal, start, newline -- or
+        None, count)."""
         from ..ops import renfa_kernel
-        text, m = dev
-        verdicts = np.zeros(len(line_start), dtype=bool)
-        order = np.argsort(line_len, kind="stable")
-        for s0 in range(0, len(order), CHUNK_R):
-            idxs = order[s0:s0 + CHUNK_R]
-            starts = torch.from_numpy(
-                line_start[idxs].astype(np.int64)).to(text.device)
-            lens = torch.from_numpy(
-                line_len[idxs].astype(np.int64)).to(text.device)
-            verdicts[idxs] = renfa_kernel.renfa_lines(
-                text, starts, lens, m, init).cpu().numpy()
-        return verdicts
+        m = renfa_kernel.machine_from_mc(self.mc, text.device)
+        v = renfa_kernel.renfa_lines(text, idx.starts, idx.lens, m, init)
+        r, count = renfa_kernel.line_rows(v, idx.ords, idx.nl,
+                                          self.q.opts.invert, first, end,
+                                          glitch, rows)
+        if r is not None:
+            r = r.cpu().numpy()
+        if trace.ENABLED:
+            trace.add("regex_lines", idx.nl.numel())
+            trace.add("regex_rows", 0 if r is None else len(r))
+        return r, count
+
+    def _device_chunks(self, data, rows: bool, drop_first: bool):
+        """The torch backend's line-aligned chunks: yields (lo, cut, K,
+        rows, count) a chunk [lo, cut), K its lines and rows/count
+        _fire's (rows' positions relative to lo, without the glitch
+        byte).  Each window [lo, hi) goes up once; its last newline (from
+        the card) ends the chunk, and a window without one grows by a
+        chunk until the stream's end, as the host walk cut it."""
+        from ..ops import renfa_kernel
+        mc = self.mc
+        cont0, _ = renfa.step_newline(
+            list(mc["inits"]), int(mc["mask"][0x0A]), mc)
+        N = len(data)
+        chunk = max(scan_ops.STREAM_CHUNK, 1 << 16)
+        inj_g = 49152 if N > 49152 else -1
+        lo = 0
+        while lo < N:
+            hi = min(lo + chunk, N)
+            while True:
+                inj = inj_g - lo if lo <= inj_g < hi else -1
+                text = self._to_device(data[lo:hi], inj)
+                idx = renfa_kernel.line_index(text)
+                if idx.last >= 0 or hi == N:
+                    break
+                hi = min(hi + chunk, N)
+            # a glitch byte past the last newline leaves the chunk's
+            # lines as they are; the next window inserts it again
+            cut = (N if hi == N
+                   else lo + idx.last + 1 - (0 <= inj < idx.last))
+            K = idx.nl.numel()
+            r, count = self._fire(text, idx, cont0,
+                                  1 if lo == 0 and drop_first else 0, K,
+                                  inj, rows)
+            yield lo, cut, K, r, count
+            lo = cut
 
     def _lane_verdicts(self, scan_stream: np.ndarray,
                        line_start: np.ndarray, line_len: np.ndarray,
@@ -136,23 +186,11 @@ class RegexEngine:
 
     def _chunk_verdicts(self, seg: np.ndarray, inj: int, cont0):
         """Verdicts for one line-aligned chunk (lines ending in '\\n'
-        within seg), dispatched by backend; None (numpy backend without
-        the native library) = caller falls back to the whole-file
-        path."""
-        if scan_ops._BACKEND == "numpy":
-            from .. import native
-            return native.renfa_scan_lines(seg, self.mc, cont0, inj)
-        if inj >= 0:
-            # the 49152 overrun glitch byte (agrep.c block carry)
-            seg = np.concatenate([
-                seg[:inj], np.frombuffer(b"\x00", np.uint8), seg[inj:]])
-        nls = np.flatnonzero(seg == 0x0A)
-        if not len(nls):
-            return np.zeros(0, dtype=bool)
-        starts = np.concatenate([[0], nls[:-1] + 1]).astype(np.int64)
-        lens = nls - starts
-        return self._kernel_verdicts(self._upload(seg), starts, lens,
-                                     cont0)
+        within seg) on the numpy backend, by the native C twin; None
+        (without the native library) = caller falls back to the
+        whole-file path."""
+        from .. import native
+        return native.renfa_scan_lines(seg, self.mc, cont0, inj)
 
     def search_stream_chunked(self, data, sink: Sink, D: int) -> None:
         """Chunked -c: per-chunk native line scans over line-aligned
@@ -168,11 +206,16 @@ class RegexEngine:
         N = len(data)
         if N == 0:
             return
+        drop_first = bool(N and data[0] == 0x0A and int(mc["D"]) > 0)
+        if scan_ops._BACKEND == "torch":
+            # one count a chunk from the card
+            sink.num_matched += sum(
+                c for *_, c in self._device_chunks(data, False, drop_first))
+            return
         chunk = max(scan_ops.STREAM_CHUNK, 1 << 16)
         inj_g = 49152 if N > 49152 else -1
         total = 0
         first_chunk = True
-        drop_first = bool(N and data[0] == 0x0A and int(mc["D"]) > 0)
         lo = 0
         while lo < N:
             hi = min(lo + chunk, N)
@@ -213,8 +256,7 @@ class RegexEngine:
         more than Maxline back (or with a NUL in the carry window)
         take the whole-file path, whose residue-clamp emulation
         (agrep.c:1426-1431/:1739) needs global state."""
-        from .. import native
-        q, o, mc = self.q, self.q.opts, self.mc
+        o, mc = self.q.opts, self.mc
         N = len(data)
         if N == 0:
             return
@@ -227,48 +269,24 @@ class RegexEngine:
                 self.search_stream(np.asarray(data), sink, 0)
                 return
             b += BSR
-        cont0, _ = renfa.step_newline(
-            list(mc["inits"]), int(mc["mask"][0x0A]), mc)
-        chunk = max(scan_ops.STREAM_CHUNK, 1 << 16)
-        inj_g = BSR if N > BSR else -1
         drop_first = bool(data[0] == 0x0A and int(mc["D"]) > 0)
-        first_chunk = True
         fname = bool(getattr(sink, "fname", False))
         deco = bool(o.linenum or o.bytecount or o.printoffset)
+        inj_g = BSR if N > BSR else -1
         line_base = 0
-        lo = 0
-        while lo < N:
-            hi = min(lo + chunk, N)
-            cut = N
-            if hi < N:
-                while hi < N:
-                    seg_ = np.asarray(data[lo:hi])
-                    nls_ = np.flatnonzero(seg_ == 0x0A)
-                    if len(nls_):
-                        cut = lo + int(nls_[-1]) + 1
-                        break
-                    hi = min(hi + chunk, N)
-                else:
-                    cut = N
-            seg = np.ascontiguousarray(data[lo:cut])
-            inj = (inj_g - lo if (inj_g >= 0 and lo <= inj_g < cut)
-                   else -1)
-            v = self._chunk_verdicts(seg, inj, cont0)
-            if v is None:
+        # per chunk: (lo, cut, K, line index in the chunk, line start,
+        # line end past its newline) of each line that fires
+        chunks = (((lo, cut, K, r[:, 0], r[:, 1], r[:, 2] + 1)
+                   for lo, cut, K, r, _n in self._device_chunks(
+                       data, True, drop_first))
+                  if scan_ops._BACKEND == "torch"
+                  else self._host_row_chunks(data, drop_first))
+        for lo, cut, K, k_idx, begins, ends in chunks:
+            if k_idx is None:
                 self.search_stream(np.asarray(data), sink, 0)
                 return
-            hits = (v != 0) ^ o.invert
-            if first_chunk and len(hits) and drop_first:
-                hits = hits.copy()
-                hits[0] = False
-            first_chunk = False
-            if hits.any():
-                nls = np.flatnonzero(seg == 0x0A)
-                k_idx = np.flatnonzero(hits[:len(nls)])
-                ends = nls[k_idx] + 1
-                begins = np.where(k_idx > 0,
-                                  nls[np.maximum(k_idx - 1, 0)] + 1,
-                                  np.int64(0))
+            seg = np.ascontiguousarray(data[lo:cut])
+            if len(ends):
                 sink.num_matched += len(ends)
                 if deco:
                     # cumulative decorations (r_output: j-1 line
@@ -283,7 +301,8 @@ class RegexEngine:
                             sink.write_str(
                                 "%d: " % (line_base + int(k_idx[t])
                                           + 1))
-                        glitch = 1 if (inj_g >= 0 and gnl >= BSR)                             else 0
+                        glitch = 1 if (inj_g >= 0 and gnl >= BSR) \
+                            else 0
                         cbo = gnl + glitch
                         if D_ > 0 and (gnl + glitch) % 2 == 0:
                             cbo -= 1
@@ -307,8 +326,159 @@ class RegexEngine:
                     for b_, e_ in zip(begins.tolist(), ends.tolist()):
                         sink.emit_fname_prefix()
                         sink.write(bytes(bytearray(seg[b_:e_])))
-            line_base += int(np.count_nonzero(seg == 0x0A))
+            line_base += K
+
+    def _host_row_chunks(self, data, drop_first: bool):
+        """The numpy backend's chunks, as _print_stream_chunked takes them:
+        per line-aligned chunk the native line scanner's verdicts, and
+        the chunk's newline index; k_idx None where the native library
+        is missing (the caller takes the whole-file path)."""
+        o, mc = self.q.opts, self.mc
+        N = len(data)
+        cont0, _ = renfa.step_newline(
+            list(mc["inits"]), int(mc["mask"][0x0A]), mc)
+        chunk = max(scan_ops.STREAM_CHUNK, 1 << 16)
+        inj_g = 49152 if N > 49152 else -1
+        first_chunk = True
+        lo = 0
+        while lo < N:
+            hi = min(lo + chunk, N)
+            cut = N
+            if hi < N:
+                while hi < N:
+                    seg_ = np.asarray(data[lo:hi])
+                    nls_ = np.flatnonzero(seg_ == 0x0A)
+                    if len(nls_):
+                        cut = lo + int(nls_[-1]) + 1
+                        break
+                    hi = min(hi + chunk, N)
+                else:
+                    cut = N
+            seg = np.ascontiguousarray(data[lo:cut])
+            inj = (inj_g - lo if (inj_g >= 0 and lo <= inj_g < cut)
+                   else -1)
+            v = self._chunk_verdicts(seg, inj, cont0)
+            if v is None:
+                yield lo, cut, 0, None, None, None
+                return
+            hits = (v != 0) ^ o.invert
+            if first_chunk and len(hits) and drop_first:
+                hits = hits.copy()
+                hits[0] = False
+            first_chunk = False
+            if hits.any():
+                nls = np.flatnonzero(seg == 0x0A)
+                k_idx = np.flatnonzero(hits[:len(nls)])
+                ends = nls[k_idx] + 1
+                begins = np.where(k_idx > 0,
+                                  nls[np.maximum(k_idx - 1, 0)] + 1,
+                                  np.int64(0))
+                yield lo, cut, len(nls), k_idx, begins, ends
+            else:
+                none = np.zeros(0, dtype=np.int64)
+                yield (lo, cut, int(np.count_nonzero(seg == 0x0A)), none,
+                       none, none)
             lo = cut
+
+    def _stream_rows(self, stream, inject_at, memory_mode, appended,
+                     drop_first, cont_states, seed0, count_only):
+        """search_stream's lines on the torch backend: (count of the
+        lines that fire; (line, start, newline) of each one that fires,
+        or None for a count; memory mode's leading
+        line's verdict ^ invert; its newline, where a print needs it, or
+        -1), or None for a stream without a newline.  Ordinal 0 of the
+        card's index is the sentinel's empty line (file mode) or the
+        leading line (memory mode), so line k is ordinal k + 1."""
+        from ..ops import renfa_kernel
+        glitch = -1 if inject_at is None else inject_at
+        text = self._to_device(stream, glitch)
+        idx = renfa_kernel.line_index(text)
+        K = idx.nl.numel()
+        if K == 0:
+            return None
+        # r_output's i >= end guard swallows the appended line
+        end = K - 1 if (not memory_mode and appended) else K
+        rows, n_fire = self._fire(text, idx, cont_states,
+                                  2 if drop_first else 1, end, glitch,
+                                  not count_only)
+        extra0, nl0 = False, -1
+        if memory_mode:
+            # one single-line launch from the seed states
+            m = renfa_kernel.machine_from_mc(self.mc, text.device)
+            v0 = renfa_kernel.renfa_lines(text, idx.nl.new_zeros(1),
+                                          idx.nl[:1], m, seed0)
+            extra0 = bool(v0[0]) ^ bool(self.q.opts.invert)
+            if extra0 and not count_only:
+                nl0 = int(idx.nl[0])
+        hits = (None if rows is None
+                else ((j - 1, bp, p) for j, bp, p in rows.tolist()))
+        return n_fire, hits, extra0, nl0
+
+    def _stream_hits(self, stream, inject_at, memory_mode, appended,
+                     drop_first, cont_states, seed0, count_only):
+        """_stream_rows' result on the numpy backend: the stream's
+        newline index on the host, the native C twin's verdicts (the
+        numpy lanes without the native library)."""
+        o, mc = self.q.opts, self.mc
+        N = len(stream)
+        if inject_at is not None:
+            scan_stream = np.concatenate([
+                stream[:inject_at], np.frombuffer(b"\x00", np.uint8),
+                stream[inject_at:]])
+        else:
+            scan_stream = stream
+        nl = np.flatnonzero(stream == 0x0A)
+        if len(nl) == 0:
+            return None
+        s_nl = (np.flatnonzero(scan_stream == 0x0A)
+                if inject_at is not None else nl)
+        n_lines = len(nl) - 1
+        verdicts = np.zeros(n_lines, dtype=bool)
+        if n_lines:
+            # the sequential C twin (tabulated Next, reference
+            # re()/re1() shape) beats the lane matrices whose
+            # temporaries are O(lines x padded length)
+            from .. import native
+            v = native.renfa_scan_lines(
+                scan_stream[int(s_nl[0]) + 1:], mc, cont_states)
+            if v is not None:
+                verdicts = v[:n_lines]
+            else:
+                line_start = s_nl[:-1] + 1          # scan-stream coords
+                line_end = s_nl[1:]                # index of trailing '\n'
+                line_len = (line_end - line_start).astype(np.int64)
+                # line 1 starts from the post-sentinel state --
+                # identical to cont_states (the reset ignores prior
+                # state), so all lines share one init
+                verdicts = self._lane_verdicts(
+                    scan_stream, line_start, line_len, cont_states)
+        extra0 = False
+        if memory_mode:
+            l0 = int(nl[0])
+            if l0 == 0:
+                _, v0 = renfa.step_newline(
+                    seed0, int(mc["mask"][0x0A]), mc)
+            else:
+                lane0 = np.zeros((1, l0 + 1), dtype=np.uint8)
+                lane0[0, :l0 + 1] = stream[:l0 + 1]
+                v0 = bool(renfa.scan_records(
+                    lane0, np.asarray([l0], dtype=np.int64), mc,
+                    seed0, seed0)[0])
+            extra0 = v0 ^ bool(o.invert)
+        hit = verdicts ^ o.invert
+        if n_lines and drop_first:
+            hit = hit.copy()
+            hit[0] = False
+        if count_only:
+            if (not memory_mode and appended and n_lines
+                    and int(nl[n_lines]) == N - 1):
+                # r_output i >= end guard swallows the appended line
+                hit = hit.copy()
+                hit[n_lines - 1] = False
+            return int(np.count_nonzero(hit)), None, extra0, int(nl[0])
+        return (None, ((k, int(nl[k]) + 1, int(nl[k + 1]))
+                       for k in np.flatnonzero(hit).tolist()),
+                extra0, int(nl[0]))
 
     def search_stream(self, data: np.ndarray, sink: Sink, D: int,
                       memory_mode: bool = False) -> None:
@@ -345,6 +515,7 @@ class RegexEngine:
                     return
         if memory_mode:
             stream = data
+            appended = False
         else:
             parts = [np.frombuffer(b"\n", dtype=np.uint8), data]
             if len(data) == 0 or data[-1] != 0x0A:
@@ -365,113 +536,44 @@ class RegexEngine:
         inject_at = None
         if not memory_mode and len(data) > 49152:
             inject_at = 1 + 49152
-            scan_stream = np.concatenate([
-                stream[:inject_at], np.frombuffer(b"\x00", np.uint8),
-                stream[inject_at:]])
-        else:
-            scan_stream = stream
-        nl = np.flatnonzero(stream == 0x0A)
-        if len(nl) == 0:
-            return
-
         # sentinel check (the first '\n' is processed from the Init[k]
         # closure states; every later newline resets identically)
         states, matched0 = renfa.step_newline(
             list(mc["inits"]), int(mc["mask"][0x0A]), mc)
         cont_states = states
-
-        s_nl = (np.flatnonzero(scan_stream == 0x0A)
-                if inject_at is not None else nl)
-        n_lines = len(nl) - 1
-        verdicts = np.zeros(n_lines, dtype=bool)
-        backend = scan_ops._BACKEND
-        # torch: the text and the machine go up once, for the lines and
-        # for memory mode's leading line (scan_stream is stream there)
-        dev = (self._upload(scan_stream)
-               if backend == "torch" and (n_lines or memory_mode) else None)
-        if n_lines:
-            if backend == "numpy":
-                # host path: the sequential C twin (tabulated Next,
-                # reference re()/re1() shape) beats the lane matrices
-                # whose temporaries are O(lines x padded length)
-                from .. import native
-                v = native.renfa_scan_lines(
-                    scan_stream[int(s_nl[0]) + 1:], mc, cont_states)
-                if v is not None:
-                    verdicts = v[:n_lines]
-                    n_lines_done = True
-                else:
-                    n_lines_done = False
-            else:
-                n_lines_done = False
-        if n_lines and not n_lines_done:
-            line_start = s_nl[:-1] + 1          # scan-stream coords
-            line_end = s_nl[1:]                # index of trailing '\n'
-            line_len = (line_end - line_start).astype(np.int64)
-            # line 1 starts from the post-sentinel state -- identical
-            # to cont_states (the reset ignores prior state), so all
-            # lines share one init
-            if backend == "torch":
-                verdicts = self._kernel_verdicts(
-                    dev, line_start, line_len, cont_states)
-            else:
-                verdicts = self._lane_verdicts(
-                    scan_stream, line_start, line_len, cont_states)
-
-        # memory mode also checks a verdict at the FIRST newline: the
-        # caller's contract newline is scanned like any byte, so a
-        # virtual leading line [0, nl[0]) gets its own r_output check
-        # (from the raw Init closure, not the post-newline state); the
-        # empty sentinel line prints nothing but COUNTS
-        extra0 = False
-        if memory_mode and len(nl):
-            l0 = int(nl[0])
-            # initial seeding differs by machine: re() (M <= SHORTREG
-            # = 15, agrep.h:36 + bitap.c:104) sets A[k]=B[k]=Init[0]
-            # at every level (agrep.c:1293) -- NO deletion closure --
-            # while re1() seeds Init[k] (agrep.c:503).  File mode
-            # never observes this (the prefill newline resets the
-            # state before any data); the memory leading line does.
-            if int(mc["M"]) <= 15:
-                seed0 = [int(mc["init0"])] * (int(mc["D"]) + 1)
-            else:
-                seed0 = list(mc["inits"])
-            if backend == "torch":
-                # no verdict of the torch backend is taken on the host
-                v0 = bool(self._kernel_verdicts(
-                    dev, np.zeros(1, dtype=np.int64),
-                    np.asarray([l0], dtype=np.int64), seed0)[0])
-            elif l0 == 0:
-                _, v0 = renfa.step_newline(
-                    seed0, int(mc["mask"][0x0A]), mc)
-            else:
-                lane0 = np.zeros((1, l0 + 1), dtype=np.uint8)
-                lane0[0, :l0 + 1] = stream[:l0 + 1]
-                v0 = bool(renfa.scan_records(
-                    lane0, np.asarray([l0], dtype=np.int64), mc,
-                    seed0, seed0)[0])
-            extra0 = v0 ^ bool(o.invert)
-
-        # output pass (r_output conventions); iterate matches only
-        hit = verdicts ^ o.invert
-        if (n_lines and not memory_mode and len(data)
-                and data[0] == 0x0A and int(mc["D"]) > 0):
-            # D>0 only: the A-phase newline branch forgets the CBO
-            # restore (agrep.c:1649-1660 vs :1723-1733), so an EMPTY
-            # first line's check still sees CurrentByteOffset == -1
-            # and r_output's guard (:1927) drops it, matched or
-            # inverse.  The D==0 loop restores in both halves.
-            hit = hit.copy()
-            hit[0] = False
-        if (o.count and not o.filename_only and o.limit_output <= 0
-                and o.limit_per_file <= 0):
+        count_only = (o.count and not o.filename_only
+                      and o.limit_output <= 0 and o.limit_per_file <= 0)
+        # memory mode's virtual leading line: the caller's contract
+        # newline is scanned like any byte, so the line [0, nl[0]) gets
+        # its own r_output check (from the raw Init closure, not the
+        # post-newline state); the empty sentinel line prints nothing
+        # but COUNTS.  Initial seeding differs by machine: re() (M <=
+        # SHORTREG = 15, agrep.h:36 + bitap.c:104) sets A[k]=B[k]=Init[0]
+        # at every level (agrep.c:1293) -- NO deletion closure -- while
+        # re1() seeds Init[k] (agrep.c:503).  File mode never observes
+        # this (the prefill newline resets the state before any data);
+        # the memory leading line does.
+        if int(mc["M"]) <= 15:
+            seed0 = [int(mc["init0"])] * (int(mc["D"]) + 1)
+        else:
+            seed0 = list(mc["inits"])
+        # D>0 only: the A-phase newline branch of the 2x-unrolled loop
+        # forgets the CurrentByteOffset restore (agrep.c:1649-1660 vs
+        # :1723-1733), so an EMPTY first line's check still sees
+        # CurrentByteOffset == -1 and r_output's guard (:1927) drops it,
+        # matched or inverse.  The D==0 loop restores in both halves.
+        drop_first = (not memory_mode and len(data) and data[0] == 0x0A
+                      and int(mc["D"]) > 0)
+        lines = (self._stream_rows if scan_ops._BACKEND == "torch"
+                 else self._stream_hits)
+        got = lines(stream, inject_at, memory_mode, appended, drop_first,
+                    cont_states, seed0, count_only)
+        if got is None:
+            return
+        n_fire, hits, extra0, nl0 = got
+        if count_only:
             # vectorized -c (the reference's j counter just sums)
-            if (not memory_mode and appended and n_lines
-                    and int(nl[n_lines]) == N - 1):
-                # r_output i >= end guard swallows the appended line
-                hit = hit.copy()
-                hit[n_lines - 1] = False
-            sink.num_matched += int(np.count_nonzero(hit)) + int(extra0)
+            sink.num_matched += n_fire + int(extra0)
             return
         if extra0:
             # the virtual leading line: counted; r_output emits its
@@ -485,7 +587,7 @@ class RegexEngine:
             if o.filename_only:
                 sink.write_str("%s\n" % sink.current_filename)
                 return
-            p0 = int(nl[0])
+            p0 = nl0
             sink.emit_fname_prefix()
             if o.linenum:
                 sink.write_str("0: ")
@@ -497,8 +599,8 @@ class RegexEngine:
             if o.printoffset:
                 sink.write_str("@%d{%d} " % (cbo0 - p0, p0))
         BSR = 49152                            # BlockSize (agrep.h:48)
-        for k in np.flatnonzero(hit).tolist():
-            p = int(nl[k + 1])                 # stream pos of the '\n'
+        for k, bp, p in hits:
+            # line k: bp its start, p the stream pos of its '\n'
             if not memory_mode and appended and p == N - 1:
                 continue                       # r_output i >= end guard
             j = k + 2                          # j counter at this check
@@ -510,7 +612,6 @@ class RegexEngine:
             if o.filename_only:
                 sink.write_str("%s\n" % sink.current_filename)
                 return
-            bp = int(nl[k]) + 1                # line start
             # residue clamping (agrep.c:1426-1431 for D==0; the D>0
             # loop carries only the last Maxline bytes, :1739): a line
             # crossing a block boundary prints a preserved 1023-byte
@@ -527,7 +628,7 @@ class RegexEngine:
                 if D == 0:
                     b0 = (max(pn_d, 0) // BSR + 1) * BSR
                     if b0 <= j1b and (j1b > b0 or b0 - pn_d > 1024):
-                        head_hi = int(nl[k]) + 1024   # stream coord
+                        head_hi = bp - 1 + 1024   # stream coord
                         tail_lo = j1b + 1
                 else:
                     if j1b > b_d and b_d <= j1b - 1024:

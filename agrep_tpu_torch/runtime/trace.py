@@ -11,7 +11,11 @@ runtime-switchable:
                              a Chrome trace to <dir>/trace.json
 
 Counters are plain module-level ints -- zero overhead when disabled
-(every instrumentation site checks the ENABLED flag first).
+(every instrumentation site checks the ENABLED flag first).  The device
+stages of the torch backend count what crosses from the card: the bitap
+engine's record_pairs (pairs cut) and record_rows (rows read back,
+ops/scan.py), the regex engine's regex_lines (lines indexed on the card)
+and regex_rows (rows read back, runtime/regex_engine.py).
 """
 
 from __future__ import annotations

@@ -8,10 +8,10 @@ exits non-zero:
 
   1. card: the GPU's name and power limit (nvidia-smi) and the torch and
      CUDA versions;
-  2. build: compiles the six kernel sources (csrc/mask_scan.cu,
+  2. build: compiles the eight kernel sources (csrc/mask_scan.cu,
      renfa_lanes.cu, chain_scan.cu, qgram_filter.cu, event_pairs.cu,
-     record_verdicts.cu) with nvcc, every compile unit of all six started
-     together, and times the build;
+     record_verdicts.cu, line_index.cu, line_rows.cu) with nvcc, every
+     compile unit of all eight started together, and times the build;
   3. parity: the mask_scan kernel against its plain PyTorch version
      (mask_scan_reference) on the card, bit for bit, over every variant,
      D, cost wiring, endpos shape and edge size the kernel takes (sizes
@@ -60,8 +60,18 @@ exits non-zero:
      (no record end, more blocks than the combining block's threads) and
      1,000,000 under one and three hit bits, and on config 2's and config
      3's pairs over a 32 MB chunk, each also as views 1-15 elements past
-     an aligned address; phase 4 repeats every check at the main path's
-     shapes;
+     an aligned address; and the line_index and line_rows kernels against
+     line_index_reference and line_rows_reference, bit for bit, on the
+     edge texts (empty, no newline, one newline, a leading newline, no
+     final newline), lines of 127-129, 8,191-8,193, 49,153 and 60,000
+     bytes, every length key, texts at their blocks' edges (16,383-16,385
+     bytes; 2,047-2,049 and 4,097 lines, empty ones among them), 1 MB of
+     dense short lines and of newlines alone, a glitch byte inside a line
+     and before a newline, and config 4's 32 MB chunk, the texts also as
+     views 1-15 bytes past an aligned address, line_rows with and without
+     -v, three kept-ordinal ranges, with and without a glitch byte, rows
+     and count alone, and with ordinals outside 0..K-1; phase 4 repeats
+     every check at the main path's shapes;
   4. main path: a --mb MB ASCII corpus made from --seed, searched through
      agrep_tpu_torch.api.fileagrep with BASELINE configs 1-4 (the file
      is over the streaming threshold, so each run is chunked; config 4,
@@ -90,7 +100,13 @@ exits non-zero:
      their records through record_verdicts (wrapped and counted), and the
      rows they read back (trace counter record_rows) must be the records
      that fire, as record_verdicts_reference counts them on the same
-     pairs;
+     pairs; config4, config4n and memagrep4 must index their lines
+     through line_index and read them back through line_rows, one launch
+     of each a chunk (the buffer in memory mode), every line indexed on
+     the card (trace counter regex_lines), one row read back a printed
+     line (regex_rows; 0 for a count), and the regex engine may call no
+     numpy index or sort over 65,536 or more elements (a host newline
+     index or length sort);
   5. kernels: mask_scan's launch geometry (split, tiles a block, threads,
      dynamic shared memory; registers and spills from ptxas) and its
      time against its bound at all five main-path shapes, chain_scan's
@@ -106,10 +122,17 @@ exits non-zero:
      grid; its three passes' device time, the wrapper's with the host's
      read of the summary, the plain version's and a library composite's:
      torch.cumsum of the delimiter flags, scatter_add of the hit flags) at
-     the first 32 MB chunk's pairs of configs 2, 3 and config2c, each
-     checked bit for bit against the plain version and the composite
-     first, each on a line of its own; then one JSON line with each kernel's launches on the main path,
-     its time, its plain version's time and its bound on this card;
+     the first 32 MB chunk's pairs of configs 2, 3 and config2c, and
+     line_index's and line_rows' (lines, rows, grids; their passes'
+     device time, the wrapper's with the host's read of K or the count,
+     the plain version's and a library composite's: torch.nonzero of the
+     newlines and a stable torch.sort of the lengths; index_put_ of the
+     flags, torch.nonzero and gathers) at config 4's first window (the
+     lanes kernel timed on that window's index too) and the memagrep
+     buffer, each checked bit for bit against the plain version and the
+     composite first, each on a line of its own; then one JSON line with
+     each kernel's launches on the main path, its time, its plain
+     version's time and its bound on this card;
   6. scale-out: (a) phase 4's corpus cut into 4 shards with the
      MAX_RECORD halo, on parallel.dist.make_mesh() (all four on cuda:0 on
      a one-card machine), counted and located by distributed_scan_count /
@@ -971,6 +994,163 @@ def phase_parity_records(device: str, seed: int) -> float:
     return float(worst)
 
 
+# line_index's and line_rows' views (elements past an aligned address)
+LINE_OFFSETS = (0, 1, 3, 15)
+
+
+def line_texts(seed: int):
+    """(name, u8 numpy text, glitch position or -1) of every text phase 3
+    holds line_index and line_rows to: the edge shapes (empty, no
+    newline, one newline, a leading newline, no final newline), lines of
+    127-129, 8,191-8,193, 49,153 and 60,000 bytes, every length key
+    (each length 0-600, then every 7th up to 9,000), texts at line_index's
+    block edges (16,383-16,385 and 49,169 bytes; 2,047-2,049 and 4,097
+    lines, empty ones among them: one key, the scatter's worst
+    contention), 1 MB of dense short lines and 1 MB of newlines alone, a
+    glitch byte inside a line and before a newline, and the main path's
+    first STREAM_CHUNK window (config 4's chunk)."""
+    import numpy as np
+
+    from agrep_tpu_torch.ops.scan import STREAM_CHUNK
+    rng = np.random.default_rng(seed + 15)
+
+    def u8(b):
+        return np.frombuffer(b, np.uint8)
+
+    def rand(n, p):
+        t = rng.integers(32, 127, n, dtype=np.uint8)
+        t[rng.random(n) < p] = 0x0A
+        return t
+
+    def lines(lens):
+        return u8(b"".join(bytes(rng.integers(97, 123, int(n),
+                                              dtype=np.uint8)) + b"\n"
+                           for n in lens))
+
+    for name, b in (("empty", b""), ("no_newline", b"abc def"),
+                    ("one_newline", b"\n"), ("leading", b"\nabc\n\nxyz\n"),
+                    ("no_final", b"ab\ncd\n\nef")):
+        yield name, u8(b), -1
+    yield "long", lines([5, 127, 128, 129, 0, 8191, 8192, 8193, 49153, 0,
+                         60000, 7, 8192, 200]), -1
+    yield "every_key", lines(rng.permutation(
+        np.r_[np.arange(601), np.arange(601, 9001, 7)])), -1
+    for n in (16383, 16384, 16385, 3 * 16384 + 17):
+        yield "bytes_%d" % n, rand(n, 1 / 40), -1
+    for k in (2047, 2048, 2049, 4097):
+        yield "empty_lines_%d" % k, u8(b"\n" * k), -1
+        yield "lines_%d" % k, lines(rng.integers(0, 50, k)), -1
+    yield "dense_1mb", rand(1 << 20, 0.5), -1
+    yield "newlines_1mb", u8(b"\n" * (1 << 20)), -1
+    r = rand(100_000, 1 / 40)
+    inside = int(np.flatnonzero((r[1:] != 0x0A)
+                                & (r[:-1] != 0x0A))[5000]) + 1
+    on_nl = int(np.flatnonzero(r == 0x0A)[2000])
+    for name, at in (("glitch_inside", inside), ("glitch_on_newline", on_nl)):
+        yield name, np.insert(r, at, 0), at
+    yield "config4_chunk", make_corpus(STREAM_CHUNK, seed), -1
+
+
+def _index_diff(got, want) -> int:
+    """Largest |kernel - plain| over a line index's arrays and its last
+    newline; a different number of lines counts as a difference of the
+    larger count."""
+    if got.nl.numel() != want.nl.numel():
+        return max(got.nl.numel(), want.nl.numel(), 1)
+    diff = abs(got.last - want.last)
+    for a, b in zip(got[:4], want[:4]):
+        if a.numel():
+            diff = max(diff, _max_diff(a, b))
+    return diff
+
+
+def _line_rows_diff(got, want) -> int:
+    """Largest |kernel - plain| over line_rows' rows and count."""
+    (gr, gc), (wr, wc) = got, want
+    diff = abs(gc - wc)
+    if (gr is None) != (wr is None):
+        return max(diff, 1)
+    if gr is not None:
+        if gr.shape != wr.shape:
+            return max(gr.shape[0], wr.shape[0], 1)
+        if gr.numel():
+            diff = max(diff, _max_diff(gr, wr))
+    return diff
+
+
+def phase_parity_lines(device: str, seed: int) -> tuple:
+    """line_index and line_rows against their plain versions on the card,
+    bit for bit, on every text of line_texts, the text also as views
+    LINE_OFFSETS bytes past an aligned address (two of them for the
+    large ones); line_rows on random verdicts over each index, with and
+    without invert, with the kept ordinals [0, K), [1, K) and [2, K - 1),
+    the text's glitch byte or a byte a third in, rows and count alone,
+    the verdicts as views too, and with ordinals outside 0..K-1.  Returns the largest |kernel - plain|
+    of each (0 or fail)."""
+    import numpy as np
+    import torch
+
+    from agrep_tpu_torch.ops import renfa_kernel as rk
+    worst = [0, 0]
+    failed = []
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 16)
+    for name, arr, glitch in line_texts(seed):
+        text = torch.from_numpy(np.array(arr, dtype=np.uint8)).to(device)
+        want = rk.line_index_reference(text)
+        K = want.nl.numel()
+        offs = LINE_OFFSETS[:2] if arr.size > (1 << 20) else LINE_OFFSETS
+        for off in offs:
+            t = text if off == 0 else _view(text, off)
+            diff = _index_diff(rk.line_index(t), want)
+            worst[0] = max(worst[0], diff)
+            if diff:
+                failed.append(("line_index", name, off, diff))
+        v = torch.from_numpy(rng.random(K) < 0.3).to(device)
+        g = glitch if glitch >= 0 else arr.size // 3
+        rows = 0
+        for invert in (False, True):
+            for first, end in ((0, K), (1, K), (2, max(K - 1, 0))):
+                for gl in (-1, g):
+                    for want_rows in (True, False):
+                        args = (invert, first, end, gl, want_rows)
+                        ref = rk.line_rows_reference(v, want.ords, want.nl,
+                                                     *args)
+                        rows += ref[1] if want_rows else 0
+                        for off in offs[:2]:
+                            vv = v if off == 0 else _view(v, off)
+                            diff = _line_rows_diff(rk.line_rows(
+                                vv, want.ords, want.nl, *args), ref)
+                            worst[1] = max(worst[1], diff)
+                            if diff:
+                                failed.append(("line_rows", name, args,
+                                               off, diff))
+        if K > 2:
+            # ordinals outside 0..K-1 name no line: both skip them
+            bad = want.ords.clone()
+            bad[::7] = -1
+            bad[3::11] = K
+            args = (False, 0, K, -1, True)
+            diff = _line_rows_diff(
+                rk.line_rows(v, bad, want.nl, *args),
+                rk.line_rows_reference(v, bad, want.nl, *args))
+            worst[1] = max(worst[1], diff)
+            if diff:
+                failed.append(("line_rows", name, "bad ordinals", diff))
+        print("parity: line_index, line_rows %-18s %d B, %d lines, views "
+              "at %s: equal bit for bit (line_rows: %d rows over -v, kept "
+              "ordinals and glitch)" % (name, arr.size, K, list(offs),
+                                         rows))
+        del text
+    torch.cuda.synchronize()
+    print("parity: line_index, line_rows in %.1f s"
+          % (time.perf_counter() - t0))
+    if failed:
+        raise AssertionError("line_index or line_rows differs from its "
+                             "plain version: %s" % failed[:20])
+    return float(worst[0]), float(worst[1])
+
+
 def chain_sets(pats400) -> list:
     """(name, terms, fold) of every term set phase 3 holds the chain
     kernel to, each with and without -i folding (fold True or False),
@@ -1209,13 +1389,17 @@ def phase_parity_multi(device: str, seed: int, big: int, pats400) -> tuple:
 
 
 def _run(api_fn, argv, data=None):
+    """(stdout sha256, exit code, stdout bytes, lines printed but the
+    Grand Total) of one search in this process."""
     buf = io.BytesIO()
     if data is None:
         rc = api_fn(argv, output=buf)
     else:
         rc = api_fn(argv, data, output=buf)
     out = buf.getvalue()
-    return hashlib.sha256(out).hexdigest(), rc & 0xFF, len(out)
+    return (hashlib.sha256(out).hexdigest(), rc & 0xFF, len(out),
+            sum(not line.startswith(b"Grand Total")
+                for line in out.splitlines()))
 
 
 def _time_plain(fn) -> float:
@@ -1408,6 +1592,173 @@ def records_alone(name, pos, word, endpos, d_endpos, skip_pos, and_flag,
             "max_abs_err": diff}
 
 
+# the runs whose lines the card must index and read back (line_index,
+# renfa_lanes, line_rows)
+LINE_RUNS = ("config4", "config4n", "memagrep4")
+
+
+def regex_chunks(data) -> int:
+    """The chunks the regex engine cuts a stream of data into: each
+    window of max(STREAM_CHUNK, 64 KiB) bytes cut after its last newline
+    (the stream's end for the last), a window without one grown by a
+    window."""
+    import numpy as np
+
+    from agrep_tpu_torch.ops.scan import STREAM_CHUNK
+    chunk = max(STREAM_CHUNK, 1 << 16)
+    n, lo, cuts = len(data), 0, 0
+    while lo < n:
+        hi = min(lo + chunk, n)
+        nls = np.flatnonzero(data[lo:hi] == 0x0A)
+        while hi < n and not len(nls):
+            hi = min(hi + chunk, n)
+            nls = np.flatnonzero(data[lo:hi] == 0x0A)
+        lo = n if hi == n else lo + int(nls[-1]) + 1
+        cuts += 1
+    return cuts
+
+
+class HostIndexCalls:
+    """The numpy module as runtime/regex_engine.py sees it, counting the
+    calls that index or sort at least `big` elements: a newline index or
+    length sort of a chunk or a stream, which the torch route no longer
+    builds on the host (the engine's own small calls pass)."""
+
+    def __init__(self, big: int = 1 << 16):
+        import numpy
+        self._np = numpy
+        self.big = big
+        self.calls = []
+
+    def __getattr__(self, name):
+        real = getattr(self._np, name)
+        if name not in ("flatnonzero", "argsort", "count_nonzero",
+                        "nonzero"):
+            return real
+
+        def call(a, *args, **kw):
+            if self._np.size(a) >= self.big:
+                self.calls.append((name, int(self._np.size(a))))
+            return real(a, *args, **kw)
+        return call
+
+
+def lines_cut(name, n: dict, printed: int, counters, want_lines: int,
+              chunks: int, host_calls) -> dict:
+    """The checks of a LINE_RUNS run: one line_index and one line_rows
+    launch a chunk (memory mode: the buffer), every line indexed on the
+    card (trace counter regex_lines), a row read back a printed line
+    (regex_rows; none for a count), and no newline index or length sort
+    on the host."""
+    lines, rows = counters.get("regex_lines", 0), counters.get(
+        "regex_rows", 0)
+    if (n["line_index"] != chunks or n["line_rows"] != chunks
+            or lines != want_lines or rows != printed or host_calls):
+        raise AssertionError(
+            "%s: line_index %d and line_rows %d launches for %d chunks, "
+            "%d lines indexed on the card of %d, %d rows read back for %d "
+            "printed lines, host index calls %s"
+            % (name, n["line_index"], n["line_rows"], chunks, lines,
+               want_lines, rows, printed, host_calls[:5]))
+    return {"chunks": chunks, "lines": lines, "rows": rows}
+
+
+def index_library(text):
+    """The function of line_index as a composite of PyTorch calls on the
+    card (the yardstick of library_ms; the port never calls it):
+    torch.nonzero of the newlines, then a stable torch.sort of the
+    lengths."""
+    import torch
+    nl = torch.nonzero(text == 0x0A).flatten()
+    starts = torch.cat([nl.new_zeros(min(1, nl.numel())), nl[:-1] + 1])
+    lens = nl - starts
+    order = torch.sort(lens, stable=True).indices
+    return nl, starts[order], lens[order], order
+
+
+def rows_library(v, ords, nl, invert, first, end, glitch):
+    """The function of line_rows as a composite of PyTorch calls on the
+    card (the yardstick of library_ms): the flags put to their ordinals
+    by index_put_, torch.nonzero of them, the starts and newlines
+    gathered."""
+    import torch
+    K = nl.numel()
+    keep = (v ^ bool(invert)) & (ords >= first) & (ords < end)
+    fire = torch.zeros(K, dtype=torch.bool, device=nl.device)
+    fire.index_put_((ords,), keep)
+    j = torch.nonzero(fire).flatten()
+    prev = torch.cat([nl.new_full((1,), -1), nl[:-1]])
+    rows = torch.stack([j, prev[j] + 1, nl[j]], 1)
+    if glitch >= 0:
+        rows[:, 1:] -= (rows[:, 1:] > glitch).to(torch.int64)
+    return rows
+
+
+def index_alone(name, text) -> dict:
+    """line_index at one main-path text: the kernel against its plain
+    version, and against index_library where every line is shorter than
+    its exact keys' 128 bytes (the two orders agree there); the kernel's
+    device time (every pass, without the host's read of K, by
+    time_kernel), the wrapper's with that read, the plain version's, the
+    library composite's (host clock, synchronized) and the bound."""
+    from agrep_tpu_torch.ops import renfa_kernel as rk
+    from agrep_tpu_torch.ops.timing import line_index_bound, time_kernel
+    idx = rk._index_launch(text)
+    diff = _index_diff(idx, rk.line_index_reference(text))
+    lib = index_library(text)
+    if int(idx.lens.max().item()) < rk.EXACT_LEN:
+        diff = max(diff, max(_max_diff(a, b) for a, b in zip(idx[:4], lib)))
+    if diff:
+        raise AssertionError("%s: line_index differs from its plain "
+                             "version or the library composite on %d bytes "
+                             "(max |diff| %d)" % (name, text.numel(), diff))
+    K = idx.nl.numel()
+    ms = time_kernel(lambda: rk.index_passes(text, idx))
+    wrapper_ms = _host_ms(lambda: rk._index_launch(text))
+    plain_ms = _time_plain(lambda: rk.line_index_reference(text))
+    library_ms = _host_ms(lambda: index_library(text))
+    bms, by = line_index_bound(text.numel(), K)
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
+            "K": K, "shape_b": text.numel(),
+            "grids": rk.index_grids(text, K), "max_abs_err": diff,
+            "idx": idx}
+
+
+def rows_alone(name, v, idx, invert, first, end, glitch) -> dict:
+    """line_rows at one main-path input (rows wanted, as a print takes
+    them): the kernel against its plain version and against
+    rows_library, bit for bit; its device time (every pass, without the
+    host's read of the count), the wrapper's with that read, the plain
+    version's, the library composite's and the bound."""
+    from agrep_tpu_torch.ops import renfa_kernel as rk
+    from agrep_tpu_torch.ops.timing import line_rows_bound, time_kernel
+    args = (invert, first, end, glitch)
+    got = rk._rows_launch(v, idx.ords, idx.nl, *args, True)
+    diff = _line_rows_diff(got, rk.line_rows_reference(
+        v, idx.ords, idx.nl, *args))
+    lib = rows_library(v, idx.ords, idx.nl, *args)
+    diff = max(diff, _line_rows_diff(got, (lib, lib.shape[0])))
+    if diff:
+        raise AssertionError("%s: line_rows differs from its plain version "
+                             "or the library composite on %d lines (max "
+                             "|diff| %d)" % (name, idx.nl.numel(), diff))
+    rows = got[0]
+    K = idx.nl.numel()
+    ms = time_kernel(lambda: rk.rows_passes(v, idx.ords, idx.nl, *args,
+                                            rows))
+    wrapper_ms = _host_ms(lambda: rk._rows_launch(v, idx.ords, idx.nl,
+                                                  *args, True))
+    plain_ms = _time_plain(lambda: rk.line_rows_reference(
+        v, idx.ords, idx.nl, *args))
+    library_ms = _host_ms(lambda: rows_library(v, idx.ords, idx.nl, *args))
+    bms, by = line_rows_bound(K, rows.shape[0])
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
+            "K": K, "R": rows.shape[0],
+            "grids": rk.rows_grids(K, v.device), "max_abs_err": diff}
+
+
 def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
     import numpy as np
     import torch
@@ -1438,7 +1789,9 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
             "qgram_filter": (qgram_kernel, qgram_kernel.qgram_filter),
             "mask_scan": (kernels, kernels.mask_scan),
             "event_pairs": (kernels, kernels.event_pairs),
-            "record_verdicts": (kernels, kernels.record_verdicts)}
+            "record_verdicts": (kernels, kernels.record_verdicts),
+            "line_index": (renfa_kernel, renfa_kernel.line_index),
+            "line_rows": (renfa_kernel, renfa_kernel.line_rows)}
     # the inputs of every record_verdicts call of the run
     rv_calls: list = []
 
@@ -1472,6 +1825,17 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
     def at_counted(*args, **kw):
         at_calls[0] += 1
         return real_at(*args, **kw)
+
+    # the regex engine's numpy calls over a chunk or the stream (a host
+    # newline index or length sort), which the torch route no longer makes
+    from agrep_tpu_torch.runtime import regex_engine
+    host_index = HostIndexCalls()
+    real_np = regex_engine.np
+    # the lines each LINE_RUNS run must index on the card, in chunks
+    want_lines = {"config4": (int(np.count_nonzero(corpus == 0x0A)),
+                              regex_chunks(corpus)),
+                  "memagrep4": (mem_data.count(b"\n"), 1)}
+    want_lines["config4n"] = want_lines["config4"]
 
     # calls of the dense host read-back, which the torch route no longer
     # makes
@@ -1545,6 +1909,7 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
             setattr(chain_kernel, name, read_counter(name, fn))
         native.qgram_first_per_anchor_at = at_counted
         kernels.planes_to_events = p2e_counted
+        regex_engine.np = host_index
         trace_was = trace.ENABLED
         trace.ENABLED = True
         got, inputs = {}, {}
@@ -1555,8 +1920,9 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                 at_before = at_calls[0]
                 p2e_before = p2e_calls[0]
                 for k in ("qgram_candidates", "record_rows",
-                          "record_pairs"):
+                          "record_pairs", "regex_lines", "regex_rows"):
                     trace.counters.pop(k, None)
+                host_index.calls.clear()
                 seen.clear()
                 rv_calls.clear()
                 t0 = time.perf_counter()
@@ -1608,6 +1974,14 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                         trace.counters)
                     inputs[name]["record_verdicts"] = rv_calls[0]
                 rv_calls.clear()
+                if name in LINE_RUNS:
+                    res[name]["lines_cut"] = lines_cut(
+                        name, n, 0 if "-c" in argv else got[name][3],
+                        trace.counters, *want_lines[name],
+                        host_index.calls)
+                elif host_index.calls:
+                    raise AssertionError("%s: host index calls %s"
+                                         % (name, host_index.calls[:5]))
         finally:
             for kname, (mod, fn) in real.items():
                 setattr(mod, kname, fn)
@@ -1615,6 +1989,7 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                 setattr(chain_kernel, name, fn)
             native.qgram_first_per_anchor_at = real_at
             kernels.planes_to_events = real_p2e
+            regex_engine.np = real_np
             trace.ENABLED = trace_was
         main_launches = {k: c[k] for k, c in counts.items()}
 
@@ -1669,23 +2044,25 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                          pairs=pairs_alone(name, planes, pairs_vals(m, device),
                                            W, L, t.numel(), 0))
 
-    # the lanes kernel alone on the same chunk and on the memagrep
-    # buffer, each split into its lines in the length order the engine
-    # launches them in
+    # the regex stages alone at config 4's first chunk (the main path's
+    # first window, with the glitch byte inserted at 49,152 as the engine
+    # inserts it) and at the memagrep buffer: line_index cuts and orders
+    # the lines, the lanes kernel walks them in that order, line_rows
+    # reads back the lines that fire (as config4n's print takes them;
+    # memory mode keeps ordinals from 1: 0 is the leading line)
     opts, pattern, _ = parse_args(REGEX_CONFIGS[0][1] + ["x"])
     mc = compile_query(pattern, opts).re_mc
     m = renfa_kernel.machine_from_mc(mc, device)
     cont, _ = renfa.step_newline(list(mc["inits"]), int(mc["mask"][0x0A]),
                                  mc)
-    for buf, names in ((chunk, ("config4", "config4n")),
-                       (np.frombuffer(mem_data, np.uint8), ("memagrep4",))):
-        nls = np.flatnonzero(buf == 0x0A)
-        starts = np.concatenate([[0], nls[:-1] + 1]).astype(np.int64)
-        lens = (nls - starts).astype(np.int64)
-        order = np.argsort(lens, kind="stable")
-        seg = kernels.to_device(buf[:int(nls[-1]) + 1], device)
-        st_d = torch.from_numpy(starts[order]).to(device)
-        ln_d = torch.from_numpy(lens[order]).to(device)
+    for buf, glitch, first, names in (
+            (np.insert(chunk, 49152, 0), 49152, 0, ("config4", "config4n")),
+            (np.frombuffer(mem_data, np.uint8), -1, 1, ("memagrep4",))):
+        seg = kernels.to_device(buf, device)
+        index = index_alone(names[0], seg)
+        idx = index.pop("idx")
+        st_d, ln_d = idx.starts, idx.lens
+        lens = ln_d.cpu().numpy()
         # the launch alone: the wrapper's bounds check syncs the host
         ms = time_kernel(
             lambda: renfa_kernel._launch(seg, st_d, ln_d, m, cont))
@@ -1700,11 +2077,15 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                                  % seg.numel())
         bms, by = regex_bound(m, seg.numel(), lens)
         geo = renfa_kernel.launch_geometry(len(lens), m, device)
+        rows = rows_alone(names[0], verdicts, idx, False, first,
+                          idx.nl.numel(), glitch)
         for n in names:
             res[n].update(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                           bound_by=by, shape_b=seg.numel(),
                           max_abs_err=diff, lines=len(lens),
-                          true=int(verdicts.sum().item()), geometry=geo)
+                          true=int(verdicts.sum().item()), geometry=geo,
+                          index=index, rows=rows)
+        del seg, idx, verdicts
 
     # the config 5 runs' kernels alone, on the inputs the main path gave
     # their wrappers (each run's last call), against their plain versions
@@ -1796,6 +2177,13 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
         print("main: the lanes kernel's %d B launch of %s holds %d lines, "
               "%d true verdicts" % (r["shape_b"], name, r["lines"],
                                     r["true"]))
+    for name in LINE_RUNS:
+        c = res[name]["lines_cut"]
+        print("main: %s indexed its %d lines on the card through "
+              "line_index and read %d rows back through line_rows (one "
+              "launch each a chunk, %d chunks); no newline index or length "
+              "sort on the host" % (name, c["lines"], c["rows"],
+                                    c["chunks"]))
     print("main: stdout and return codes equal the numpy host backend "
           "for all %d runs" % len(runs))
     res["launches"] = main_launches
@@ -1839,6 +2227,8 @@ def _launch_counts():
             "event_pairs": kernels.launches,
             "record_verdicts": kernels.launches,
             "renfa_lanes": renfa_kernel.launches,
+            "line_index": renfa_kernel.launches,
+            "line_rows": renfa_kernel.launches,
             "chain_scan": chain_kernel.launches,
             "qgram_filter": qgram_kernel.launches}
 
@@ -2294,6 +2684,27 @@ def record_verdicts_line(res, card: str) -> str:
         for n in RECORD_RUNS for r in [res[n]["verdicts"]]), card)
 
 
+def line_stages_line(res, card: str) -> str:
+    """line_index and line_rows at config 4's first chunk and the
+    memagrep buffer: lines, rows, grids, the passes' device ms against
+    the bound, the wrapper's ms with the host's read of K or the count,
+    the plain version's and the library composite's."""
+    out = []
+    for stage, key, what in (("line_index", "index", "lines"),
+                             ("line_rows", "rows", "rows")):
+        out.append("times: %s %s | card: %s" % (stage, " | ".join(
+            "%s %d B %d lines%s grids=%s: %.4f ms (%.1f %% of its %.4f ms "
+            "bound, %s), wrapper %.4f ms, plain %.2f ms, library %.3f ms"
+            % (n, res[n]["shape_b"], r["K"],
+               " %d rows" % r["R"] if what == "rows" else "",
+               list(r["grids"]), r["ms"], 100 * r["bound_ms"] / r["ms"],
+               r["bound_ms"], r["bound_by"], r["wrapper_ms"],
+               r["plain_ms"], r["library_ms"])
+            for n in ("config4", "memagrep4") for r in [res[n][key]]),
+            card))
+    return "\n".join(out)
+
+
 def times_line(res, kname: str, names, card: str) -> str:
     return "times: %s %s | card: %s" % (kname, " | ".join(
         "%s %.4f ms per %d B launch, %.1f %% of its %.4f ms bound (%s)"
@@ -2335,6 +2746,7 @@ def main(argv=None) -> int:
         "cuda", args.seed, 8 << 20, make_patterns(400, args.seed))
     err_pairs = phase_parity_pairs("cuda", args.seed)
     err_records = phase_parity_records("cuda", args.seed)
+    err_index, err_rows = phase_parity_lines("cuda", args.seed)
     res = phase_main("cuda", args.seed, args.mb, card)
 
     c2, c4, c5, c5q = (res["config2"], res["config4"], res["config5"],
@@ -2349,6 +2761,7 @@ def main(argv=None) -> int:
     print(times_line(res, "qgram_filter", ("config5q",), card))
     print(event_pairs_line(res, card))
     print(record_verdicts_line(res, card))
+    print(line_stages_line(res, card))
     t6 = time.perf_counter()
     corpus = make_corpus(args.mb << 20, args.seed)
     phase_dist(corpus, card)
@@ -2449,12 +2862,50 @@ def main(argv=None) -> int:
         # no one PyTorch call cuts records: the composite records_library
         # (torch.cumsum of the delimiter flags, scatter_add of the hits)
         "library_ms": c2["verdicts"]["library_ms"],
+    }, {
+        "name": "line_index",
+        "route": "cuda",
+        "source": "agrep_tpu_torch/csrc/line_index.cu",
+        # the host line index it replaces (no Pallas kernel: a device
+        # stage the port adds beside the TPU kernels)
+        "replaces": "agrep_tpu/runtime/regex_engine.py:116",
+        "launches": res["launches"]["line_index"],
+        "max_abs_err": max([err_index] + [res[n]["index"]["max_abs_err"]
+                                          for n in ("config4",
+                                                    "memagrep4")]),
+        "ms": c4["index"]["ms"],
+        "plain_ms": c4["index"]["plain_ms"],
+        "bound_ms": c4["index"]["bound_ms"],
+        "bound_by": c4["index"]["bound_by"],
+        # no one PyTorch call indexes lines: the composite index_library
+        # (torch.nonzero of the newlines, a stable torch.sort)
+        "library_ms": c4["index"]["library_ms"],
+    }, {
+        "name": "line_rows",
+        "route": "cuda",
+        "source": "agrep_tpu_torch/csrc/line_rows.cu",
+        # the host verdict walk it replaces (no Pallas kernel: a device
+        # stage the port adds beside the TPU kernels)
+        "replaces": "agrep_tpu/runtime/regex_engine.py:233",
+        "launches": res["launches"]["line_rows"],
+        "max_abs_err": max([err_rows] + [res[n]["rows"]["max_abs_err"]
+                                         for n in ("config4",
+                                                   "memagrep4")]),
+        "ms": c4["rows"]["ms"],
+        "plain_ms": c4["rows"]["plain_ms"],
+        "bound_ms": c4["rows"]["bound_ms"],
+        "bound_by": c4["rows"]["bound_by"],
+        # no one PyTorch call compacts flags into rows: the composite
+        # rows_library (index_put_ of the flags, torch.nonzero, gathers)
+        "library_ms": c4["rows"]["library_ms"],
     }]}
     print("kernels: times are per launch at the main path's %d B chunk "
           "of config2 (%s; event_pairs: both passes on the card, without "
           "the host's read of K; record_verdicts: its three passes over "
           "that chunk's pairs, without the host's read of the summary) "
-          "and of config4 (%s), at config5's %d B "
+          "and of config4 (%s; line_index and line_rows: every pass over "
+          "its first window, without the host's read of K or the count), "
+          "at config5's %d B "
           "stream (chain_scan) and config5q's %d B stream (qgram_filter); "
           "launches are all main-path runs; card: %s"
           % (c2["shape_b"], " ".join(CONFIGS[1][1]),

@@ -15,17 +15,22 @@ approximate`) and config2c (config 2 as a count, chip_smoke.CONFIG2C) on
 the --mb MB file, memagrep `-c hello` on the same bytes in memory, and
 bool5m (`-d '$$' 'hello;matching,<a term of 136 byte classes>'`) on the
 records file (the default), and config2v (`-1 -v -n matching`, nearly
-every record printed; by name only), through the tree's
-agrep_tpu_torch.api, with
+every record printed), BASELINE config 4 (`-2 'appro[a-z]*mat(e|ion)'`)
+as a count (config4) and a line-numbered print (config4n) on the file
+and as a count in memory (memagrep4; these four by name only), through
+the tree's agrep_tpu_torch.api, with
 AGREP_TORCH_STATS=2: one warm-up run, then --reps timed runs on the GPU
 route (each ended by a synchronize) and --reps on the tree's numpy host
 backend.  For each GPU run it keeps the tree's stage timers
 (runtime/trace.py: `scan`, the engines' whole search; `compile`; and any
 stage the tree adds) and the host time inside the tree's
 ops/scan.py::_scan_torch and, where the tree has it, _records_torch,
-the device layer (the text's copy to the card, the kernels, the
-read-back; their wrappers here, in both trees alike), and the launches
-of each kernel.  The GPU route's output must equal the
+and inside the regex engine's device calls (runtime/regex_engine.py's
+RegexEngine._upload and _kernel_verdicts where the tree has them --
+their host length sort and gathers included --, else its _to_device,
+_fire and ops/renfa_kernel.py's line_index): the device layer (the
+text's copy to the card, the kernels, the read-back; their wrappers
+here, in both trees alike), and the launches of each kernel.  The GPU route's output must equal the
 numpy backend's, and every tree's the first tree's (sha256 and exit
 code).  The first line is the card's name and power limit; then one
 `walls:` and one `stages:` line a run, with every tree's medians, and a
@@ -76,6 +81,9 @@ def runs(cs, path: str, rec: str, data: bytes) -> list:
         ("config2c", "fileagrep", cs.CONFIG2C[1] + [path], None),
         ("config2v", "fileagrep", ["-1", "-v", "-n", "matching", path],
          None),
+        ("config4", "fileagrep", cs.REGEX_CONFIGS[0][1] + [path], None),
+        ("config4n", "fileagrep", cs.REGEX_CONFIGS[1][1] + [path], None),
+        ("memagrep4", "memagrep", cs.REGEX_CONFIGS[0][1], data),
         ("memagrep", "memagrep", cs.CONFIGS[0][1], data),
         ("bool5m", "fileagrep",
          cs.CONFIG5_DELIM + ["hello;matching," + cs.WIDE_TERM, rec], None),
@@ -98,9 +106,9 @@ def child(tree: str, args) -> int:
 
     import agrep_tpu_torch
     from agrep_tpu_torch import api, native
-    from agrep_tpu_torch.ops import _cuda, kernels
+    from agrep_tpu_torch.ops import _cuda, kernels, renfa_kernel
     from agrep_tpu_torch.ops import scan as scan_ops
-    from agrep_tpu_torch.runtime import trace
+    from agrep_tpu_torch.runtime import regex_engine, trace
     if os.path.dirname(os.path.abspath(agrep_tpu_torch.__file__)) != \
             os.path.join(tree, "agrep_tpu_torch"):
         raise AssertionError("agrep_tpu_torch imported from %s, not %s"
@@ -124,6 +132,15 @@ def child(tree: str, args) -> int:
     for fn in ("_scan_torch", "_records_torch"):
         if hasattr(scan_ops, fn):
             setattr(scan_ops, fn, timed(getattr(scan_ops, fn)))
+    engine = regex_engine.RegexEngine
+    for fn in ("_upload", "_kernel_verdicts", "_to_device", "_fire"):
+        if hasattr(engine, fn):
+            setattr(engine, fn, timed(getattr(engine, fn)))
+    if hasattr(renfa_kernel, "line_index"):
+        renfa_kernel.line_index = timed(renfa_kernel.line_index)
+
+    def launched():
+        return {**kernels.launches, **renfa_kernel.launches}
 
     corpus = cs.make_corpus(args.mb << 20, args.seed)
     records = cs.make_records(corpus, args.seed)
@@ -158,7 +175,7 @@ def child(tree: str, args) -> int:
             for _ in range(args.reps):
                 trace.reset()
                 layer[0] = 0.0
-                before = dict(kernels.launches)
+                before = launched()
                 wall, d = once()
                 if d != digest:
                     raise AssertionError("%s: GPU runs differ" % name)
@@ -167,7 +184,7 @@ def child(tree: str, args) -> int:
                 r["counters"].append(dict(trace.counters))
                 r["layer_s"].append(layer[0])
                 r["launches"].append({k: v - before.get(k, 0)
-                                      for k, v in kernels.launches.items()})
+                                      for k, v in launched().items()})
             scan_ops.set_backend("numpy")
             for _ in range(args.reps):
                 wall, d = once()
@@ -235,7 +252,8 @@ def main(argv=None) -> int:
                 _median(r["layer_s"]),
                 ",".join("%s:%d" % kv for kv in r["launches"][-1].items()),
                 "".join(" %s=%d" % (k, cut[k]) for k in
-                        ("record_pairs", "record_rows") if k in cut)))
+                        ("record_pairs", "record_rows", "regex_lines",
+                         "regex_rows") if k in cut)))
         print("walls: %-8s median of %d s, GPU route [numpy backend]: %s"
               % (name, len(r0["gpu"]), " | ".join(walls)))
         print("stages: %-8s medians: %s" % (name, " | ".join(stages)))
