@@ -324,21 +324,36 @@ def gate_chain(text: np.ndarray, terms: list, label: str, failures: list,
 
 def gate_qgram(text: np.ndarray, terms: list, label: str, failures: list,
                device) -> None:
-    """The q-gram kernel's candidates against a direct membership
-    test."""
+    """The q-gram kernel's candidates against a direct membership test,
+    and qgram_lines' rows over them against the native pass
+    qgram_first_per_line."""
+    from . import native
     from .compile import multi
     from .ops import kernels, qgram_kernel
     tr = np.arange(256, dtype=np.uint8)
-    proj = multi.member_projection_1024(multi.build_qgram_tables(terms, tr))
+    tb = multi.build_qgram_tables(terms, tr)
+    proj = multi.member_projection_1024(tb)
     if proj is None:
         failures.append(label + ":no-projection")
         return
-    got = qgram_kernel.qgram_candidates(kernels.to_device(text, device),
-                                        proj)
+    t = kernels.to_device(text, device)
+    got = qgram_kernel.qgram_candidates(t, proj)
     f = (tr & 31).astype(np.uint32)[text]
     prev = np.concatenate([[np.uint32(0)], f[:-1]])
     if not np.array_equal(got, np.flatnonzero(proj[(f << 5) | prev])):
         failures.append(label)
+    csr = multi.csr_tables(tb, terms)
+    tables = qgram_kernel.line_tables(tb.member, tb.hash_id, *csr, tr,
+                                      tb.p_size, tb.long_, False, t.device)
+    rows, _k = qgram_kernel.qgram_lines(
+        t, qgram_kernel.qgram_filter(t, qgram_kernel.words_tensor(
+            proj, t.device)), tables)
+    want = native.qgram_first_per_line(text, tb.member, tb.hash_id, *csr,
+                                       tr, tb.p_size, bool(tb.long_),
+                                       bool(tb.short), False)
+    if want is None or not np.array_equal(rows.cpu().numpy(),
+                                          np.stack(want, 1)):
+        failures.append(label + ":lines")
 
 
 def kernel_gate_text(text: np.ndarray, gate_bytes: int) -> np.ndarray:

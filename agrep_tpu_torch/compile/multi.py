@@ -189,6 +189,26 @@ def build_qgram_tables(terms: list[bytes], tr: np.ndarray) -> QgramTables:
                        bucket_list=bucket_list)
 
 
+def csr_tables(tb: QgramTables, terms: list[bytes]) -> tuple:
+    """The buckets and the terms packed for the native passes and the
+    device's qgram_lines: (b_off int64 [buckets + 1], b_tids int64 (each
+    bucket's term ids, ascending), t_bytes u8 (the terms' bytes, at
+    least one), t_off int64 [terms + 1])."""
+    bl = tb.bucket_list or []
+    b_off = np.zeros(len(bl) + 1, dtype=np.int64)
+    for i, ids in enumerate(bl):
+        b_off[i + 1] = b_off[i] + len(ids)
+    b_tids = (np.concatenate(bl).astype(np.int64)
+              if bl else np.zeros(0, dtype=np.int64))
+    t_off = np.zeros(len(terms) + 1, dtype=np.int64)
+    for i, t in enumerate(terms):
+        t_off[i + 1] = t_off[i] + len(t)
+    t_bytes = np.frombuffer(b"".join(terms), dtype=np.uint8).copy()
+    if not len(t_bytes):
+        t_bytes = np.zeros(1, dtype=np.uint8)
+    return b_off, b_tids, t_bytes, t_off
+
+
 def qgram_hashes(stream: np.ndarray, tb: QgramTables,
                  tr: np.ndarray) -> np.ndarray:
     """Hash at every anchor a in [p_size-1, n-1]; index i = a-(p_size-1)."""

@@ -66,30 +66,7 @@ qgram_filter_kernel(const uint8_t* __restrict__ text, long long n,
          w0 < n_words; w0 += step) {
         const long long w = w0 + lane;
         uint32_t x[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
-        if (w < n_words) {
-            const uintptr_t a = lo + 32 * (uintptr_t)w - sh;
-            const uint4 p0 = text_piece(a, lo, hi);
-            const uint4 p1 = text_piece(a + 16, lo, hi);
-            if (sh == 0) {
-                x[0] = p0.x; x[1] = p0.y; x[2] = p0.z; x[3] = p0.w;
-                x[4] = p1.x; x[5] = p1.y; x[6] = p1.z; x[7] = p1.w;
-            } else {
-                const uint4 p2 = text_piece(a + 32, lo, hi);
-                const uint32_t v[12] = {p0.x, p0.y, p0.z, p0.w,
-                                        p1.x, p1.y, p1.z, p1.w,
-                                        p2.x, p2.y, p2.z, p2.w};
-                uint32_t y[10], z[9];
-#pragma unroll
-                for (int k = 0; k < 10; ++k)
-                    y[k] = (sh & 8) ? v[k + 2] : v[k];
-#pragma unroll
-                for (int k = 0; k < 9; ++k)
-                    z[k] = (sh & 4) ? y[k + 1] : y[k];
-#pragma unroll
-                for (int k = 0; k < 8; ++k)
-                    x[k] = __funnelshift_r(z[k], z[k + 1], 8 * (sh & 3));
-            }
-        }
+        if (w < n_words) text_word32(lo, hi, sh, w, x);
         // the byte before position 32 w: lane - 1's last byte
         uint32_t rot = __shfl_up_sync(0xffffffffu, x[7] >> 24, 1);
         if (lane == 0)

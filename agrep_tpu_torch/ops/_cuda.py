@@ -36,7 +36,8 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # Every kernel source under csrc/; build_all(SOURCES) builds them all at
 # once.
 SOURCES = ("mask_scan", "renfa_lanes", "chain_scan", "qgram_filter",
-           "event_pairs", "record_verdicts", "line_index", "line_rows")
+           "event_pairs", "record_verdicts", "line_index", "line_rows",
+           "qgram_lines")
 
 # Compile units of each source: the kernels of each D in an object of
 # their own, so their compiles run side by side.  A source not listed is

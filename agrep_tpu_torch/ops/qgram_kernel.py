@@ -12,6 +12,12 @@ ops/_cuda.py) or raises; on a CPU tensor it runs qgram_reference(), the
 plain PyTorch version of the same function.  qgram_candidates() turns the
 plane into positions.
 
+qgram_lines() verifies the candidate plane on the scan device and folds
+it by line (csrc/qgram_lines.cu): the count of lines that hold a winning
+term, or one (anchor, term id) row a such line, as the native
+qgram_first_per_line gives them; qgram_lines_reference() is its plain
+PyTorch version, line_tables() the q-gram tables as it takes them.
+
 The hash is the non-LONG prepf 2-gram (newmgrep.c:1741-1743); for LONG
 (3-gram) tables compile/multi.py member_projection_1024 gives the sound
 tail-2-gram superset, and the engine's sparse verify stays exact.  The
@@ -22,6 +28,7 @@ p), held in an int32 tensor.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -32,7 +39,7 @@ from .chain_kernel import pack_bits, plane_positions
 from .kernels import _sm_count
 
 # Launches of each kernel since the counts were last set to 0.
-launches = {"qgram_filter": 0}
+launches = {"qgram_filter": 0, "qgram_lines": 0}
 
 
 def member_words(member: np.ndarray) -> tuple:
@@ -166,3 +173,259 @@ def qgram_candidates(text: torch.Tensor,
     CPU: the plain version)."""
     words = words_tensor(member1024, text.device)
     return plane_positions(qgram_filter(text, words), text.numel())
+
+
+# ---------------------------------------------------------------------
+# qgram_lines: the lines that hold a verified candidate
+# ---------------------------------------------------------------------
+
+MAXHASH = 32768            # gram hashes (compile/multi.py MAXHASH)
+
+
+@dataclasses.dataclass
+class LineTables:
+    """The q-gram tables on one device, as qgram_lines takes them."""
+    member: torch.Tensor       # int32 [1024]: bit h & 31 of word h >> 5
+    hash_id: torch.Tensor      # int32 [MAXHASH]: hash -> bucket
+    b_off: torch.Tensor        # int64 [buckets + 1]
+    b_tids: torch.Tensor       # int64: each bucket's term ids, ascending
+    t_bytes: torch.Tensor      # uint8: the terms' bytes
+    t_off: torch.Tensor        # int64 [terms + 1]
+    tr: torch.Tensor           # uint8 [256]: the fold
+    p: int                     # p_size: the anchor is a term's byte p - 1
+    long_: bool                # 3-gram hashes
+    wordbound: bool            # -w
+
+    @property
+    def device(self) -> torch.device:
+        return self.member.device
+
+
+def line_tables(member, hash_id, b_off, b_tids, t_bytes, t_off, tr, p: int,
+                long_: bool, wordbound: bool, device="cpu") -> LineTables:
+    """The tables of compile/multi.py (member bool[MAXHASH] or [1024],
+    hash_id, the bucket CSR b_off/b_tids and term CSR t_off/t_bytes of
+    the native passes, the fold tr) on device.  SHORT tables (p 1) have
+    no gram hash: they are refused."""
+    if p < 2 or (long_ and p < 3):
+        raise ValueError("no gram hash for p_size %d (LONG %d)"
+                         % (p, long_))
+    mem = np.zeros(MAXHASH, dtype=bool)
+    m = np.asarray(member, dtype=bool)
+    mem[:len(m)] = m
+    words = np.packbits(mem, bitorder="little").view("<u4").view(np.int32)
+    hid = np.full(MAXHASH, -1, dtype=np.int32)
+    hid[:len(hash_id)] = np.asarray(hash_id, dtype=np.int32)
+    t_bytes = np.asarray(t_bytes, dtype=np.uint8)
+    if not len(t_bytes):
+        t_bytes = np.zeros(1, dtype=np.uint8)
+
+    def dev(a, dtype):
+        return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
+    return LineTables(dev(words, np.int32), dev(hid, np.int32),
+                      dev(b_off, np.int64), dev(b_tids, np.int64),
+                      dev(t_bytes, np.uint8), dev(t_off, np.int64),
+                      dev(tr, np.uint8), int(p), bool(long_),
+                      bool(wordbound))
+
+
+def qgram_lines(text: torch.Tensor, plane: torch.Tensor, tables: LineTables,
+                count_only: bool = False) -> tuple:
+    """The lines of text that hold a winner at a set bit of qgram_filter's
+    candidate plane: (rows, count).  At a set bit a >= p - 1 the winner is
+    the highest term of the gram's bucket that matches at a - (p - 1)
+    under the fold (and -w), as agrep_host.cpp's qgram_first_win gives
+    it; anchor a lies in line (newlines at positions <= a).  count: the
+    lines that hold a winner; rows: int64 [count, 2] on text's device,
+    each such line's first (anchor, term id) in stream order, None where
+    count_only.  A CUDA tensor goes to the kernel, a CPU tensor to
+    qgram_lines_reference."""
+    if text.dtype != torch.uint8 or text.dim() != 1:
+        raise TypeError("text must be a 1-D uint8 tensor, got %s %r"
+                        % (text.dtype, tuple(text.shape)))
+    N = text.numel()
+    if N == 0:
+        raise ValueError("empty text")
+    if plane.dtype != torch.int32 or tuple(plane.shape) != (-(-N // 32),):
+        raise TypeError("plane must be int32[%d], got %s %r"
+                        % (-(-N // 32), plane.dtype, tuple(plane.shape)))
+    if not (text.is_contiguous() and plane.is_contiguous()):
+        raise ValueError("text and plane must be contiguous")
+    if plane.device != text.device or tables.device != text.device:
+        raise ValueError("text on %s, plane on %s, tables on %s"
+                         % (text.device, plane.device, tables.device))
+    if text.is_cuda:
+        return _lines_launch(text, plane, tables, count_only)
+    if text.device.type == "cpu":
+        return qgram_lines_reference(text, plane, tables, count_only)
+    raise ValueError("no q-gram lines kernel for device %s" % text.device)
+
+
+def _is_alnum(c: torch.Tensor) -> torch.Tensor:
+    low = c | 0x20
+    return ((c >= 48) & (c <= 57)) | ((low >= 97) & (low <= 122))
+
+
+def anchor_winners(text: torch.Tensor, a: torch.Tensor,
+                   tables: LineTables) -> torch.Tensor:
+    """The winning term id at each anchor a (int64, p - 1 <= a < N), -1
+    where none: the exact member test of the gram hash, then its bucket
+    from the highest term down, a loop over the bucket depth and the term
+    bytes, vectorized across anchors."""
+    b = text.long()
+    N, p = b.numel(), tables.p
+    h = ((b[a] & 31) << 5) | (b[a - 1] & 31)
+    if tables.long_:
+        h = ((h << 5) | (b[a - 2] & 31)) & (MAXHASH - 1)
+    mw = tables.member.long() & 0xFFFFFFFF
+    member = torch.nonzero(((mw[h >> 5] >> (h & 31)) & 1) != 0).flatten()
+    out = torch.full_like(a, -1)
+    a, h = a[member], h[member]
+    tr = tables.tr.long()
+    tb = tables.t_bytes.long()
+    bk = tables.hash_id[h].long()
+    lo, hi = tables.b_off[bk], tables.b_off[bk + 1]
+    s = a - (p - 1)
+    win = torch.full_like(a, -1)
+    for d in range(int((hi - lo).max()) if len(a) else 0):
+        idx = torch.nonzero((hi - 1 - d >= lo) & (win < 0)).flatten()
+        if not len(idx):
+            break
+        tid = tables.b_tids[hi[idx] - 1 - d]
+        ss = s[idx]
+        o = tables.t_off[tid]
+        L = tables.t_off[tid + 1] - o
+        ok = ss + L <= N
+        for k in range(int(L.max())):
+            live = ok & (k < L)
+            if not live.any():
+                break
+            at = torch.nonzero(live).flatten()
+            same = tr[b[ss[at] + k]] == tr[tb[o[at] + k]]
+            ok[at[~same]] = False
+        if tables.wordbound:
+            end = ss + L
+            after = torch.where(end < N, b[end.clamp(max=N - 1)], 0)
+            before = torch.where(ss > 0, b[(ss - 1).clamp(min=0)], 0)
+            ok &= ~_is_alnum(after) & ~_is_alnum(before)
+        win[idx[ok]] = tid[ok]
+    out[member] = win
+    return out
+
+
+def qgram_lines_reference(text: torch.Tensor, plane: torch.Tensor,
+                          tables: LineTables,
+                          count_only: bool = False) -> tuple:
+    """Plain PyTorch version of the kernel, on any device: torch.nonzero
+    of the plane, each anchor's winner (anchor_winners), and each line's
+    first anchor through a cumsum of the newlines."""
+    dev = text.device
+    N, p = text.numel(), tables.p
+    w = plane.to(torch.int64) & 0xFFFFFFFF
+    nz = torch.nonzero(w).flatten()
+    shifts = torch.arange(32, dtype=torch.int64, device=dev)
+    bits = ((w[nz, None] >> shifts) & 1) != 0
+    a = (nz[:, None] * 32 + shifts)[bits]
+    a = a[(a >= p - 1) & (a < N)]
+    win = anchor_winners(text, a, tables)
+    a, win = a[win >= 0], win[win >= 0]
+    line = torch.cumsum(text == 0x0A, 0)[a]
+    first = torch.ones_like(a, dtype=torch.bool)
+    first[1:] = line[1:] != line[:-1]
+    K = int(first.sum())
+    if count_only:
+        return None, K
+    return torch.stack([a[first], win[first]], 1), K
+
+
+def _lines_bind():
+    lib = _cuda.load("qgram_lines")
+    if not getattr(lib, "_bound", False):
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        ip = ctypes.POINTER(ctypes.c_int)
+        head = [p, ll, p, p, p, p, p, p, p, p, ll, i, i]
+        for fn, args in (("sums", head + [p, p, i, p]),
+                         ("rows", head + [p, p, p, i, p])):
+            getattr(lib, "qgram_lines_" + fn).restype = i
+            getattr(lib, "qgram_lines_" + fn).argtypes = args
+        lib.qgram_lines_scan.restype = i
+        lib.qgram_lines_scan.argtypes = [p, p, ll, p, p, p, p]
+        lib.qgram_lines_geometry.restype = i
+        lib.qgram_lines_geometry.argtypes = [ip, ip, ip]
+        lib.qgram_lines_error_string.restype = ctypes.c_char_p
+        lib.qgram_lines_error_string.argtypes = [i]
+        lib._bound = True
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lines_geometry(index: int) -> tuple:
+    """(threads a block, plane words a block, threads of the scan's one
+    block) of the kernel."""
+    return _cuda.query(_lines_bind(), "qgram_lines", "qgram_lines_geometry",
+                       index, 3)
+
+
+def lines_grid(N: int, device) -> int:
+    """Blocks of qgram_lines' passes 1 and 3 over a text of N bytes."""
+    words = _lines_geometry(_cuda.device_index(device))[1]
+    return -(-(-(-N // 32)) // words)
+
+
+def _lines_call(fn: str, text, *args) -> None:
+    """One pass of the kernel on text's device and current stream."""
+    lib = _lines_bind()
+    dev = text.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(_cuda.device_index(dev)):
+        _cuda.check(lib, "qgram_lines", getattr(lib, "qgram_lines_" + fn)(
+            *args, stream), fn + " launch")
+
+
+def _table_args(text, plane, t: LineTables) -> tuple:
+    return (text.data_ptr(), text.numel(), plane.data_ptr(),
+            t.member.data_ptr(), t.hash_id.data_ptr(), t.b_off.data_ptr(),
+            t.b_tids.data_ptr(), t.t_bytes.data_ptr(), t.t_off.data_ptr(),
+            t.tr.data_ptr(), t.p, int(t.long_), int(t.wordbound))
+
+
+def _prefix(text, plane, tables: LineTables) -> tuple:
+    """Passes 1-2: (the count as a device tensor, the blocks' prefix
+    summaries pf and pmid, the grid, the tables' arguments)."""
+    dev = text.device
+    grid = lines_grid(text.numel(), dev)
+    args = _table_args(text, plane, tables)
+    bf = torch.empty(grid, dtype=torch.int32, device=dev)
+    bmid = torch.empty(grid, dtype=torch.int32, device=dev)
+    pf = torch.empty(grid + 1, dtype=torch.int32, device=dev)
+    pmid = torch.empty(grid + 1, dtype=torch.int64, device=dev)
+    total = torch.empty(1, dtype=torch.int64, device=dev)
+    _lines_call("sums", text, *args, bf.data_ptr(), bmid.data_ptr(), grid)
+    _lines_call("scan", text, bf.data_ptr(), bmid.data_ptr(), grid,
+                pf.data_ptr(), pmid.data_ptr(), total.data_ptr())
+    return total, pf, pmid, grid, args
+
+
+def lines_passes(text, plane, tables: LineTables, out=None) -> None:
+    """Passes 1-2 and, into out (an earlier call's rows of the same
+    inputs; None for a count), pass 3: the kernel's device work without
+    the host's read of the count (for timing it on the card)."""
+    _total, pf, pmid, grid, args = _prefix(text, plane, tables)
+    if out is not None and out.shape[0]:
+        _lines_call("rows", text, *args, pf.data_ptr(), pmid.data_ptr(),
+                    out.data_ptr(), grid)
+
+
+def _lines_launch(text, plane, tables: LineTables, count_only: bool) -> tuple:
+    """The kernel's passes on text's device, with the host's read of the
+    count after the second."""
+    total, pf, pmid, grid, args = _prefix(text, plane, tables)
+    K = int(total.item())
+    rows = None
+    if not count_only:
+        rows = torch.empty((K, 2), dtype=torch.int64, device=text.device)
+        if K:
+            _lines_call("rows", text, *args, pf.data_ptr(), pmid.data_ptr(),
+                        rows.data_ptr(), grid)
+    launches["qgram_lines"] += 1
+    return rows, K

@@ -315,6 +315,18 @@ def line_rows_bound(K: int, R: int) -> tuple:
     return _bound(9 * K + 40 * R, 3 * K + 4 * R)
 
 
+def qgram_lines_bound(N: int, K: int, cand: int = 0) -> tuple:
+    """(bound_ms, bound_by) of one q-gram line fold of an N-byte text
+    into K rows: the text and qgram_filter's plane read once and each
+    row (two int64) written once over HBM's rate, against a byte's
+    newline test and segment fold (1) and, at each of the plane's cand
+    set bits, the gram hash and its member test (5: two shifts, an OR,
+    the bit's shift and test) over the card's int32 rate.  The bucket
+    walks behind the member tests are left out (about 0.15 % of the
+    positions on config5q's data)."""
+    return _bound(N + 4 * -(-N // 32) + 16 * K, N + 5 * cand)
+
+
 def time_kernel(fn, reps: int = 5) -> float:
     """ms per call of fn on the card: CUDA events around reps calls after
     one warm-up call.  The card first spins (SPIN_CYCLES a call, doubled

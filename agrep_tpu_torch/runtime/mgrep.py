@@ -117,6 +117,7 @@ class MgrepEngine:
         self._chain_prog = None       # exact device scan program
         self._chain_tried = False
         self._chain_dev = None        # its tensors on the scan device
+        self._qgram_dev = None        # the q-gram tables on the device
         self._vmode = False          # scanning a clamped virtual stream
         self._plain_dirty = False    # non-newline trim mark on the
                                      # plain path (newline-free final
@@ -649,6 +650,38 @@ class MgrepEngine:
         return (self._device_route(n) and not self.q.opts.wordbound
                 and self._chain_program() is not None)
 
+    def _qgram_counts(self, n: int) -> bool:
+        """Whether a pure -c of a stream of n bytes counts its lines on
+        the card through qgram_lines: on the device route, past the chain
+        kernel's caps, with ONE_PASS_MIN or more live terms and a table
+        that is not SHORT (a shortest term of two bytes or more: it has a
+        2-gram projection); -w included."""
+        return (self._device_route(n) and self.p_size > 1
+                and self._chain_program() is None
+                and sum(1 for t in self.terms if t) >= ONE_PASS_MIN)
+
+    def _qgram_lines(self, stream: np.ndarray, tb, count_only: bool):
+        """(rows, count) of qgram_lines (ops/qgram_kernel.py) over the
+        stream on the scan device: qgram_filter's candidate plane verified
+        and folded by line on the card, so only the count, or one
+        (anchor, term id) row a matching line, comes back.  The tables go
+        to the device once per engine and device."""
+        from ..compile import multi as multi_mod
+        from ..ops import qgram_kernel
+        from . import trace
+        text, plane = self._qgram_plane(
+            stream, multi_mod.member_projection_1024(tb))
+        if self._qgram_dev is None or self._qgram_dev.device != text.device:
+            self._qgram_dev = qgram_kernel.line_tables(
+                tb.member, tb.hash_id, *self._qgram_csr_tables(tb), self.tr,
+                tb.p_size, tb.long_, self.q.opts.wordbound, text.device)
+        rows, k = qgram_kernel.qgram_lines(text, plane, self._qgram_dev,
+                                           count_only)
+        if trace.ENABLED:
+            trace.add("qgram_lines")
+            trace.add("qgram_line_rows", 0 if rows is None else k)
+        return rows, k
+
     def _qgram_plane(self, stream: np.ndarray, proj: np.ndarray):
         """(text, candidate plane) of the q-gram kernel
         (ops/qgram_kernel.py) over the stream on the scan device: the
@@ -968,28 +1001,17 @@ class MgrepEngine:
     def _qgram_csr_tables(self, tb):
         """CSR-packed bucket/term tables for the native q-gram pass."""
         if self._qgram_csr is None:
-            bl = tb.bucket_list or []
-            b_off = np.zeros(len(bl) + 1, dtype=np.int64)
-            for i, ids in enumerate(bl):
-                b_off[i + 1] = b_off[i] + len(ids)
-            b_tids = (np.concatenate(bl).astype(np.int64)
-                      if bl else np.zeros(0, dtype=np.int64))
-            t_off = np.zeros(len(self.terms) + 1, dtype=np.int64)
-            for i, t in enumerate(self.terms):
-                t_off[i + 1] = t_off[i] + len(t)
-            t_bytes = np.frombuffer(
-                b"".join(self.terms), dtype=np.uint8).copy()
-            if not len(t_bytes):
-                t_bytes = np.zeros(1, dtype=np.uint8)
-            self._qgram_csr = (b_off, b_tids, t_bytes, t_off)
+            from ..compile import multi as multi_mod
+            self._qgram_csr = multi_mod.csr_tables(tb, self.terms)
         return self._qgram_csr
 
     def _first_match_count(self, stream: np.ndarray, tb) -> int | None:
         """Matched-line COUNT via the native pass, no materialized
         occurrence table (one corpus walk, no output growth); None when
         the native library is unavailable.  Where _chain_counts holds,
-        the count of lines that hold a chain-kernel start instead,
-        computed on the device."""
+        the count of lines that hold a chain-kernel start instead, and
+        where _qgram_counts holds the count of qgram_lines, both computed
+        on the device."""
         if len(stream) < tb.p_size:
             return 0
         if self._chain_counts(len(stream)):
@@ -999,6 +1021,8 @@ class MgrepEngine:
             from ..ops import chain_kernel
             text, plane = self._chain_plane(stream)
             return chain_kernel.lines_with_starts(text, plane)
+        if self._qgram_counts(len(stream)):
+            return self._qgram_lines(stream, tb, True)[1]
         from .. import native
         if native.get_lib() is None:
             return None
@@ -1059,31 +1083,17 @@ class MgrepEngine:
         if n < p:
             return occ
         # on the device route the chain scan has declined this term set
-        # (_all_occurrences tried it first): the q-gram kernel marks
-        # candidate anchors (a sound superset), the native pass verifies
-        # them all at once, and each line keeps its first verified
-        # anchor; without the native library the sparse per-line verify
-        # below takes them.  SHORT tables have no projection and stay on
-        # the host
-        anchors = None
-        if self._device_route(n):
-            proj = multi_mod.member_projection_1024(tb)
-            if proj is not None:
-                anchors = self._qgram_positions(stream, proj)
-                anchors = anchors[anchors >= p - 1]
-                best = self._verify_native(stream, tb, anchors)
-                if best is not None:
-                    hit = best >= 0
-                    anchors, best = anchors[hit], best[hit]
-                    nl = np.flatnonzero(stream == 0x0A)
-                    line_of = np.searchsorted(nl, anchors + 1, side="left")
-                    _u, first = np.unique(line_of, return_index=True)
-                    return self._occ_from_pairs(anchors[first], best[first],
-                                                p)
+        # (_all_occurrences tried it first): qgram_lines verifies the
+        # q-gram kernel's candidates on the card and sends back each
+        # line's first winner.  SHORT tables have no projection and stay
+        # on the host
+        if self._device_route(n) and not tb.short:
+            rows = self._qgram_lines(stream, tb, False)[0].cpu().numpy()
+            return self._occ_from_pairs(rows[:, 0], rows[:, 1], p)
         # native twin: the same dense filter + bucket verify + line
         # jump as one C pass (agrep_host.cpp qgram_first_per_line)
         from .. import native
-        if anchors is None and native.get_lib() is not None:
+        if native.get_lib() is not None:
             b_off, b_tids, t_bytes, t_off = self._qgram_csr_tables(tb)
             out = native.qgram_first_per_line(
                 stream, tb.member, tb.hash_id, b_off, b_tids,
@@ -1095,10 +1105,9 @@ class MgrepEngine:
                     tid = int(tid)
                     occ[tid] = res_a[res_i == tid] - (p - 1)
                 return occ
-        if anchors is None:
-            h = multi_mod.qgram_hashes(stream, tb, self.tr)
-            rel = np.flatnonzero(tb.member[h])
-            anchors = rel + (0 if tb.short else p - 1)
+        h = multi_mod.qgram_hashes(stream, tb, self.tr)
+        rel = np.flatnonzero(tb.member[h])
+        anchors = rel + (0 if tb.short else p - 1)
         if not len(anchors):
             return occ
         nl = np.flatnonzero(stream == 0x0A)
@@ -1159,28 +1168,6 @@ class MgrepEngine:
             stream, anchors, tb.member, tb.hash_id, b_off, b_tids,
             t_bytes, t_off, self.tr, tb.p_size, bool(tb.long_),
             bool(tb.short))
-
-    def _verify_native(self, stream: np.ndarray, tb,
-                       anchors: np.ndarray) -> np.ndarray | None:
-        """_verify_at's result (the winning term per ascending candidate
-        anchor, -1 where none verifies) from one native pass over all
-        the anchors; None when the lib is unavailable."""
-        out = self._verified_at(stream, tb, anchors)
-        if out is None:
-            return None
-        res_a, res_i = out
-        n = len(stream)
-        if self.q.opts.wordbound and len(res_a):
-            t_off = self._qgram_csr_tables(tb)[3]
-            s = res_a - (tb.p_size - 1)
-            ap = s + (t_off[res_i + 1] - t_off[res_i])
-            after = np.where(ap < n, stream[np.minimum(ap, n - 1)], 0)
-            before = np.where(s >= 1, stream[np.maximum(s - 1, 0)], 0)
-            ok = ~_ISALNUM_TAB[after] & ~_ISALNUM_TAB[before]
-            res_a, res_i = res_a[ok], res_i[ok]
-        best = np.full(len(anchors), -1, dtype=np.int64)
-        np.maximum.at(best, np.searchsorted(anchors, res_a), res_i)
-        return best
 
     def _occ_from_pairs(self, res_a: np.ndarray, res_i: np.ndarray,
                         p: int) -> dict:
@@ -1533,13 +1520,15 @@ class MgrepEngine:
         # and the newline index drops two O(file) allocations whose
         # first-touch page faults dominate wall time on large files.
         # On the device route it counts from the chain kernel's starts
-        # (_chain_counts) or steps aside.
+        # (_chain_counts) or, past the chain caps, qgram_lines' lines
+        # (_qgram_counts), or steps aside.
         if (not memory_mode and not q.delimiter_opt and self.p_size > 1
                 and o.count and not o.invert and not o.filename_only
                 and not o.silent and o.limit_output <= 0
                 and o.limit_per_file <= 0
                 and (not self._device_route(len(data))
-                     or self._chain_counts(len(data)))
+                     or self._chain_counts(len(data))
+                     or self._qgram_counts(len(data)))
                 and self._fast_or_applicable(o, q)):
             if self._qgram_tables is None:
                 from ..compile import multi as multi_mod2

@@ -8,10 +8,11 @@ exits non-zero:
 
   1. card: the GPU's name and power limit (nvidia-smi) and the torch and
      CUDA versions;
-  2. build: compiles the eight kernel sources (csrc/mask_scan.cu,
+  2. build: compiles the nine kernel sources (csrc/mask_scan.cu,
      renfa_lanes.cu, chain_scan.cu, qgram_filter.cu, event_pairs.cu,
-     record_verdicts.cu, line_index.cu, line_rows.cu) with nvcc, every
-     compile unit of all eight started together, and times the build;
+     record_verdicts.cu, line_index.cu, line_rows.cu, qgram_lines.cu)
+     with nvcc, every compile unit of all nine started together, and
+     times the build;
   3. parity: the mask_scan kernel against its plain PyTorch version
      (mask_scan_reference) on the card, bit for bit, over every variant,
      D, cost wiring, endpos shape and edge size the kernel takes (sizes
@@ -70,8 +71,16 @@ exits non-zero:
      and before a newline, and config 4's 32 MB chunk, the texts also as
      views 1-15 bytes past an aligned address, line_rows with and without
      -v, three kept-ordinal ranges, with and without a glitch byte, rows
-     and count alone, and with ordinals outside 0..K-1; phase 4 repeats
-     every check at the main path's shapes;
+     and count alone, and with ordinals outside 0..K-1; and the
+     qgram_lines stage against qgram_lines_reference, bit for bit (rows
+     and count alone), on 2-gram and LONG tables with and without -i and
+     -w, the edge set (a bucket's highest term failing -w where a lower
+     one passes, a term past the text's end, an anchor at p - 1, empty
+     lines, a final line without a newline, many winners on a line, a
+     text shorter than p), a LONG set over 33 MB and config5q's patterns
+     over 8 MB of its records, each with qgram_filter's plane, with no
+     bit and with every bit set, on views 1-15 bytes past an aligned
+     address; phase 4 repeats every check at the main path's shapes;
   4. main path: a --mb MB ASCII corpus made from --seed, searched through
      agrep_tpu_torch.api.fileagrep with BASELINE configs 1-4 (the file
      is over the streaming threshold, so each run is chunked; config 4,
@@ -83,13 +92,18 @@ exits non-zero:
      count with 400 patterns (config5c400; both counts count the lines
      that hold a chain start on the card: one line count a launch, no
      start positions read back), a count with the 400 patterns holding
-     154 byte classes, past the chain kernel's caps (config5q), a
+     154 byte classes, past the chain kernel's caps (config5q, counted
+     on the card by qgram_lines: one launch, no candidate positions read
+     back), the same set's matching lines (config5qn, qgram_lines' rows;
+     agrep refuses -n with -f; printed whole, as a file under
+     AGREP_TORCH_STREAM_MB is: WHOLE_FILE_RUNS), a
      boolean AND over '$$' records (bool5, the chain kernel), and a
      boolean with a term of 136 byte classes, past the chain caps
      (bool5m, the mask machine's packed term words); stdout and return
      codes must equal the port's own numpy host backend, whose walls are
      printed beside the GPU route's, and every run must launch its
-     kernel (config5q the q-gram kernel and no chain kernel); with
+     kernel (config5q and config5qn the q-gram kernel and qgram_lines
+     once each, and no chain kernel); with
      tracing on, every -d run must leave the counter qgram_candidates
      at 0 (no call of compile/multi.py's qgram_occurrences), and config5
      must take its records' rows from the native pass over the card's
@@ -129,7 +143,12 @@ exits non-zero:
      newlines and a stable torch.sort of the lengths; index_put_ of the
      flags, torch.nonzero and gathers) at config 4's first window (the
      lanes kernel timed on that window's index too) and the memagrep
-     buffer, each checked bit for bit against the plain version and the
+     buffer, and qgram_lines' (rows or count, grid; its passes' device
+     time, the wrapper's with the host's read of the count, the plain
+     version's and a library composite's: torch.nonzero of the plane,
+     gathers, a padded term matrix's compare and torch.cumsum of the
+     newlines) at config5q's and config5qn's 100 MB streams, each checked
+     bit for bit against the plain version and the
      composite first, each on a line of its own; then one JSON line with
      each kernel's launches on the main path, its time, its plain
      version's time and its bound on this card;
@@ -167,9 +186,11 @@ exits non-zero:
      port's GPU route against its own numpy host backend, stdout and
      exit code compared exactly.  Its line gives the cases by mode,
      the divergences, the cases over the tool's time limit with their
-     seeds, each kernel's launches (the counts set to 0 just before it)
-     and the seconds; any divergence or crash, or a kernel launched no
-     time, fails the run.
+     seeds, each kernel's launches (the counts set to 0 just before it),
+     the cases that launch qgram_lines and the seconds; any divergence or
+     crash, or a kernel launched no time, fails the run (qgram_lines
+     excepted: only the past-caps stratum's 30-term counts and whole-file
+     prints take it, and its count is reported).
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device,
 or without the agrep_tpu_torch package beside it, the script exits
@@ -179,6 +200,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import io
 import json
@@ -1388,6 +1410,253 @@ def phase_parity_multi(device: str, seed: int, big: int, pats400) -> tuple:
     return float(worst["chain_scan"]), float(worst["qgram_filter"])
 
 
+def qgram_line_tables(terms, fold: bool, wordbound: bool, device):
+    """(compile/multi.py's q-gram tables of the terms, the same as
+    qgram_lines takes them on device)."""
+    from agrep_tpu_torch.compile import multi
+    from agrep_tpu_torch.ops import qgram_kernel
+    from agrep_tpu_torch.runtime.mgrep import _fold_tr
+    tr = _fold_tr(fold)
+    tb = multi.build_qgram_tables(terms, tr)
+    return tb, qgram_kernel.line_tables(
+        tb.member, tb.hash_id, *multi.csr_tables(tb, terms), tr, tb.p_size,
+        tb.long_, wordbound, device)
+
+
+# terms in buckets of several (tests/test_torch_qgram_lines.py's edge
+# set): at -w "abc" (a higher id) matches inside "abcd" and fails the word
+# test where "abcd" passes; "hijklmnx" would end past the text's end where
+# the lower "hijklm" fits
+QLINE_EDGE_TERMS = [b"abcd", b"abc", b"hijklm", b"hijklmnx", b"xyz", b"xyzw",
+                    b"efg"] + [b"q%02dz" % i for i in range(30)]
+QLINE_EDGE_TEXT = (b"abc xyz abcd\n\n\nefg efg abcd xyzw\n abcd \n\nxyz\n"
+                   b"nothing here\nq07z q08z\n" * 3 + b"tail hijklm")
+# views of the text this many bytes past an aligned address
+QLINE_OFFSETS = (0, 1, 2, 3, 5, 8, 13, 15)
+
+
+def qgram_line_cases(seed: int, pats400):
+    """(name, terms, u8 numpy text, fold, wordbound) of every input phase
+    3 holds qgram_lines to: 2-gram and LONG tables with and without -i
+    and -w over 64 KB of letters, spaces and newlines with empty lines,
+    the terms planted; the edge set (a bucket's highest term failing -w
+    where a lower one passes, a term past the text's end, an anchor at
+    p - 1, empty lines, a final line without a newline, a line with many
+    winners, a text shorter than p); a LONG set over 33 MB (more blocks
+    than the scan's threads); and config5q's 400 wide patterns over 8 MB
+    of its records corpus."""
+    import numpy as np
+    rng = np.random.default_rng(seed + 17)
+    al = np.frombuffer(b"abcdefghij", np.uint8)
+
+    def words(k, lo, hi):
+        return [bytes(rng.choice(al, int(rng.integers(lo, hi))))
+                for _ in range(k)]
+
+    def text(terms, n, fold):
+        t = rng.choice(np.frombuffer(b"abcdefghij  ", np.uint8), n)
+        t[rng.random(n) < 1 / 30] = 0x0A
+        for term in terms:
+            for off in rng.integers(0, max(1, n - len(term)),
+                                    max(3, n // 20000)):
+                b = np.frombuffer(term, np.uint8)
+                if fold and rng.integers(0, 2):
+                    b = b - 32 * ((b >= 97) & (b <= 122))
+                t[off:off + len(b)] = b[:n - off]
+        return t
+
+    out = []
+    for long_ in (False, True):
+        for fold in (False, True):
+            for wb in (False, True):
+                terms = words(120 if long_ else 30, 3, 9)
+                out.append(("%s%s%s" % ("LONG" if long_ else "2-gram",
+                                        " -i" if fold else "",
+                                        " -w" if wb else ""),
+                            terms, text(terms[::3], 1 << 16, fold), fold, wb))
+    edge = np.frombuffer(QLINE_EDGE_TEXT, np.uint8)
+    for wb in (False, True):
+        w = " -w" if wb else ""
+        out.append(("edge" + w, QLINE_EDGE_TERMS, edge, False, wb))
+        out.append(("edge LONG" + w, QLINE_EDGE_TERMS + words(60, 4, 8),
+                    edge, False, wb))
+        out.append(("edge -i" + w, QLINE_EDGE_TERMS,
+                    np.frombuffer(QLINE_EDGE_TEXT.upper(), np.uint8), True,
+                    wb))
+        out.append(("head, tail" + w, QLINE_EDGE_TERMS,
+                    np.frombuffer(b"abcd x\nq01z", np.uint8), False, wb))
+    for name, t in (("empty lines", b"\n" * 40 + b"xyz\n\n\nabc"),
+                    ("one line", b"abc abc abcd xyz q03z q03z"),
+                    ("short", b"ab")):
+        out.append((name, QLINE_EDGE_TERMS, np.frombuffer(t, np.uint8),
+                    False, False))
+    terms = words(120, 3, 9)
+    out.append(("LONG 33 MB", terms, text(terms[::3], 33 << 20, False),
+                False, False))
+    recs = make_records(make_corpus(8 << 20, seed), seed)
+    out.append(("pats400w 8 MB", wide_patterns(pats400), recs, False,
+                False))
+    return out
+
+
+def _qlines_diff(got, want) -> int:
+    """Largest |kernel - plain| over the rows and the count; a different
+    count counts as a difference of the larger count."""
+    (gr, gk), (wr, wk) = got, want
+    if gk != wk:
+        return max(gk, wk, 1)
+    if (gr is None) != (wr is None):
+        return 1
+    if gr is None or gk == 0:
+        return 0
+    return _max_diff(gr, wr)
+
+
+def phase_parity_qgram_lines(device: str, seed: int, pats400) -> float:
+    """qgram_lines against qgram_lines_reference on the card, bit for bit
+    (rows and count alone), on every input of qgram_line_cases with
+    qgram_filter's plane, a plane with no bit and one with every bit set,
+    and on views QLINE_OFFSETS bytes past an aligned address in a buffer
+    of letters (a read past the view would change a -w verdict).  Returns
+    the largest |kernel - plain| (0 or fail)."""
+    import torch
+
+    from agrep_tpu_torch.compile import multi
+    from agrep_tpu_torch.ops import kernels, qgram_kernel as qk
+    worst = 0
+    failed = []
+    t0 = time.perf_counter()
+    for name, terms, arr, fold, wb in qgram_line_cases(seed, pats400):
+        tb, tables = qgram_line_tables(terms, fold, wb, device)
+        text = kernels.to_device(arr, device)
+        words = qk.words_tensor(multi.member_projection_1024(tb), device)
+        plane = qk.qgram_filter(text, words)
+        want = qk.qgram_lines_reference(text, plane, tables)
+        planes = [("plane", plane, want),
+                  ("no bit", torch.zeros_like(plane), None),
+                  ("every bit", torch.full_like(plane, -1), None)]
+        big = arr.size > (1 << 20)
+        for pname, pl, ref in planes:
+            if ref is None:
+                ref = qk.qgram_lines_reference(text, pl, tables)
+            for off in QLINE_OFFSETS[:2] if big else QLINE_OFFSETS:
+                t = text
+                if off:
+                    buf = torch.full((arr.size + off + 16,), ord("a"),
+                                     dtype=torch.uint8, device=device)
+                    t = buf[off:off + arr.size]
+                    t.copy_(text)
+                for count_only in (False, True):
+                    r = (None, ref[1]) if count_only else ref
+                    diff = _qlines_diff(qk.qgram_lines(t, pl, tables,
+                                                       count_only), r)
+                    worst = max(worst, diff)
+                    if diff:
+                        failed.append((name, pname, off, count_only, diff))
+        print("parity: qgram_lines %-16s %2s terms, LONG=%d, p=%d, -w=%d, "
+              "%d B, %d lines hold a winner (every bit: %d), views at %s: "
+              "equal bit for bit, rows and count"
+              % (name, len(terms), tb.long_, tb.p_size, wb, arr.size,
+                 want[1], qk.qgram_lines_reference(
+                     text, torch.full_like(plane, -1), tables)[1],
+                 list(QLINE_OFFSETS[:2] if big else QLINE_OFFSETS)))
+        del text, plane
+    torch.cuda.synchronize()
+    print("parity: qgram_lines in %.1f s" % (time.perf_counter() - t0))
+    if failed:
+        raise AssertionError("qgram_lines differs from its plain version: "
+                             "%s" % failed[:20])
+    return float(worst)
+
+
+def qlines_library(text, plane, tables):
+    """The function of qgram_lines as a composite of PyTorch calls on the
+    card (the yardstick of library_ms): the plane unpacked by shifts and
+    torch.nonzero, the gram hashes and member bits gathered, each bucket
+    depth's terms compared whole through a gather of a padded term matrix,
+    and each line's first winner through a torch.cumsum of the newlines:
+    (rows, count)."""
+    import torch
+    dev = text.device
+    N, p = text.numel(), tables.p
+    shifts = torch.arange(32, dtype=torch.int64, device=dev)
+    bits = ((plane.to(torch.int64)[:, None] >> shifts) & 1).flatten()
+    a = torch.nonzero(bits).flatten()
+    a = a[(a >= p - 1) & (a < N)]
+    b = text.long()
+    h = ((b[a] & 31) << 5) | (b[a - 1] & 31)
+    if tables.long_:
+        h = ((h << 5) | (b[a - 2] & 31)) & 32767
+    mw = tables.member.long() & 0xFFFFFFFF
+    member = ((mw[h >> 5] >> (h & 31)) & 1) != 0
+    a, h = a[member], h[member]
+    t_off, tr = tables.t_off, tables.tr.long()
+    lens = t_off[1:] - t_off[:-1]
+    L = int(lens.max())
+    k = torch.arange(L, dtype=torch.int64, device=dev)
+    at = (t_off[:-1, None] + k).clamp(max=tables.t_bytes.numel() - 1)
+    terms = tr[tables.t_bytes.long()[at]]                    # [terms, L]
+    bk = tables.hash_id[h].long()
+    lo, hi = tables.b_off[bk], tables.b_off[bk + 1]
+    win = torch.full_like(a, -1)
+    s = a - (p - 1)
+    for d in range(int((hi - lo).max()) if a.numel() else 0):
+        j = hi - 1 - d
+        tid = tables.b_tids[j.clamp(min=0)]
+        ln = lens[tid]
+        got = tr[b[(s[:, None] + k).clamp(max=N - 1)]]
+        ok = ((got == terms[tid]) | (k >= ln[:, None])).all(1)
+        ok &= (j >= lo) & (win < 0) & (s + ln <= N)
+        if tables.wordbound:
+            aft = torch.where(s + ln < N, b[(s + ln).clamp(max=N - 1)], 0)
+            bef = torch.where(s > 0, b[(s - 1).clamp(min=0)], 0)
+            aln = [((c >= 48) & (c <= 57)) | (((c | 32) >= 97)
+                                              & ((c | 32) <= 122))
+                   for c in (aft, bef)]
+            ok &= ~aln[0] & ~aln[1]
+        win = torch.where(ok, tid, win)
+    a, win = a[win >= 0], win[win >= 0]
+    line = torch.cumsum(text == 0x0A, 0)[a]
+    first = torch.ones_like(a, dtype=torch.bool)
+    first[1:] = line[1:] != line[:-1]
+    return torch.stack([a[first], win[first]], 1), int(first.sum())
+
+
+def qlines_alone(name, text, plane, tables, count_only: bool) -> dict:
+    """qgram_lines at one main-path input: the kernel against its plain
+    version and against qlines_library, bit for bit; its device time
+    (every pass the run takes, without the host's read of the count), the
+    wrapper's with that read, the plain version's, the library
+    composite's and the bound."""
+    from agrep_tpu_torch.ops import qgram_kernel as qk
+    from agrep_tpu_torch.ops.timing import qgram_lines_bound, time_kernel
+    got = qk._lines_launch(text, plane, tables, False)
+    ref = qk.qgram_lines_reference(text, plane, tables)
+    diff = max(_qlines_diff(got, ref),
+               _qlines_diff(got, qlines_library(text, plane, tables)),
+               _qlines_diff(qk._lines_launch(text, plane, tables, True),
+                            (None, ref[1])))
+    if diff:
+        raise AssertionError("%s: qgram_lines differs from its plain "
+                             "version or the library composite on %d bytes "
+                             "(max |diff| %d)" % (name, text.numel(), diff))
+    rows, K = got
+    out = None if count_only else rows
+    ms = time_kernel(lambda: qk.lines_passes(text, plane, tables, out))
+    wrapper_ms = _host_ms(lambda: qk._lines_launch(text, plane, tables,
+                                                   count_only))
+    plain_ms = _time_plain(lambda: qk.qgram_lines_reference(
+        text, plane, tables, count_only))
+    library_ms = _host_ms(lambda: qlines_library(text, plane, tables))
+    bms, by = qgram_lines_bound(text.numel(), 0 if count_only else K,
+                                _set_bits(plane))
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
+            "K": K, "shape_b": text.numel(), "count_only": count_only,
+            "grid": qk.lines_grid(text.numel(), text.device),
+            "max_abs_err": diff}
+
+
 def _run(api_fn, argv, data=None):
     """(stdout sha256, exit code, stdout bytes, lines printed but the
     Grand Total) of one search in this process."""
@@ -1428,6 +1697,29 @@ def _max_diff(a, b) -> int:
 
 # the runs that must read their events back through event_pairs
 PAIRS_RUNS = ("config1", "config2", "config3", "memagrep", "bool5m")
+# the runs past the chain caps whose lines qgram_lines folds on the card
+QLINE_RUNS = ("config5q", "config5qn")
+# AGREP_TORCH_STREAM_MB of the runs that print a file whole, as a file
+# under the streaming threshold is printed: at the default 8 MB a 100 MB
+# file's flat-OR print streams its chunks through a per-term host find
+# on both backends (55 s for config5qn's 400 patterns)
+WHOLE_FILE_RUNS = {"config5qn": "128"}
+
+
+@contextlib.contextmanager
+def stream_mb(name: str):
+    """The run's AGREP_TORCH_STREAM_MB (WHOLE_FILE_RUNS), restored
+    after."""
+    was = os.environ.get("AGREP_TORCH_STREAM_MB")
+    if name in WHOLE_FILE_RUNS:
+        os.environ["AGREP_TORCH_STREAM_MB"] = WHOLE_FILE_RUNS[name]
+    try:
+        yield
+    finally:
+        if was is None:
+            os.environ.pop("AGREP_TORCH_STREAM_MB", None)
+        else:
+            os.environ["AGREP_TORCH_STREAM_MB"] = was
 
 
 def _host_ms(fn, reps: int = 5) -> float:
@@ -1787,6 +2079,7 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
     seen: dict = {}
     real = {"chain_scan": (chain_kernel, chain_kernel.chain_scan),
             "qgram_filter": (qgram_kernel, qgram_kernel.qgram_filter),
+            "qgram_lines": (qgram_kernel, qgram_kernel.qgram_lines),
             "mask_scan": (kernels, kernels.mask_scan),
             "event_pairs": (kernels, kernels.event_pairs),
             "record_verdicts": (kernels, kernels.record_verdicts),
@@ -1884,6 +2177,9 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
              "chain_scan"),
             ("config5q", api.fileagrep, ["-c", "-f", p400w, rec], None,
              "qgram_filter"),
+            # the lines themselves (agrep refuses -n with -f)
+            ("config5qn", api.fileagrep, ["-f", p400w, rec], None,
+             "qgram_filter"),
             ("memagrep5", api.memagrep, c5, mem_records, "chain_scan"),
             ("bool5", api.fileagrep, CONFIG5_DELIM + ["hello;lazy", rec],
              None, "chain_scan"),
@@ -1926,7 +2222,8 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                 seen.clear()
                 rv_calls.clear()
                 t0 = time.perf_counter()
-                got[name] = _run(fn, argv, data)
+                with stream_mb(name):
+                    got[name] = _run(fn, argv, data)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 n = {k: c[k] - before[k] for k, c in counts.items()}
@@ -1951,10 +2248,15 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                 if name == "config5" and not at_n:
                     raise AssertionError("config5: the -d flat-OR path did "
                                          "not walk the card's anchors")
-                if name == "config5q" and n["chain_scan"]:
-                    raise AssertionError("config5q launched the chain "
-                                         "kernel past its caps")
                 r = {k: reads[k] - reads_before[k] for k in reads}
+                if name in QLINE_RUNS and (
+                        n["chain_scan"] or n["qgram_lines"] != 1
+                        or r["plane_positions"]):
+                    raise AssertionError(
+                        "%s: past the caps the run launched chain_scan %d "
+                        "times and qgram_lines %d times, and read %s back, "
+                        "not one qgram_lines launch and no positions"
+                        % (name, n["chain_scan"], n["qgram_lines"], r))
                 if name.startswith("config5c") and (
                         r["lines_with_starts"] != n["chain_scan"]
                         or r["plane_positions"]):
@@ -1965,6 +2267,7 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                 inputs[name] = dict(seen)
                 res[name] = {"wall_s": wall, "launches": n[kname],
                              "pairs_launches": n["event_pairs"],
+                             "qlines_launches": n["qgram_lines"],
                              "kernel": kname, "reads": r,
                              "records": records, "qgram_candidates": qcand,
                              "anchor_passes": at_n}
@@ -1998,7 +2301,8 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
         try:
             for name, fn, argv, data, _k in runs:
                 t0 = time.perf_counter()
-                want = _run(fn, argv, data)
+                with stream_mb(name):
+                    want = _run(fn, argv, data)
                 res[name]["host_wall_s"] = time.perf_counter() - t0
                 if got[name][:2] != want[:2]:
                     raise AssertionError(
@@ -2095,7 +2399,7 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
     launch_fns = {"chain_scan": chain_kernel._launch,
                   "qgram_filter": qgram_kernel._launch,
                   "mask_scan": kernels._launch}
-    for name, _fn, _argv, _data, kname in runs[-7:]:
+    for name, _fn, _argv, _data, kname in runs[-8:]:
         args = inputs[name][kname]
         N = args[0].numel()
         ms = time_kernel(lambda: launch_fns[kname](*args))
@@ -2123,6 +2427,9 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
         if name == "bool5m":
             res[name]["pairs"] = pairs_alone(
                 name, *inputs[name]["event_pairs"])
+        if name in QLINE_RUNS:
+            res[name]["qlines"] = qlines_alone(
+                name, *inputs[name]["qgram_lines"][:3], name == "config5q")
 
     # the record cut alone at the first chunk's pairs of each record run
     for name in RECORD_RUNS:
@@ -2131,7 +2438,8 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
 
     for name, fn, argv, data, kname in runs:
         r = res[name]
-        src = ("records " if name.endswith(("5", "5c", "5c400", "5q", "5m"))
+        src = ("records " if name.endswith(("5", "5c", "5c400", "5q", "5qn",
+                                            "5m"))
                else "")
         where = ("%d MB %sbuffer" % (mb, src) if data is not None
                  else "%d MB %sfile" % (mb, src))
@@ -2153,6 +2461,14 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
     for name in ("config5c", "config5c400"):
         print("main: %s counted its lines on the card: %s" % (
             name, res[name]["reads"]))
+    for name in QLINE_RUNS:
+        r = res[name]
+        print("main: %s verified its candidates on the card through "
+              "qgram_lines (%d launch): %d %s back, no candidate positions "
+              "read (%s)" % (name, r["qlines_launches"], r["qlines"]["K"],
+                             "lines counted, the count" if
+                             r["qlines"]["count_only"] else "rows read",
+                             r["reads"]))
     for name, _fn, _argv, _data, kname in runs:
         r = res[name]
         if r["records"]:
@@ -2230,7 +2546,8 @@ def _launch_counts():
             "line_index": renfa_kernel.launches,
             "line_rows": renfa_kernel.launches,
             "chain_scan": chain_kernel.launches,
-            "qgram_filter": qgram_kernel.launches}
+            "qgram_filter": qgram_kernel.launches,
+            "qgram_lines": qgram_kernel.launches}
 
 
 def _launched(counts) -> dict:
@@ -2573,17 +2890,35 @@ def phase_sweep(card: str) -> None:
     spec.loader.exec_module(tool)
     counts = _launch_counts()
     _zero(counts)
-    res = tool.sweep(SWEEP_RUNS, ref="numpy", device="cuda",
-                     out=lambda line: print("sweep: %s" % line))
+    # the cases that launch qgram_lines: a -f set past the chain caps of
+    # 24 or more terms, counted or printed whole
+    real_case = tool.check_case
+    qline_cases = [0]
+
+    def case_counted(*a, **kw):
+        before = counts["qgram_lines"]["qgram_lines"]
+        try:
+            return real_case(*a, **kw)
+        finally:
+            qline_cases[0] += counts["qgram_lines"]["qgram_lines"] > before
+    tool.check_case = case_counted
+    try:
+        res = tool.sweep(SWEEP_RUNS, ref="numpy", device="cuda",
+                         out=lambda line: print("sweep: %s" % line))
+    finally:
+        tool.check_case = real_case
     launched = _launched(counts)
     print("sweep: cases %s, divergences %d, crashes %d, over_limit %s, "
-          "launches %s, %.1f s | card: %s"
+          "launches %s, cases that launch qgram_lines %d, %.1f s | card: %s"
           % (json.dumps(res["cases"]), res["divergences"], res["crashes"],
-             json.dumps(res["over_limit"]), launched, res["seconds"], card))
+             json.dumps(res["over_limit"]), launched, qline_cases[0],
+             res["seconds"], card))
     if res["divergences"] or res["crashes"]:
         raise AssertionError("sweep: %d divergences, %d crashes"
                              % (res["divergences"], res["crashes"]))
-    idle = [k for k, n in launched.items() if n == 0]
+    # qgram_lines takes only the past-caps stratum's 30-term sets under a
+    # count or a whole-file print: its count is reported, not required
+    idle = [k for k, n in launched.items() if n == 0 and k != "qgram_lines"]
     if idle:
         raise AssertionError("sweep: launched no %s kernel" % idle)
 
@@ -2705,6 +3040,19 @@ def line_stages_line(res, card: str) -> str:
     return "\n".join(out)
 
 
+def qgram_lines_line(res, card: str) -> str:
+    """qgram_lines at QLINE_RUNS' 100 MB streams: rows, grid, the passes'
+    device ms against the bound, the wrapper's ms with the host's read
+    of the count, the plain version's and the library composite's."""
+    return "times: qgram_lines %s | card: %s" % (" | ".join(
+        "%s %d B %s %d grid=%d: %.4f ms (%.1f %% of its %.4f ms bound, %s), "
+        "wrapper %.4f ms, plain %.2f ms, library %.3f ms"
+        % (n, r["shape_b"], "count" if r["count_only"] else "rows", r["K"],
+           r["grid"], r["ms"], 100 * r["bound_ms"] / r["ms"], r["bound_ms"],
+           r["bound_by"], r["wrapper_ms"], r["plain_ms"], r["library_ms"])
+        for n in QLINE_RUNS for r in [res[n]["qlines"]]), card)
+
+
 def times_line(res, kname: str, names, card: str) -> str:
     return "times: %s %s | card: %s" % (kname, " | ".join(
         "%s %.4f ms per %d B launch, %.1f %% of its %.4f ms bound (%s)"
@@ -2747,10 +3095,13 @@ def main(argv=None) -> int:
     err_pairs = phase_parity_pairs("cuda", args.seed)
     err_records = phase_parity_records("cuda", args.seed)
     err_index, err_rows = phase_parity_lines("cuda", args.seed)
+    err_qlines = phase_parity_qgram_lines("cuda", args.seed,
+                                          make_patterns(400, args.seed))
     res = phase_main("cuda", args.seed, args.mb, card)
 
     c2, c4, c5, c5q = (res["config2"], res["config4"], res["config5"],
                        res["config5q"])
+    c5qn = res["config5qn"]
     print(mask_scan_geometry_line(res))
     print(times_line(res, "mask_scan", MASK_SHAPES, card))
     print(chain_scan_geometry_line(res))
@@ -2759,6 +3110,7 @@ def main(argv=None) -> int:
     print(times_line(res, "renfa_lanes", ("config4", "memagrep4"), card))
     print(qgram_filter_geometry_line(res))
     print(times_line(res, "qgram_filter", ("config5q",), card))
+    print(qgram_lines_line(res, card))
     print(event_pairs_line(res, card))
     print(record_verdicts_line(res, card))
     print(line_stages_line(res, card))
@@ -2898,6 +3250,23 @@ def main(argv=None) -> int:
         # no one PyTorch call compacts flags into rows: the composite
         # rows_library (index_put_ of the flags, torch.nonzero, gathers)
         "library_ms": c4["rows"]["library_ms"],
+    }, {
+        "name": "qgram_lines",
+        "route": "cuda",
+        "source": "agrep_tpu_torch/csrc/qgram_lines.cu",
+        # the host verify and line fold it replaces (no Pallas kernel: a
+        # device stage the port adds beside the TPU kernels)
+        "replaces": "agrep_tpu/runtime/mgrep.py:967",
+        "launches": res["launches"]["qgram_lines"],
+        "max_abs_err": max([err_qlines] + [res[n]["qlines"]["max_abs_err"]
+                                           for n in QLINE_RUNS]),
+        "ms": c5qn["qlines"]["ms"],
+        "plain_ms": c5qn["qlines"]["plain_ms"],
+        "bound_ms": c5qn["qlines"]["bound_ms"],
+        "bound_by": c5qn["qlines"]["bound_by"],
+        # no one PyTorch call verifies and folds candidates by line: the
+        # composite qlines_library (torch.nonzero, gathers, torch.cumsum)
+        "library_ms": c5qn["qlines"]["library_ms"],
     }]}
     print("kernels: times are per launch at the main path's %d B chunk "
           "of config2 (%s; event_pairs: both passes on the card, without "
@@ -2906,8 +3275,10 @@ def main(argv=None) -> int:
           "and of config4 (%s; line_index and line_rows: every pass over "
           "its first window, without the host's read of K or the count), "
           "at config5's %d B "
-          "stream (chain_scan) and config5q's %d B stream (qgram_filter); "
-          "launches are all main-path runs; card: %s"
+          "stream (chain_scan) and config5q's %d B stream (qgram_filter; "
+          "qgram_lines: every pass of config5qn's print over it, without "
+          "the host's read of the count); launches are all main-path runs; "
+          "card: %s"
           % (c2["shape_b"], " ".join(CONFIGS[1][1]),
              " ".join(REGEX_CONFIGS[0][1]), c5["shape_b"], c5q["shape_b"],
              card))

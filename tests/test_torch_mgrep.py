@@ -289,8 +289,9 @@ def test_qgram_candidates_equal_pallas_interpret(case):
 @pytest.mark.parametrize("case", list(QGRAM_CASES))
 def test_native_verify_of_qgram_candidates(case, wordbound, monkeypatch):
     """The q-gram route verifies the kernel's candidates in the native
-    pass: its table equals the host filter's, and its winner per anchor
-    the numpy _verify_at's; -w runs it in parallel slices."""
+    pass: its table equals the host filter's; and the winner per anchor
+    of qgram_lines' verify (qgram_kernel.anchor_winners) is the numpy
+    _verify_at's; -w runs the native pass in parallel slices."""
     from agrep_tpu_torch import native
     from agrep_tpu_torch.compile.query import compile_query
     from agrep_tpu_torch.options import parse_args
@@ -313,8 +314,13 @@ def test_native_verify_of_qgram_candidates(case, wordbound, monkeypatch):
     assert sum(len(v) for v in full.values()) > 0
     for i in range(len(eng.terms)):
         assert np.array_equal(got[i], full[i]), (i, eng.terms[i])
-    assert np.array_equal(eng._verify_native(stream, tb, anchors),
-                          eng._verify_at(stream, tb, anchors))
+    tables = t_qgram.line_tables(
+        tb.member, tb.hash_id, *eng._qgram_csr_tables(tb), eng.tr,
+        tb.p_size, tb.long_, wordbound)
+    assert np.array_equal(
+        t_qgram.anchor_winners(torch.from_numpy(stream),
+                               torch.from_numpy(anchors), tables).numpy(),
+        eng._verify_at(stream, tb, anchors))
 
 
 def test_qgram_member_words_and_wrapper():

@@ -4,6 +4,7 @@ of the port, each checkout in a process of its own.
 
     python3 tools/torch_main_walls.py TREE [TREE ...] [--seed N] [--mb 100]
                                       [--reps 3] [--runs NAME,...]
+                                      [--samples PATH]
 
 Each TREE is the root of a checkout holding agrep_tpu_torch/ (an
 unpacked `git archive` of a commit, say); the trees run in the order
@@ -17,7 +18,12 @@ bool5m (`-d '$$' 'hello;matching,<a term of 136 byte classes>'`) on the
 records file (the default), and config2v (`-1 -v -n matching`, nearly
 every record printed), BASELINE config 4 (`-2 'appro[a-z]*mat(e|ion)'`)
 as a count (config4) and a line-numbered print (config4n) on the file
-and as a count in memory (memagrep4; these four by name only), through
+and as a count in memory (memagrep4; these four by name only), and
+BASELINE config 5's 400 patterns past the chain caps (chip_smoke's
+pats400w: 154 byte classes) on the records file as a count (config5q)
+and as the matching lines (config5qn; agrep refuses -n with -f; printed
+whole, at chip_smoke's WHOLE_FILE_RUNS streaming threshold; these two
+by name only), through
 the tree's agrep_tpu_torch.api, with
 AGREP_TORCH_STATS=2: one warm-up run, then --reps timed runs on the GPU
 route (each ended by a synchronize) and --reps on the tree's numpy host
@@ -28,13 +34,18 @@ ops/scan.py::_scan_torch and, where the tree has it, _records_torch,
 and inside the regex engine's device calls (runtime/regex_engine.py's
 RegexEngine._upload and _kernel_verdicts where the tree has them --
 their host length sort and gathers included --, else its _to_device,
-_fire and ops/renfa_kernel.py's line_index): the device layer (the
+_fire and ops/renfa_kernel.py's line_index), and inside the mgrep
+engine's q-gram device calls (runtime/mgrep.py's MgrepEngine._qgram_plane,
+_qgram_positions and, where the tree has it, _qgram_lines; a call inside
+another is counted once): the device layer (the
 text's copy to the card, the kernels, the read-back; their wrappers
 here, in both trees alike), and the launches of each kernel.  The GPU route's output must equal the
 numpy backend's, and every tree's the first tree's (sha256 and exit
 code).  The first line is the card's name and power limit; then one
 `walls:` and one `stages:` line a run, with every tree's medians, and a
-last JSON line with every sample.  Exits non-zero without a CUDA
+last JSON line with those medians and the path of the file that holds
+every sample (--samples, relative to this checkout; by default
+build/torch_main_walls.json).  Exits non-zero without a CUDA
 device, when a run fails or when outputs differ.
 """
 
@@ -72,7 +83,7 @@ def _helpers():
 DEFAULT_RUNS = "config1,config2,config3,config2c,memagrep,bool5m"
 
 
-def runs(cs, path: str, rec: str, data: bytes) -> list:
+def runs(cs, path: str, rec: str, data: bytes, p400w: str) -> list:
     """(name, api function name, argv, in-memory data or None)."""
     return [
         ("config1", "fileagrep", cs.CONFIGS[0][1] + [path], None),
@@ -87,6 +98,8 @@ def runs(cs, path: str, rec: str, data: bytes) -> list:
         ("memagrep", "memagrep", cs.CONFIGS[0][1], data),
         ("bool5m", "fileagrep",
          cs.CONFIG5_DELIM + ["hello;matching," + cs.WIDE_TERM, rec], None),
+        ("config5q", "fileagrep", ["-c", "-f", p400w, rec], None),
+        ("config5qn", "fileagrep", ["-f", p400w, rec], None),
     ]
 
 
@@ -106,9 +119,10 @@ def child(tree: str, args) -> int:
 
     import agrep_tpu_torch
     from agrep_tpu_torch import api, native
-    from agrep_tpu_torch.ops import _cuda, kernels, renfa_kernel
+    from agrep_tpu_torch.ops import (_cuda, chain_kernel, kernels,
+                                     qgram_kernel, renfa_kernel)
     from agrep_tpu_torch.ops import scan as scan_ops
-    from agrep_tpu_torch.runtime import regex_engine, trace
+    from agrep_tpu_torch.runtime import mgrep, regex_engine, trace
     if os.path.dirname(os.path.abspath(agrep_tpu_torch.__file__)) != \
             os.path.join(tree, "agrep_tpu_torch"):
         raise AssertionError("agrep_tpu_torch imported from %s, not %s"
@@ -120,14 +134,18 @@ def child(tree: str, args) -> int:
         raise RuntimeError("the native host library did not build")
     scan_ops.set_device("cuda")
     layer = [0.0]
+    depth = [0]
 
     def timed(real):
         def call(*a, **kw):
             t0 = time.perf_counter()
+            depth[0] += 1
             try:
                 return real(*a, **kw)
             finally:
-                layer[0] += time.perf_counter() - t0
+                depth[0] -= 1
+                if not depth[0]:
+                    layer[0] += time.perf_counter() - t0
         return call
     for fn in ("_scan_torch", "_records_torch"):
         if hasattr(scan_ops, fn):
@@ -138,9 +156,14 @@ def child(tree: str, args) -> int:
             setattr(engine, fn, timed(getattr(engine, fn)))
     if hasattr(renfa_kernel, "line_index"):
         renfa_kernel.line_index = timed(renfa_kernel.line_index)
+    for fn in ("_qgram_plane", "_qgram_positions", "_qgram_lines"):
+        if hasattr(mgrep.MgrepEngine, fn):
+            setattr(mgrep.MgrepEngine, fn,
+                    timed(getattr(mgrep.MgrepEngine, fn)))
 
     def launched():
-        return {**kernels.launches, **renfa_kernel.launches}
+        return {**kernels.launches, **renfa_kernel.launches,
+                **chain_kernel.launches, **qgram_kernel.launches}
 
     corpus = cs.make_corpus(args.mb << 20, args.seed)
     records = cs.make_records(corpus, args.seed)
@@ -152,9 +175,14 @@ def child(tree: str, args) -> int:
         corpus.tofile(path)
         rec = os.path.join(tmp, "records.txt")
         records.tofile(rec)
+        p400w = os.path.join(tmp, "pats400w.txt")
+        with open(p400w, "wb") as fh:
+            fh.write(b"".join(w + b"\n" for w in cs.wide_patterns(
+                cs.make_patterns(400, args.seed))))
         chosen = args.runs.split(",")
         for name, fn_name, argv, data in runs(cs, path, rec,
-                                              b"\n" + corpus.tobytes()):
+                                              b"\n" + corpus.tobytes(),
+                                              p400w):
             if name not in chosen:
                 continue
             fn = getattr(api, fn_name)
@@ -162,8 +190,9 @@ def child(tree: str, args) -> int:
             def once():
                 buf = io.BytesIO()
                 t0 = time.perf_counter()
-                rc = (fn(argv, output=buf) if data is None
-                      else fn(argv, data, output=buf))
+                with cs.stream_mb(name):
+                    rc = (fn(argv, output=buf) if data is None
+                          else fn(argv, data, output=buf))
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 return wall, (hashlib.sha256(buf.getvalue()).hexdigest(),
@@ -207,6 +236,9 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--runs", default=DEFAULT_RUNS,
                     help="comma-separated names of the runs")
+    ap.add_argument("--samples", default=os.path.join(
+        "build", "torch_main_walls.json"),
+                    help="file for every sample, relative to this checkout")
     ap.add_argument("--child", action="store_true",
                     help="run the one tree given in this process")
     args = ap.parse_args(argv)
@@ -253,12 +285,24 @@ def main(argv=None) -> int:
                 ",".join("%s:%d" % kv for kv in r["launches"][-1].items()),
                 "".join(" %s=%d" % (k, cut[k]) for k in
                         ("record_pairs", "record_rows", "regex_lines",
-                         "regex_rows") if k in cut)))
+                         "regex_rows", "qgram_lines", "qgram_line_rows")
+                        if k in cut)))
         print("walls: %-8s median of %d s, GPU route [numpy backend]: %s"
               % (name, len(r0["gpu"]), " | ".join(walls)))
         print("stages: %-8s medians: %s" % (name, " | ".join(stages)))
     print("card: %s" % timing.card_line())
-    print(json.dumps({"runs": done}))
+    # every sample goes to a file: with many runs one JSON line of them
+    # grows past what the tail of a log keeps
+    path = os.path.join(REPO, args.samples)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as fh:
+        json.dump({"runs": done}, fh)
+    print(json.dumps({"samples": os.path.relpath(path, REPO), "medians": {
+        name: [{"tree": os.path.basename(os.path.normpath(d["tree"])),
+                "gpu_s": _median(d["runs"][name]["gpu"]),
+                "numpy_s": _median(d["runs"][name]["numpy"]),
+                "layer_s": _median(d["runs"][name]["layer_s"])}
+               for d in done] for name in done[0]["runs"]}}))
     if differ:
         print("torch_main_walls: outputs differ from the first run's: %s"
               % differ, file=sys.stderr)

@@ -18,7 +18,9 @@ paragraphs, and its 100-pattern file), then, for each name of --runs
     compiling no chain program); one warm-up run, then one timed run of
     each, outputs compared;
   * each of chip_smoke's config-5 runs (config5, config5c, config5c400,
-    config5q, memagrep5, bool5, bool5m) and the bench's f100_records
+    config5q, config5qn -- printed whole, at chip_smoke's WHOLE_FILE_RUNS
+    streaming threshold --, memagrep5, bool5, bool5m) and the bench's
+    f100_records
     (`-c -d '$$' -f` over the records input) on the torch backend and the
     GPU: one warm-up run, then one timed run (host clock, ended by a
     synchronize) and its GB/s; one timed run on the numpy backend (the
@@ -115,7 +117,7 @@ def compare_routes(sets, run) -> None:
 
 
 RUNS = ("routes", "config5", "config5c", "config5c400", "config5q",
-        "memagrep5", "bool5", "bool5m", "f100_records")
+        "config5qn", "memagrep5", "bool5", "bool5m", "f100_records")
 
 
 def main(argv=None) -> int:
@@ -172,6 +174,7 @@ def main(argv=None) -> int:
                 ("config5c", ["-c", "-f", p100, rec], None),
                 ("config5c400", ["-c", "-f", p400, rec], None),
                 ("config5q", ["-c", "-f", p400w, rec], None),
+                ("config5qn", ["-f", p400w, rec], None),
                 ("memagrep5", c5, mem),
                 ("bool5", cs.CONFIG5_DELIM + ["hello;lazy", rec], None),
                 ("bool5m", cs.CONFIG5_DELIM
@@ -179,12 +182,13 @@ def main(argv=None) -> int:
                 ("f100_records", ["-c", "-d", "$$", "-f", bench_pats, para],
                  None)]
 
-        def run(argv, data):
+        def run(argv, data, name=""):
             buf = io.BytesIO()
-            if data is None:
-                api.fileagrep(argv, output=buf)
-            else:
-                api.memagrep(argv, data, output=buf)
+            with cs.stream_mb(name):
+                if data is None:
+                    api.fileagrep(argv, output=buf)
+                else:
+                    api.memagrep(argv, data, output=buf)
             torch.cuda.synchronize()
             return buf.getvalue()
 
@@ -201,14 +205,14 @@ def main(argv=None) -> int:
                 continue
             n_bytes = len(data) if data is not None \
                 else os.path.getsize(argv[-1])
-            out = run(argv, data)
+            out = run(argv, data, name)
             t0 = time.perf_counter()
-            run(argv, data)
+            run(argv, data, name)
             wall = time.perf_counter() - t0
             scan_ops.set_backend("numpy")
             try:
                 t0 = time.perf_counter()
-                host_out = run(argv, data)
+                host_out = run(argv, data, name)
                 host_wall = time.perf_counter() - t0
             finally:
                 scan_ops.set_backend("torch")
@@ -223,7 +227,7 @@ def main(argv=None) -> int:
                     torch.profiler.ProfilerActivity.CUDA]
             with torch.profiler.profile(activities=acts,
                                         acc_events=True) as prof:
-                run(argv, data)
+                run(argv, data, name)
             dev = device_times(prof)
             busy = sum(dev.values())
             print("%s: wall %.3f s; device time %.3f ms (%.3f %% of the "
@@ -233,7 +237,7 @@ def main(argv=None) -> int:
                           dev.items(), key=lambda kv: -kv[1])[:6])))
             pr = cProfile.Profile()
             pr.enable()
-            run(argv, data)
+            run(argv, data, name)
             pr.disable()
             st = io.StringIO()
             pstats.Stats(pr, stream=st).sort_stats("tottime") \
