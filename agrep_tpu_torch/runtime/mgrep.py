@@ -22,7 +22,11 @@ the -d flat-OR path takes one max-term row an anchor
 (qgram_first_per_anchor_at), every other path the full occurrence
 table (qgram_occ_at).  The route is fixed by the backend, the query and
 the stream size.  The numpy backend, and every stream under DEVICE_MIN,
-takes the host passes (the native C twins, else vectorized numpy).
+takes the host passes (the native C twins, else vectorized numpy).  A
+flat-OR print streamed in chunks (a file over AGREP_TORCH_STREAM_MB)
+takes its file's route for every chunk: chain_scan, or qgram_filter and
+qgram_lines, on the device; qgram_first_per_line on the host
+(_region_starts).
 """
 
 from __future__ import annotations
@@ -220,19 +224,85 @@ class MgrepEngine:
         finally:
             self._commit_stale(np.asarray(data), sink)
 
+    def _region_starts(self, n: int):
+        """The streamed print's source of occurrence starts, chosen once
+        for a file of n bytes: a function of a chunk's region (u8, the
+        chunk and its halo) that gives, in region coordinates, the starts
+        of occurrences whose term lies wholly in the region -- every
+        start, or at least each line's first.  In order:
+
+        * the device route with the terms within the chain caps:
+          chain_scan's start plane (_chain_starts);
+        * the device route past the caps with ONE_PASS_MIN or more live
+          terms: qgram_filter and qgram_lines, one row a line (its first
+          winner's anchor, start + p_size - 1);
+        * the host (the numpy backend, or a file under DEVICE_MIN) with
+          ONE_PASS_MIN or more live terms: the native twin of qgram_lines,
+          qgram_first_per_line;
+        * otherwise one _find_occurrences a term.
+
+        Every chunk of the file takes the same route, a last chunk under
+        DEVICE_MIN included; a failed build or launch raises."""
+        from .. import native
+        terms = [t for t in self.terms if t]
+        dev = self._device_route(n)
+        if dev and self._chain_program() is not None:
+            return self._chain_starts
+        many = len(terms) >= ONE_PASS_MIN
+        if many and dev:
+            tb = self._tables()
+
+            def first_on_card(region):
+                rows = self._qgram_lines(region, tb, False)[0]
+                return rows[:, 0].cpu().numpy() - (tb.p_size - 1)
+            return first_on_card
+        if many and native.get_lib() is not None:
+            tb = self._tables()
+            b_off, b_tids, t_bytes, t_off = self._qgram_csr_tables(tb)
+
+            def first_on_host(region):
+                # the pass's outputs are views into its scratch: the
+                # subtraction copies them before the next chunk's call
+                a = native.qgram_first_per_line(
+                    region, tb.member, tb.hash_id, b_off, b_tids, t_bytes,
+                    t_off, self.tr, tb.p_size, bool(tb.long_),
+                    bool(tb.short), False)[0]
+                return a - (tb.p_size - 1)
+            return first_on_host
+
+        def per_term(region):
+            parts = [_find_occurrences(region, t, self.tr) for t in terms]
+            return np.concatenate(parts)
+        return per_term
+
     def _print_stream_chunked(self, data, sink) -> None:
-        """Streaming flat-OR record print: per chunk, find every term
-        occurrence (with a lookahead halo for terms crossing the chunk
-        edge), dedup to one record per line, coalesce adjacent lines
-        into single writes.  Events in a chunk's unterminated tail
+        """Streaming flat-OR record print: per chunk, find the term
+        occurrences that start in it (over the chunk and a lookahead
+        halo of maxlen - 1 bytes, for terms crossing the chunk edge;
+        _region_starts), dedup to one record per line, coalesce adjacent
+        lines into single writes.  Events in a chunk's unterminated tail
         line defer until their newline arrives.  Byte-identical to
-        search_stream (tests force small chunks)."""
+        search_stream (tests force small chunks).
+
+        A chunk [g0, g1) only needs to know which lines hold an
+        occurrence starting below g1, so each line's first winner in the
+        region is enough:
+        * every anchor is start + p_size - 1, so a line's first winner
+          (by anchor) is its earliest start;
+        * a start below g1 has its whole term inside the region, which
+          ends at g1 + maxlen - 1, so the s + L <= N test drops only
+          starts at or after g1, and the next chunk, whose region begins
+          at g1, finds those;
+        * -w never reaches this path (supports_streaming), and the terms
+          hold no newline, so a term lies within one line and a line's
+          first winner in the region is its earliest start there."""
         from ..ops import scan as scan_ops
         from .. import native
+        from . import trace
         n = len(data)
         chunk = max(scan_ops.STREAM_CHUNK, 1 << 16)
-        terms = [t for t in self.terms if t]
-        maxlen = max(len(t) for t in terms)
+        maxlen = max(len(t) for t in self.terms if t)
+        starts_of = self._region_starts(n)
         fname = bool(getattr(sink, "fname", False))
         # 1-byte final read without a newline: no EOF rescan, so the
         # final record stops BEFORE the last byte and gains no
@@ -247,14 +317,10 @@ class MgrepEngine:
             g1 = min(n, g0 + chunk)
             hi = min(g1 + maxlen - 1, n)
             region = np.ascontiguousarray(data[g0:hi])
-            parts = []
-            for t in terms:
-                st = _find_occurrences(region, t, self.tr)
-                if len(st):
-                    parts.append(st + g0)
-            ev = (np.sort(np.concatenate(parts)) if parts
-                  else np.empty(0, dtype=np.int64))
+            ev = np.sort(starts_of(region)) + g0
             ev = ev[ev < g1]
+            if trace.ENABLED:
+                trace.add("stream_print_chunks")
             body = region[:g1 - g0]
             nld = native.find_delims_all(body, b"\n")
             nl = ((nld + g0) if nld is not None
@@ -610,12 +676,11 @@ class MgrepEngine:
 
     def _chain_plane(self, stream: np.ndarray):
         """(text, start plane) of the chain kernel (ops/chain_kernel.py)
-        over the stream on the scan device, the one-pass -f scan; None
-        when the device route does not take this stream or the term set
-        is past the kernel's caps: callers then take the q-gram kernel,
-        the mask machine or the host passes.  A failed launch raises."""
-        if (not self._device_route(len(stream))
-                or self._chain_program() is None):
+        over the stream on the scan device, the one-pass -f scan, for a
+        caller on the device route; None when the term set is past the
+        kernel's caps: callers then take the q-gram kernel, the mask
+        machine or the host passes.  A failed launch raises."""
+        if self._chain_program() is None:
             return None
         from ..ops import chain_kernel
         from . import trace
@@ -998,6 +1063,15 @@ class MgrepEngine:
                 best[tgt] = np.where(cur > tid_max, cur, tid_max)
         return best
 
+    def _tables(self):
+        """The terms' q-gram tables (compile/multi.py), built once per
+        engine."""
+        if self._qgram_tables is None:
+            from ..compile import multi as multi_mod
+            self._qgram_tables = multi_mod.build_qgram_tables(
+                self.terms, self.tr)
+        return self._qgram_tables
+
     def _qgram_csr_tables(self, tb):
         """CSR-packed bucket/term tables for the native q-gram pass."""
         if self._qgram_csr is None:
@@ -1210,11 +1284,7 @@ class MgrepEngine:
         from .. import native
         if native.get_lib() is None:
             return None
-        if self._qgram_tables is None:
-            from ..compile import multi as multi_mod
-            self._qgram_tables = multi_mod.build_qgram_tables(
-                self.terms, self.tr)
-        tb = self._qgram_tables
+        tb = self._tables()
         p = tb.p_size
         n = len(stream)
         m1 = self.p_size - 1
@@ -1367,10 +1437,7 @@ class MgrepEngine:
         from ..compile import multi as multi_mod
         n_live = sum(1 for t in self.terms if t)
         dev = n_live > 0 and self._device_route(len(stream))
-        if (dev or n_live >= ONE_PASS_MIN) and self._qgram_tables is None:
-            self._qgram_tables = multi_mod.build_qgram_tables(
-                self.terms, self.tr)
-        tb = self._qgram_tables
+        tb = self._tables() if dev or n_live >= ONE_PASS_MIN else None
         if dev:
             # the exact chain scan: starts have no false positives, so
             # the native pass only attributes term ids at true hits
@@ -1530,14 +1597,9 @@ class MgrepEngine:
                      or self._chain_counts(len(data))
                      or self._qgram_counts(len(data)))
                 and self._fast_or_applicable(o, q)):
-            if self._qgram_tables is None:
-                from ..compile import multi as multi_mod2
-                self._qgram_tables = multi_mod2.build_qgram_tables(
-                    self.terms, self.tr)
-            cnt = self._first_match_count(data, self._qgram_tables)
+            cnt = self._first_match_count(data, self._tables())
             if cnt is None:
-                occ = self._first_match_occurrences(
-                    data, self._qgram_tables)
+                occ = self._first_match_occurrences(data, self._tables())
                 cnt = sum(len(v) for v in occ.values())
             sink.num_matched += cnt
             return

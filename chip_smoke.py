@@ -96,7 +96,13 @@ exits non-zero:
      on the card by qgram_lines: one launch, no candidate positions read
      back), the same set's matching lines (config5qn, qgram_lines' rows;
      agrep refuses -n with -f; printed whole, as a file under
-     AGREP_TORCH_STREAM_MB is: WHOLE_FILE_RUNS), a
+     AGREP_TORCH_STREAM_MB is: WHOLE_FILE_RUNS, the whole-file route),
+     the matching lines of the 400 patterns (config5s) and of the 400
+     wide ones (config5qs) at the default 8 MB threshold, printed in
+     32 MB chunks (STREAMED_RUNS: config5s launches chain_scan, config5qs
+     qgram_filter and qgram_lines, once each a chunk; neither calls the
+     host's per-term find, mgrep._find_occurrences; config5qs reads no
+     positions back, and its output must equal config5qn's), a
      boolean AND over '$$' records (bool5, the chain kernel), and a
      boolean with a term of 136 byte classes, past the chain caps
      (bool5m, the mask machine's packed term words); stdout and return
@@ -189,8 +195,13 @@ exits non-zero:
      seeds, each kernel's launches (the counts set to 0 just before it),
      the cases that launch qgram_lines and the seconds; any divergence or
      crash, or a kernel launched no time, fails the run (qgram_lines
-     excepted: only the past-caps stratum's 30-term counts and whole-file
-     prints take it, and its count is reported).
+     excepted: only the past-caps stratum's 30-term counts and prints
+     take it, and its count is reported); then a streaming pass: the
+     grown seeds of SWEEP_RUNS again with scan_ops.STREAM_CHUNK at 64 KiB
+     and AGREP_TORCH_STREAM_MB=0 on both sides, so that every file is
+     searched in chunks on both backends; its line gives the
+     divergences, the crashes and the cases that printed a -f search in
+     chunks on the card, and any divergence or crash fails the run.
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device,
 or without the agrep_tpu_torch package beside it, the script exits
@@ -1700,19 +1711,24 @@ PAIRS_RUNS = ("config1", "config2", "config3", "memagrep", "bool5m")
 # the runs past the chain caps whose lines qgram_lines folds on the card
 QLINE_RUNS = ("config5q", "config5qn")
 # AGREP_TORCH_STREAM_MB of the runs that print a file whole, as a file
-# under the streaming threshold is printed: at the default 8 MB a 100 MB
-# file's flat-OR print streams its chunks through a per-term host find
-# on both backends (55 s for config5qn's 400 patterns)
+# under the streaming threshold is printed: config5qn holds the
+# whole-file route, whose output config5qs's chunks must give
 WHOLE_FILE_RUNS = {"config5qn": "128"}
+# the -f prints streamed in chunks at the default 8 MB threshold, and
+# the kernels each of their chunks launches once
+STREAMED_RUNS = {"config5s": ("chain_scan",),
+                 "config5qs": ("qgram_filter", "qgram_lines")}
 
 
 @contextlib.contextmanager
 def stream_mb(name: str):
-    """The run's AGREP_TORCH_STREAM_MB (WHOLE_FILE_RUNS), restored
-    after."""
+    """The run's AGREP_TORCH_STREAM_MB (WHOLE_FILE_RUNS; the default 8
+    for STREAMED_RUNS), restored after."""
     was = os.environ.get("AGREP_TORCH_STREAM_MB")
     if name in WHOLE_FILE_RUNS:
         os.environ["AGREP_TORCH_STREAM_MB"] = WHOLE_FILE_RUNS[name]
+    elif name in STREAMED_RUNS:
+        os.environ["AGREP_TORCH_STREAM_MB"] = "8"
     try:
         yield
     finally:
@@ -1720,6 +1736,30 @@ def stream_mb(name: str):
             os.environ.pop("AGREP_TORCH_STREAM_MB", None)
         else:
             os.environ["AGREP_TORCH_STREAM_MB"] = was
+
+
+# qgram_lines' inputs timed alone: the whole-file runs' streams and the
+# first chunk of config5qs
+QLINE_SHAPES = QLINE_RUNS + ("config5qs",)
+
+
+def stream_check(name: str, n: dict, reads: dict, finds: int, counters,
+                 size: int, chunk: int) -> None:
+    """A streamed -f print on the card (STREAMED_RUNS): as many chunks as
+    the file holds (stream_print_chunks), one launch of each of its
+    kernels a chunk and of no other -f kernel, no host find and, past
+    the chain caps, no start positions read back."""
+    chunks = -(-size // chunk)
+    kinds = STREAMED_RUNS[name]
+    got = {k: n[k] for k in ("chain_scan", "qgram_filter", "qgram_lines")}
+    want = {k: chunks if k in kinds else 0 for k in got}
+    streamed = counters.get("stream_print_chunks", 0)
+    positions = reads["plane_positions"] if "qgram_lines" in kinds else 0
+    if got != want or streamed != chunks or finds or positions:
+        raise AssertionError(
+            "%s: %d chunks of %d B streamed (want %d), launches %s (want "
+            "%s), %d host finds, %d start positions read back"
+            % (name, streamed, chunk, chunks, got, want, finds, positions))
 
 
 def _host_ms(fn, reps: int = 5) -> float:
@@ -2074,7 +2114,7 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
     res = {}
     mem_data = b"\n" + corpus.tobytes()
     mem_records = b"\n" + records.tobytes()
-    # the inputs of each kernel wrapper's last call in each run, for the
+    # the inputs of each kernel wrapper's first call in each run, for the
     # kernel-alone checks below (the wrappers still count their launches)
     seen: dict = {}
     real = {"chain_scan": (chain_kernel, chain_kernel.chain_scan),
@@ -2090,7 +2130,7 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
 
     def recorder(kname, fn):
         def call(*args):
-            seen[kname] = args
+            seen.setdefault(kname, args)
             if kname == "record_verdicts":
                 rv_calls.append(args)
             return fn(*args)
@@ -2129,6 +2169,16 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                               regex_chunks(corpus)),
                   "memagrep4": (mem_data.count(b"\n"), 1)}
     want_lines["config4n"] = want_lines["config4"]
+
+    # calls of the host's per-term find, which no streamed print makes on
+    # the card
+    from agrep_tpu_torch.runtime import mgrep
+    finds = [0]
+    real_find = mgrep._find_occurrences
+
+    def find_counted(*args):
+        finds[0] += 1
+        return real_find(*args)
 
     # calls of the dense host read-back, which the torch route no longer
     # makes
@@ -2180,6 +2230,11 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
             # the lines themselves (agrep refuses -n with -f)
             ("config5qn", api.fileagrep, ["-f", p400w, rec], None,
              "qgram_filter"),
+            # the lines of both 400-pattern sets, printed in chunks
+            ("config5s", api.fileagrep, ["-f", p400, rec], None,
+             "chain_scan"),
+            ("config5qs", api.fileagrep, ["-f", p400w, rec], None,
+             "qgram_filter"),
             ("memagrep5", api.memagrep, c5, mem_records, "chain_scan"),
             ("bool5", api.fileagrep, CONFIG5_DELIM + ["hello;lazy", rec],
              None, "chain_scan"),
@@ -2205,6 +2260,7 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
             setattr(chain_kernel, name, read_counter(name, fn))
         native.qgram_first_per_anchor_at = at_counted
         kernels.planes_to_events = p2e_counted
+        mgrep._find_occurrences = find_counted
         regex_engine.np = host_index
         trace_was = trace.ENABLED
         trace.ENABLED = True
@@ -2215,8 +2271,10 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                 reads_before = dict(reads)
                 at_before = at_calls[0]
                 p2e_before = p2e_calls[0]
+                finds_before = finds[0]
                 for k in ("qgram_candidates", "record_rows",
-                          "record_pairs", "regex_lines", "regex_rows"):
+                          "record_pairs", "regex_lines", "regex_rows",
+                          "stream_print_chunks"):
                     trace.counters.pop(k, None)
                 host_index.calls.clear()
                 seen.clear()
@@ -2257,6 +2315,11 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                         "times and qgram_lines %d times, and read %s back, "
                         "not one qgram_lines launch and no positions"
                         % (name, n["chain_scan"], n["qgram_lines"], r))
+                finds_n = finds[0] - finds_before
+                if name in STREAMED_RUNS:
+                    stream_check(name, n, r, finds_n, trace.counters,
+                                 os.path.getsize(rec),
+                                 scan_ops.STREAM_CHUNK)
                 if name.startswith("config5c") and (
                         r["lines_with_starts"] != n["chain_scan"]
                         or r["plane_positions"]):
@@ -2270,7 +2333,10 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                              "qlines_launches": n["qgram_lines"],
                              "kernel": kname, "reads": r,
                              "records": records, "qgram_candidates": qcand,
-                             "anchor_passes": at_n}
+                             "anchor_passes": at_n, "finds": finds_n,
+                             "chunks": trace.counters.get(
+                                 "stream_print_chunks", 0),
+                             "filter_launches": n["qgram_filter"]}
                 if name in RECORD_RUNS:
                     res[name]["cut"] = records_cut(
                         name, n["record_verdicts"], rv_calls,
@@ -2292,6 +2358,7 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                 setattr(chain_kernel, name, fn)
             native.qgram_first_per_anchor_at = real_at
             kernels.planes_to_events = real_p2e
+            mgrep._find_occurrences = real_find
             regex_engine.np = real_np
             trace.ENABLED = trace_was
         main_launches = {k: c[k] for k, c in counts.items()}
@@ -2310,6 +2377,11 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                         "numpy backend" % (name, got[name][:2], want[:2]))
         finally:
             scan_ops.set_backend("torch")
+    if got["config5qs"][:2] != got["config5qn"][:2]:
+        raise AssertionError(
+            "config5qs: stdout sha256/rc %s streamed in chunks, %s printed "
+            "whole (config5qn)" % (got["config5qs"][:2],
+                                   got["config5qn"][:2]))
 
     # the mask kernel alone at the main path's chunk shape, and at the
     # memagrep buffer's
@@ -2399,7 +2471,8 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
     launch_fns = {"chain_scan": chain_kernel._launch,
                   "qgram_filter": qgram_kernel._launch,
                   "mask_scan": kernels._launch}
-    for name, _fn, _argv, _data, kname in runs[-8:]:
+    first5 = [r[0] for r in runs].index("config5")
+    for name, _fn, _argv, _data, kname in runs[first5:]:
         args = inputs[name][kname]
         N = args[0].numel()
         ms = time_kernel(lambda: launch_fns[kname](*args))
@@ -2427,7 +2500,7 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
         if name == "bool5m":
             res[name]["pairs"] = pairs_alone(
                 name, *inputs[name]["event_pairs"])
-        if name in QLINE_RUNS:
+        if name in QLINE_SHAPES:
             res[name]["qlines"] = qlines_alone(
                 name, *inputs[name]["qgram_lines"][:3], name == "config5q")
 
@@ -2439,7 +2512,7 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
     for name, fn, argv, data, kname in runs:
         r = res[name]
         src = ("records " if name.endswith(("5", "5c", "5c400", "5q", "5qn",
-                                            "5m"))
+                                            "5s", "5qs", "5m"))
                else "")
         where = ("%d MB %sbuffer" % (mb, src) if data is not None
                  else "%d MB %sfile" % (mb, src))
@@ -2469,6 +2542,20 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                              "lines counted, the count" if
                              r["qlines"]["count_only"] else "rows read",
                              r["reads"]))
+    for name, kinds in STREAMED_RUNS.items():
+        r = res[name]
+        print("main: %s printed its lines in %d chunks of %d B through %s "
+              "(%s launches), %d host finds, %d reads of start positions"
+              "%s; GPU route wall %.3f s, numpy backend wall %.3f s"
+              % (name, r["chunks"], scan_ops.STREAM_CHUNK,
+                 " and ".join(kinds), "/".join(
+                     str(r["filter_launches"] if k == "qgram_filter"
+                         else r["qlines_launches"] if k == "qgram_lines"
+                         else r["launches"]) for k in kinds),
+                 r["finds"], r["reads"]["plane_positions"],
+                 ", stdout equal to config5qn's whole-file bytes"
+                 if name == "config5qs" else "", r["wall_s"],
+                 r["host_wall_s"]))
     for name, _fn, _argv, _data, kname in runs:
         r = res[name]
         if r["records"]:
@@ -2917,10 +3004,62 @@ def phase_sweep(card: str) -> None:
         raise AssertionError("sweep: %d divergences, %d crashes"
                              % (res["divergences"], res["crashes"]))
     # qgram_lines takes only the past-caps stratum's 30-term sets under a
-    # count or a whole-file print: its count is reported, not required
+    # count or a print: its count is reported, not required
     idle = [k for k, n in launched.items() if n == 0 and k != "qgram_lines"]
     if idle:
         raise AssertionError("sweep: launched no %s kernel" % idle)
+    sweep_streamed(tool, card)
+
+
+def sweep_streamed(tool, card: str) -> None:
+    """SWEEP_RUNS' grown seeds again, every file searched in 64 KiB chunks
+    (scan_ops.STREAM_CHUNK; AGREP_TORCH_STREAM_MB=0 on both sides): the
+    chunk carries of every engine on the card against the numpy backend.
+    Counts the cases that printed a -f search in chunks on the card."""
+    from agrep_tpu_torch.ops import scan as scan_ops
+    from agrep_tpu_torch.runtime import mgrep
+    real_print = mgrep.MgrepEngine._print_stream_chunked
+    on_card = [False]
+    streamed = [0]
+
+    def print_seen(self, data, sink):
+        on_card[0] = on_card[0] or self._device_route(len(data))
+        return real_print(self, data, sink)
+
+    real_case = tool.check_case
+
+    def case_seen(*a, **kw):
+        on_card[0] = False
+        try:
+            return real_case(*a, **kw)
+        finally:
+            streamed[0] += on_card[0]
+    saved = scan_ops.STREAM_CHUNK, os.environ.get("AGREP_TORCH_STREAM_MB")
+    scan_ops.STREAM_CHUNK = 64 << 10
+    os.environ["AGREP_TORCH_STREAM_MB"] = "0"
+    mgrep.MgrepEngine._print_stream_chunked = print_seen
+    tool.check_case = case_seen
+    try:
+        res = tool.sweep([r for r in SWEEP_RUNS if r[1]], ref="numpy",
+                         device="cuda",
+                         out=lambda line: print("sweep: streamed %s" % line))
+    finally:
+        tool.check_case = real_case
+        mgrep.MgrepEngine._print_stream_chunked = real_print
+        scan_ops.STREAM_CHUNK = saved[0]
+        if saved[1] is None:
+            os.environ.pop("AGREP_TORCH_STREAM_MB", None)
+        else:
+            os.environ["AGREP_TORCH_STREAM_MB"] = saved[1]
+    print("sweep: streamed in %d B chunks: cases %s, divergences %d, "
+          "crashes %d, over_limit %s, launches %s, cases that printed a -f "
+          "search in chunks on the card %d, %.1f s | card: %s"
+          % (64 << 10, json.dumps(res["cases"]), res["divergences"],
+             res["crashes"], json.dumps(res["over_limit"]),
+             json.dumps(res["launches"]), streamed[0], res["seconds"], card))
+    if res["divergences"] or res["crashes"]:
+        raise AssertionError("sweep, streamed: %d divergences, %d crashes"
+                             % (res["divergences"], res["crashes"]))
 
 
 MASK_SHAPES = ("config1", "config2", "config3", "memagrep", "bool5m")
@@ -2943,7 +3082,8 @@ def mask_scan_geometry_line(res) -> str:
                 max(regs, default="n/a"), spills, len(regs)))
 
 
-CHAIN_SHAPES = ("config5", "config5c", "config5c400", "memagrep5", "bool5")
+CHAIN_SHAPES = ("config5", "config5c", "config5c400", "memagrep5", "bool5",
+                "config5s")
 
 
 def chain_scan_geometry_line(res) -> str:
@@ -3041,8 +3181,9 @@ def line_stages_line(res, card: str) -> str:
 
 
 def qgram_lines_line(res, card: str) -> str:
-    """qgram_lines at QLINE_RUNS' 100 MB streams: rows, grid, the passes'
-    device ms against the bound, the wrapper's ms with the host's read
+    """qgram_lines at QLINE_SHAPES (the whole-file runs' 100 MB streams,
+    config5qs's first chunk): rows, grid, the passes' device ms against
+    the bound, the wrapper's ms with the host's read
     of the count, the plain version's and the library composite's."""
     return "times: qgram_lines %s | card: %s" % (" | ".join(
         "%s %d B %s %d grid=%d: %.4f ms (%.1f %% of its %.4f ms bound, %s), "
@@ -3050,7 +3191,7 @@ def qgram_lines_line(res, card: str) -> str:
         % (n, r["shape_b"], "count" if r["count_only"] else "rows", r["K"],
            r["grid"], r["ms"], 100 * r["bound_ms"] / r["ms"], r["bound_ms"],
            r["bound_by"], r["wrapper_ms"], r["plain_ms"], r["library_ms"])
-        for n in QLINE_RUNS for r in [res[n]["qlines"]]), card)
+        for n in QLINE_SHAPES for r in [res[n]["qlines"]]), card)
 
 
 def times_line(res, kname: str, names, card: str) -> str:
@@ -3109,7 +3250,7 @@ def main(argv=None) -> int:
     print(renfa_lanes_geometry_line(res))
     print(times_line(res, "renfa_lanes", ("config4", "memagrep4"), card))
     print(qgram_filter_geometry_line(res))
-    print(times_line(res, "qgram_filter", ("config5q",), card))
+    print(times_line(res, "qgram_filter", ("config5q", "config5qs"), card))
     print(qgram_lines_line(res, card))
     print(event_pairs_line(res, card))
     print(record_verdicts_line(res, card))
@@ -3171,7 +3312,8 @@ def main(argv=None) -> int:
         "source": "agrep_tpu_torch/csrc/qgram_filter.cu",
         "replaces": "agrep_tpu/ops/qgram_kernel.py:102",
         "launches": res["launches"]["qgram_filter"],
-        "max_abs_err": max(err_qgram, c5q["max_abs_err"]),
+        "max_abs_err": max(err_qgram, c5q["max_abs_err"],
+                           res["config5qs"]["max_abs_err"]),
         "ms": c5q["ms"],
         "plain_ms": c5q["plain_ms"],
         "bound_ms": c5q["bound_ms"],
@@ -3259,7 +3401,7 @@ def main(argv=None) -> int:
         "replaces": "agrep_tpu/runtime/mgrep.py:967",
         "launches": res["launches"]["qgram_lines"],
         "max_abs_err": max([err_qlines] + [res[n]["qlines"]["max_abs_err"]
-                                           for n in QLINE_RUNS]),
+                                           for n in QLINE_SHAPES]),
         "ms": c5qn["qlines"]["ms"],
         "plain_ms": c5qn["qlines"]["plain_ms"],
         "bound_ms": c5qn["qlines"]["bound_ms"],

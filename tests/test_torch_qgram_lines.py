@@ -23,8 +23,7 @@ on the CPU.
     (agrep_tpu on its numpy backend), byte for byte with the exit code;
     each device-route file calls qgram_lines once and reads back no
     candidate positions, runs no native verify and, for a count, builds no
-    occurrence table; under 64 KiB the host pass counts (a streamed print
-    walks its chunks on the host).
+    occurrence table; under 64 KiB the host pass counts or prints.
 
 Every value is an integer, so every comparison is exact.  The CUDA kernel
 is held against its plain version by chip_smoke.py on the GPU.
@@ -448,10 +447,8 @@ def test_cli_past_the_caps_takes_qgram_lines(files, calls, monkeypatch, case,
     seen = dict(calls)
     assert got == _run(j_api, argv), argv
     assert got[0]
+    # a streamed print takes its file's route a chunk: one chunk here
     n_dev = sum(1 for k in names if k != "small")
-    if stream_mb is not None and not flags:
-        # a streamed print walks its chunks on the host (no device route)
-        n_dev = 0
     assert seen.get("qgram_lines", 0) == n_dev, seen
     assert seen.get("qgram_filter", 0) == n_dev, seen
     for name in ("plane_positions", "qgram_occ_at", "chain_scan"):

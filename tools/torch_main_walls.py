@@ -2,13 +2,15 @@
 """Walls and stage timers of the main path's runs in two or more checkouts
 of the port, each checkout in a process of its own.
 
-    python3 tools/torch_main_walls.py TREE [TREE ...] [--seed N] [--mb 100]
-                                      [--reps 3] [--runs NAME,...]
-                                      [--samples PATH]
+    python3 tools/torch_main_walls.py TREE[@REPS] [TREE[@REPS] ...]
+                                      [--seed N] [--mb 100] [--reps 3]
+                                      [--runs NAME,...] [--samples PATH]
 
 Each TREE is the root of a checkout holding agrep_tpu_torch/ (an
 unpacked `git archive` of a commit, say); the trees run in the order
-given, so `A B B A` runs A, B, B, A.  Each run builds its tree's kernels
+given, so `A B B A` runs A, B, B, A.  TREE@REPS times REPS runs a
+backend in that tree in place of --reps (`A@1 B B A@1`: a tree whose
+runs take a minute each, timed once).  Each run builds its tree's kernels
 and native library, makes chip_smoke's corpora from --seed (this
 checkout's chip_smoke.py, loaded by path), and runs --runs of: BASELINE
 configs 1-3 (`-c hello`, `-1 -n matching`, `-3 -D2 -I1 -S1 -w -i
@@ -22,8 +24,10 @@ and as a count in memory (memagrep4; these four by name only), and
 BASELINE config 5's 400 patterns past the chain caps (chip_smoke's
 pats400w: 154 byte classes) on the records file as a count (config5q)
 and as the matching lines (config5qn; agrep refuses -n with -f; printed
-whole, at chip_smoke's WHOLE_FILE_RUNS streaming threshold; these two
-by name only), through
+whole, at chip_smoke's WHOLE_FILE_RUNS streaming threshold), and the
+matching lines of chip_smoke's pats400 (within the chain caps; config5s)
+and of pats400w (config5qs) printed in chunks at the default 8 MB
+threshold (chip_smoke's STREAMED_RUNS; these four by name only), through
 the tree's agrep_tpu_torch.api, with
 AGREP_TORCH_STATS=2: one warm-up run, then --reps timed runs on the GPU
 route (each ended by a synchronize) and --reps on the tree's numpy host
@@ -36,8 +40,9 @@ RegexEngine._upload and _kernel_verdicts where the tree has them --
 their host length sort and gathers included --, else its _to_device,
 _fire and ops/renfa_kernel.py's line_index), and inside the mgrep
 engine's q-gram device calls (runtime/mgrep.py's MgrepEngine._qgram_plane,
-_qgram_positions and, where the tree has it, _qgram_lines; a call inside
-another is counted once): the device layer (the
+_qgram_positions and, where the tree has it, _qgram_lines, and its chain
+calls _chain_plane and _chain_starts; a call inside another is counted
+once): the device layer (the
 text's copy to the card, the kernels, the read-back; their wrappers
 here, in both trees alike), and the launches of each kernel.  The GPU route's output must equal the
 numpy backend's, and every tree's the first tree's (sha256 and exit
@@ -83,7 +88,8 @@ def _helpers():
 DEFAULT_RUNS = "config1,config2,config3,config2c,memagrep,bool5m"
 
 
-def runs(cs, path: str, rec: str, data: bytes, p400w: str) -> list:
+def runs(cs, path: str, rec: str, data: bytes, p400: str,
+         p400w: str) -> list:
     """(name, api function name, argv, in-memory data or None)."""
     return [
         ("config1", "fileagrep", cs.CONFIGS[0][1] + [path], None),
@@ -100,6 +106,8 @@ def runs(cs, path: str, rec: str, data: bytes, p400w: str) -> list:
          cs.CONFIG5_DELIM + ["hello;matching," + cs.WIDE_TERM, rec], None),
         ("config5q", "fileagrep", ["-c", "-f", p400w, rec], None),
         ("config5qn", "fileagrep", ["-f", p400w, rec], None),
+        ("config5s", "fileagrep", ["-f", p400, rec], None),
+        ("config5qs", "fileagrep", ["-f", p400w, rec], None),
     ]
 
 
@@ -156,7 +164,8 @@ def child(tree: str, args) -> int:
             setattr(engine, fn, timed(getattr(engine, fn)))
     if hasattr(renfa_kernel, "line_index"):
         renfa_kernel.line_index = timed(renfa_kernel.line_index)
-    for fn in ("_qgram_plane", "_qgram_positions", "_qgram_lines"):
+    for fn in ("_qgram_plane", "_qgram_positions", "_qgram_lines",
+               "_chain_plane", "_chain_starts"):
         if hasattr(mgrep.MgrepEngine, fn):
             setattr(mgrep.MgrepEngine, fn,
                     timed(getattr(mgrep.MgrepEngine, fn)))
@@ -175,14 +184,16 @@ def child(tree: str, args) -> int:
         corpus.tofile(path)
         rec = os.path.join(tmp, "records.txt")
         records.tofile(rec)
+        p400 = os.path.join(tmp, "pats400.txt")
         p400w = os.path.join(tmp, "pats400w.txt")
-        with open(p400w, "wb") as fh:
-            fh.write(b"".join(w + b"\n" for w in cs.wide_patterns(
-                cs.make_patterns(400, args.seed))))
+        pats = cs.make_patterns(400, args.seed)
+        for f, ws in ((p400, pats), (p400w, cs.wide_patterns(pats))):
+            with open(f, "wb") as fh:
+                fh.write(b"".join(w + b"\n" for w in ws))
         chosen = args.runs.split(",")
         for name, fn_name, argv, data in runs(cs, path, rec,
                                               b"\n" + corpus.tobytes(),
-                                              p400w):
+                                              p400, p400w):
             if name not in chosen:
                 continue
             fn = getattr(api, fn_name)
@@ -230,7 +241,9 @@ def child(tree: str, args) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("trees", nargs="+", help="checkout roots, in order")
+    ap.add_argument("trees", nargs="+",
+                    help="checkout roots, in order, each with an optional "
+                    "@REPS")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mb", type=int, default=100)
     ap.add_argument("--reps", type=int, default=3)
@@ -253,11 +266,16 @@ def main(argv=None) -> int:
     print(timing.card_line())
     env = dict(os.environ, AGREP_TORCH_STATS="2")
     done = []
-    for tree in map(os.path.abspath, args.trees):
+    for spec in args.trees:
+        tree, at, reps = spec.rpartition("@")
+        if not at:
+            tree, reps = spec, str(args.reps)
+        tree = os.path.abspath(tree)
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--child", tree,
              "--seed", str(args.seed), "--mb", str(args.mb), "--reps",
-             str(args.reps), "--runs", args.runs], capture_output=True,
+             reps, "--runs", args.runs],
+            capture_output=True,
             text=True,
             cwd=tree, env=env)
         if proc.returncode != 0:
@@ -274,8 +292,8 @@ def main(argv=None) -> int:
             if r["digest"] != r0["digest"]:
                 differ.append((name, i + 1))
             tag = os.path.basename(os.path.normpath(d["tree"]))
-            walls.append("%s %.3f [numpy %.3f]" % (
-                tag, _median(r["gpu"]), _median(r["numpy"])))
+            walls.append("%s %.3f [numpy %.3f] (%d a backend)" % (
+                tag, _median(r["gpu"]), _median(r["numpy"]), len(r["gpu"])))
             keys = sorted({k for st in r["stages"] for k in st})
             cut = r.get("counters", [{}])[-1]
             stages.append("%s %s device layer=%.3fs launches=%s%s" % (
@@ -285,10 +303,11 @@ def main(argv=None) -> int:
                 ",".join("%s:%d" % kv for kv in r["launches"][-1].items()),
                 "".join(" %s=%d" % (k, cut[k]) for k in
                         ("record_pairs", "record_rows", "regex_lines",
-                         "regex_rows", "qgram_lines", "qgram_line_rows")
+                         "regex_rows", "chain_scans", "qgram_lines",
+                         "qgram_line_rows", "stream_print_chunks")
                         if k in cut)))
-        print("walls: %-8s median of %d s, GPU route [numpy backend]: %s"
-              % (name, len(r0["gpu"]), " | ".join(walls)))
+        print("walls: %-8s medians, s, GPU route [numpy backend]: %s"
+              % (name, " | ".join(walls)))
         print("stages: %-8s medians: %s" % (name, " | ".join(stages)))
     print("card: %s" % timing.card_line())
     # every sample goes to a file: with many runs one JSON line of them
