@@ -25,26 +25,38 @@
 //
 // What bounds it on an H100: bytes.  It must read the text once and write
 // 32 bytes a line: at config 4's 32 MB chunk (684,929 lines) about 55 MB,
-// 16 us at 3.35 TB/s.  The design is the simple one:
+// 16 us at 3.35 TB/s.  The design reads the text once, its newline bits
+// (n / 8 bytes) once more and nl once more.  Every pass works on one grid of blocks of
+// kBytesPerBlock text bytes (512 blocks at 32 MB: all resident at once on
+// 132 SMs), and nothing runs between the passes but the passes:
 //
-//   * Pass 1 (count_kernel): each block counts the newlines of its
-//     kBytesPerBlock bytes, read as aligned 16-byte pieces (text_piece.cuh:
-//     the bytes outside the text read as 0), and the last one's position.
-//   * The wrapper takes the exclusive prefix sum of the block counts on
-//     the card (one torch.cumsum) and reads K and the last newline.
-//   * Pass 2 (write_kernel) counts again, scans the threads' counts across
-//     the block (warp shuffles, then the warps' totals in shared memory),
-//     and each thread writes its newlines' positions from its offset.
-//   * Pass 3 (hist_kernel): each block histograms the keys of its
-//     kLinesPerBlock lines in shared memory and writes them key-major,
-//     hist[key * grid + block], so that one exclusive torch.cumsum over
-//     the flat array gives each (key, block) its first slot.
-//   * Pass 4 (scatter_kernel): each block walks its lines in rounds of one
-//     a thread, in stream order.  A warp ranks its lanes of equal key
-//     (__match_any_sync), the warps' counts of each key go through shared
-//     memory, and a running count a key carries the block's earlier
-//     rounds: each line lands after every earlier line of its key, so the
-//     sort is stable.
+//   * Pass 1 (count_kernel): each block counts the newlines of its bytes,
+//     read as aligned 16-byte pieces (text_piece.cuh: the bytes outside
+//     the text read as 0), and the last one's position, and stores each
+//     piece's 16 newline bits (an eighth of the text's bytes) for pass 3.
+//     A warp owns kRounds * 32 consecutive pieces, a round's 32 side by
+//     side, and a thread issues all its kRounds loads before it uses one.
+//   * Pass 2 (offsets_kernel, one block): the exclusive prefix sum of the
+//     block counts (each block's first line), the exclusive prefix max of
+//     their last newlines (the newline before each block's bytes, which
+//     ends the line before its first), K and the last newline, which the
+//     wrapper reads: the outputs are sized by K.
+//   * Pass 3 (write_kernel) reads pass 1's newline bits, not the text,
+//     sums the warps' newlines and last newlines across the block once
+//     (shared memory, one barrier), then scans each round's lanes with
+//     warp shuffles alone, and each thread writes its piece's newlines'
+//     positions from its offset and histograms their lines' keys in
+//     shared memory.  The histograms go
+//     out key-major, hist[key * grid + block].
+//   * Pass 4 (keys_kernel, a block a key): the exclusive prefix of each
+//     key's row over the blocks, and the key's total.
+//   * Pass 5 (scatter_kernel): each block sorts its lines by key in shared
+//     memory, kRoundLines at a time, stably (a warp ranks its lanes of
+//     equal key with __match_any_sync over its own run of lines, the warps'
+//     counts a key are scanned), so that each key's run of the round
+//     leaves the block as one contiguous store into each output array, at
+//     the key's next slot: the earlier keys' totals, the earlier blocks'
+//     lines of the key and the block's earlier rounds.
 //
 // Built by ops/_cuda.py as one object with a plain C interface:
 // nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
@@ -59,11 +71,12 @@ namespace line_index {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRounds = 4;
+constexpr int kRounds = 16;
 constexpr int kBytesPerBlock = kThreads * 16 * kRounds;
-constexpr int kLineRounds = 8;
-constexpr int kLinesPerBlock = kThreads * kLineRounds;
+constexpr int kRoundLines = 2048;
+constexpr int kLinesPerThread = kRoundLines / kThreads;
 constexpr int kKeys = 225;
+constexpr int kScanThreads = 1024;
 
 struct Text {
     const uint8_t* text;
@@ -85,18 +98,26 @@ Text make_text(const uint8_t* text, long long n) {
     return t;
 }
 
+long long text_grid(const Text& t) {
+    return (t.pieces + kBytesPerBlock / 16 - 1) / (kBytesPerBlock / 16);
+}
+
+// Bit k set where byte k of x is a newline: the bytes equal to 0x0a get
+// 0x80, gathered by one multiply.
+__device__ __forceinline__ uint32_t newline4(uint32_t x) {
+    const uint32_t y = x ^ 0x0a0a0a0au;
+    const uint32_t z = ~(((y & 0x7f7f7f7fu) + 0x7f7f7f7fu) | y) & 0x80808080u;
+    return (z * 0x00204081u) >> 28;
+}
+
+__device__ __forceinline__ uint32_t newline16(uint4 v) {
+    return newline4(v.x) | newline4(v.y) << 4 | newline4(v.z) << 8
+           | newline4(v.w) << 12;
+}
+
 // Bit b set where byte b of piece g is a newline of the text.
 __device__ __forceinline__ uint32_t newline_bits(const Text& t, long long g) {
-    const uint4 v = text_piece(t.base + 16 * (uintptr_t)g, t.lo, t.hi);
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-    uint32_t m = 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const uint32_t e = __vcmpeq4(w[i], 0x0a0a0a0au);   // 0xff a match
-        m |= ((e >> 7 & 1u) | (e >> 14 & 2u) | (e >> 21 & 4u)
-              | (e >> 28 & 8u)) << (4 * i);
-    }
-    return m;
+    return newline16(text_piece(t.base + 16 * (uintptr_t)g, t.lo, t.hi));
 }
 
 // Text position of byte b of piece g.
@@ -105,26 +126,87 @@ __device__ __forceinline__ long long piece_pos(const Text& t, long long g,
     return (long long)(t.base + 16 * (uintptr_t)g + b - t.lo);
 }
 
+__device__ __forceinline__ long long max64(long long a, long long b) {
+    return a > b ? a : b;
+}
+
+__device__ __forceinline__ int len_key(long long len) {
+    if (len < 128) return (int)len;
+    if (len >= 8192) return kKeys - 1;
+    const int e = 63 - __clzll(len);                   // 7 .. 12
+    return 128 + (e - 7) * 16 + (int)((len >> (e - 4)) & 15);
+}
+
+// The block's exclusive prefix sum of v (thread order) and its total;
+// s_tmp holds kWarps values.  Every thread calls it; it syncs twice.
+template <typename T>
+__device__ __forceinline__ T block_excl_sum(T v, T* s_tmp, T* total) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    T x = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const T y = __shfl_up_sync(0xffffffffu, x, o);
+        if (lane >= o) x += y;
+    }
+    if (lane == 31) s_tmp[warp] = x;
+    __syncthreads();
+    T before = 0, all = 0;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+        if (w < warp) before += s_tmp[w];
+        all += s_tmp[w];
+    }
+    __syncthreads();                    // s_tmp may be rewritten next
+    *total = all;
+    return before + x - v;
+}
+
+// Piece r of this thread: a warp owns kRounds * 32 consecutive pieces of
+// its block, round r's 32 side by side (one 512-byte load a warp), so
+// that the warp's newlines come in stream order round by round.
+__device__ __forceinline__ long long warp_piece(int r) {
+    return ((long long)blockIdx.x * kWarps + (threadIdx.x >> 5)) * kRounds
+               * 32 + r * 32 + (threadIdx.x & 31);
+}
+
+// The newline masks of this thread's pieces: inside the text, every load
+// is issued before the first is used; at its edges, piece by piece.
+__device__ __forceinline__ void piece_masks(const Text& t,
+                                            uint32_t m[kRounds]) {
+    const uintptr_t a = t.base + 16 * (uintptr_t)warp_piece(0);
+    if (a >= t.lo && a + 16 * 32 * (kRounds - 1) + 16 <= t.hi) {
+        const uint4* q = reinterpret_cast<const uint4*>(a);
+        uint4 v[kRounds];
+#pragma unroll
+        for (int r = 0; r < kRounds; ++r) v[r] = __ldg(q + 32 * r);
+#pragma unroll
+        for (int r = 0; r < kRounds; ++r) m[r] = newline16(v[r]);
+        return;
+    }
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r)
+        m[r] = warp_piece(r) < t.pieces ? newline_bits(t, warp_piece(r)) : 0u;
+}
+
 __global__ void __launch_bounds__(kThreads)
 count_kernel(Text t, long long* __restrict__ counts,
-             long long* __restrict__ last) {
+             long long* __restrict__ last, uint16_t* __restrict__ masks) {
     __shared__ int s_warp[kWarps];
     __shared__ long long s_last[kWarps];
-    const long long g0 = (long long)blockIdx.x * (kBytesPerBlock / 16);
+    uint32_t m[kRounds];
+    piece_masks(t, m);
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) masks[warp_piece(r)] = (uint16_t)m[r];
     int c = 0;
     long long mx = -1;
+#pragma unroll
     for (int r = 0; r < kRounds; ++r) {
-        const long long g = g0 + r * kThreads + threadIdx.x;
-        if (g >= t.pieces) break;
-        const uint32_t m = newline_bits(t, g);
-        c += __popc(m);
-        if (m) mx = piece_pos(t, g, 31 - __clz(m));
+        c += __popc(m[r]);
+        if (m[r]) mx = max64(mx, piece_pos(t, warp_piece(r), 31 - __clz(m[r])));
     }
 #pragma unroll
     for (int o = 16; o; o >>= 1) {
         c += __shfl_down_sync(0xffffffffu, c, o);
-        const long long y = __shfl_down_sync(0xffffffffu, mx, o);
-        mx = y > mx ? y : mx;
+        mx = max64(mx, __shfl_down_sync(0xffffffffu, mx, o));
     }
     if ((threadIdx.x & 31) == 0) {
         s_warp[threadIdx.x >> 5] = c;
@@ -135,70 +217,131 @@ count_kernel(Text t, long long* __restrict__ counts,
         long long s = 0, l = -1;
         for (int w = 0; w < kWarps; ++w) {
             s += s_warp[w];
-            l = s_last[w] > l ? s_last[w] : l;
+            l = max64(l, s_last[w]);
         }
         counts[blockIdx.x] = s;
         last[blockIdx.x] = l;
     }
 }
 
-__global__ void __launch_bounds__(kThreads)
-write_kernel(Text t, const long long* __restrict__ offsets,
-             long long* __restrict__ nl) {
-    __shared__ int s_warp[kWarps];
+__global__ void __launch_bounds__(kScanThreads)
+offsets_kernel(const long long* __restrict__ counts,
+               const long long* __restrict__ last, long long nb,
+               long long* __restrict__ offs, long long* __restrict__ prev,
+               long long* __restrict__ meta) {
+    __shared__ long long s_sum[kScanThreads / 32];
+    __shared__ long long s_max[kScanThreads / 32];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    long long base = offsets[blockIdx.x];
-    const long long g0 = (long long)blockIdx.x * (kBytesPerBlock / 16);
-    for (int r = 0; r < kRounds; ++r) {
-        const long long g = g0 + r * kThreads + threadIdx.x;
-        const uint32_t m = g < t.pieces ? newline_bits(t, g) : 0u;
-        // this thread's first newline: those of the block's earlier
-        // rounds, earlier warps and earlier lanes
-        const int n = __popc(m);
-        int x = n;
+    const long long per = (nb + kScanThreads - 1) / kScanThreads;
+    const long long b0 = threadIdx.x * per;
+    const long long b1 = b0 + per < nb ? b0 + per : nb;
+    long long s = 0, m = -1;
+    for (long long b = b0; b < b1; ++b) {
+        s += counts[b];
+        m = max64(m, last[b]);
+    }
+    long long x = s, y = m;
 #pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-            const int y = __shfl_up_sync(0xffffffffu, x, o);
-            if (lane >= o) x += y;
+    for (int o = 1; o < 32; o <<= 1) {
+        const long long xs = __shfl_up_sync(0xffffffffu, x, o);
+        const long long ym = __shfl_up_sync(0xffffffffu, y, o);
+        if (lane >= o) {
+            x += xs;
+            y = max64(y, ym);
         }
-        if (lane == 31) s_warp[warp] = x;
-        __syncthreads();
-        int before = 0, total = 0;
-        for (int w = 0; w < kWarps; ++w) {
-            const int s = s_warp[w];
-            if (w < warp) before += s;
-            total += s;
-        }
-        long long o = base + before + x - n;
-        for (uint32_t k = m; k; k &= k - 1)
-            nl[o++] = piece_pos(t, g, __ffs(k) - 1);
-        base += total;
-        __syncthreads();                // s_warp is rewritten next round
+    }
+    if (lane == 31) {
+        s_sum[warp] = x;
+        s_max[warp] = y;
+    }
+    long long ey = __shfl_up_sync(0xffffffffu, y, 1);
+    if (lane == 0) ey = -1;
+    __syncthreads();
+    long long sum = x - s, mx = ey;
+    for (int w = 0; w < warp; ++w) {
+        sum += s_sum[w];
+        mx = max64(mx, s_max[w]);
+    }
+    for (long long b = b0; b < b1; ++b) {
+        offs[b] = sum;
+        prev[b] = mx;
+        sum += counts[b];
+        mx = max64(mx, last[b]);
+    }
+    if (threadIdx.x == kScanThreads - 1) {
+        offs[nb] = sum;
+        meta[0] = sum;
+        meta[1] = mx;
     }
 }
 
-__device__ __forceinline__ int len_key(long long len) {
-    if (len < 128) return (int)len;
-    if (len >= 8192) return kKeys - 1;
-    const int e = 63 - __clzll(len);                   // 7 .. 12
-    return 128 + (e - 7) * 16 + (int)((len >> (e - 4)) & 15);
-}
-
-__device__ __forceinline__ long long line_start(const long long* nl,
-                                                long long j) {
-    return j ? nl[j - 1] + 1 : 0;
-}
-
 __global__ void __launch_bounds__(kThreads)
-hist_kernel(const long long* __restrict__ nl, long long K,
-            int* __restrict__ hist) {
+write_kernel(Text t, const uint16_t* __restrict__ masks,
+             const long long* __restrict__ offs,
+             const long long* __restrict__ prev, long long* __restrict__ nl,
+             int* __restrict__ hist) {
     __shared__ int s_hist[kKeys];
+    __shared__ int s_warp[kWarps];
+    __shared__ long long s_wmax[kWarps];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     for (int k = threadIdx.x; k < kKeys; k += kThreads) s_hist[k] = 0;
-    __syncthreads();
-    const long long j0 = (long long)blockIdx.x * kLinesPerBlock;
-    for (int r = 0; r < kLineRounds; ++r) {
-        const long long j = j0 + r * kThreads + threadIdx.x;
-        if (j < K) atomicAdd(&s_hist[len_key(nl[j] - line_start(nl, j))], 1);
+    uint32_t m[kRounds];
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) m[r] = masks[warp_piece(r)];
+    // the warp's newlines and last newline, then the earlier warps'
+    int c = 0;
+    long long mx = -1;
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+        c += __popc(m[r]);
+        if (m[r]) mx = max64(mx, piece_pos(t, warp_piece(r), 31 - __clz(m[r])));
+    }
+#pragma unroll
+    for (int o = 16; o; o >>= 1) {
+        c += __shfl_xor_sync(0xffffffffu, c, o);
+        mx = max64(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    }
+    if (lane == 0) {
+        s_warp[warp] = c;
+        s_wmax[warp] = mx;
+    }
+    __syncthreads();                    // also: s_hist is zeroed
+    long long base = offs[blockIdx.x];
+    long long p0 = prev[blockIdx.x];    // the newline before the round
+    for (int w = 0; w < warp; ++w) {
+        base += s_warp[w];
+        p0 = max64(p0, s_wmax[w]);
+    }
+    // round by round: each lane's first slot and the newline before its
+    // piece, from the warp's earlier lanes and rounds
+#pragma unroll
+    for (int r = 0; r < kRounds; ++r) {
+        const int n = __popc(m[r]);
+        const long long g = warp_piece(r);
+        const long long mine = m[r] ? piece_pos(t, g, 31 - __clz(m[r])) : -1;
+        int x = n;
+        long long y = mine;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+            const int xs = __shfl_up_sync(0xffffffffu, x, o);
+            const long long ym = __shfl_up_sync(0xffffffffu, y, o);
+            if (lane >= o) {
+                x += xs;
+                y = max64(y, ym);
+            }
+        }
+        long long ey = __shfl_up_sync(0xffffffffu, y, 1);
+        if (lane == 0) ey = -1;
+        long long o = base + x - n;
+        long long p = max64(p0, ey);
+        for (uint32_t k = m[r]; k; k &= k - 1) {
+            const long long pos = piece_pos(t, g, __ffs(k) - 1);
+            nl[o++] = pos;
+            atomicAdd(&s_hist[len_key(pos - p - 1)], 1);
+            p = pos;
+        }
+        base += __shfl_sync(0xffffffffu, x, 31);
+        p0 = max64(p0, __shfl_sync(0xffffffffu, y, 31));
     }
     __syncthreads();
     for (int k = threadIdx.x; k < kKeys; k += kThreads)
@@ -206,47 +349,116 @@ hist_kernel(const long long* __restrict__ nl, long long K,
 }
 
 __global__ void __launch_bounds__(kThreads)
-scatter_kernel(const long long* __restrict__ nl, long long K,
+keys_kernel(const int* __restrict__ hist, long long nb,
+            long long* __restrict__ slots, long long* __restrict__ ktot) {
+    __shared__ long long s_tmp[kWarps];
+    const long long row = (long long)blockIdx.x * nb;
+    const long long per = (nb + kThreads - 1) / kThreads;
+    const long long b0 = threadIdx.x * per;
+    const long long b1 = b0 + per < nb ? b0 + per : nb;
+    long long s = 0;
+    for (long long b = b0; b < b1; ++b) s += hist[row + b];
+    long long total;
+    long long pre = block_excl_sum(s, s_tmp, &total);
+    for (long long b = b0; b < b1; ++b) {
+        slots[row + b] = pre;
+        pre += hist[row + b];
+    }
+    if (threadIdx.x == 0) ktot[blockIdx.x] = total;
+}
+
+__global__ void __launch_bounds__(kThreads)
+scatter_kernel(const long long* __restrict__ nl,
+               const long long* __restrict__ offs,
                const long long* __restrict__ slots,
+               const long long* __restrict__ ktot,
                long long* __restrict__ starts, long long* __restrict__ lens,
                long long* __restrict__ ords) {
+    __shared__ long long s_nl[kRoundLines + 1];  // nl[j0 - 1 ..]
     __shared__ long long s_next[kKeys];     // the block's next slot a key
-    __shared__ int s_wcount[kWarps][kKeys]; // a round's lines a warp a key
+    __shared__ int s_wc[kWarps][kKeys];     // a round's lines a warp a key
+    __shared__ int s_base[kKeys];           // a key's first sorted place
+    __shared__ int s_tot[kKeys];            // a round's lines a key
+    __shared__ uint8_t s_key[kRoundLines];
+    __shared__ uint16_t s_sorted[kRoundLines];   // round lines by key
+    __shared__ long long s_tmp[kWarps];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    for (int k = threadIdx.x; k < kKeys; k += kThreads) {
-        s_next[k] = slots[(long long)k * gridDim.x + blockIdx.x];
-        for (int w = 0; w < kWarps; ++w) s_wcount[w][k] = 0;
+    const long long b = blockIdx.x, nb = gridDim.x;
+    const long long j_lo = offs[b], j_hi = offs[b + 1];
+    if (j_lo == j_hi) return;
+    {
+        // the key's first slot: the earlier keys' lines, then the earlier
+        // blocks' lines of the key
+        const int k = threadIdx.x;
+        const long long t = k < kKeys ? ktot[k] : 0;
+        long long all;
+        const long long kb = block_excl_sum(t, s_tmp, &all);
+        if (k < kKeys) s_next[k] = kb + slots[(long long)k * nb + b];
     }
-    __syncthreads();
     const unsigned below = (1u << lane) - 1u;
-    const long long j0 = (long long)blockIdx.x * kLinesPerBlock;
-    for (int r = 0; r < kLineRounds; ++r) {
-        const long long j = j0 + r * kThreads + threadIdx.x;
-        const bool valid = j < K;
-        long long st = 0, len = 0;
-        int key = -1;                   // the lanes past K rank apart
-        if (valid) {
-            st = line_start(nl, j);
-            len = nl[j] - st;
-            key = len_key(len);
-        }
-        const unsigned peers = __match_any_sync(0xffffffffu, key);
-        const bool leader = (__ffs(peers) - 1) == lane;
-        if (valid && leader) s_wcount[warp][key] = __popc(peers);
+    for (long long j0 = j_lo; j0 < j_hi; j0 += kRoundLines) {
+        const int cnt = (int)(j_hi - j0 < kRoundLines ? j_hi - j0
+                                                       : kRoundLines);
+        for (int i = threadIdx.x; i <= cnt; i += kThreads)
+            s_nl[i] = j0 + i - 1 >= 0 ? nl[j0 + i - 1] : -1;
+        for (int k = threadIdx.x; k < kKeys; k += kThreads)
+            for (int w = 0; w < kWarps; ++w) s_wc[w][k] = 0;
         __syncthreads();
-        if (valid) {
-            long long q = s_next[key] + __popc(peers & below);
-            for (int w = 0; w < warp; ++w) q += s_wcount[w][key];
-            starts[q] = st;
-            lens[q] = len;
-            ords[q] = j;
+        // a warp ranks its run of kLinesPerThread * 32 lines, 32 at a step
+        int key[kLinesPerThread], rank[kLinesPerThread];
+#pragma unroll
+        for (int s = 0; s < kLinesPerThread; ++s) {
+            const int li = (warp * kLinesPerThread + s) * 32 + lane;
+            key[s] = li < cnt ? len_key(s_nl[li + 1] - s_nl[li] - 1) : -1;
+            const unsigned peers = __match_any_sync(0xffffffffu, key[s]);
+            rank[s] = 0;
+            if (key[s] >= 0) {
+                rank[s] = s_wc[warp][key[s]] + __popc(peers & below);
+                s_key[li] = (uint8_t)key[s];
+            }
+            __syncwarp();
+            if (key[s] >= 0 && (__ffs(peers) - 1) == lane)
+                s_wc[warp][key[s]] += __popc(peers);
+            __syncwarp();
         }
         __syncthreads();
-        if (valid && leader) {
-            atomicAdd(reinterpret_cast<unsigned long long*>(&s_next[key]),
-                      (unsigned long long)__popc(peers));
-            s_wcount[warp][key] = 0;
+        {
+            // each key's warps in order, then the keys in order
+            const int k = threadIdx.x;
+            int run = 0;
+            if (k < kKeys)
+                for (int w = 0; w < kWarps; ++w) {
+                    const int c = s_wc[w][k];
+                    s_wc[w][k] = run;
+                    run += c;
+                }
+            int all;
+            const int kb = block_excl_sum(run, reinterpret_cast<int*>(s_tmp),
+                                          &all);
+            if (k < kKeys) {
+                s_base[k] = kb;
+                s_tot[k] = run;
+            }
         }
+        __syncthreads();
+#pragma unroll
+        for (int s = 0; s < kLinesPerThread; ++s)
+            if (key[s] >= 0)
+                s_sorted[s_base[key[s]] + s_wc[warp][key[s]] + rank[s]] =
+                    (uint16_t)((warp * kLinesPerThread + s) * 32 + lane);
+        __syncthreads();
+        for (int q = threadIdx.x; q < cnt; q += kThreads) {
+            const int li = s_sorted[q];
+            const int k = s_key[li];
+            const long long at = s_next[k] + (q - s_base[k]);
+            const long long st = s_nl[li] + 1;
+            starts[at] = st;
+            lens[at] = s_nl[li + 1] - st;
+            ords[at] = j0 + li;
+        }
+        __syncthreads();
+        for (int k = threadIdx.x; k < kKeys; k += kThreads)
+            s_next[k] += s_tot[k];
         __syncthreads();
     }
 }
@@ -258,76 +470,92 @@ using namespace line_index;
 
 extern "C" {
 
-// Threads a block, text bytes a block (passes 1-2), lines a block (passes
-// 3-4) and the sort's keys.
+// Threads a block, text bytes a block (every pass's grid), lines a round
+// of the scatter and the sort's keys.
 int line_index_geometry(int* threads, int* bytes_per_block,
-                        int* lines_per_block, int* keys) {
+                        int* round_lines, int* keys) {
     *threads = kThreads;
     *bytes_per_block = kBytesPerBlock;
-    *lines_per_block = kLinesPerBlock;
+    *round_lines = kRoundLines;
     *keys = kKeys;
     return 0;
 }
 
-// Blocks of passes 1-2 for a text of n bytes at `text`: its 16-byte
-// pieces from the aligned address at or below text, a block's share at a
-// time.
+// Blocks of every pass but 2 and 4 for a text of n bytes at `text`: its
+// 16-byte pieces from the aligned address at or below text, a block's
+// share at a time.
 long long line_index_text_grid(const uint8_t* text, long long n) {
     if (n < 1) return 0;
-    const Text t = make_text(text, n);
-    return (t.pieces + kBytesPerBlock / 16 - 1) / (kBytesPerBlock / 16);
+    return text_grid(make_text(text, n));
 }
 
 // Pass 1 on `stream`: counts[b] and last[b] (int64 [grid] each) = the
 // newlines of block b's bytes and the last one's position (-1 without
-// one), with grid = line_index_text_grid(text, n).  Returns
-// cudaGetLastError() after the launch (cudaErrorInvalidValue for
-// arguments the kernel does not take).  All pointers are device pointers.
+// one), with grid = line_index_text_grid(text, n), and masks u16 [grid *
+// bytes_per_block / 16], each 16-byte piece's newline bits (0 past the
+// text) for pass 3.  Returns cudaGetLastError() after the launch
+// (cudaErrorInvalidValue for arguments the kernel does not take).  All
+// pointers are device pointers.
 int line_index_count(const uint8_t* text, long long n, long long* counts,
-                     long long* last, int grid, void* stream) {
-    if (n < 1 || grid != line_index_text_grid(text, n))
-        return (int)cudaErrorInvalidValue;
-    count_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        make_text(text, n), counts, last);
-    return (int)cudaGetLastError();
-}
-
-// Pass 2 on `stream`, the same text and grid as pass 1, with offsets
-// int64 [grid] the exclusive prefix sum of pass 1's counts: the newlines'
-// positions into nl int64 [K], in stream order.
-int line_index_write(const uint8_t* text, long long n,
-                     const long long* offsets, long long* nl, int grid,
+                     long long* last, uint16_t* masks, int grid,
                      void* stream) {
     if (n < 1 || grid != line_index_text_grid(text, n))
         return (int)cudaErrorInvalidValue;
+    count_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        make_text(text, n), counts, last, masks);
+    return (int)cudaGetLastError();
+}
+
+// Pass 2 on `stream`, one block: offs int64 [grid + 1], the exclusive
+// prefix sum of pass 1's counts (offs[grid] = K); prev int64 [grid], the
+// exclusive prefix max of its last newlines (-1 before the first); meta
+// int64 [2] = (K, the last newline or -1).
+int line_index_offsets(const long long* counts, const long long* last,
+                       int grid, long long* offs, long long* prev,
+                       long long* meta, void* stream) {
+    if (grid < 1) return (int)cudaErrorInvalidValue;
+    offsets_kernel<<<1, kScanThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+        counts, last, grid, offs, prev, meta);
+    return (int)cudaGetLastError();
+}
+
+// Pass 3 on `stream`, the text and grid of pass 1, with its masks and
+// pass 2's offs and prev: the newlines' positions into nl int64 [K], in
+// stream order, and hist int32 [keys * grid], key-major, the lines of each
+// key whose newline lies in each block.
+int line_index_write(const uint8_t* text, long long n,
+                     const uint16_t* masks, const long long* offs,
+                     const long long* prev, long long* nl, int* hist,
+                     int grid, void* stream) {
+    if (n < 1 || grid != line_index_text_grid(text, n))
+        return (int)cudaErrorInvalidValue;
     write_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        make_text(text, n), offsets, nl);
+        make_text(text, n), masks, offs, prev, nl, hist);
     return (int)cudaGetLastError();
 }
 
-// Pass 3 on `stream`: hist int32 [keys * grid], key-major, the lines of
-// each key in each block, with grid = ceil(K / lines_per_block).
-int line_index_hist(const long long* nl, long long K, int* hist, int grid,
-                    void* stream) {
-    if (K < 1 || grid != (K + kLinesPerBlock - 1) / kLinesPerBlock)
-        return (int)cudaErrorInvalidValue;
-    hist_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        nl, K, hist);
+// Pass 4 on `stream`, a block a key: slots int64 [keys * grid], each key
+// row's exclusive prefix sum of pass 3's hist, and ktot int64 [keys], the
+// key's lines.
+int line_index_keys(const int* hist, int grid, long long* slots,
+                    long long* ktot, void* stream) {
+    if (grid < 1) return (int)cudaErrorInvalidValue;
+    keys_kernel<<<kKeys, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        hist, grid, slots, ktot);
     return (int)cudaGetLastError();
 }
 
-// Pass 4 on `stream`, the grid of pass 3, with slots int64 [keys * grid]
-// the exclusive prefix sum of pass 3's hist: the lines' starts, lengths
-// and stream ordinals into starts, lens and ords (int64 [K] each), in
-// length order.
-int line_index_scatter(const long long* nl, long long K,
-                       const long long* slots, long long* starts,
-                       long long* lens, long long* ords, int grid,
-                       void* stream) {
-    if (K < 1 || grid != (K + kLinesPerBlock - 1) / kLinesPerBlock)
-        return (int)cudaErrorInvalidValue;
+// Pass 5 on `stream`, the grid of pass 1, with the outputs of passes 2-4:
+// the lines' starts, lengths and stream ordinals into starts, lens and
+// ords (int64 [K] each), in length order.
+int line_index_scatter(const long long* nl, const long long* offs,
+                       const long long* slots, const long long* ktot,
+                       long long* starts, long long* lens, long long* ords,
+                       int grid, void* stream) {
+    if (grid < 1) return (int)cudaErrorInvalidValue;
     scatter_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        nl, K, slots, starts, lens, ords);
+        nl, offs, slots, ktot, starts, lens, ords);
     return (int)cudaGetLastError();
 }
 

@@ -35,36 +35,51 @@
 // Triton's block-wide tensors have neither the data-dependent loops nor
 // the warp shuffles that carry the fold.
 //
-// What bounds it on an H100: bytes.  It must read the text and the plane
-// once (n + n / 8 bytes: 0.035 ms per 100 MB at 3.35 TB/s) and write 16
-// bytes a row.  About 38 % of the positions pass the plane and about
-// 0.15 % the exact member test, so the bucket walks are rare.  The design
-// is the simple one, after record_verdicts.cu and line_rows.cu:
+// What bounds it on an H100: bytes, in the function's least work.  It
+// must read the text and the plane once (n + n / 8 bytes: 0.035 ms per
+// 100 MB at 3.35 TB/s) and write 16 bytes a row.  About 38 % of the
+// positions pass the plane and about 0.15 % the exact member test, so
+// the bucket walks are rare (0.013 ms of the first design's 0.125 at
+// 100 MB).  Staging the bucket and term tables in shared memory, and
+// queueing a tile's candidates to walk them one a thread, each made the
+// pass slower on an H100 (by 0.002-0.004 ms a call at 100 MB,
+// tools/torch_kernel_ab.py): a thread walks the candidates it finds,
+// from the tables in global memory.  This design tests every position
+// against the member set (a shared-memory gather and about six int32
+// instructions) and builds every word's newline mask: int32 issue, at
+// half the fp32 rate on Hopper, binds it before the bytes do.  The
+// design:
 //
-//   * A thread owns one 32-position plane word a round (kRounds rounds, a
-//     block's words in round-major order, so a warp's loads are
-//     coalesced).  It loads the word's 32 text bytes (text_word32: any
-//     alignment) and the two bytes before them (the neighbouring lane's,
-//     by shuffle), computes the exact member test of all 32 positions
-//     from the member bit set in shared memory, ANDs it with the plane
-//     word and the valid positions, and runs the bucket walk at each bit
-//     left: a winner mask and a newline mask of the word.
+//   * A block of kThreads threads walks tiles of kTileWords plane words
+//     (kTileWords * 32 text bytes), as many tiles as the card holds
+//     blocks, so that each block loads the 4 KB member set and the fold
+//     once.  A thread owns kWordsPerThread consecutive words of a tile: it
+//     loads their text bytes and the two bytes before them (the previous
+//     lane's, by shuffle), and builds each word's newline mask and its
+//     exact member mask (one gather a position from the member set in
+//     shared memory, the bit placed by a funnel shift: about six
+//     instructions a position), ANDed with the plane's bits at the valid
+//     positions: the candidates.  The thread walks each candidate's
+//     bucket (winner) and keeps the bits that win: its words' winner
+//     masks.
 //   * A word, and any run of words, folds into a summary: whether it
 //     holds a newline; whether its head (the positions before its first
 //     newline) holds a winner; whether its tail (from its last newline
 //     on) does; and the number of whole lines inside it that do.  The
-//     fold is associative, so warps fold by shuffles, blocks by their
-//     warps' summaries in shared memory.
-//   * Pass 1 (sums_kernel): each block's summary.
-//   * Pass 2 (scan_kernel, one block): the exclusive prefix of the block
-//     summaries, each thread folding a run of blocks; the prefix of the
+//     fold is associative: a thread folds its words in order, a warp by
+//     shuffles, a block by its warps' summaries in shared memory.
+//   * Pass 1 (sums_kernel): each tile's summary; in the print form also
+//     each word's newline and winner masks (u32 [ceil(n / 32)] each).
+//   * Pass 2 (scan_kernel, one block): the exclusive prefix of the tile
+//     summaries, each thread folding a run of tiles; the prefix of the
 //     whole text gives the count, which the wrapper reads: a count stops
 //     here.  The count of lines whose first winner lies in a prefix is
 //     its head + its whole lines + its tail.
-//   * Pass 3 (rows_kernel, print form): each block that holds a row folds
-//     its words again from its prefix; each thread then knows whether
-//     its first line already has a winner and where its first row goes,
-//     walks its newlines and winners in order and writes its rows.
+//   * Pass 3 (rows_kernel, print form, a block a tile): each tile that
+//     holds a row folds its words' masks from its prefix; each thread
+//     then knows whether its first line already has a winner and where its
+//     first row goes, walks its newlines and winners in order and writes
+//     its rows, with one bucket walk a row for the term id.
 //
 // Built by ops/_cuda.py as one object with a plain C interface:
 // nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
@@ -79,8 +94,8 @@ namespace qgram_lines {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRounds = 4;
-constexpr int kWordsPerBlock = kThreads * kRounds;
+constexpr int kWordsPerThread = 2;
+constexpr int kTileWords = kThreads * kWordsPerThread;
 constexpr int kScanThreads = 1024;
 constexpr int kMemberWords = 1024;      // 32768 hashes
 
@@ -123,6 +138,11 @@ __device__ __forceinline__ Sum<M> combine(Sum<M> x, Sum<M> y) {
                                        ? kTail : 0), x.mid};
     return {kNl | (x.f & kHead) | (y.f & kTail),
             x.mid + y.mid + M((x.f & kTail) || (y.f & kHead))};
+}
+
+template <typename M>
+__device__ __forceinline__ Sum<long long> wide(Sum<M> s) {
+    return {s.f, (long long)s.mid};
 }
 
 // Of a prefix of the text: the lines whose first winner lies in it, and
@@ -168,7 +188,14 @@ __device__ __forceinline__ bool is_alnum(uint32_t c) {
     return (c - '0' < 10u) || ((c | 0x20u) - 'a' < 26u);
 }
 
-// The winning term at anchor a (its gram hash a member), or -1.
+// The gram hash at anchor a >= p - 1 >= 1 (LONG: a >= 2).
+__device__ __forceinline__ uint32_t gram_hash(const Params& P, long long a) {
+    uint32_t h = (__ldg(P.text + a) & 31u) << 5 | (__ldg(P.text + a - 1) & 31u);
+    if (P.long_) h = (h << 5 | (__ldg(P.text + a - 2) & 31u)) & 32767u;
+    return h;
+}
+
+// The winning term at anchor a (its gram hash h a member), or -1.
 __device__ int winner(const Params& P, const uint8_t* s_tr, long long a,
                       uint32_t h) {
     const long long s = a - (P.p - 1);
@@ -179,8 +206,7 @@ __device__ int winner(const Params& P, const uint8_t* s_tr, long long a,
         const long long o = P.t_off[tid], L = P.t_off[tid + 1] - o;
         if (s + L > P.n) continue;
         long long k = 0;
-        while (k < L && s_tr[__ldg(P.text + s + k)]
-                            == s_tr[__ldg(P.t_bytes + o + k)])
+        while (k < L && s_tr[__ldg(P.text + s + k)] == s_tr[P.t_bytes[o + k]])
             ++k;
         if (k < L) continue;
         if (P.wordbound) {
@@ -193,102 +219,199 @@ __device__ int winner(const Params& P, const uint8_t* s_tr, long long a,
     return -1;
 }
 
-__device__ __forceinline__ void load_tables(const Params& P,
-                                            uint32_t* s_member,
-                                            uint8_t* s_tr) {
+// Newline mask of four text bytes (bit k: byte k is '\n'), exactly: the
+// bytes equal to 0x0a get 0x80, gathered by one multiply.
+__device__ __forceinline__ uint32_t newline4(uint32_t x) {
+    const uint32_t y = x ^ 0x0a0a0a0au;
+    const uint32_t z = ~(((y & 0x7f7f7f7fu) + 0x7f7f7f7fu) | y) & 0x80808080u;
+    return (z * 0x00204081u) >> 28;
+}
+
+// The text bytes of words w0 .. w0 + kWordsPerThread - 1 (32 each; 0
+// outside the text), x[k][i] bytes 32 (w0 + k) + 4 i .. + 3.  Inside the
+// text, the run's 16-byte pieces from the aligned address at or below it
+// are loaded at once and shifted into place; at its edges, word by word
+// (text_word32).
+__device__ __forceinline__ void thread_words(uintptr_t lo, uintptr_t hi,
+                                             long long w0, long long n_words,
+                                             uint32_t x[kWordsPerThread][8]) {
+    constexpr int kPieces = 2 * kWordsPerThread + 1;
+    const int sh = (int)(lo & 15);
+    const uintptr_t a = lo + 32 * (uintptr_t)w0 - sh;
+    if (a >= lo && a + 16 * kPieces <= hi) {
+        const uint4* q = reinterpret_cast<const uint4*>(a);
+        uint32_t v[4 * kPieces];
+#pragma unroll
+        for (int j = 0; j < kPieces - 1; ++j) {
+            const uint4 p = __ldg(q + j);
+            v[4 * j] = p.x;
+            v[4 * j + 1] = p.y;
+            v[4 * j + 2] = p.z;
+            v[4 * j + 3] = p.w;
+        }
+        if (sh == 0) {
+#pragma unroll
+            for (int k = 0; k < kWordsPerThread; ++k)
+#pragma unroll
+                for (int i = 0; i < 8; ++i) x[k][i] = v[8 * k + i];
+            return;
+        }
+        const uint4 p = __ldg(q + kPieces - 1);
+        v[4 * kPieces - 4] = p.x;
+        v[4 * kPieces - 3] = p.y;
+        v[4 * kPieces - 2] = p.z;
+        v[4 * kPieces - 1] = p.w;
+        // x = the words from byte sh of v: whole words by sh >> 2, then
+        // bytes by a funnel shift
+#pragma unroll
+        for (int j = 0; j < 4 * kPieces - 2; ++j)
+            v[j] = (sh & 8) ? v[j + 2] : v[j];
+#pragma unroll
+        for (int j = 0; j < 4 * kPieces - 3; ++j)
+            v[j] = (sh & 4) ? v[j + 1] : v[j];
+#pragma unroll
+        for (int k = 0; k < kWordsPerThread; ++k)
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+                x[k][i] = __funnelshift_r(v[8 * k + i], v[8 * k + i + 1],
+                                          8 * (sh & 3));
+        return;
+    }
+#pragma unroll
+    for (int k = 0; k < kWordsPerThread; ++k) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) x[k][i] = 0u;
+        if (w0 + k < n_words) text_word32(lo, hi, sh, w0 + k, x[k]);
+    }
+}
+
+// Words w0 .. w0 + kWordsPerThread - 1 of the text (any alignment; the
+// bytes outside it read as 0), their newline masks and their exact member
+// masks at the plane's bits of the positions p - 1 .. n - 1 (the
+// candidates).  The whole warp calls it: the two bytes before w0 come
+// from the previous lane.
+template <bool kLong>
+__device__ __forceinline__ void thread_masks(const Params& P,
+                                             const uint32_t* s_member,
+                                             long long w0,
+                                             uint32_t nl[kWordsPerThread],
+                                             uint32_t cand[kWordsPerThread]) {
+    const uintptr_t lo = reinterpret_cast<uintptr_t>(P.text);
+    const uintptr_t hi = lo + (uintptr_t)P.n;
+    const int lane = threadIdx.x & 31;
+    uint32_t x[kWordsPerThread][8];
+    thread_words(lo, hi, w0, P.n_words, x);
+    // the two bytes before position 32 w0: lane - 1's last two
+    uint32_t prev = __shfl_up_sync(0xffffffffu, x[kWordsPerThread - 1][7], 1);
+    if (lane == 0)
+        prev = w0 > 0 && w0 < P.n_words
+                   ? (uint32_t)__ldg(P.text + 32 * w0 - 1) << 24
+                         | (uint32_t)__ldg(P.text + 32 * w0 - 2) << 16
+                   : 0u;
+    // c1, c2: the low five bits of the two bytes before the position;
+    // c1x4 = c1 << 2 (the member word's byte address is c0 << 7 | c1 << 2)
+    uint32_t c1 = (prev >> 24) & 31u, c2 = (prev >> 16) & 31u;
+    uint32_t c1x4 = c1 << 2;
+    const char* s_bytes = reinterpret_cast<const char*>(s_member);
+#pragma unroll
+    for (int k = 0; k < kWordsPerThread; ++k) {
+        uint32_t m = 0, mem = 0;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+            m |= newline4(x[k][i]) << (4 * i);
+            const uint32_t f = x[k][i] & 0x1f1f1f1fu;
+            const uint32_t g = f << 2;
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+                const uint32_t c0 = __byte_perm(f, 0, 0x4440 + b);
+                const uint32_t c0x4 = __byte_perm(g, 0, 0x4440 + b);
+                // the member word (h >> 5) and bit (h & 31)
+                const uint32_t v = kLong
+                    ? *reinterpret_cast<const uint32_t*>(
+                          s_bytes + ((c0x4 << 5) + c1x4)) >> c2
+                    : *reinterpret_cast<const uint32_t*>(s_bytes + c0x4)
+                          >> c1;
+                // the position's bit enters at the top; 32 steps later
+                // position 4 i + b sits at bit 4 i + b
+                mem = __funnelshift_r(mem, v, 1);
+                c2 = c1;
+                c1 = c0;
+                c1x4 = c0x4;
+            }
+        }
+        nl[k] = m;
+        // the plane's bits at positions p - 1 .. n - 1
+        uint32_t pw = 0;
+        const long long w = w0 + k;
+        if (w < P.n_words) {
+            pw = P.plane[w];
+            const long long base = 32 * w;
+            const long long below = P.p - 1 - base, left = P.n - base;
+            if (below > 0) pw = below >= 32 ? 0u : pw & (~0u << below);
+            if (left < 32) pw &= (1u << left) - 1u;
+        }
+        cand[k] = mem & pw;
+    }
+}
+
+// Pass 1: a block walks tiles blockIdx.x, + gridDim.x, ...
+template <bool kLong>
+__global__ void __launch_bounds__(kThreads, 6)
+sums_kernel(Params P, long long n_tiles, int* __restrict__ bf,
+            int* __restrict__ bmid, uint32_t* __restrict__ nlm,
+            uint32_t* __restrict__ winm) {
+    __shared__ uint32_t s_member[kMemberWords];
+    __shared__ uint8_t s_tr[256];
+    // the warps' summaries, two sets: a tile writes the set its
+    // predecessor did not read, so one barrier a tile suffices
+    __shared__ Sum<int> s_warp[2][kWarps];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     for (int i = threadIdx.x; i < kMemberWords; i += kThreads)
         s_member[i] = P.member[i];
     for (int i = threadIdx.x; i < 256; i += kThreads) s_tr[i] = P.tr[i];
     __syncthreads();
-}
-
-// Word w's newline mask and winner mask; the whole warp calls it (the
-// bytes before the word come from the neighbouring lane).
-__device__ __forceinline__ void word_masks(const Params& P,
-                                           const uint32_t* s_member,
-                                           const uint8_t* s_tr, long long w,
-                                           uint32_t* nl_out,
-                                           uint32_t* win_out) {
-    const uintptr_t lo = reinterpret_cast<uintptr_t>(P.text);
-    const uintptr_t hi = lo + (uintptr_t)P.n;
-    const int lane = threadIdx.x & 31;
-    uint32_t x[8] = {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u};
-    if (w < P.n_words) text_word32(lo, hi, (int)(lo & 15), w, x);
-    // the two bytes before position 32 w: lane - 1's last two
-    uint32_t prev = __shfl_up_sync(0xffffffffu, x[7], 1);
-    if (lane == 0)
-        prev = w > 0 && w < P.n_words
-                   ? (uint32_t)__ldg(P.text + 32 * w - 1) << 24
-                         | (uint32_t)__ldg(P.text + 32 * w - 2) << 16
-                   : 0u;
-    uint32_t b1 = (prev >> 24) & 31u, b2 = (prev >> 16) & 31u;
-    uint32_t mem = 0, nl = 0;
+    int set = 0;
+    for (long long tile = blockIdx.x; tile < n_tiles;
+         tile += gridDim.x, set ^= 1) {
+        const long long w0 = tile * kTileWords
+                             + (long long)threadIdx.x * kWordsPerThread;
+        uint32_t nl[kWordsPerThread], win[kWordsPerThread];
+        thread_masks<kLong>(P, s_member, w0, nl, win);
+        // walk: each candidate in the thread that found it; win keeps the
+        // winners
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-        const uint32_t e = __vcmpeq4(x[i], 0x0a0a0a0au);     // 0xff a newline
-        nl |= ((e >> 7 & 1u) | (e >> 14 & 2u) | (e >> 21 & 4u)
-               | (e >> 28 & 8u)) << (4 * i);
+        for (int k = 0; k < kWordsPerThread; ++k)
+            for (uint32_t m = win[k]; m; m &= m - 1u) {
+                const int q = __ffs(m) - 1;
+                const long long a = 32 * (w0 + k) + q;
+                if (winner(P, s_tr, a, gram_hash(P, a)) < 0)
+                    win[k] &= ~(1u << q);
+            }
+        // fold: the thread's words in order, then the warp, then the block
+        Sum<int> s = {0, 0};
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-            const uint32_t b0 = (x[i] >> (8 * k)) & 31u;
-            const uint32_t h = P.long_ ? (b0 << 10 | b1 << 5 | b2)
-                                       : (b0 << 5 | b1);
-            mem |= ((s_member[h >> 5] >> (h & 31)) & 1u) << (4 * i + k);
-            b2 = b1;
-            b1 = b0;
+        for (int k = 0; k < kWordsPerThread; ++k) {
+            s = k ? combine(s, word_sum(nl[k], win[k]))
+                  : word_sum(nl[k], win[k]);
+            if (nlm != nullptr && w0 + k < P.n_words) {
+                nlm[w0 + k] = nl[k];
+                winm[w0 + k] = win[k];
+            }
         }
-    }
-    uint32_t cand = 0;
-    if (w < P.n_words) {
-        cand = P.plane[w] & mem;
-        // positions p - 1 .. n - 1 only
-        const long long base = 32 * w;
-        const long long below = P.p - 1 - base, left = P.n - base;
-        if (below > 0) cand = below >= 32 ? 0u : cand & (~0u << below);
-        if (left < 32) cand &= (1u << left) - 1u;
-    }
-    uint32_t win = 0;
-    for (uint32_t m = cand; m; m &= m - 1u) {
-        const int r = __ffs(m) - 1;
-        const long long a = 32 * w + r;
-        const uint32_t b0 = __ldg(P.text + a) & 31u;
-        uint32_t h = b0 << 5 | (__ldg(P.text + a - 1) & 31u);
-        if (P.long_) h = (h << 5 | (__ldg(P.text + a - 2) & 31u)) & 32767u;
-        if (winner(P, s_tr, a, h) >= 0) win |= 1u << r;
-    }
-    *nl_out = nl;
-    *win_out = win;
-}
-
-__device__ __forceinline__ long long round_word(int r) {
-    return ((long long)blockIdx.x * kRounds + r) * kThreads + threadIdx.x;
-}
-
-__global__ void __launch_bounds__(kThreads)
-sums_kernel(Params P, int* __restrict__ bf, int* __restrict__ bmid) {
-    __shared__ uint32_t s_member[kMemberWords];
-    __shared__ uint8_t s_tr[256];
-    __shared__ Sum<int> s_warp[kRounds * kWarps];
-    load_tables(P, s_member, s_tr);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    for (int r = 0; r < kRounds; ++r) {
-        uint32_t nl, win;
-        word_masks(P, s_member, s_tr, round_word(r), &nl, &win);
-        Sum<int> s = word_sum(nl, win);
         // lane l folds lanes l .. l + 2o - 1, in order
 #pragma unroll
         for (int o = 1; o < 32; o <<= 1) {
             const Sum<int> y = shfl_down(s, o);
             if (lane + o < 32) s = combine(s, y);
         }
-        if (lane == 0) s_warp[r * kWarps + warp] = s;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        Sum<int> s = s_warp[0];
-        for (int i = 1; i < kRounds * kWarps; ++i) s = combine(s, s_warp[i]);
-        bf[blockIdx.x] = s.f;
-        bmid[blockIdx.x] = s.mid;
+        if (lane == 0) s_warp[set][warp] = s;
+        __syncthreads();
+        if (threadIdx.x == 0) {
+            Sum<int> t = s_warp[set][0];
+            for (int i = 1; i < kWarps; ++i) t = combine(t, s_warp[set][i]);
+            bf[tile] = t.f;
+            bmid[tile] = t.mid;
+        }
     }
 }
 
@@ -306,6 +429,8 @@ __device__ __forceinline__ Sum<M> warp_scan(Sum<M> s, Sum<M>* excl) {
     return s;
 }
 
+// Pass 2, one block: each thread folds a run of consecutive tiles, the
+// block scans the threads' folds, each thread writes its run's prefixes.
 __global__ void __launch_bounds__(kScanThreads)
 scan_kernel(const int* __restrict__ bf, const int* __restrict__ bmid,
             long long nb, int* __restrict__ pf, long long* __restrict__ pmid,
@@ -337,52 +462,54 @@ scan_kernel(const int* __restrict__ bf, const int* __restrict__ bmid,
     }
 }
 
+// Pass 3: block b folds tile b's masks from its prefix and writes its rows.
 __global__ void __launch_bounds__(kThreads)
 rows_kernel(Params P, const int* __restrict__ pf,
-            const long long* __restrict__ pmid, long long* __restrict__ rows) {
-    __shared__ uint32_t s_member[kMemberWords];
+            const long long* __restrict__ pmid,
+            const uint32_t* __restrict__ nlm,
+            const uint32_t* __restrict__ winm, long long* __restrict__ rows) {
     __shared__ uint8_t s_tr[256];
     __shared__ Sum<int> s_warp[kWarps];
     const long long b = blockIdx.x;
-    Sum<long long> pre = {pf[b], pmid[b]};
+    const Sum<long long> pre = {pf[b], pmid[b]};
     if (rows_of(Sum<long long>{pf[b + 1], pmid[b + 1]}) == rows_of(pre))
-        return;                         // no row in this block
-    load_tables(P, s_member, s_tr);
+        return;                         // no row in this tile
+    for (int i = threadIdx.x; i < 256; i += kThreads) s_tr[i] = P.tr[i];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    for (int r = 0; r < kRounds; ++r) {
-        const long long w = round_word(r);
-        uint32_t nl, win;
-        word_masks(P, s_member, s_tr, w, &nl, &win);
-        Sum<int> excl;
-        const Sum<int> incl = warp_scan(word_sum(nl, win), &excl);
-        if (lane == 31) s_warp[warp] = incl;
-        __syncthreads();
-        // this thread's prefix: the block's, earlier warps', earlier lanes'
-        Sum<long long> mine = pre;
-        for (int i = 0; i < warp; ++i)
-            mine = combine(mine, Sum<long long>{s_warp[i].f, s_warp[i].mid});
-        mine = combine(mine, Sum<long long>{excl.f, excl.mid});
-        bool won = open_won(mine);
-        long long o = rows_of(mine);
-        for (uint32_t m = nl | win; m; m &= m - 1u) {
+    const long long w0 = b * kTileWords + (long long)threadIdx.x
+                                              * kWordsPerThread;
+    uint32_t nl[kWordsPerThread], win[kWordsPerThread];
+    Sum<int> s = {0, 0};
+#pragma unroll
+    for (int k = 0; k < kWordsPerThread; ++k) {
+        const bool in = w0 + k < P.n_words;
+        nl[k] = in ? nlm[w0 + k] : 0u;
+        win[k] = in ? winm[w0 + k] : 0u;
+        s = k ? combine(s, word_sum(nl[k], win[k])) : word_sum(nl[k], win[k]);
+    }
+    Sum<int> excl;
+    const Sum<int> incl = warp_scan(s, &excl);
+    if (lane == 31) s_warp[warp] = incl;
+    __syncthreads();                    // also: s_tr is loaded
+    // this thread's prefix: the tile's, earlier warps', earlier lanes'
+    Sum<long long> mine = pre;
+    for (int i = 0; i < warp; ++i) mine = combine(mine, wide(s_warp[i]));
+    mine = combine(mine, wide(excl));
+    bool won = open_won(mine);
+    long long o = rows_of(mine);
+#pragma unroll
+    for (int k = 0; k < kWordsPerThread; ++k)
+        for (uint32_t m = nl[k] | win[k]; m; m &= m - 1u) {
             const int q = __ffs(m) - 1;
-            if ((nl >> q) & 1u) won = false;
-            if (((win >> q) & 1u) && !won) {
-                const long long a = 32 * w + q;
-                uint32_t h = (__ldg(P.text + a) & 31u) << 5
-                             | (__ldg(P.text + a - 1) & 31u);
-                if (P.long_)
-                    h = (h << 5 | (__ldg(P.text + a - 2) & 31u)) & 32767u;
+            if ((nl[k] >> q) & 1u) won = false;
+            if (((win[k] >> q) & 1u) && !won) {
+                const long long a = 32 * (w0 + k) + q;
                 rows[2 * o] = a;
-                rows[2 * o + 1] = winner(P, s_tr, a, h);
+                rows[2 * o + 1] = winner(P, s_tr, a, gram_hash(P, a));
                 ++o;
                 won = true;
             }
         }
-        for (int i = 0; i < kWarps; ++i)
-            pre = combine(pre, Sum<long long>{s_warp[i].f, s_warp[i].mid});
-        __syncthreads();                // s_warp is rewritten next round
-    }
 }
 
 bool make_params(const uint8_t* text, long long n, const uint32_t* plane,
@@ -409,8 +536,27 @@ bool make_params(const uint8_t* text, long long n, const uint32_t* plane,
     return true;
 }
 
-long long blocks_of(long long n) {
-    return ((n + 31) / 32 + kWordsPerBlock - 1) / kWordsPerBlock;
+long long tiles_of(long long n) {
+    return ((n + 31) / 32 + kTileWords - 1) / kTileWords;
+}
+
+template <bool kLong>
+int launch_sums(const Params& P, long long n_tiles, int* bf, int* bmid,
+                uint32_t* nlm, uint32_t* winm, cudaStream_t stream) {
+    auto kernel = sums_kernel<kLong>;
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          kThreads, 0);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    const long long slots = (long long)per_sm * sms;
+    const int grid = (int)(n_tiles < slots ? n_tiles : slots);
+    kernel<<<grid, kThreads, 0, stream>>>(P, n_tiles, bf, bmid, nlm, winm);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace qgram_lines
@@ -419,42 +565,40 @@ using namespace qgram_lines;
 
 extern "C" {
 
-// Threads a block of passes 1 and 3, plane words a block, threads of
-// pass 2's one block.
-int qgram_lines_geometry(int* threads, int* words_per_block,
-                         int* scan_threads) {
-    *threads = kThreads;
-    *words_per_block = kWordsPerBlock;
-    *scan_threads = kScanThreads;
+// Plane words a tile of passes 1 and 3.
+int qgram_lines_geometry(int* tile_words) {
+    *tile_words = kTileWords;
     return 0;
 }
 
-// Pass 1 on `stream`: bf and bmid int32 [grid], each block's summary
-// (flags, whole lines with a winner), grid = ceil(ceil(n / 32) /
-// words_per_block).  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for arguments the kernels do not take).  All
-// pointers are device pointers: text u8 [n] at any address, plane u32
-// [ceil(n / 32)], member u32 [1024], hash_id int32 [32768], b_off, b_tids,
-// t_off int64, t_bytes u8, tr u8 [256].
+// Pass 1 on `stream`: bf and bmid int32 [tiles], each tile's summary
+// (flags, whole lines with a winner), tiles = ceil(ceil(n / 32) /
+// tile_words); nlm and winm u32 [ceil(n / 32)], each word's newline and
+// winner masks, or both null (a count).  The grid is as many blocks as the card holds at once, at most tiles.
+// Returns cudaGetLastError() after the launch (cudaErrorInvalidValue for
+// arguments the kernels do not take).  All pointers are device pointers:
+// text u8 [n] at any address, plane u32 [ceil(n / 32)], member u32
+// [1024], hash_id int32 [32768], b_off, b_tids, t_off int64, t_bytes u8,
+// tr u8 [256].
 int qgram_lines_sums(const uint8_t* text, long long n, const uint32_t* plane,
                      const uint32_t* member, const int* hash_id,
                      const long long* b_off, const long long* b_tids,
                      const uint8_t* t_bytes, const long long* t_off,
                      const uint8_t* tr, long long p, int long_,
-                     int wordbound, int* bf, int* bmid, int grid,
-                     void* stream) {
+                     int wordbound, int* bf, int* bmid, uint32_t* nlm,
+                     uint32_t* winm, long long tiles, void* stream) {
     Params P;
     if (!make_params(text, n, plane, member, hash_id, b_off, b_tids, t_bytes,
                      t_off, tr, p, long_, wordbound, &P)
-        || grid != blocks_of(n))
+        || tiles != tiles_of(n) || (nlm == nullptr) != (winm == nullptr))
         return (int)cudaErrorInvalidValue;
-    sums_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        P, bf, bmid);
-    return (int)cudaGetLastError();
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return long_ ? launch_sums<true>(P, tiles, bf, bmid, nlm, winm, s)
+                 : launch_sums<false>(P, tiles, bf, bmid, nlm, winm, s);
 }
 
 // Pass 2 on `stream`: pf int32 and pmid int64 [nb + 1], the exclusive
-// prefix summary of the nb block summaries (the whole text's at nb), and
+// prefix summary of the nb tile summaries (the whole text's at nb), and
 // total int64 [1], the count of lines with a winner.
 int qgram_lines_scan(const int* bf, const int* bmid, long long nb, int* pf,
                      long long* pmid, long long* total, void* stream) {
@@ -464,7 +608,7 @@ int qgram_lines_scan(const int* bf, const int* bmid, long long nb, int* pf,
     return (int)cudaGetLastError();
 }
 
-// Pass 3 on `stream`, the arguments and grid of pass 1, with pass 2's
+// Pass 3 on `stream`, a block a tile, with pass 1's masks and pass 2's
 // prefixes: the rows, int64 [total, 2], (anchor, term id) in stream order.
 int qgram_lines_rows(const uint8_t* text, long long n, const uint32_t* plane,
                      const uint32_t* member, const int* hash_id,
@@ -472,14 +616,16 @@ int qgram_lines_rows(const uint8_t* text, long long n, const uint32_t* plane,
                      const uint8_t* t_bytes, const long long* t_off,
                      const uint8_t* tr, long long p, int long_,
                      int wordbound, const int* pf, const long long* pmid,
-                     long long* rows, int grid, void* stream) {
+                     const uint32_t* nlm, const uint32_t* winm,
+                     long long* rows, long long tiles, void* stream) {
     Params P;
     if (!make_params(text, n, plane, member, hash_id, b_off, b_tids, t_bytes,
                      t_off, tr, p, long_, wordbound, &P)
-        || grid != blocks_of(n))
+        || tiles != tiles_of(n) || nlm == nullptr || winm == nullptr)
         return (int)cudaErrorInvalidValue;
-    rows_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        P, pf, pmid, rows);
+    rows_kernel<<<(unsigned)tiles, kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(P, pf, pmid, nlm, winm,
+                                                       rows);
     return (int)cudaGetLastError();
 }
 

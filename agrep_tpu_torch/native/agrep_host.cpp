@@ -784,7 +784,9 @@ static qgram2_fn qgram2_impl() {
 // handed out satisfy the 2-gram projection test; callers re-check the
 // exact member[h] (identical for non-LONG, narrowing for LONG).
 // Precondition: scanning starts at position >= 1 (the previous byte
-// is read), which p >= 2 (!shortf) guarantees.
+// is read), which p >= 2 (!shortf) guarantees.  A SHORT table (u8[256])
+// has no 2-gram projection: the passes give it a null member table, the
+// constructor then reads none, and next() is never called.
 struct QScan {
     const uint8_t* buf;
     int64_t n;
@@ -795,6 +797,8 @@ struct QScan {
     QScan(const uint8_t* b, int64_t nn, const uint8_t* member,
           int32_t longf) : buf(b), n(nn) {
         fn = qgram2_impl();
+        memset(w, 0, sizeof(w));
+        if (member == nullptr) return;
         for (int c = 0; c < 32; c++) {
             uint32_t v = 0;
             for (int pp = 0; pp < 32; pp++) {
@@ -865,7 +869,7 @@ int64_t qgram_first_per_line(
             || (c >= 'a' && c <= 'z');
     };
     const bool simd = !shortf;
-    QScan qs(buf, n, member, longf);
+    QScan qs(buf, n, simd ? member : nullptr, longf);
     int64_t a = p - 1;
     if (simd) a = qs.next(a);
     while (a < n) {
@@ -1018,7 +1022,7 @@ int64_t qgram_first_per_anchor(
     int64_t cnt = 0;
     if (n < p) return 0;
     const bool simd = !shortf;
-    QScan qs(buf, n, member, longf);
+    QScan qs(buf, n, simd ? member : nullptr, longf);
     for (int64_t a = p - 1; a < n; a++) {
         if (simd) {
             a = qs.next(a);
@@ -1539,7 +1543,7 @@ int64_t qgram_occ_all(
     int64_t cnt = 0;
     if (n < p) return 0;
     const bool simd = !shortf;
-    QScan qs(buf, n, member, longf);
+    QScan qs(buf, n, simd ? member : nullptr, longf);
     for (int64_t a = p - 1; a < n; a++) {
         if (simd) {
             a = qs.next(a);

@@ -344,14 +344,14 @@ def _lines_bind():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         ip = ctypes.POINTER(ctypes.c_int)
         head = [p, ll, p, p, p, p, p, p, p, p, ll, i, i]
-        for fn, args in (("sums", head + [p, p, i, p]),
-                         ("rows", head + [p, p, p, i, p])):
+        for fn, args in (("sums", head + [p, p, p, p, ll, p]),
+                         ("rows", head + [p, p, p, p, p, ll, p])):
             getattr(lib, "qgram_lines_" + fn).restype = i
             getattr(lib, "qgram_lines_" + fn).argtypes = args
         lib.qgram_lines_scan.restype = i
         lib.qgram_lines_scan.argtypes = [p, p, ll, p, p, p, p]
         lib.qgram_lines_geometry.restype = i
-        lib.qgram_lines_geometry.argtypes = [ip, ip, ip]
+        lib.qgram_lines_geometry.argtypes = [ip]
         lib.qgram_lines_error_string.restype = ctypes.c_char_p
         lib.qgram_lines_error_string.argtypes = [i]
         lib._bound = True
@@ -359,17 +359,19 @@ def _lines_bind():
 
 
 @functools.lru_cache(maxsize=None)
-def _lines_geometry(index: int) -> tuple:
-    """(threads a block, plane words a block, threads of the scan's one
-    block) of the kernel."""
+def _lines_tile_words(index: int) -> int:
     return _cuda.query(_lines_bind(), "qgram_lines", "qgram_lines_geometry",
-                       index, 3)
+                       index, 1)[0]
 
 
-def lines_grid(N: int, device) -> int:
-    """Blocks of qgram_lines' passes 1 and 3 over a text of N bytes."""
-    words = _lines_geometry(_cuda.device_index(device))[1]
-    return -(-(-(-N // 32)) // words)
+def lines_tile_words(device) -> int:
+    """Plane words a tile of the kernel's passes 1 and 3 on device."""
+    return _lines_tile_words(_cuda.device_index(device))
+
+
+def lines_tiles(N: int, tile_words: int) -> int:
+    """Tiles of qgram_lines' passes 1 and 3 over a text of N bytes."""
+    return -(-(-(-N // 32)) // tile_words)
 
 
 def _lines_call(fn: str, text, *args) -> None:
@@ -389,43 +391,57 @@ def _table_args(text, plane, t: LineTables) -> tuple:
             t.tr.data_ptr(), t.p, int(t.long_), int(t.wordbound))
 
 
-def _prefix(text, plane, tables: LineTables) -> tuple:
-    """Passes 1-2: (the count as a device tensor, the blocks' prefix
-    summaries pf and pmid, the grid, the tables' arguments)."""
+def _prefix(text, plane, tables: LineTables, masks: bool) -> tuple:
+    """Passes 1-2: (the count as a device tensor, the tiles' prefix
+    summaries pf and pmid, the words' newline and winner masks where
+    masks (the print form) or None, the tiles, the tables' arguments)."""
     dev = text.device
-    grid = lines_grid(text.numel(), dev)
+    tiles = lines_tiles(text.numel(), lines_tile_words(dev))
     args = _table_args(text, plane, tables)
-    bf = torch.empty(grid, dtype=torch.int32, device=dev)
-    bmid = torch.empty(grid, dtype=torch.int32, device=dev)
-    pf = torch.empty(grid + 1, dtype=torch.int32, device=dev)
-    pmid = torch.empty(grid + 1, dtype=torch.int64, device=dev)
+    bf = torch.empty(tiles, dtype=torch.int32, device=dev)
+    bmid = torch.empty(tiles, dtype=torch.int32, device=dev)
+    pf = torch.empty(tiles + 1, dtype=torch.int32, device=dev)
+    pmid = torch.empty(tiles + 1, dtype=torch.int64, device=dev)
     total = torch.empty(1, dtype=torch.int64, device=dev)
-    _lines_call("sums", text, *args, bf.data_ptr(), bmid.data_ptr(), grid)
-    _lines_call("scan", text, bf.data_ptr(), bmid.data_ptr(), grid,
+    nlm = winm = None
+    if masks:
+        nlm, winm = (torch.empty(plane.numel(), dtype=torch.int32,
+                                 device=dev) for _ in range(2))
+    _lines_call("sums", text, *args, bf.data_ptr(), bmid.data_ptr(),
+                None if nlm is None else nlm.data_ptr(),
+                None if winm is None else winm.data_ptr(), tiles)
+    _lines_call("scan", text, bf.data_ptr(), bmid.data_ptr(), tiles,
                 pf.data_ptr(), pmid.data_ptr(), total.data_ptr())
-    return total, pf, pmid, grid, args
+    return total, pf, pmid, (nlm, winm), tiles, args
+
+
+def _rows(text, args, pf, pmid, masks, rows, tiles) -> None:
+    """Pass 3 into rows."""
+    _lines_call("rows", text, *args, pf.data_ptr(), pmid.data_ptr(),
+                masks[0].data_ptr(), masks[1].data_ptr(), rows.data_ptr(),
+                tiles)
 
 
 def lines_passes(text, plane, tables: LineTables, out=None) -> None:
     """Passes 1-2 and, into out (an earlier call's rows of the same
     inputs; None for a count), pass 3: the kernel's device work without
     the host's read of the count (for timing it on the card)."""
-    _total, pf, pmid, grid, args = _prefix(text, plane, tables)
+    _total, pf, pmid, masks, tiles, args = _prefix(text, plane, tables,
+                                                   out is not None)
     if out is not None and out.shape[0]:
-        _lines_call("rows", text, *args, pf.data_ptr(), pmid.data_ptr(),
-                    out.data_ptr(), grid)
+        _rows(text, args, pf, pmid, masks, out, tiles)
 
 
 def _lines_launch(text, plane, tables: LineTables, count_only: bool) -> tuple:
     """The kernel's passes on text's device, with the host's read of the
     count after the second."""
-    total, pf, pmid, grid, args = _prefix(text, plane, tables)
+    total, pf, pmid, masks, tiles, args = _prefix(text, plane, tables,
+                                                  not count_only)
     K = int(total.item())
     rows = None
     if not count_only:
         rows = torch.empty((K, 2), dtype=torch.int64, device=text.device)
         if K:
-            _lines_call("rows", text, *args, pf.data_ptr(), pmid.data_ptr(),
-                        rows.data_ptr(), grid)
+            _rows(text, args, pf, pmid, masks, rows, tiles)
     launches["qgram_lines"] += 1
     return rows, K

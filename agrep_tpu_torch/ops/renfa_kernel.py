@@ -399,10 +399,11 @@ def _index_bind():
         ip = ctypes.POINTER(ctypes.c_int)
         lib.line_index_text_grid.restype = ll
         lib.line_index_text_grid.argtypes = [p, ll]
-        for fn, args in (("count", [p, ll, p, p, i, p]),
-                         ("write", [p, ll, p, p, i, p]),
-                         ("hist", [p, ll, p, i, p]),
-                         ("scatter", [p, ll, p, p, p, p, i, p])):
+        for fn, args in (("count", [p, ll, p, p, p, i, p]),
+                         ("offsets", [p, p, i, p, p, p, p]),
+                         ("write", [p, ll, p, p, p, p, p, i, p]),
+                         ("keys", [p, i, p, p, p]),
+                         ("scatter", [p, p, p, p, p, p, p, i, p])):
             getattr(lib, "line_index_" + fn).restype = i
             getattr(lib, "line_index_" + fn).argtypes = args
         lib.line_index_geometry.restype = i
@@ -415,17 +416,21 @@ def _index_bind():
 
 @functools.lru_cache(maxsize=None)
 def _index_geometry(index: int) -> tuple:
-    """(threads, text bytes a block, lines a block, keys) of the kernel."""
     return _cuda.query(_index_bind(), "line_index", "line_index_geometry",
                        index, 4)
 
 
-def index_grids(text: torch.Tensor, K: int) -> tuple:
-    """Blocks of line_index's text passes (1-2) and line passes (3-4)."""
-    lib = _index_bind()
-    per = _index_geometry(_cuda.device_index(text.device))[2]
-    return (lib.line_index_text_grid(text.data_ptr(), text.numel()),
-            -(-K // per))
+def index_geometry(device) -> tuple:
+    """(threads a block, text bytes a block, lines a scatter round, keys)
+    of the kernel on device."""
+    return _index_geometry(_cuda.device_index(device))
+
+
+def index_grid(text: torch.Tensor) -> int:
+    """Blocks of line_index's passes over the text (all but its two
+    one-grid scans): a block a text_bytes share of the 16-byte pieces
+    from the aligned address at or below the text."""
+    return _index_bind().line_index_text_grid(text.data_ptr(), text.numel())
 
 
 def _index_call(fn: str, dev, *args) -> None:
@@ -437,55 +442,66 @@ def _index_call(fn: str, dev, *args) -> None:
             *args, stream), fn + " launch")
 
 
-def _index_count(text, grid) -> tuple:
-    """Pass 1: each block's newlines and last newline, int64 [grid]."""
+def _index_head(text, grid) -> tuple:
+    """Passes 1-2: (each 16-byte piece's newline bits, offs int64 [grid +
+    1], prev int64 [grid], meta int64 [2] = (K, the last newline)), on
+    the card."""
     dev = text.device
-    counts = torch.empty(grid, dtype=torch.int64, device=dev)
-    last = torch.empty(grid, dtype=torch.int64, device=dev)
+    counts, last, prev = (torch.empty(grid, dtype=torch.int64, device=dev)
+                          for _ in range(3))
+    offs = torch.empty(grid + 1, dtype=torch.int64, device=dev)
+    meta = torch.empty(2, dtype=torch.int64, device=dev)
+    masks = torch.empty(grid * (index_geometry(dev)[1] // 16),
+                        dtype=torch.int16, device=dev)
     _index_call("count", dev, text.data_ptr(), text.numel(),
-                counts.data_ptr(), last.data_ptr(), grid)
-    return counts, last
+                counts.data_ptr(), last.data_ptr(), masks.data_ptr(), grid)
+    _index_call("offsets", dev, counts.data_ptr(), last.data_ptr(), grid,
+                offs.data_ptr(), prev.data_ptr(), meta.data_ptr())
+    return masks, offs, prev, meta
 
 
-def _index_lines(text, counts, incl, idx: LineIndex, grids) -> None:
-    """Passes 2-4 into idx's tensors (K = idx.nl.numel() > 0)."""
-    dev, K = text.device, idx.nl.numel()
+def _index_lines(text, head, idx: LineIndex, grid) -> None:
+    """Passes 3-5 into idx's tensors (K = idx.nl.numel() > 0), after
+    _index_head's passes."""
+    dev = text.device
+    masks, offs, prev, _meta = head
+    hist = torch.empty(LEN_KEYS * grid, dtype=torch.int32, device=dev)
+    slots = torch.empty(LEN_KEYS * grid, dtype=torch.int64, device=dev)
+    ktot = torch.empty(LEN_KEYS, dtype=torch.int64, device=dev)
     _index_call("write", dev, text.data_ptr(), text.numel(),
-                (incl - counts).data_ptr(), idx.nl.data_ptr(), grids[0])
-    hist = torch.empty(LEN_KEYS * grids[1], dtype=torch.int32, device=dev)
-    _index_call("hist", dev, idx.nl.data_ptr(), K, hist.data_ptr(),
-                grids[1])
-    slots = torch.cumsum(hist, 0) - hist
-    _index_call("scatter", dev, idx.nl.data_ptr(), K, slots.data_ptr(),
-                idx.starts.data_ptr(), idx.lens.data_ptr(),
-                idx.ords.data_ptr(), grids[1])
+                masks.data_ptr(), offs.data_ptr(), prev.data_ptr(),
+                idx.nl.data_ptr(), hist.data_ptr(), grid)
+    _index_call("keys", dev, hist.data_ptr(), grid, slots.data_ptr(),
+                ktot.data_ptr())
+    _index_call("scatter", dev, idx.nl.data_ptr(), offs.data_ptr(),
+                slots.data_ptr(), ktot.data_ptr(), idx.starts.data_ptr(),
+                idx.lens.data_ptr(), idx.ords.data_ptr(), grid)
 
 
 def index_passes(text: torch.Tensor, idx: LineIndex) -> None:
     """Every pass into idx, an earlier call's index of the same text: the
     kernel's device work without the host's read of K (for timing it on
     the card)."""
-    grids = index_grids(text, idx.nl.numel())
-    counts, _last = _index_count(text, grids[0])
+    grid = index_grid(text)
+    head = _index_head(text, grid)
     if idx.nl.numel():
-        _index_lines(text, counts, torch.cumsum(counts, 0), idx, grids)
+        _index_lines(text, head, idx, grid)
 
 
 def _index_launch(text: torch.Tensor) -> LineIndex:
     """The kernel's passes on the text's device, with the host's read of
-    K and the last newline after the first."""
+    K and the last newline after the second."""
     dev = text.device
     empty = torch.empty(0, dtype=torch.int64, device=dev)
     if text.numel() == 0:
         return LineIndex(empty, empty, empty, empty, -1)
-    grid = index_grids(text, 0)[0]
-    counts, last = _index_count(text, grid)
-    incl = torch.cumsum(counts, 0)
-    K, end = torch.stack([incl[-1], last.max()]).tolist()
+    grid = index_grid(text)
+    head = _index_head(text, grid)
+    K, end = head[3].tolist()
     idx = LineIndex(*(torch.empty(K, dtype=torch.int64, device=dev)
                       for _ in range(4)), end)
     if K:
-        _index_lines(text, counts, incl, idx, index_grids(text, K))
+        _index_lines(text, head, idx, grid)
     launches["line_index"] += 1
     return idx
 

@@ -372,3 +372,57 @@ def profiled_ms(fn, kernel: str, reps: int):
     total = sum(getattr(e, "device_time_total", 0) for e in evs)
     count = sum(e.count for e in evs)
     return total / count / 1e3 if count and total else None
+
+
+def pass_split(fn, module, hook: str, reps: int = 20) -> list:
+    """[(label, ms a call)] of fn's passes on the card.  fn launches each
+    pass through module.<hook>(pass name, ...), which is wrapped here to
+    record a CUDA event just before and just after the launch: a pass's
+    label holds its own time, and "<pass>:before" the time from the
+    previous pass's end (or the call's start) to its launch -- the torch
+    kernels and the launch gaps between passes.  The card spins first,
+    as in time_kernel, and the first event must still be pending once the
+    last call is queued."""
+    import torch
+    real = getattr(module, hook)
+    marks = []
+
+    def wrapped(name, *args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        real(name, *args, **kw)
+        b.record()
+        marks.append((name, a, b))
+
+    fn()
+    torch.cuda.synchronize()
+    setattr(module, hook, wrapped)
+    try:
+        for k in range(5):
+            marks.clear()
+            torch.cuda._sleep(SPIN_CYCLES * reps << k)
+            starts = []
+            for _ in range(reps):
+                s = torch.cuda.Event(enable_timing=True)
+                s.record()
+                starts.append((s, len(marks)))
+                fn()
+            queued_first = not starts[0][0].query()
+            torch.cuda.synchronize()
+            if queued_first:
+                break
+        else:
+            raise RuntimeError("pass_split: the card finished its spin "
+                               "before the host had queued %d calls" % reps)
+    finally:
+        setattr(module, hook, real)
+    totals: dict = {}
+    bounds = [i for _s, i in starts] + [len(marks)]
+    for r, (s, i0) in enumerate(starts):
+        prev = s
+        for name, a, b in marks[i0:bounds[r + 1]]:
+            for label, x, y in ((name + ":before", prev, a), (name, a, b)):
+                totals[label] = totals.get(label, 0.0) + x.elapsed_time(y)
+            prev = b
+    return [(label, ms / reps) for label, ms in totals.items()]

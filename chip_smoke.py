@@ -65,10 +65,14 @@ exits non-zero:
      line_index_reference and line_rows_reference, bit for bit, on the
      edge texts (empty, no newline, one newline, a leading newline, no
      final newline), lines of 127-129, 8,191-8,193, 49,153 and 60,000
-     bytes, every length key, texts at their blocks' edges (16,383-16,385
+     bytes, every length key, texts at 16 KB block edges (16,383-16,385
      bytes; 2,047-2,049 and 4,097 lines, empty ones among them), 1 MB of
      dense short lines and of newlines alone, a glitch byte inside a line
-     and before a newline, and config 4's 32 MB chunk, the texts also as
+     and before a newline, config 4's 32 MB chunk, and at line_index's own
+     block geometry texts of a block's bytes -1, +0, +1 and three blocks
+     and 17 bytes, a line longer than two blocks, three blocks of newlines
+     alone (K = n) and of no newline, and a scatter round's lines -1, +0
+     and +1 of one length, the texts also as
      views 1-15 bytes past an aligned address, line_rows with and without
      -v, three kept-ordinal ranges, with and without a glitch byte, rows
      and count alone, and with ordinals outside 0..K-1; and the
@@ -77,8 +81,10 @@ exits non-zero:
      -w, the edge set (a bucket's highest term failing -w where a lower
      one passes, a term past the text's end, an anchor at p - 1, empty
      lines, a final line without a newline, many winners on a line, a
-     text shorter than p), a LONG set over 33 MB and config5q's patterns
-     over 8 MB of its records, each with qgram_filter's plane, with no
+     text shorter than p), a LONG set over 33 MB, config5q's patterns
+     over 8 MB of its records, and a text whose every position is a
+     member hit (every word holds 32 candidates; with -w and LONG), each
+     with qgram_filter's plane, with no
      bit and with every bit set, on views 1-15 bytes past an aligned
      address; phase 4 repeats every check at the main path's shapes;
   4. main path: a --mb MB ASCII corpus made from --seed, searched through
@@ -144,13 +150,15 @@ exits non-zero:
      torch.cumsum of the delimiter flags, scatter_add of the hit flags) at
      the first 32 MB chunk's pairs of configs 2, 3 and config2c, and
      line_index's and line_rows' (lines, rows, grids; their passes'
-     device time, the wrapper's with the host's read of K or the count,
+     device time and line_index's by pass (timing.pass_split), the
+     wrapper's with the host's read of K or the count,
      the plain version's and a library composite's: torch.nonzero of the
      newlines and a stable torch.sort of the lengths; index_put_ of the
      flags, torch.nonzero and gathers) at config 4's first window (the
      lanes kernel timed on that window's index too) and the memagrep
-     buffer, and qgram_lines' (rows or count, grid; its passes' device
-     time, the wrapper's with the host's read of the count, the plain
+     buffer, and qgram_lines' (rows or count, tiles; its passes' device
+     time, whole and by
+     pass, the wrapper's with the host's read of the count, the plain
      version's and a library composite's: torch.nonzero of the plane,
      gathers, a padded term matrix's compare and torch.cumsum of the
      newlines) at config5q's and config5qn's 100 MB streams, each checked
@@ -1031,17 +1039,23 @@ def phase_parity_records(device: str, seed: int) -> float:
 LINE_OFFSETS = (0, 1, 3, 15)
 
 
-def line_texts(seed: int):
+def line_texts(seed: int, geometry=(256, 65536, 2048, 225)):
     """(name, u8 numpy text, glitch position or -1) of every text phase 3
     holds line_index and line_rows to: the edge shapes (empty, no
     newline, one newline, a leading newline, no final newline), lines of
     127-129, 8,191-8,193, 49,153 and 60,000 bytes, every length key
-    (each length 0-600, then every 7th up to 9,000), texts at line_index's
-    block edges (16,383-16,385 and 49,169 bytes; 2,047-2,049 and 4,097
-    lines, empty ones among them: one key, the scatter's worst
-    contention), 1 MB of dense short lines and 1 MB of newlines alone, a
-    glitch byte inside a line and before a newline, and the main path's
-    first STREAM_CHUNK window (config 4's chunk)."""
+    (each length 0-600, then every 7th up to 9,000), texts at 16 KB block
+    edges (16,383-16,385 and 49,169 bytes; 2,047-2,049 and 4,097 lines,
+    empty ones among them: one key, the scatter's worst contention), 1 MB
+    of dense short lines and 1 MB of newlines alone, a glitch byte inside
+    a line and before a newline, the main path's first STREAM_CHUNK
+    window (config 4's chunk); and at the kernel's geometry (threads,
+    text bytes a block B, lines a scatter round R, keys): texts of B - 1,
+    B, B + 1 and 3 B + 17 bytes whose lines straddle the blocks, a line
+    longer than two blocks between short ones, every byte a newline over
+    3 B (K = n: R lines and more a block, many scatter rounds), no
+    newline over 3 B, and R - 1, R and R + 1 lines of one length in one
+    block."""
     import numpy as np
 
     from agrep_tpu_torch.ops.scan import STREAM_CHUNK
@@ -1082,6 +1096,15 @@ def line_texts(seed: int):
     for name, at in (("glitch_inside", inside), ("glitch_on_newline", on_nl)):
         yield name, np.insert(r, at, 0), at
     yield "config4_chunk", make_corpus(STREAM_CHUNK, seed), -1
+    B, R = geometry[1], geometry[2]
+    for n in (B - 1, B, B + 1, 3 * B + 17):
+        yield "block_bytes_%d" % n, rand(n, 1 / 50), -1
+    yield "longer_than_blocks", u8(b"ab\n" * 100 + b"x" * (2 * B + 5)
+                                   + b"\n" + b"cd\n" * 100), -1
+    yield "newlines_3_blocks", u8(b"\n" * (3 * B)), -1
+    yield "no_newline_3_blocks", rand(3 * B, 0.0), -1
+    for k in (R - 1, R, R + 1):
+        yield "round_lines_%d" % k, u8(b"abcdefg\n" * k), -1
 
 
 def _index_diff(got, want) -> int:
@@ -1128,7 +1151,7 @@ def phase_parity_lines(device: str, seed: int) -> tuple:
     failed = []
     t0 = time.perf_counter()
     rng = np.random.default_rng(seed + 16)
-    for name, arr, glitch in line_texts(seed):
+    for name, arr, glitch in line_texts(seed, rk.index_geometry(device)):
         text = torch.from_numpy(np.array(arr, dtype=np.uint8)).to(device)
         want = rk.line_index_reference(text)
         K = want.nl.numel()
@@ -1453,9 +1476,10 @@ def qgram_line_cases(seed: int, pats400):
     the terms planted; the edge set (a bucket's highest term failing -w
     where a lower one passes, a term past the text's end, an anchor at
     p - 1, empty lines, a final line without a newline, a line with many
-    winners, a text shorter than p); a LONG set over 33 MB (more blocks
-    than the scan's threads); and config5q's 400 wide patterns over 8 MB
-    of its records corpus."""
+    winners, a text shorter than p); a LONG set over 33 MB (more tiles
+    than the scan's threads); config5q's 400 wide patterns over 8 MB of
+    its records corpus; and a text where every position is a member hit
+    (every word holds 32 candidates), with -w and LONG."""
     import numpy as np
     rng = np.random.default_rng(seed + 17)
     al = np.frombuffer(b"abcdefghij", np.uint8)
@@ -1507,6 +1531,15 @@ def qgram_line_cases(seed: int, pats400):
     recs = make_records(make_corpus(8 << 20, seed), seed)
     out.append(("pats400w 8 MB", wide_patterns(pats400), recs, False,
                 False))
+    # every position a member hit and most a winner: every word holds 32
+    # candidates, each thread walks 64
+    dense = np.frombuffer((b"abc" * 33 + b"\n") * 2000, np.uint8)
+    cyc = [b"abc", b"bca", b"cab", b"abcab"]
+    for wb in (False, True):
+        w = " -w" if wb else ""
+        out.append(("dense" + w, cyc, dense, False, wb))
+        out.append(("dense LONG" + w, cyc + words(80, 5, 8), dense, False,
+                    wb))
     return out
 
 
@@ -1565,8 +1598,8 @@ def phase_parity_qgram_lines(device: str, seed: int, pats400) -> float:
                     if diff:
                         failed.append((name, pname, off, count_only, diff))
         print("parity: qgram_lines %-16s %2s terms, LONG=%d, p=%d, -w=%d, "
-              "%d B, %d lines hold a winner (every bit: %d), views at %s: "
-              "equal bit for bit, rows and count"
+              "%d B, %d lines hold a winner (every bit: %d), "
+              "views at %s: equal bit for bit, rows and count"
               % (name, len(terms), tb.long_, tb.p_size, wb, arr.size,
                  want[1], qk.qgram_lines_reference(
                      text, torch.full_like(plane, -1), tables)[1],
@@ -1640,7 +1673,8 @@ def qlines_alone(name, text, plane, tables, count_only: bool) -> dict:
     wrapper's with that read, the plain version's, the library
     composite's and the bound."""
     from agrep_tpu_torch.ops import qgram_kernel as qk
-    from agrep_tpu_torch.ops.timing import qgram_lines_bound, time_kernel
+    from agrep_tpu_torch.ops.timing import (pass_split, qgram_lines_bound,
+                                            time_kernel)
     got = qk._lines_launch(text, plane, tables, False)
     ref = qk.qgram_lines_reference(text, plane, tables)
     diff = max(_qlines_diff(got, ref),
@@ -1664,7 +1698,11 @@ def qlines_alone(name, text, plane, tables, count_only: bool) -> dict:
     return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
             "K": K, "shape_b": text.numel(), "count_only": count_only,
-            "grid": qk.lines_grid(text.numel(), text.device),
+            "tiles": qk.lines_tiles(text.numel(),
+                                    qk.lines_tile_words(text.device)),
+            "split": pass_split(lambda: qk.lines_passes(text, plane, tables,
+                                                        out),
+                                qk, "_lines_call"),
             "max_abs_err": diff}
 
 
@@ -2034,7 +2072,8 @@ def index_alone(name, text) -> dict:
     time_kernel), the wrapper's with that read, the plain version's, the
     library composite's (host clock, synchronized) and the bound."""
     from agrep_tpu_torch.ops import renfa_kernel as rk
-    from agrep_tpu_torch.ops.timing import line_index_bound, time_kernel
+    from agrep_tpu_torch.ops.timing import (line_index_bound, pass_split,
+                                            time_kernel)
     idx = rk._index_launch(text)
     diff = _index_diff(idx, rk.line_index_reference(text))
     lib = index_library(text)
@@ -2053,7 +2092,9 @@ def index_alone(name, text) -> dict:
     return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
             "K": K, "shape_b": text.numel(),
-            "grids": rk.index_grids(text, K), "max_abs_err": diff,
+            "grids": (rk.index_grid(text),), "max_abs_err": diff,
+            "split": pass_split(lambda: rk.index_passes(text, idx), rk,
+                                "_index_call"),
             "idx": idx}
 
 
@@ -3169,28 +3210,41 @@ def line_stages_line(res, card: str) -> str:
                              ("line_rows", "rows", "rows")):
         out.append("times: %s %s | card: %s" % (stage, " | ".join(
             "%s %d B %d lines%s grids=%s: %.4f ms (%.1f %% of its %.4f ms "
-            "bound, %s), wrapper %.4f ms, plain %.2f ms, library %.3f ms"
+            "bound, %s%s), wrapper %.4f ms, plain %.2f ms, library %.3f ms"
             % (n, res[n]["shape_b"], r["K"],
                " %d rows" % r["R"] if what == "rows" else "",
                list(r["grids"]), r["ms"], 100 * r["bound_ms"] / r["ms"],
-               r["bound_ms"], r["bound_by"], r["wrapper_ms"],
-               r["plain_ms"], r["library_ms"])
+               r["bound_ms"], r["bound_by"],
+               "; passes " + split_text(r["split"]) if "split" in r else "",
+               r["wrapper_ms"], r["plain_ms"], r["library_ms"])
             for n in ("config4", "memagrep4") for r in [res[n][key]]),
             card))
     return "\n".join(out)
 
 
+def split_text(split) -> str:
+    """timing.pass_split's [(label, ms)] as "pass ms, ..."; a pass's
+    ":before" (the time from the previous pass's end to its launch) in
+    parentheses after it."""
+    before = {lab[:-len(":before")]: ms for lab, ms in split
+              if lab.endswith(":before")}
+    return ", ".join("%s %.4f (%.4f)" % (lab, ms, before.get(lab, 0.0))
+                     for lab, ms in split if not lab.endswith(":before"))
+
+
 def qgram_lines_line(res, card: str) -> str:
     """qgram_lines at QLINE_SHAPES (the whole-file runs' 100 MB streams,
-    config5qs's first chunk): rows, grid, the passes' device ms against
-    the bound, the wrapper's ms with the host's read
-    of the count, the plain version's and the library composite's."""
+    config5qs's first chunk): rows, tiles, the passes' device ms against the bound and each pass's, the
+    wrapper's ms with the host's read of the count, the plain version's
+    and the library composite's."""
     return "times: qgram_lines %s | card: %s" % (" | ".join(
-        "%s %d B %s %d grid=%d: %.4f ms (%.1f %% of its %.4f ms bound, %s), "
-        "wrapper %.4f ms, plain %.2f ms, library %.3f ms"
+        "%s %d B %s %d tiles=%d: %.4f ms (%.1f %% of its %.4f ms "
+        "bound, %s; passes %s), wrapper %.4f ms, plain %.2f ms, library "
+        "%.3f ms"
         % (n, r["shape_b"], "count" if r["count_only"] else "rows", r["K"],
-           r["grid"], r["ms"], 100 * r["bound_ms"] / r["ms"], r["bound_ms"],
-           r["bound_by"], r["wrapper_ms"], r["plain_ms"], r["library_ms"])
+           r["tiles"], r["ms"], 100 * r["bound_ms"] / r["ms"],
+           r["bound_ms"], r["bound_by"], split_text(r["split"]),
+           r["wrapper_ms"], r["plain_ms"], r["library_ms"])
         for n in QLINE_SHAPES for r in [res[n]["qlines"]]), card)
 
 

@@ -194,6 +194,178 @@ def test_len_key_orders_by_length():
 
 
 # ---------------------------------------------------------------------
+# a model of csrc/line_index.cu's passes
+# ---------------------------------------------------------------------
+
+def index_model(text: np.ndarray, off: int, threads: int, rounds: int,
+                round_lines: int):
+    """csrc/line_index.cu's five passes on a text that starts `off` bytes
+    past a 16-byte boundary, at a block of `threads` threads (whole warps)
+    and `rounds` 16-byte pieces a thread (a warp's rounds * 32 pieces
+    consecutive, a round's side by side), the scatter sorting
+    `round_lines` lines a round: (nl, starts, lens, ords, last)."""
+    n = len(text)
+    warps, per_thread = threads // 32, round_lines // threads
+    assert threads % 32 == 0 and round_lines % threads == 0
+    if n == 0:                          # the wrapper launches nothing
+        e = np.zeros(0, np.int64)
+        return e, e, e, e, -1
+    pieces = -(-(n + off) // 16)
+    per_block = threads * rounds
+    grid = -(-pieces // per_block)
+
+    def piece_nl(g):
+        """The text positions of piece g's newlines, in order."""
+        return [16 * g + b - off for b in range(16)
+                if 0 <= 16 * g + b - off < n and text[16 * g + b - off] == 10]
+
+    # pass 1: each block's count and last newline
+    counts = np.zeros(grid, np.int64)
+    last = np.full(grid, -1, np.int64)
+    for b in range(grid):
+        for g in range(b * per_block, min((b + 1) * per_block, pieces)):
+            ps = piece_nl(g)
+            counts[b] += len(ps)
+            if ps:
+                last[b] = ps[-1]
+    # pass 2: exclusive prefix sum and prefix max, K and the last newline
+    offs = np.concatenate([[0], np.cumsum(counts)])
+    prev = np.concatenate([[-1], np.maximum.accumulate(last)[:-1]])
+    K, end = int(offs[-1]), int(max(last.max(), -1))
+    nl = np.full(K, -7, np.int64)
+    keys = np_key
+    hist = np.zeros((t_rk.LEN_KEYS, grid), np.int64)
+    # pass 3: a warp owns rounds * 32 consecutive pieces, a round's 32
+    # side by side; the warps' totals and last newlines go across the
+    # block, then each round's lanes scan theirs
+    def warp_pieces(b, w, r):
+        g0 = b * per_block + (w * rounds + r) * 32
+        return [piece_nl(g) if g < pieces else [] for g in range(g0, g0 + 32)]
+
+    for b in range(grid):
+        wn = [sum(len(x) for r in range(rounds) for x in warp_pieces(b, w, r))
+              for w in range(warps)]
+        wl = [max([x[-1] for r in range(rounds) for x in warp_pieces(b, w, r)
+                   if x] + [-1]) for w in range(warps)]
+        for w in range(warps):
+            base = int(offs[b]) + sum(wn[:w])
+            carry = max([int(prev[b])] + wl[:w])
+            for r in range(rounds):
+                ps = warp_pieces(b, w, r)
+                ns = np.array([len(x) for x in ps], np.int64)
+                ls = np.array([x[-1] if x else -1 for x in ps], np.int64)
+                first = base + np.cumsum(ns) - ns
+                before = np.maximum(carry, np.concatenate(
+                    [[-1], np.maximum.accumulate(ls)[:-1]]))
+                for t in range(32):
+                    o, p = int(first[t]), int(before[t])
+                    for pos in ps[t]:
+                        nl[o] = pos
+                        hist[int(keys([pos - p - 1])[0]), b] += 1
+                        o, p = o + 1, pos
+                base += int(ns.sum())
+                carry = max(carry, int(ls.max()))
+    # pass 4: each key's row prefix and total
+    slots = np.cumsum(hist, axis=1) - hist
+    ktot = hist.sum(axis=1)
+    kbase = np.cumsum(ktot) - ktot
+    # pass 5: each block sorts its lines by key, round_lines at a time
+    starts, lens, ords = (np.full(K, -7, np.int64) for _ in range(3))
+    for b in range(grid):
+        nxt = kbase + slots[:, b]
+        for j0 in range(int(offs[b]), int(offs[b + 1]), round_lines):
+            cnt = min(round_lines, int(offs[b + 1]) - j0)
+            s_nl = [int(nl[j0 + i - 1]) if j0 + i - 1 >= 0 else -1
+                    for i in range(cnt + 1)]
+            key = np.full(round_lines, -1, np.int64)
+            rank = np.zeros(round_lines, np.int64)
+            wc = np.zeros((warps, t_rk.LEN_KEYS), np.int64)
+            for w in range(warps):
+                for st in range(per_thread):        # 32 lanes at a step
+                    lis = [(w * per_thread + st) * 32 + ln for ln in range(32)]
+                    for li in lis:
+                        if li < cnt:
+                            key[li] = keys([s_nl[li + 1] - s_nl[li] - 1])[0]
+                    for li in lis:
+                        if li < cnt:
+                            k = key[li]
+                            peers_below = sum(1 for x in lis if x < li
+                                              and x < cnt and key[x] == k)
+                            rank[li] = wc[w, k] + peers_below
+                    for li in lis:
+                        if li < cnt and not any(
+                                x < li and x < cnt and key[x] == key[li]
+                                for x in lis):
+                            wc[w, key[li]] += sum(
+                                1 for x in lis if x < cnt
+                                and key[x] == key[li])
+            tot = wc.sum(axis=0)
+            wpre = np.cumsum(wc, axis=0) - wc
+            kb = np.cumsum(tot) - tot
+            s_sorted = np.full(cnt, -1, np.int64)
+            for li in range(cnt):
+                w = li // (per_thread * 32)
+                pos = kb[key[li]] + wpre[w, key[li]] + rank[li]
+                assert s_sorted[pos] == -1
+                s_sorted[pos] = li
+            for q in range(cnt):
+                li = int(s_sorted[q])
+                at = nxt[key[li]] + q - kb[key[li]]
+                starts[at] = s_nl[li] + 1
+                lens[at] = s_nl[li + 1] - s_nl[li] - 1
+                ords[at] = j0 + li
+            nxt = nxt + tot
+    return nl, starts, lens, ords, end
+
+
+def _model_texts():
+    """(name, text) of the model's edge shapes at a 512-byte block (32
+    threads, one piece each): lines that straddle blocks, a line longer
+    than a block, every byte a newline (K = n), no newline, one key over
+    many scatter rounds, and the TEXTS."""
+    out = [(n, t) for n, t in TEXTS.items() if len(t) <= 4000]
+    out += [("straddle", _random_text(3000, 7, 1 / 60)),
+            ("longer_than_block", b"x" * 1500 + b"\n" + b"ab\n" * 40
+             + b"y" * 1100 + b"\nz"),
+            ("all_newlines", b"\n" * 1200),
+            ("no_newline_long", b"q" * 1500),
+            ("one_key_rounds", b"abcd\n" * 300)]
+    return out
+
+
+MODEL_TEXTS = _model_texts()
+
+
+@pytest.mark.parametrize("off", [0, 1, 3, 15])
+@pytest.mark.parametrize("name,text", MODEL_TEXTS,
+                         ids=[m[0] for m in MODEL_TEXTS])
+def test_index_model_equals_the_plain_version(name, text, off):
+    """At a 512-byte block and 64 lines a scatter round; the text's start
+    `off` bytes past a 16-byte boundary."""
+    arr = np.frombuffer(text, np.uint8)
+    want = t_rk.line_index_reference(_u8(text))
+    got = index_model(arr, off, 32, 1, 64)
+    for g, w in zip(got[:4], want[:4]):
+        assert g.tolist() == w.tolist()
+    assert got[4] == want.last
+
+
+@pytest.mark.parametrize("geometry", [(64, 2, 128), (256, 16, 2048)],
+                         ids=["two_warps", "kernel"])
+@pytest.mark.parametrize("name", ["random", "long", "every_length",
+                                  "all_newlines"])
+def test_index_model_at_wider_blocks(name, geometry):
+    """Several warps a block, and csrc/line_index.cu's own geometry."""
+    text = {**TEXTS, **dict(MODEL_TEXTS)}[name]
+    arr = np.frombuffer(text, np.uint8)
+    want = t_rk.line_index_reference(_u8(text))
+    got = index_model(arr, 5, *geometry)
+    for g, w in zip(got[:4], want[:4]):
+        assert g.tolist() == w.tolist()
+    assert got[4] == want.last
+
+
+# ---------------------------------------------------------------------
 # line_rows against the engine's numpy verdict walk
 # ---------------------------------------------------------------------
 

@@ -10,11 +10,14 @@ on the CPU.
     past the text's end, anchors at p - 1, empty lines, a final line
     without a newline, lines that hold several winners, a plane with no
     bit set and one with every bit set;
-  * a model of csrc/qgram_lines.cu's three passes in Python (word masks,
-    the word and block summaries and their fold, the scan of the blocks'
-    prefixes, the rows walk) at small block sizes, against the plain
-    version, so that the decomposition is proved where the kernel cannot
-    run;
+  * a model of csrc/qgram_lines.cu's three passes in Python (a thread's
+    words' newline and exact member masks, each candidate walked by the
+    thread that found it, the thread, tile and prefix folds, pass 3's
+    rows from pass 1's masks) at small tiles and a persistent grid,
+    against the plain version, so that the decomposition is proved where
+    the kernel cannot run: every plane bit set, a word of 32 candidates,
+    -w, LONG tables, -i, and term sets of hundreds to over a thousand
+    terms;
   * the wrapper's argument checks, and that a CPU tensor launches no
     kernel;
   * the CLI: -c, -c -i, -c -w, the lines (agrep refuses -n with -f), -l
@@ -273,69 +276,233 @@ def open_won(s):
     return bool(s[0] & TAIL) if s[0] & NL else bool(s[0] & HEAD)
 
 
-def kernel_model(c: Case, threads: int, rounds: int):
-    """The three passes, word by word: the masks from the plane and each
-    anchor's winner (anchor_winners at one anchor), each block's fold, the blocks' exclusive prefixes, and
-    each thread's rows walk from its prefix."""
+def model_winner(c: Case, tabs: dict, a: int) -> int:
+    """csrc/qgram_lines.cu's winner at anchor a, whose gram hash is a
+    member, over tabs (b_off, b_tids, t_off, t_bytes)."""
+    text, n, p = c.text, len(c.text), c.tb.p_size
+    tr = c.tr
+    bk = int(c.tables.hash_id[gram_hash(text, a, c.tb.long_)])
+    s = a - (p - 1)
+    for j in range(int(tabs["b_off"][bk + 1]) - 1, int(tabs["b_off"][bk]) - 1,
+                   -1):
+        tid = int(tabs["b_tids"][j])
+        o = int(tabs["t_off"][tid])
+        L = int(tabs["t_off"][tid + 1]) - o
+        if s + L > n:
+            continue
+        if any(tr[text[s + k]] != tr[tabs["t_bytes"][o + k]]
+               for k in range(L)):
+            continue
+        if c.wb:
+            after = int(text[s + L]) if s + L < n else 0
+            before = int(text[s - 1]) if s > 0 else 0
+            if _alnum(after) or _alnum(before):
+                continue
+        return tid
+    return -1
+
+
+def _alnum(b: int) -> bool:
+    return 48 <= b <= 57 or 97 <= (b | 32) <= 122
+
+
+def gram_hash(text, a: int, long_) -> int:
+    """The gram hash at anchor a; bytes before the text read as 0."""
+    def b(i):
+        return int(text[i]) & 31 if 0 <= i < len(text) else 0
+    h = b(a) << 5 | b(a - 1)
+    return (h << 5 | b(a - 2)) & 32767 if long_ else h
+
+
+def scan_model(sums, threads: int):
+    """Pass 2: each thread folds a run of ceil(len / threads) consecutive
+    summaries, the threads' folds are scanned, and each thread writes its
+    run's prefixes: (the exclusive prefixes, with the whole fold
+    appended; the whole fold)."""
+    per = -(-len(sums) // threads)
+    runs = [sums[t * per:(t + 1) * per] for t in range(threads)]
+    pre, excl = [], (0, 0)
+    for run in runs:
+        p = excl
+        for x in run:
+            pre.append(p)
+            p = combine(p, x)
+        excl = p
+    return pre + [excl], excl
+
+
+def kernel_model(c: Case, threads: int, words: int, grid: int = 2,
+                 stats=None, scan_threads: int = 3):
+    """csrc/qgram_lines.cu's three passes: tiles of threads * words plane
+    words, block b taking tiles b, b + grid, ...; a thread's words' newline
+    and exact member masks ANDed with the plane and the valid positions;
+    each candidate walked by the thread that found it; a thread's fold of
+    its words, the tile's of its threads; the tiles' exclusive prefixes;
+    and from pass 1's masks each row tile's thread prefixes and rows walk,
+    one winner a row.  Returns (count, [(anchor, term id)]); stats (a
+    dict) gets the walks and the most one thread made in a tile."""
     text, N, p = c.text, len(c.text), c.tb.p_size
     plane = c.plane.numpy().view(np.uint32)
+    member = c.tables.member.numpy().view(np.uint32)
     n_words = len(plane)
+    tabs = {k: getattr(c.tables, k).numpy() for k in ("b_off", "b_tids",
+                                                       "t_off", "t_bytes")}
+    tile_words = threads * words
+    tiles = -(-n_words // tile_words)
+    assert tiles == t_qgram.lines_tiles(N, tile_words)
+    nlm = np.zeros(n_words, dtype=np.int64)
+    winm = np.zeros(n_words, dtype=np.int64)
+    sums = [None] * tiles
+    st = stats if stats is not None else {}
+    st.update(walks=0, most=0)
 
-    def masks(w):
-        nl = win = 0
-        for r in range(32):
-            a = 32 * w + r
-            if a >= N:
-                break
-            nl |= int(text[a] == 0x0A) << r
-            if not (int(plane[w]) >> r) & 1 or a < p - 1:
-                continue
-            t = t_qgram.anchor_winners(c.t, torch.tensor([a]), c.tables)
-            if int(t[0]) >= 0:
-                win |= 1 << r
-        return nl, win
+    def thread_masks(w0):
+        out = []
+        for w in range(w0, w0 + words):
+            nl = mem = cand = 0
+            for r in range(32):
+                a = 32 * w + r
+                nl |= int(a < N and text[a] == 0x0A) << r
+                h = gram_hash(text, a, c.tb.long_)
+                mem |= ((int(member[h >> 5]) >> (h & 31)) & 1) << r
+            if w < n_words:
+                cand = int(plane[w]) & mem
+                for r in range(32):
+                    if not (p - 1 <= 32 * w + r < N):
+                        cand &= ~(1 << r)
+            out.append((nl, cand))
+        return out
 
-    per = threads * rounds
-    nb = -(-n_words // per)
-    sums = []
-    for blk in range(nb):
-        s = (0, 0)
-        for w in range(blk * per, (blk + 1) * per):
-            s = combine(s, word_sum(*masks(w)) if w < n_words else (0, 0))
-        sums.append(s)
-    pre, acc = [], (0, 0)
-    for s in sums:
-        pre.append(acc)
-        acc = combine(acc, s)
-    pre.append(acc)
+    for b in range(grid):
+        for tile in range(b, tiles, grid):
+            masks = [thread_masks(tile * tile_words + t * words)
+                     for t in range(threads)]
+            win = [0] * tile_words
+            for t in range(threads):
+                mine = 0
+                for k, (_nl, cand) in enumerate(masks[t]):
+                    w = tile * tile_words + t * words + k
+                    for r in range(32):
+                        if not (cand >> r) & 1:
+                            continue
+                        mine += 1
+                        if model_winner(c, tabs, 32 * w + r) >= 0:
+                            win[t * words + k] |= 1 << r
+                st["walks"] += mine
+                st["most"] = max(st["most"], mine)
+            tile_sum = (0, 0)
+            for t in range(threads):
+                s = None
+                for k, (nl, _cand) in enumerate(masks[t]):
+                    w = tile * tile_words + t * words + k
+                    ws = word_sum(nl, win[t * words + k])
+                    s = ws if s is None else combine(s, ws)
+                    if w < n_words:
+                        nlm[w], winm[w] = nl, win[t * words + k]
+                tile_sum = combine(tile_sum, s)
+            sums[tile] = tile_sum
+    pre, acc = scan_model(sums, scan_threads)
     rows = []
-    for blk in range(nb):
-        if rows_of(pre[blk + 1]) == rows_of(pre[blk]):
+    for tile in range(tiles):
+        if rows_of(pre[tile + 1]) == rows_of(pre[tile]):
             continue
-        mine = pre[blk]
-        for w in range(blk * per, min((blk + 1) * per, n_words)):
-            nl, win = masks(w)
+        mine = pre[tile]
+        for t in range(threads):
+            w0 = tile * tile_words + t * words
+            ws = [(int(nlm[w]), int(winm[w])) if w < n_words else (0, 0)
+                  for w in range(w0, w0 + words)]
             won, o = open_won(mine), rows_of(mine)
             assert o == len(rows)
-            for q in range(32):
-                if (nl >> q) & 1:
-                    won = False
-                if (win >> q) & 1 and not won:
-                    rows.append(32 * w + q)
-                    won = True
-            mine = combine(mine, word_sum(nl, win))
+            for k, (nl, wn) in enumerate(ws):
+                for q_ in range(32):
+                    if (nl >> q_) & 1:
+                        won = False
+                    if (wn >> q_) & 1 and not won:
+                        a = 32 * (w0 + k) + q_
+                        rows.append((a, model_winner(c, tabs, a)))
+                        won = True
+            for nl, wn in ws:
+                mine = combine(mine, word_sum(nl, wn))
     return rows_of(acc), rows
+
+
+def _want(c: Case, plane=None):
+    rows, k = t_qgram.qgram_lines_reference(
+        c.t, c.plane if plane is None else plane, c.tables)
+    return k, [tuple(r) for r in rows.tolist()]
 
 
 @pytest.mark.parametrize("threads,rounds", [(1, 1), (2, 3), (4, 1)])
 @pytest.mark.parametrize("name", ["s0_2gram", "s2_long_i_w", "edge_w",
                                   "head_tail", "empty_lines", "one_line"])
 def test_kernel_model_equals_the_plain_version(name, threads, rounds):
+    """rounds: the words a thread owns."""
     c = Case(*CASES[name])
     if len(c.text) > 2000:
         c = Case(CASES[name][0], CASES[name][1][:2000], *CASES[name][2:])
-    rows, k = t_qgram.qgram_lines_reference(c.t, c.plane, c.tables)
-    assert kernel_model(c, threads, rounds) == (k, rows[:, 0].tolist())
+    assert kernel_model(c, threads, rounds) == _want(c)
+
+
+@pytest.mark.parametrize("grid", [1, 2, 3])
+@pytest.mark.parametrize("name", ["s1_long", "s3_2gram_i", "edge_long_w",
+                                  "edge_i"])
+def test_kernel_model_every_bit_set(name, grid):
+    """Every bit of the plane set, so that every member hit is a
+    candidate and a thread walks many in one tile."""
+    c = Case(*CASES[name])
+    c = Case(CASES[name][0], CASES[name][1][:1500], *CASES[name][2:])
+    c.plane = torch.full_like(c.plane, -1)
+    st = {}
+    assert kernel_model(c, 4, 2, grid, stats=st) == _want(c, c.plane)
+    assert st["most"] > 2
+
+
+def test_kernel_model_word_of_32_candidates():
+    """A word whose 32 positions are all member hits and winners."""
+    terms = [b"aa", b"ab", b"zzz"]
+    c = Case(terms, b"a" * 100 + b"\n" + b"ab" * 40 + b"\nzz\n", False,
+             False)
+    w1 = int(c.plane[1]) & 0xFFFFFFFF
+    assert w1 == 0xFFFFFFFF
+    st = {}
+    assert kernel_model(c, 2, 2, stats=st) == _want(c)
+    assert st["most"] >= 32
+
+
+@pytest.mark.parametrize("wb", [False, True], ids=["plain", "w"])
+@pytest.mark.parametrize("n_terms", [400, 1500])
+def test_kernel_model_large_term_sets(n_terms, wb):
+    """Hundreds to over a thousand terms (buckets of many terms, term
+    tables of many KB, read where the wrapper gives them)."""
+    rng = np.random.default_rng(n_terms + wb)
+    terms = _words(rng, n_terms, 6, 12)
+    # whole words: the terms beside other words, so that -w passes too
+    toks = [terms[i] for i in rng.integers(0, n_terms, 40)] + \
+        _words(rng, 80, 2, 12)
+    text = b"".join(t + (b"\n" if rng.random() < 0.2 else b" ")
+                    for t in rng.permutation(np.array(toks, dtype=object)))
+    c = Case(terms, text, False, wb)
+    assert c.tables.t_bytes.numel() > 8 * n_terms
+    want = _want(c)
+    assert want[0] > 0
+    assert kernel_model(c, 4, 2) == want
+
+
+@pytest.mark.parametrize("threads", [1, 3, 64, 1024])
+def test_scan_model_equals_the_running_fold(threads):
+    """Pass 2's runs (fewer summaries than threads, too) give every
+    summary's exclusive prefix."""
+    rng = np.random.default_rng(threads)
+    sums = [word_sum(int(nl), int(win)) for nl, win in
+            zip(rng.integers(0, 1 << 32, 300, dtype=np.uint64)
+                & rng.integers(0, 1 << 32, 300, dtype=np.uint64),
+                rng.integers(0, 1 << 32, 300, dtype=np.uint64)
+                & rng.integers(0, 1 << 32, 300, dtype=np.uint64))]
+    want, acc = [], (0, 0)
+    for x in sums:
+        want.append(acc)
+        acc = combine(acc, x)
+    assert scan_model(sums, threads) == (want + [acc], acc)
 
 
 def test_the_fold_is_associative():

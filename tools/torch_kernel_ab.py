@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Time the four CUDA kernels of two or more checkouts of the port with
-one method, each checkout in a process of its own.
+"""Time the CUDA kernels and device stages of two or more checkouts of
+the port with one method, each checkout in a process of its own.
 
     python3 tools/torch_kernel_ab.py TREE [TREE ...] [--seed N] [--mb 100]
-                                     [--reps 20]
+                                     [--reps 20] [--only K,...] [--split]
 
 Each TREE is the root of a checkout holding agrep_tpu_torch/ (an
 unpacked `git archive` of a commit, say); the trees run in the order
@@ -15,17 +15,25 @@ path's shapes through that tree's own `_launch`: mask_scan at configs
 recorded from the main path's own run); renfa_lanes at config 4's
 chunk and the memagrep buffer; chain_scan at config 5's records stream
 (config5), behind one newline (memagrep5) and with bool5's two terms;
-qgram_filter at config5q's.  Every time comes from this checkout's
-timing.time_kernel and timing.profiled_ms (agrep_tpu_torch/ops/timing.py)
--- CUDA events over --reps launches after the card's checked spin, and
-torch.profiler's device time -- whatever the tree's own timer does.  The trees'
+qgram_filter at config5q's.  The device stages run every pass of one
+call without the host's read (`index_passes`, `lines_passes`):
+line_index at config 4's first window and memagrep4's buffer,
+qgram_lines over config5q's plane (a count), config5qn's (its rows) and
+config5qs's first streamed chunk.  --only times the named kernels alone;
+--split also splits each stage's time by pass (timing.pass_split: CUDA
+events around each pass, and the time before it: the launch gaps).
+Every time comes from this checkout's timing.time_kernel and
+timing.profiled_ms (agrep_tpu_torch/ops/timing.py) -- CUDA events over
+--reps launches after the card's checked spin, and torch.profiler's
+device time (the kernels only) -- whatever the tree's own timer does.  The trees'
 outputs at each shape must be equal (sha256 of the output bytes); the
 plain versions are not run here (chip_smoke holds each kernel to its
 plain version).  The first line is the card's name and power limit;
-then one `ab:` line a shape with every run's events and profiler ms,
-one `libs:` line a run with the library files it built, and a last JSON
-line with every number.  Exits non-zero without a CUDA device, when a
-run fails or when the trees' outputs differ.
+then one `ab:` line a shape with every run's events and profiler ms (a
+`split:` line a run after a stage's), one `libs:` line a run with the
+library files it built, and a last JSON line with every number.  Exits
+non-zero without a CUDA device, when a run fails or when the trees'
+outputs differ.
 """
 
 from __future__ import annotations
@@ -39,7 +47,12 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNELS = ("mask_scan", "renfa_lanes", "chain_scan", "qgram_filter")
+KERNELS = ("mask_scan", "renfa_lanes", "chain_scan", "qgram_filter",
+           "line_index", "qgram_lines")
+# The device stages of several passes: the module attribute through which
+# each launches a pass (timing.pass_split wraps it for --split).
+STAGE_HOOKS = {"line_index": ("renfa_kernel", "_index_call"),
+               "qgram_lines": ("qgram_kernel", "_lines_call")}
 
 
 def _load(name: str, path: str):
@@ -152,6 +165,34 @@ def shapes(cs, mb: int, seed: int, tmp: str, device: str = "cuda"):
             cs.wide_patterns(pats), tr)), device)
     out.append(("config5q", "qgram_filter",
                 lambda: qgram_kernel._launch(rec, words)))
+
+    # the device stages: line_index at config 4's first window (the
+    # glitch byte inserted at 49,152, as the regex engine inserts it) and
+    # at memagrep4's buffer; qgram_lines over config5q's candidate plane
+    # (a count), config5qn's (its rows) and config5qs's first streamed
+    # chunk (32 MB and the halo of maxlen - 1 bytes; its rows)
+    for name, buf in (("config4", np.insert(corpus[:scan_ops.STREAM_CHUNK],
+                                            49152, 0)),
+                      ("memagrep4", mem_buf)):
+        seg = kernels.to_device(buf, device)
+        idx = renfa_kernel.line_index(seg)
+        out.append((name, "line_index",
+                    lambda seg=seg, idx=idx: renfa_kernel.index_passes(
+                        seg, idx),
+                    lambda idx=idx: torch.cat(list(idx[:4]))))
+    wide = cs.wide_patterns(pats)
+    _tb, tables = cs.qgram_line_tables(wide, False, False, device)
+    region = records[:scan_ops.STREAM_CHUNK + max(map(len, wide)) - 1]
+    for name, t, count in (("config5q", rec, True), ("config5qn", rec, False),
+                           ("config5qs", kernels.to_device(region, device),
+                            False)):
+        plane = qgram_kernel.qgram_filter(t, words)
+        rows, k = qgram_kernel.qgram_lines(t, plane, tables, count)
+        res = rows if rows is not None else torch.tensor([k])
+        out.append((name, "qgram_lines",
+                    lambda t=t, plane=plane, rows=rows:
+                    qgram_kernel.lines_passes(t, plane, tables, rows),
+                    lambda res=res: res))
     return out
 
 
@@ -176,19 +217,27 @@ def child(tree: str, args) -> int:
     os.makedirs(build, exist_ok=True)
     res = {}
     with tempfile.TemporaryDirectory(dir=build) as tmp:
-        for name, kname, fn in shapes(cs, args.mb, args.seed, tmp):
-            got = fn().contiguous()
+        for name, kname, fn, *result in shapes(cs, args.mb, args.seed, tmp):
+            if args.only and kname not in args.only.split(","):
+                continue
+            got = (result[0] if result else fn)().contiguous()
             torch.cuda.synchronize()
             if got.dtype == torch.uint32:
                 got = got.view(torch.int32)
             digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
-            res[name] = {
+            key = name if kname not in STAGE_HOOKS else name + ":" + kname
+            res[key] = {
                 "kernel": kname, "bytes": int(got.numel()
                                               * got.element_size()),
                 "sha256": digest,
                 "ms": timing.time_kernel(fn, args.reps),
-                "device_ms": timing.profiled_ms(fn, kname + "_kernel",
-                                                args.reps)}
+                "device_ms": None if kname in STAGE_HOOKS else
+                timing.profiled_ms(fn, kname + "_kernel", args.reps)}
+            if args.split and kname in STAGE_HOOKS:
+                mod, hook = STAGE_HOOKS[kname]
+                res[key]["split"] = timing.pass_split(
+                    fn, importlib.import_module("agrep_tpu_torch.ops." + mod),
+                    hook, args.reps)
     print(json.dumps({"tree": tree, "times": res, "libs": {
         k: os.path.basename(v) for k, v in paths.items()}}))
     return 0
@@ -200,6 +249,11 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mb", type=int, default=100)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--only", default="",
+                    help="comma-separated kernels to time (default: all)")
+    ap.add_argument("--split", action="store_true",
+                    help="also split each device stage's time by pass "
+                    "(timing.pass_split: CUDA events around each pass)")
     ap.add_argument("--child", action="store_true",
                     help="time the one tree given in this process")
     args = ap.parse_args(argv)
@@ -217,7 +271,9 @@ def main(argv=None) -> int:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--child", tree,
              "--seed", str(args.seed), "--mb", str(args.mb), "--reps",
-             str(args.reps)], capture_output=True, text=True,
+             str(args.reps), "--only", args.only]
+            + ["--split"] * args.split,
+            capture_output=True, text=True,
             cwd=os.path.abspath(tree))
         if proc.returncode != 0:
             print(proc.stdout[-4000:] + proc.stderr[-8000:])
@@ -239,7 +295,14 @@ def main(argv=None) -> int:
                 "n/a" if t["device_ms"] is None
                 else "%.4f" % t["device_ms"]))
         print("ab: %-12s %-9s ms a launch, events/profiler: %s"
-              % (r0["kernel"], name, " | ".join(cells)))
+              % (r0["kernel"], name.split(":")[0], " | ".join(cells)))
+        for r in runs:
+            if "split" in r["times"][name]:
+                print("split: %-12s %-9s %s: %s" % (
+                    r0["kernel"], name.split(":")[0],
+                    os.path.basename(os.path.normpath(r["tree"])),
+                    ", ".join("%s %.4f" % (lab, ms) for lab, ms in
+                              r["times"][name]["split"])))
     print("card: %s" % timing.card_line())
     print(json.dumps({"runs": runs}))
     if differ:
