@@ -7,213 +7,206 @@
 // with np.flatnonzero.  This kernel compacts the planes where they
 // already lie, and only the pairs cross to the host.
 //
-// The function.  Input: mask_scan's planes, u32 [n_planes, T, n_words]
-// (ops/kernels.py docstring): window column j of tile t is stream
-// position t*L - W + j, bit j of word w is column 32*w + j; only body
-// columns [W, W + L) with position < n count.  vals[i] is the word plane
-// i adds to a column whose bit is set (0: the plane adds nothing), and
-// keep_from the first position kept.  Output: one (pos int64, word u32)
-// pair for each kept position whose OR of values is not 0, ascending by
-// position.
+// The function.  Input: mask_scan's planes and their values (see
+// plane_words.cuh), and keep_from, the first position kept.  Output: one
+// (pos int64, word u32) pair for each kept position whose OR of values
+// is not 0, ascending by position, and K, the number of pairs.
 //
 // What bounds it on an H100: bytes.  It must read the body words of the
 // planes whose value is not 0 and write 12 bytes a pair, a few int32
-// operations a 32-position word; at config 2's 32 MB chunk that is about
-// 4.3 MB of plane words, 1.3 us at 3.35 TB/s, so two launches' fixed
-// cost and the host's read of K dominate.  The design is the simple one:
+// operations a 32-position word: at config 2's 32 MB chunk about 4.3 MB
+// of plane words, 1.3 us at 3.35 TB/s.  So fixed costs are its time:
+// every launch boundary, torch kernel or host read between two passes
+// costs more than the bytes, and the design spends none of them:
 //
-//   * A stream word g (positions 32g .. 32g + 31) lies in one tile, since
-//     L is a multiple of 32 (the launcher refuses any other L): its bits
-//     are one funnel shift of two neighbouring plane words, per plane.
-//     A thread takes one stream word a round; neighbouring threads read
-//     neighbouring plane words.
-//   * Pass 1 (count_kernel): each block counts the set bits of the OR of
-//     the active planes over its kWordsPerBlock stream words, masked to
-//     [keep_from, n), and writes one int64 count.
-//   * The wrapper takes an exclusive prefix sum of the block counts on
-//     the card (one torch.cumsum) and reads K, the total, to size the
-//     outputs.
-//   * Pass 2 (write_kernel) recomputes each word's bits the same way,
-//     scans the threads' popcounts across the block (warp shuffles, then
-//     the warps' totals in shared memory), and each thread writes its
-//     pairs from its offset in stream order, OR-ing the values of the
-//     planes whose bit is set (their bits kept in shared memory a
-//     thread).
+//   * One launch.  The grid is persistent and cooperative: as many blocks
+//     as the SMs hold at once (cudaLaunchCooperativeKernel), so that a
+//     grid-wide barrier (cooperative_groups' grid sync) can stand where
+//     the torch kernels and the host's read stood.  Each warp owns a run
+//     of consecutive stream words, a lane R consecutive words of each of
+//     its steps, their plane bits in registers (plane_words.cuh).
+//   * Phase 1: each lane counts the set bits of the OR of the active
+//     planes over its words, masked to [keep_from, n); the block writes
+//     one count.  Grid sync.
+//   * Phase 2: each block sums the counts of the blocks before it (a few
+//     hundred words out of L2, spread over its threads), each warp adds
+//     its block's warps before it, and each lane with a pair reloads its
+//     words' bits (the planes, 4-13 MB, were just read and sit in the 50
+//     MB L2; phase 1 kept its lanes' counts in shared memory) and puts
+//     its pairs in order, its offset from a warp-shuffle scan a step,
+//     into its warp's stage in shared memory, whence the warp stores
+//     them, neighbouring lanes to neighbouring addresses: no block
+//     barrier in the walk.
+//   * The last block writes K.  The wrapper allocates the pairs at a
+//     capacity before the launch; the kernel writes no pair at or past
+//     it and always reports the true K, and the wrapper launches again
+//     with the capacity K only where K exceeds it.
 //
 // Built by ops/_cuda.py as one object with a plain C interface:
 // nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
-// -fPIC.
+// -fPIC.  The grid sync needs no -rdc with CUDA 12.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "plane_words.cuh"
+
 namespace event_pairs {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRounds = 4;
-constexpr int kWordsPerBlock = kThreads * kRounds;
-constexpr int kMaxPlanes = 33;      // the delimiter plane and 32 hit planes
+using namespace plane_words;
+namespace cg = cooperative_groups;
 
-struct Params {
-    const uint32_t* planes;         // [n_planes, T, n_words]
-    const uint32_t* vals;           // [n_planes]
-    long long T;
-    int n_words, n_planes, W, L;
-    long long n, keep_from;
-    long long g_lo, g_hi;           // the stream words [g_lo, g_hi) covered
-};
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+// Steps whose lane counts phase 1 keeps in shared memory for phase 2 (a
+// lane without a pair there loads nothing), and the pairs a warp stages
+// in shared memory before it stores them, neighbouring lanes to
+// neighbouring addresses.
+constexpr int kKeptSteps = 8;
+constexpr int kStage = 256;
+constexpr size_t kCountBytes = sizeof(int) * kKeptSteps * kThreads;
+constexpr size_t kShared = kCountBytes
+    + (sizeof(long long) + sizeof(uint32_t)) * kWarps * kStage;
 
 namespace {
 
-// The planes whose value is not 0, and their values.
-struct Active {
-    int n;
-    int plane[kMaxPlanes];
-    uint32_t val[kMaxPlanes];
-};
-
-__device__ void load_active(const Params& p, Active& a) {
-    if (threadIdx.x == 0) {
-        int k = 0;
-        for (int i = 0; i < p.n_planes; ++i) {
-            const uint32_t v = p.vals[i];
-            if (v) {
-                a.plane[k] = i;
-                a.val[k] = v;
-                ++k;
-            }
-        }
-        a.n = k;
-    }
-    __syncthreads();
-}
-
-// Mask of the positions of stream word g that are kept: >= keep_from
-// and < n.
-__device__ __forceinline__ uint32_t kept(const Params& p, long long g) {
-    const long long p0 = 32 * g;
-    uint32_t m = 0xffffffffu;
-    const long long below = p.keep_from - p0;
-    if (below > 0) m = below >= 32 ? 0u : m << (int)below;
-    const long long left = p.n - p0;
-    if (left < 32) m &= left <= 0 ? 0u : (1u << (int)left) - 1u;
-    return m;
-}
-
-// Bits of stream word g in plane i: columns j0 .. j0 + 31 of tile t.
-__device__ __forceinline__ uint32_t plane_bits(const Params& p, int i,
-                                               long long t, int j0) {
-    const uint32_t* row = p.planes + ((long long)i * p.T + t) * p.n_words;
-    const int w = j0 >> 5, sh = j0 & 31;
-    const uint32_t lo = __ldg(row + w);
-    // sh > 0 means column j0 + 31 < W + L lies in word w + 1 < n_words
-    return sh ? __funnelshift_r(lo, __ldg(row + w + 1), sh) : lo;
-}
-
+// scratch: int64 [gridDim.x + 1]: each block's pairs, then K.
+template <int MAXP, int R>
 __global__ void __launch_bounds__(kThreads)
-count_kernel(Params p, long long* __restrict__ counts) {
-    __shared__ Active a;
-    __shared__ int s_warp[kWarps];
-    load_active(p, a);
-    const long long g0 = p.g_lo + (long long)blockIdx.x * kWordsPerBlock;
-    int c = 0;
-    for (int r = 0; r < kRounds; ++r) {
-        const long long g = g0 + r * kThreads + threadIdx.x;
-        if (g >= p.g_hi) break;
-        const long long t = 32 * g / p.L;
-        const int j0 = p.W + (int)(32 * g - t * p.L);
-        uint32_t any = 0;
-        for (int q = 0; q < a.n; ++q) any |= plane_bits(p, a.plane[q], t, j0);
-        c += __popc(any & kept(p, g));
-    }
-#pragma unroll
-    for (int o = 16; o; o >>= 1) c += __shfl_down_sync(0xffffffffu, c, o);
-    if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = c;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        long long s = 0;
-        for (int w = 0; w < kWarps; ++w) s += s_warp[w];
-        counts[blockIdx.x] = s;
-    }
-}
-
-__global__ void __launch_bounds__(kThreads)
-write_kernel(Params p, const long long* __restrict__ offsets,
+pairs_kernel(Planes p, long long cap, long long* __restrict__ scratch,
              long long* __restrict__ pos, uint32_t* __restrict__ word) {
+    extern __shared__ __align__(16) unsigned char s_dyn[];
     __shared__ Active a;
-    __shared__ uint32_t s_bits[kMaxPlanes][kThreads];
-    __shared__ int s_warp[kWarps];
+    __shared__ long long s_warp[kWarps];
+    __shared__ long long s_part[kWarps];
+    __shared__ long long s_off[kWarps];
     load_active(p, a);
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    long long base = offsets[blockIdx.x];
-    const long long g0 = p.g_lo + (long long)blockIdx.x * kWordsPerBlock;
-    for (int r = 0; r < kRounds; ++r) {
-        const long long g = g0 + r * kThreads + threadIdx.x;
-        uint32_t any = 0;
-        if (g < p.g_hi) {
-            const long long t = 32 * g / p.L;
-            const int j0 = p.W + (int)(32 * g - t * p.L);
-            for (int q = 0; q < a.n; ++q) {
-                const uint32_t b = plane_bits(p, a.plane[q], t, j0);
-                s_bits[q][threadIdx.x] = b;
-                any |= b;
-            }
-            any &= kept(p, g);
+    int* s_cnt = reinterpret_cast<int*>(s_dyn) + threadIdx.x;
+    long long* s_pos = reinterpret_cast<long long*>(s_dyn + kCountBytes)
+                       + warp * kStage;
+    uint32_t* s_word = reinterpret_cast<uint32_t*>(
+        s_dyn + kCountBytes + sizeof(long long) * kWarps * kStage)
+        + warp * kStage;
+    const long long g0 = run_start(p, kWarps, warp);
+    const int steps = run_steps(p, g0, 32 * R);
+    uint32_t bits[MAXP][R];
+
+    // phase 1: this block's pairs
+    long long c = 0;
+    for (int s = 0; s < steps; ++s) {
+        load_words<MAXP, R>(p, a, g0 + (long long)s * 32 * R + lane * R,
+                            bits);
+        int n = 0;
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+            uint32_t any = 0;
+#pragma unroll
+            for (int q = 0; q < MAXP; ++q) any |= bits[q][i];
+            n += __popc(any);
         }
-        // this thread's first pair: the pairs of the block's earlier
-        // rounds, earlier warps and earlier lanes
-        const int n = __popc(any);
+        if (s < kKeptSteps) s_cnt[s * kThreads] = n;
+        c += n;
+    }
+    c = warp_sum(c);
+    if (lane == 0) s_warp[warp] = c;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        long long t = 0;
+        for (int w = 0; w < kWarps; ++w) t += s_warp[w];
+        scratch[blockIdx.x] = t;
+    }
+    cg::this_grid().sync();
+
+    // phase 2: the pairs before this block, then before each warp
+    long long before = 0;
+    for (int b = threadIdx.x; b < (int)blockIdx.x; b += kThreads)
+        before += __ldcg(scratch + b);
+    before = warp_sum(before);
+    if (lane == 0) s_part[warp] = before;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        long long o = 0;
+        for (int w = 0; w < kWarps; ++w) o += s_part[w];
+        for (int w = 0; w < kWarps; ++w) {
+            s_off[w] = o;
+            o += s_warp[w];
+        }
+        if (blockIdx.x == gridDim.x - 1) scratch[gridDim.x] = o;
+    }
+    __syncthreads();
+    long long o = s_off[warp];
+    for (int s = 0; s < steps; ++s) {
+        const long long g = g0 + (long long)s * 32 * R + lane * R;
+        const bool kept_count = s < kKeptSteps;
+        int n = kept_count ? s_cnt[s * kThreads] : 1;
+        uint32_t any[R];
+        if (n) {
+            load_words<MAXP, R>(p, a, g, bits);
+            n = 0;
+#pragma unroll
+            for (int i = 0; i < R; ++i) {
+                any[i] = 0;
+#pragma unroll
+                for (int q = 0; q < MAXP; ++q) any[i] |= bits[q][i];
+                n += __popc(any[i]);
+            }
+        }
         int x = n;
 #pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-            const int y = __shfl_up_sync(0xffffffffu, x, o);
-            if (lane >= o) x += y;
+        for (int d = 1; d < 32; d <<= 1) {
+            const int y = __shfl_up_sync(0xffffffffu, x, d);
+            if (lane >= d) x += y;
         }
-        if (lane == 31) s_warp[warp] = x;
-        __syncthreads();
-        int before = 0, total = 0;
-        for (int w = 0; w < kWarps; ++w) {
-            const int s = s_warp[w];
-            if (w < warp) before += s;
-            total += s;
+        const int total = __shfl_sync(0xffffffffu, x, 31);
+        const int first = x - n;
+        // the step's pairs through the warp's stage, kStage at a time
+        for (int lo = 0; lo < total; lo += kStage) {
+            if (n && first < lo + kStage && first + n > lo) {
+                int k = first - lo;
+#pragma unroll
+                for (int i = 0; i < R; ++i) {
+                    for (uint32_t m = any[i]; m; m &= m - 1, ++k) {
+                        if (k < 0 || k >= kStage) continue;
+                        const int b = __ffs(m) - 1;
+                        uint32_t v = 0;
+#pragma unroll
+                        for (int q = 0; q < MAXP; ++q)
+                            if (bits[q][i] >> b & 1u) v |= a.val[q];
+                        s_pos[k] = 32 * (g + i) + b;
+                        s_word[k] = v;
+                    }
+                }
+            }
+            __syncwarp();
+            const int cnt = min(kStage, total - lo);
+            for (int j = lane; j < cnt; j += 32) {
+                const long long at = o + lo + j;
+                if (at < cap) {
+                    pos[at] = s_pos[j];
+                    word[at] = s_word[j];
+                }
+            }
+            __syncwarp();
         }
-        long long o = base + before + x - n;
-        for (uint32_t m = any; m; m &= m - 1) {
-            const int b = __ffs(m) - 1;
-            uint32_t v = 0;
-            for (int q = 0; q < a.n; ++q)
-                if (s_bits[q][threadIdx.x] >> b & 1u) v |= a.val[q];
-            pos[o] = 32 * g + b;
-            word[o] = v;
-            ++o;
-        }
-        base += total;
-        __syncthreads();                // s_warp is rewritten next round
+        o += total;
     }
 }
 
-// The Params of a call, or false for arguments the kernels do not take.
-bool make_params(const uint32_t* planes, int n_planes, long long T,
-                 int n_words, const uint32_t* vals, int W, int L,
-                 long long n, long long keep_from, int grid, Params* p) {
-    if (n_planes < 1 || n_planes > kMaxPlanes || L < 32 || L % 32 != 0
-        || W < 0 || W > L || n_words != (W + L + 31) / 32 || n < 1
-        || keep_from < 0 || keep_from >= n || T < 1
-        || T * (long long)L < n)
-        return false;
-    p->planes = planes;
-    p->vals = vals;
-    p->T = T;
-    p->n_words = n_words;
-    p->n_planes = n_planes;
-    p->W = W;
-    p->L = L;
-    p->n = n;
-    p->keep_from = keep_from;
-    p->g_lo = keep_from / 32;
-    p->g_hi = (n + 31) / 32;
-    return grid == (p->g_hi - p->g_lo + kWordsPerBlock - 1) / kWordsPerBlock;
+// The instantiation of a launch over n_planes planes: its kernel and
+// the words a lane takes a step.
+struct Form {
+    const void* kernel;
+    int r;
+};
+
+Form form(int n_planes) {
+    if (n_planes <= 2)
+        return {reinterpret_cast<const void*>(pairs_kernel<2, 8>), 8};
+    if (n_planes <= 4)
+        return {reinterpret_cast<const void*>(pairs_kernel<4, 8>), 8};
+    return {reinterpret_cast<const void*>(pairs_kernel<kMaxPlanes, 1>), 1};
 }
 
 }  // namespace
@@ -223,46 +216,48 @@ using namespace event_pairs;
 
 extern "C" {
 
-// Threads a block and stream words (32 positions each) a block.
-int event_pairs_geometry(int* threads, int* words_per_block) {
+// Threads a block, the blocks of a launch over n_planes planes that the
+// current device holds at once (the most a cooperative launch takes),
+// and the stream words of a warp's step (a warp's run is a multiple of
+// it).  Returns a cudaError_t.
+int event_pairs_geometry(int n_planes, int* threads, int* max_blocks,
+                         int* step_words) {
+    if (n_planes < 1 || n_planes > kMaxPlanes)
+        return (int)cudaErrorInvalidValue;
+    const Form f = form(n_planes);
     *threads = kThreads;
-    *words_per_block = kWordsPerBlock;
-    return 0;
+    *step_words = 32 * f.r;
+    return resident_blocks(f.kernel, kThreads, kShared, max_blocks);
 }
 
-// Pass 1 on `stream`: counts[b] = the pairs of block b's stream words,
-// with grid = ceil((ceil(n / 32) - keep_from / 32) / words_per_block)
-// blocks.  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for arguments the kernel does not take).  All
-// pointers are device pointers: planes u32 [n_planes, T, n_words], vals
-// u32 [n_planes], counts int64 [grid].
-int event_pairs_count(const uint32_t* planes, int n_planes, long long T,
-                      int n_words, const uint32_t* vals, int W, int L,
-                      long long n, long long keep_from, long long* counts,
-                      int grid, void* stream) {
-    Params p;
-    if (!make_params(planes, n_planes, T, n_words, vals, W, L, n, keep_from,
-                     grid, &p))
+// One cooperative launch on `stream`: grid blocks (at most
+// event_pairs_geometry's max_blocks), each warp a run of warp_words
+// stream words (a multiple of its step_words) from keep_from / 32's
+// (grid * 16 runs must cover the words to ceil(n / 32), grid - 1 must
+// not); the pairs [0, min(K, cap)) into pos int64 and word u32, and K
+// into scratch[grid] (scratch int64 [grid + 1]).  Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for
+// arguments the kernel does not take).  All pointers are device
+// pointers: planes u32 [n_planes, T, n_words], vals u32 [n_planes].
+int event_pairs_launch(const uint32_t* planes, int n_planes, long long T,
+                       int n_words, const uint32_t* vals, int W, int L,
+                       long long n, long long keep_from, long long* pos,
+                       uint32_t* word, long long cap, long long* scratch,
+                       int grid, long long warp_words, void* stream) {
+    Planes p;
+    if (n_planes < 1 || n_planes > kMaxPlanes)
         return (int)cudaErrorInvalidValue;
-    count_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        p, counts);
-    return (int)cudaGetLastError();
-}
-
-// Pass 2 on `stream`, the same arguments and grid as pass 1, with
-// offsets int64 [grid] the exclusive prefix sum of pass 1's counts: the
-// pairs into pos int64 [K] and word u32 [K], K the counts' sum.
-int event_pairs_write(const uint32_t* planes, int n_planes, long long T,
-                      int n_words, const uint32_t* vals, int W, int L,
-                      long long n, long long keep_from,
-                      const long long* offsets, long long* pos,
-                      uint32_t* word, int grid, void* stream) {
-    Params p;
-    if (!make_params(planes, n_planes, T, n_words, vals, W, L, n, keep_from,
-                     grid, &p))
+    const Form f = form(n_planes);
+    if (!make_planes(planes, n_planes, T, n_words, vals, W, L, n, keep_from,
+                     grid, warp_words, kWarps, 32 * f.r, &p) || cap < 0)
         return (int)cudaErrorInvalidValue;
-    write_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        p, offsets, pos, word);
+    void* args[] = {&p, &cap, &scratch, &pos, &word};
+    cudaError_t err = allow_shared(f.kernel, kShared);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaLaunchCooperativeKernel(f.kernel, dim3(grid), dim3(kThreads),
+                                      args, kShared,
+                                      static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }
 

@@ -21,15 +21,22 @@ FILL_THREADS_PER_SM threads at once.  A block stages its tiles' bytes in
 shared memory, so the threads an SM holds grow with s.
 
 event_pairs() reads the planes back as sparse (position, event word)
-pairs in stream order: on a CUDA tensor through csrc/event_pairs.cu, so
-that only the pairs cross to the host, on a CPU tensor through
-event_pairs_reference().  planes_to_events() is the dense host read-back
-that agrep_tpu runs, kept as the plain form the tests compare with.
+pairs in stream order: on a CUDA tensor through csrc/event_pairs.cu (one
+cooperative launch), so that only the pairs cross to the host, on a CPU
+tensor through event_pairs_reference().  planes_to_events() is the dense
+host read-back that agrep_tpu runs, kept as the plain form the tests
+compare with.
 
-record_verdicts() cuts those pairs into the bitap engine's records where
-they lie and returns only the rows of the records that fire: on a CUDA
-tensor through csrc/record_verdicts.cu, on a CPU tensor through
-record_verdicts_reference().
+record_verdicts() cuts the same events into the bitap engine's records
+straight from the planes, without writing a pair, and returns only the
+rows of the records that fire: on a CUDA tensor through
+csrc/record_verdicts.cu (one cooperative launch), on a CPU tensor
+through record_verdicts_reference(), which is pair_records_reference()
+over event_pairs_reference()'s pairs.
+
+Both kernels allocate their output at a capacity before the launch and
+read its true size once after it; past the capacity they launch again at
+the exact size (counted in `relaunches`).
 """
 
 from __future__ import annotations
@@ -64,6 +71,9 @@ SM_BLOCKS = 32
 
 # Launches of each kernel since the counts were last set to 0.
 launches = {"mask_scan": 0, "event_pairs": 0, "record_verdicts": 0}
+# Second launches of the stages whose output outgrew the capacity they
+# allocated before the first (event_pairs' pairs, record_verdicts' rows).
+relaunches = {"event_pairs": 0, "record_verdicts": 0}
 
 
 @dataclass(frozen=True)
@@ -476,96 +486,117 @@ def _pairs_bind():
     if not getattr(lib, "_bound", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         ip = ctypes.POINTER(ctypes.c_int)
-        lib.event_pairs_count.restype = i
-        lib.event_pairs_count.argtypes = [p, i, ll, i, p, i, i, ll, ll, p,
-                                          i, p]
-        lib.event_pairs_write.restype = i
-        lib.event_pairs_write.argtypes = [p, i, ll, i, p, i, i, ll, ll, p,
-                                          p, p, i, p]
+        lib.event_pairs_launch.restype = i
+        lib.event_pairs_launch.argtypes = [p, i, ll, i, p, i, i, ll, ll, p,
+                                           p, ll, p, i, ll, p]
         lib.event_pairs_geometry.restype = i
-        lib.event_pairs_geometry.argtypes = [ip, ip]
+        lib.event_pairs_geometry.argtypes = [i, ip, ip, ip]
         lib.event_pairs_error_string.restype = ctypes.c_char_p
         lib.event_pairs_error_string.argtypes = [i]
         lib._bound = True
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _pairs_words_per_block(index: int) -> int:
-    return _cuda.query(_pairs_bind(), "event_pairs", "event_pairs_geometry",
-                       index, 2)[1]
+# event_pairs' pairs allocated before a launch: one a PAIRS_SHARE kept
+# positions, at least PAIRS_MIN (the corpus has one pair in ~49 bytes)
+PAIRS_MIN = 4096
+PAIRS_SHARE = 16
 
 
-def pairs_grid(N: int, keep_from: int, device) -> int:
-    """Blocks of each of event_pairs' two passes: the stream words (32
-    positions each) from keep_from's to N's, a block's share at a time;
-    0 when no position is kept."""
+def pairs_capacity(N: int, keep_from: int) -> int:
+    """Pairs event_pairs allocates before its launch."""
+    return max(PAIRS_MIN, max(N - keep_from, 0) // PAIRS_SHARE)
+
+
+def plane_grid(N: int, keep_from: int, threads: int, max_blocks: int,
+               step: int) -> tuple:
+    """(blocks, stream words a warp) of a launch of csrc/event_pairs.cu
+    or csrc/record_verdicts.cu over the stream words (32 positions each)
+    from keep_from's to N's: at most max_blocks blocks of threads
+    threads, each warp a run of a multiple of step words, no block
+    without a word; (0, 0) when no position is kept."""
     if N <= keep_from:
-        return 0
+        return 0, 0
     words = -(-N // 32) - keep_from // 32
-    return -(-words // _pairs_words_per_block(_cuda.device_index(device)))
+    warps = threads // 32
+    grid = min(max_blocks, -(-words // (step * warps)))
+    warp_words = step * -(-words // (step * warps * grid))
+    return -(-words // (warps * warp_words)), warp_words
 
 
-def _pairs_args(planes, vals, W, L, N, keep_from):
+@functools.lru_cache(maxsize=None)
+def _pairs_geometry(index: int, n_planes: int) -> tuple:
+    """(threads a block, blocks the device holds at once, stream words a
+    warp's step) of event_pairs over n_planes planes."""
+    return _cuda.query(_pairs_bind(), "event_pairs", "event_pairs_geometry",
+                       index, 3, n_planes)
+
+
+def pairs_grid(N: int, keep_from: int, n_planes: int, device) -> tuple:
+    """(blocks, stream words a warp) of event_pairs' launch."""
+    return plane_grid(N, keep_from, *_pairs_geometry(
+        _cuda.device_index(device), n_planes))
+
+
+def _pairs_call(name: str, planes, vals, W, L, N, keep_from, pos, word,
+                scratch) -> None:
+    """The kernel's one launch on the planes' device and current stream
+    (`name` labels it for timing.pass_split): the pairs into pos and
+    word, as many as they hold, and K into scratch[-1]."""
+    lib = _pairs_bind()
     P, T, n_words = planes.shape
-    return (planes.data_ptr(), P, T, n_words, vals.data_ptr(), W, L, N,
-            keep_from)
-
-
-def _pairs_count(planes, vals, W, L, N, keep_from, grid) -> torch.Tensor:
-    """Pass 1 on the planes' device: the pairs of each block, int64."""
-    lib = _pairs_bind()
-    counts = torch.empty(grid, dtype=torch.int64, device=planes.device)
+    grid, warp_words = pairs_grid(N, keep_from, P, planes.device)
     stream = torch.cuda.current_stream(planes.device).cuda_stream
     with torch.cuda.device(_cuda.device_index(planes.device)):
-        _cuda.check(lib, "event_pairs", lib.event_pairs_count(
-            *_pairs_args(planes, vals, W, L, N, keep_from),
-            counts.data_ptr(), grid, stream), "count launch")
-    return counts
+        _cuda.check(lib, "event_pairs", lib.event_pairs_launch(
+            planes.data_ptr(), P, T, n_words, vals.data_ptr(), W, L, N,
+            keep_from, pos.data_ptr(), word.data_ptr(), pos.numel(),
+            scratch.data_ptr(), grid, warp_words, stream), name + " launch")
 
 
-def _pairs_write(planes, vals, W, L, N, keep_from, grid, offsets, pos,
-                 word) -> None:
-    """Pass 2 on the planes' device: the pairs into pos and word from
-    each block's offset."""
-    lib = _pairs_bind()
-    stream = torch.cuda.current_stream(planes.device).cuda_stream
-    with torch.cuda.device(_cuda.device_index(planes.device)):
-        _cuda.check(lib, "event_pairs", lib.event_pairs_write(
-            *_pairs_args(planes, vals, W, L, N, keep_from),
-            offsets.data_ptr(), pos.data_ptr(), word.data_ptr(), grid,
-            stream), "write launch")
+def _pairs_run(name, planes, vals, W, L, N, keep_from, cap) -> tuple:
+    """(pos, word, scratch) of one launch with the pairs allocated at cap;
+    K is scratch[-1]."""
+    dev = planes.device
+    grid = pairs_grid(N, keep_from, planes.shape[0], dev)[0]
+    pos = torch.empty(cap, dtype=torch.int64, device=dev)
+    word = torch.empty(cap, dtype=torch.uint32, device=dev)
+    scratch = torch.empty(grid + 1, dtype=torch.int64, device=dev)
+    _pairs_call(name, planes, vals, W, L, N, keep_from, pos, word, scratch)
+    return pos, word, scratch
 
 
 def pairs_passes(planes, vals, W, L, N, keep_from, pos, word) -> None:
-    """Both passes into pos and word, which hold the K pairs of an
-    earlier call: the kernel's device work without the host's read of K
-    (for timing it on the card)."""
-    grid = pairs_grid(N, keep_from, planes.device)
-    counts = _pairs_count(planes, vals, W, L, N, keep_from, grid)
-    incl = torch.cumsum(counts, 0)
-    _pairs_write(planes, vals, W, L, N, keep_from, grid, incl - counts,
-                 pos, word)
+    """The kernel's launch into pos and word, which hold the K pairs of
+    an earlier call: its device work without the host's read of K (for
+    timing it on the card)."""
+    if N <= keep_from:
+        return
+    grid = pairs_grid(N, keep_from, planes.shape[0], planes.device)[0]
+    scratch = torch.empty(grid + 1, dtype=torch.int64, device=planes.device)
+    _pairs_call("pairs", planes, vals, W, L, N, keep_from, pos, word,
+                scratch)
 
 
-def _pairs_launch(planes, vals, W, L, N, keep_from) -> tuple:
-    """The kernel's two passes on the planes' device, with the host's
-    read of K between them."""
+def _pairs_launch(planes, vals, W, L, N, keep_from,
+                  capacity: int | None = None) -> tuple:
+    """The kernel on the planes' device, its pairs allocated at capacity
+    (pairs_capacity by default), then the host's one read of K; a second
+    launch at capacity K where K exceeds it (counted in relaunches)."""
     dev = planes.device
-    grid = pairs_grid(N, keep_from, dev)
-    if grid == 0:
+    if N <= keep_from:
         return (torch.empty(0, dtype=torch.int64, device=dev),
                 torch.empty(0, dtype=torch.uint32, device=dev))
-    counts = _pairs_count(planes, vals, W, L, N, keep_from, grid)
-    incl = torch.cumsum(counts, 0)
-    K = int(incl[-1].item())
-    pos = torch.empty(K, dtype=torch.int64, device=dev)
-    word = torch.empty(K, dtype=torch.uint32, device=dev)
-    if K:
-        _pairs_write(planes, vals, W, L, N, keep_from, grid, incl - counts,
-                     pos, word)
+    cap = pairs_capacity(N, keep_from) if capacity is None else capacity
+    pos, word, scratch = _pairs_run("pairs", planes, vals, W, L, N,
+                                    keep_from, cap)
+    K = int(scratch[-1].item())
     launches["event_pairs"] += 1
-    return pos, word
+    if K > cap:
+        pos, word, _ = _pairs_run("relaunch", planes, vals, W, L, N,
+                                  keep_from, K)
+        relaunches["event_pairs"] += 1
+    return pos[:K], word[:K]
 
 
 def event_pairs_reference(planes: torch.Tensor, vals: torch.Tensor, W: int,
@@ -598,50 +629,41 @@ def event_pairs_reference(planes: torch.Tensor, vals: torch.Tensor, W: int,
     return pos[keep], ev[keep].to(torch.uint32)
 
 
-def _check_records_args(pos, word) -> None:
-    if pos.dtype != torch.int64 or pos.dim() != 1:
-        raise TypeError("pos must be a 1-D int64 tensor, got %s %r"
-                        % (pos.dtype, tuple(pos.shape)))
-    if word.dtype != torch.uint32 or word.dim() != 1:
-        raise TypeError("word must be a 1-D uint32 tensor, got %s %r"
-                        % (word.dtype, tuple(word.shape)))
-    if not (pos.is_contiguous() and word.is_contiguous()):
-        raise ValueError("pos and word must be contiguous")
-    if pos.device != word.device:
-        raise ValueError("pos on %s but word on %s"
-                         % (pos.device, word.device))
-    if pos.numel() != word.numel():
-        raise ValueError("%d positions but %d words"
-                         % (pos.numel(), word.numel()))
-
-
-def record_verdicts(pos: torch.Tensor, word: torch.Tensor, endpos: int,
+def record_verdicts(planes: torch.Tensor, vals: torch.Tensor, W: int,
+                    L: int, N: int, keep_from: int, endpos: int,
                     d_endpos: int, skip_pos: int = -1,
                     and_flag: bool = False, invert: bool = False,
-                    acc: int = 0) -> tuple:
-    """The records of a stream's event pairs that fire, as the bitap
-    engine cuts them: (rows int64 [R, 3] on the pairs' device, summary).
+                    acc: int = 0, capacity: int | None = None) -> tuple:
+    """The records of a stream's events that fire, as the bitap engine
+    cuts them, from mask_scan's planes: (rows int64 [R, 3] on the
+    planes' device, summary).
 
-    pos/word: event_pairs' pairs, ascending.  The pair at skip_pos (the
-    glitch byte, or -1) is dropped first.  A pair ORs word & endpos into
-    its record's acc, and a pair with word & d_endpos set ends the record
-    (its own hit counts in it).  A record fires when, with and_flag,
-    (acc & endpos) == endpos or invert, and else when (acc != 0) ^ invert.
-    acc is the carry from the stream's earlier pairs: the hit bits since
-    their last record end.
+    The events are event_pairs(planes, vals, W, L, N, keep_from)'s
+    pairs, never written.  The event at skip_pos (the glitch byte, or -1)
+    is dropped first.  An event ORs word & endpos into its record's acc,
+    and an event with word & d_endpos set ends the record (its own hit
+    counts in it).  A record fires when, with and_flag, (acc & endpos) ==
+    endpos or invert, and else when (acc != 0) ^ invert.  acc is the
+    carry from the stream's earlier events: the hit bits since their
+    last record end.
 
     Each row is (ordinal of the record's end among this call's ends, the
     end's position, the position of the end before it or -1), in stream
     order.  summary = (record ends, last end's position or -1, the hit
-    bits after it: the next call's acc).  A CUDA tensor goes to the
-    kernel, a CPU tensor to record_verdicts_reference."""
-    _check_records_args(pos, word)
+    bits after it: the next call's acc, the events: the pairs event_pairs
+    would give).  A CUDA tensor goes to the kernel, its rows allocated at
+    capacity (rows_capacity(N) by default); a CPU tensor to
+    record_verdicts_reference."""
+    _check_pairs_args(planes, vals, W, L, N, keep_from)
     args = _records_args(endpos, d_endpos, skip_pos, and_flag, invert, acc)
-    if pos.is_cuda:
-        return _records_launch(pos, word, *args)
-    if pos.device.type == "cpu":
-        return record_verdicts_reference(pos, word, *args)
-    raise ValueError("no record-verdicts kernel for device %s" % pos.device)
+    if planes.is_cuda:
+        return _records_launch(planes, vals, W, L, N, keep_from, *args,
+                               capacity=capacity)
+    if planes.device.type == "cpu":
+        return record_verdicts_reference(planes, vals, W, L, N, keep_from,
+                                         *args)
+    raise ValueError("no record-verdicts kernel for device %s"
+                     % planes.device)
 
 
 def _records_args(endpos, d_endpos, skip_pos, and_flag, invert,
@@ -652,21 +674,33 @@ def _records_args(endpos, d_endpos, skip_pos, and_flag, invert,
             int(invert), _u32(acc) & _u32(endpos))
 
 
+# record_verdicts' rows allocated before a launch: twice the rows of the
+# stream's previous chunk, at least ROWS_MIN; on a first chunk one a
+# ROWS_SHARE bytes, at least ROWS_MIN
+ROWS_MIN = 1024
+ROWS_SHARE = 1024
+
+
+def rows_capacity(N: int, prev_rows: int | None = None) -> int:
+    """Rows record_verdicts allocates before its launch over a chunk of N
+    bytes, after a chunk of prev_rows rows (None: the stream's first)."""
+    if prev_rows is None:
+        return max(ROWS_MIN, N // ROWS_SHARE)
+    return max(ROWS_MIN, 2 * prev_rows)
+
+
 def _records_bind():
     lib = _cuda.load("record_verdicts")
     if not getattr(lib, "_bound", False):
         p, i, u, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                        ctypes.c_longlong)
         ip = ctypes.POINTER(ctypes.c_int)
-        head = [p, p, ll, u, u, ll, i, i, u]
-        lib.record_verdicts_summarize.restype = i
-        lib.record_verdicts_summarize.argtypes = head + [p, i, p]
-        lib.record_verdicts_combine.restype = i
-        lib.record_verdicts_combine.argtypes = head + [p, p, p, i, p]
-        lib.record_verdicts_write.restype = i
-        lib.record_verdicts_write.argtypes = head + [p, p, i, p]
+        lib.record_verdicts_launch.restype = i
+        lib.record_verdicts_launch.argtypes = [
+            p, i, ll, i, p, i, i, ll, ll, u, u, ll, i, i, u, p, ll, p, i, ll,
+            p]
         lib.record_verdicts_geometry.restype = i
-        lib.record_verdicts_geometry.argtypes = [ip, ip, ip]
+        lib.record_verdicts_geometry.argtypes = [i, ip, ip, ip, ip]
         lib.record_verdicts_error_string.restype = ctypes.c_char_p
         lib.record_verdicts_error_string.argtypes = [i]
         lib._bound = True
@@ -674,84 +708,111 @@ def _records_bind():
 
 
 @functools.lru_cache(maxsize=None)
-def _records_geometry(index: int) -> tuple:
-    """(pairs a block, bytes of a block summary) of the kernel."""
+def _records_geometry(index: int, n_planes: int) -> tuple:
+    """(threads a block, blocks the device holds at once, stream words a
+    warp's step) of record_verdicts over n_planes planes."""
     return _cuda.query(_records_bind(), "record_verdicts",
-                       "record_verdicts_geometry", index, 3)[1:]
+                       "record_verdicts_geometry", index, 4, n_planes)[:3]
 
 
-def records_grid(K: int, device) -> int:
-    """Blocks of record_verdicts' first and last passes over K pairs."""
-    per = _records_geometry(_cuda.device_index(device))[0]
-    return -(-K // per)
+def records_grid(N: int, keep_from: int, n_planes: int, device) -> tuple:
+    """(blocks, stream words a warp) of record_verdicts' launch."""
+    return plane_grid(N, keep_from, *_records_geometry(
+        _cuda.device_index(device), n_planes))
 
 
-def _records_call(fn: str, pos, word, args, *rest) -> None:
-    """One pass of the kernel on the pairs' device and current stream."""
+def _records_call(name: str, planes, vals, W, L, N, keep_from, args, rows,
+                  scratch) -> None:
+    """The kernel's one launch on the planes' device and current stream
+    (`name` labels it for timing.pass_split): the rows into rows, as
+    many as it holds, and the summary into scratch[-5:]."""
     lib = _records_bind()
-    stream = torch.cuda.current_stream(pos.device).cuda_stream
-    with torch.cuda.device(_cuda.device_index(pos.device)):
-        _cuda.check(lib, "record_verdicts", getattr(
-            lib, "record_verdicts_" + fn)(
-                pos.data_ptr(), word.data_ptr(), pos.numel(), *args, *rest,
-                stream), fn + " launch")
+    P, T, n_words = planes.shape
+    grid, warp_words = records_grid(N, keep_from, P, planes.device)
+    stream = torch.cuda.current_stream(planes.device).cuda_stream
+    with torch.cuda.device(_cuda.device_index(planes.device)):
+        _cuda.check(lib, "record_verdicts", lib.record_verdicts_launch(
+            planes.data_ptr(), P, T, n_words, vals.data_ptr(), W, L, N,
+            keep_from, *args, rows.data_ptr(), rows.shape[0],
+            scratch.data_ptr(), grid, warp_words, stream), name + " launch")
 
 
-def _records_summary(pos, word, args, grid) -> tuple:
-    """Passes 1 and 2: (each block's incoming prefix, the summary int64
-    [4] = record ends, last end, acc after it, rows), on the card."""
-    sum_bytes = _records_geometry(_cuda.device_index(pos.device))[1]
-    dev = pos.device
-    sums = torch.empty(grid * sum_bytes // 8, dtype=torch.int64, device=dev)
-    pre = torch.empty_like(sums)
-    summary = torch.empty(4, dtype=torch.int64, device=dev)
-    _records_call("summarize", pos, word, args, sums.data_ptr(), grid)
-    _records_call("combine", pos, word, args, sums.data_ptr(),
-                  pre.data_ptr(), summary.data_ptr(), grid)
-    return pre, summary
+def _records_run(name, planes, vals, W, L, N, keep_from, args,
+                 cap) -> tuple:
+    """(rows, scratch) of one launch with the rows allocated at cap; the
+    summary is scratch[-5:]."""
+    dev = planes.device
+    grid = records_grid(N, keep_from, planes.shape[0], dev)[0]
+    rows = torch.empty((cap, 3), dtype=torch.int64, device=dev)
+    scratch = torch.empty(5 * grid + 5, dtype=torch.int64, device=dev)
+    _records_call(name, planes, vals, W, L, N, keep_from, args, rows,
+                  scratch)
+    return rows, scratch
 
 
-def records_passes(pos, word, endpos, d_endpos, skip_pos, and_flag, invert,
-                   acc, rows) -> None:
-    """The three passes into rows, which holds the rows of an earlier
-    call on the same pairs: the kernel's device work without the host's
-    read of the summary (for timing it on the card)."""
+def records_passes(planes, vals, W, L, N, keep_from, endpos, d_endpos,
+                   skip_pos, and_flag, invert, acc, rows) -> None:
+    """The kernel's launch into rows, which holds the rows of an earlier
+    call on the same planes: its device work without the host's read of
+    the summary (for timing it on the card)."""
+    if N <= keep_from:
+        return
     args = _records_args(endpos, d_endpos, skip_pos, and_flag, invert, acc)
-    grid = records_grid(pos.numel(), pos.device)
-    pre, _summary = _records_summary(pos, word, args, grid)
-    _records_call("write", pos, word, args, pre.data_ptr(), rows.data_ptr(),
-                  grid)
+    grid = records_grid(N, keep_from, planes.shape[0], planes.device)[0]
+    scratch = torch.empty(5 * grid + 5, dtype=torch.int64,
+                          device=planes.device)
+    _records_call("records", planes, vals, W, L, N, keep_from, args, rows,
+                  scratch)
 
 
-def _records_launch(pos, word, endpos, d_endpos, skip_pos, and_flag,
-                    invert, acc) -> tuple:
-    """The kernel's three passes on the pairs' device, with the host's
-    read of the summary between the second and the third."""
-    dev = pos.device
+def _records_launch(planes, vals, W, L, N, keep_from, endpos, d_endpos,
+                    skip_pos, and_flag, invert, acc,
+                    capacity: int | None = None) -> tuple:
+    """The kernel on the planes' device, its rows allocated at capacity
+    (rows_capacity(N) by default), then the host's one read of the
+    summary; a second launch with the exact rows where they exceed it
+    (counted in relaunches)."""
+    dev = planes.device
     args = _records_args(endpos, d_endpos, skip_pos, and_flag, invert, acc)
-    if pos.numel() == 0:
+    if N <= keep_from:
         return torch.empty((0, 3), dtype=torch.int64, device=dev), \
-            (0, -1, args[-1])
-    grid = records_grid(pos.numel(), dev)
-    pre, summary = _records_summary(pos, word, args, grid)
-    n_ends, last, acc_out, R = summary.tolist()
-    rows = torch.empty((R, 3), dtype=torch.int64, device=dev)
-    if R:
-        _records_call("write", pos, word, args, pre.data_ptr(),
-                      rows.data_ptr(), grid)
+            (0, -1, args[-1], 0)
+    cap = rows_capacity(N) if capacity is None else capacity
+    rows, scratch = _records_run("records", planes, vals, W, L, N,
+                                 keep_from, args, cap)
+    n_ends, last, acc_out, R, pairs = scratch[-5:].tolist()
     launches["record_verdicts"] += 1
-    return rows, (n_ends, last, acc_out)
+    if R > cap:
+        rows, _ = _records_run("relaunch", planes, vals, W, L, N, keep_from,
+                               args, R)
+        relaunches["record_verdicts"] += 1
+    return rows[:R], (n_ends, last, acc_out, pairs)
 
 
-def record_verdicts_reference(pos: torch.Tensor, word: torch.Tensor,
+def record_verdicts_reference(planes: torch.Tensor, vals: torch.Tensor,
+                              W: int, L: int, N: int, keep_from: int,
                               endpos: int, d_endpos: int,
                               skip_pos: int = -1, and_flag: bool = False,
                               invert: bool = False, acc: int = 0) -> tuple:
-    """Plain PyTorch version of the kernel, on any device: each pair's
-    record is the number of record ends before it, and a record's acc is
-    the OR of its pairs' hit bits, taken a bit of endpos at a time by a
-    scatter_reduce.  Words are int64 holding u32 values (CPU torch has no
-    >> on uint32)."""
+    """Plain PyTorch version of the kernel, on any device: the pairs of
+    event_pairs_reference cut by pair_records_reference, and their
+    number."""
+    pos, word = event_pairs_reference(planes, vals, W, L, N, keep_from)
+    rows, summary = pair_records_reference(pos, word, endpos, d_endpos,
+                                           skip_pos, and_flag, invert, acc)
+    return rows, summary + (pos.numel(),)
+
+
+def pair_records_reference(pos: torch.Tensor, word: torch.Tensor,
+                           endpos: int, d_endpos: int, skip_pos: int = -1,
+                           and_flag: bool = False, invert: bool = False,
+                           acc: int = 0) -> tuple:
+    """record_verdicts' cut of event pairs (pos, word), ascending, in
+    plain PyTorch on any device, with its rows and its summary less the
+    events: each pair's record is the number of record ends before it,
+    and a record's acc is the OR of its pairs' hit bits, taken a bit of
+    endpos at a time by a scatter_reduce.  Words are int64 holding u32
+    values (CPU torch has no >> on uint32)."""
     dev = pos.device
     endpos, d_endpos = _u32(endpos), _u32(d_endpos)
     keep = pos != skip_pos

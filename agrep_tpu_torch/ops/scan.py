@@ -33,9 +33,9 @@ layout equals the mask machine's (delimiter bit = d_endpos, part pulses
 backend the pairs are compacted where the planes lie (ops/kernels.py
 event_pairs), and only they cross to the host.  For the bitap engine,
 scan_record_verdicts and scan_record_list go one step further on the
-torch backend: the pairs are cut into records on the scan device
-(ops/kernels.py record_verdicts), and only the rows of the records that
-fire cross to the host.
+torch backend: the planes are cut into records on the scan device
+(ops/kernels.py record_verdicts, no pair written), and only the rows of
+the records that fire cross to the host.
 """
 
 from __future__ import annotations
@@ -242,19 +242,22 @@ def scan_record_list(reader, n: int, mask_table: np.ndarray, consts: dict,
     stream's record ends, the end's stream position, the stream position
     of the end before it or -1 where there is none).
 
-    The scan's event pairs are cut into records on the scan device
-    (kernels.record_verdicts, with the pair at skip_pos dropped, and_flag
-    and invert its verdict), each chunk from the carry of the chunks
-    before it; only the rows cross to the host.  Torch backend only: the
-    numpy backend's engines cut the events themselves."""
+    The scan's planes are cut into records on the scan device
+    (kernels.record_verdicts, with the event at skip_pos dropped,
+    and_flag and invert its verdict), each chunk from the carry of the
+    chunks before it, its rows allocated at twice the rows of the chunk
+    before it (kernels.rows_capacity); only the rows cross to the host.
+    Torch backend only: the numpy backend's engines cut the events
+    themselves."""
     if _BACKEND != "torch":
         raise ValueError("the record verdicts run on the torch backend, "
                          "not on %r" % (_BACKEND,))
     if chunk is None:
         chunk = STREAM_CHUNK
+    from . import kernels
     from ..runtime import trace
     W = _halo(consts, D, tile)
-    acc, base, last = 0, 0, -1
+    acc, base, last, capacity = 0, 0, -1, None
     g0 = 0
     while g0 < n:
         g1 = min(n, g0 + chunk)
@@ -268,7 +271,8 @@ def scan_record_list(reader, n: int, mask_table: np.ndarray, consts: dict,
             rows, (n_ends, c_last, acc) = _records_torch(
                 text, mask_table, consts, D, W, tile, len(text), costs,
                 g0 - lo, skip_pos - lo if skip_pos >= lo else -1, and_flag,
-                invert, acc)
+                invert, acc, capacity)
+        capacity = kernels.rows_capacity(len(text), len(rows))
         if len(rows):
             rows[:, :2] += (base, lo)
             first = rows[:, 2] < 0
@@ -298,12 +302,10 @@ def scan_record_verdicts(text: np.ndarray, mask_table: np.ndarray,
 # torch backend
 # ---------------------------------------------------------------------
 
-def _pairs_torch(text, mask_table, consts, D, W, L, N, variant, costs,
-                 keep_from):
-    """The mask-machine kernel (CUDA) or its plain PyTorch version
-    (CPU), then its planes compacted into (position, event word) pairs
-    where they lie (kernels.event_pairs); the pairs stay on the scan
-    device."""
+def _planes_torch(text, mask_table, consts, D, W, L, variant, costs):
+    """The mask-machine kernel (CUDA) or its plain PyTorch version (CPU)
+    over text: its planes and their event values (kernels.event_vals),
+    on the scan device."""
     import torch
 
     from . import kernels
@@ -316,6 +318,17 @@ def _pairs_torch(text, mask_table, consts, D, W, L, N, variant, costs,
     planes = kernels.mask_scan(kernels.to_device(text, dev), mach, W, L)
     vals = torch.from_numpy(np.asarray(kernels.event_vals(mach),
                                        dtype=np.uint32)).to(dev)
+    return planes, vals
+
+
+def _pairs_torch(text, mask_table, consts, D, W, L, N, variant, costs,
+                 keep_from):
+    """_planes_torch's planes compacted into (position, event word) pairs
+    where they lie (kernels.event_pairs); the pairs stay on the scan
+    device."""
+    from . import kernels
+    planes, vals = _planes_torch(text, mask_table, consts, D, W, L,
+                                 variant, costs)
     return kernels.event_pairs(planes, vals, W, L, N, keep_from)
 
 
@@ -328,22 +341,24 @@ def _scan_torch(text, mask_table, consts, D, W, L, N, variant, costs,
 
 
 def _records_torch(text, mask_table, consts, D, W, L, N, costs, keep_from,
-                   skip_pos, and_flag, invert, acc):
-    """_pairs_torch's bitap pairs cut into records where they lie
-    (kernels.record_verdicts); only the rows of the records that fire,
-    and the summary, come to the host."""
+                   skip_pos, and_flag, invert, acc, capacity=None):
+    """_planes_torch's bitap planes cut into records where they lie
+    (kernels.record_verdicts, its rows allocated at capacity); no pair is
+    written, and only the rows of the records that fire, and the
+    summary, come to the host."""
     from . import kernels
     from ..runtime import trace
-    pos, ev = _pairs_torch(text, mask_table, consts, D, W, L, N, "bitap",
-                           costs, keep_from)
-    rows, summary = kernels.record_verdicts(
-        pos, ev, consts["endpos"], consts["d_endpos"], skip_pos, and_flag,
-        invert, acc)
+    planes, vals = _planes_torch(text, mask_table, consts, D, W, L, "bitap",
+                                 costs)
+    rows, (n_ends, last, acc, pairs) = kernels.record_verdicts(
+        planes, vals, W, L, N, keep_from, consts["endpos"],
+        consts["d_endpos"], skip_pos, and_flag, invert, acc,
+        capacity=capacity)
     rows = rows.cpu().numpy()
     if trace.ENABLED:
-        trace.add("record_pairs", pos.numel())
+        trace.add("record_pairs", pairs)
         trace.add("record_rows", len(rows))
-    return rows, summary
+    return rows, (n_ends, last, acc)
 
 
 def scan_lanes(lanes: np.ndarray, lens: np.ndarray, mask_table: np.ndarray,

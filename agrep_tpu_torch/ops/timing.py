@@ -265,24 +265,32 @@ def pairs_bound(vals, N: int, keep_from: int, K: int) -> tuple:
 SPIN_CYCLES = 200000
 
 
-def records_ops() -> int:
-    """int32 operations a pair of the record cut at its least: the skip
-    test (1), the hit bits' AND and OR into the record's acc (2), the
-    delimiter bit's test (1) and, at a record end, the verdict's compare
-    (1).  The pairs' loads and the rows' stores are bytes."""
-    return 5
+def plane_records_ops(n_planes: int) -> int:
+    """int32 operations of a 32-position stream word of the record cut
+    from the planes at its least: for each plane whose value meets
+    endpos | d_endpos the funnel shift that aligns its bits and their OR
+    into the word's ends or hits (2), then the kept and skip masks' AND,
+    the ends' popcount, the last end's clz and the head's and tail's
+    masks (5).  A record end adds its segment's mask, its hits' test and
+    the verdict (3, see plane_records_bound).  The plane words' loads and
+    the rows' stores are bytes."""
+    return 2 * n_planes + 5
 
 
-def records_bound(K: int, R: int) -> tuple:
-    """(bound_ms, bound_by) of one record cut of K event pairs into R rows
-    that fire: the pairs (8 B position, 4 B word) read once, the rows
-    (three int64) and the 32-byte summary written once over HBM's rate,
-    against records_ops a pair over the card's int32 rate."""
-    t_bytes = (12 * K + 24 * R + 32) / HBM_BYTES_PER_S
-    t_ops = K * records_ops() / INT32_OPS_PER_S
-    if t_ops >= t_bytes:
-        return t_ops * 1e3, "operations"
-    return t_bytes * 1e3, "bytes"
+def plane_records_bound(vals, endpos: int, d_endpos: int, N: int,
+                        keep_from: int, E: int, R: int) -> tuple:
+    """(bound_ms, bound_by) of one record cut from the planes of a scan
+    of N bytes with E record ends into R rows that fire: the plane bits of
+    the kept positions [keep_from, N) of every plane whose value meets
+    endpos | d_endpos read once (a bit a position), the values read once
+    and the rows (three int64) and the summary (five) written once over
+    HBM's rate, against plane_records_ops a stream word and 3 a record end
+    over the card's int32 rate."""
+    v = [int(x) for x in vals.tolist()]
+    n = sum(1 for x in v if x & (endpos | d_endpos))
+    kept = max(N - keep_from, 0)
+    n_bytes = n * -(-kept // 8) + 4 * len(v) + 24 * R + 40
+    return _bound(n_bytes, -(-kept // 32) * plane_records_ops(n) + 3 * E)
 
 
 def _bound(n_bytes: int, ops: int) -> tuple:
@@ -374,30 +382,37 @@ def profiled_ms(fn, kernel: str, reps: int):
     return total / count / 1e3 if count and total else None
 
 
-def pass_split(fn, module, hook: str, reps: int = 20) -> list:
+def pass_split(fn, module, hook, reps: int = 20) -> list:
     """[(label, ms a call)] of fn's passes on the card.  fn launches each
-    pass through module.<hook>(pass name, ...), which is wrapped here to
-    record a CUDA event just before and just after the launch: a pass's
-    label holds its own time, and "<pass>:before" the time from the
-    previous pass's end (or the call's start) to its launch -- the torch
-    kernels and the launch gaps between passes.  The card spins first,
-    as in time_kernel, and the first event must still be pending once the
-    last call is queued."""
+    pass through module.<hook>(pass name, ...) -- or through any of the
+    attributes a tuple `hook` names -- which is wrapped here to record a
+    CUDA event just before and just after the launch: a pass's label (the
+    pass name a `*_call` hook is given, else the attribute's name) holds
+    its own time, and "<pass>:before" the time from the previous pass's
+    end (or the call's start) to its launch -- the torch kernels and the
+    launch gaps between passes.  The card spins first, as in
+    time_kernel, and the first event must still be pending once the last
+    call is queued."""
     import torch
-    real = getattr(module, hook)
+    hooks = (hook,) if isinstance(hook, str) else tuple(hook)
+    real = {h: getattr(module, h) for h in hooks}
     marks = []
 
-    def wrapped(name, *args, **kw):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        real(name, *args, **kw)
-        b.record()
-        marks.append((name, a, b))
+    def wrapped(h):
+        def call(*args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = real[h](*args, **kw)
+            b.record()
+            marks.append((args[0] if h.endswith("_call") else h, a, b))
+            return out
+        return call
 
     fn()
     torch.cuda.synchronize()
-    setattr(module, hook, wrapped)
+    for h in hooks:
+        setattr(module, h, wrapped(h))
     try:
         for k in range(5):
             marks.clear()
@@ -416,7 +431,8 @@ def pass_split(fn, module, hook: str, reps: int = 20) -> list:
             raise RuntimeError("pass_split: the card finished its spin "
                                "before the host had queued %d calls" % reps)
     finally:
-        setattr(module, hook, real)
+        for h, f in real.items():
+            setattr(module, h, f)
     totals: dict = {}
     bounds = [i for _s, i in starts] + [len(marks)]
     for r, (s, i0) in enumerate(starts):

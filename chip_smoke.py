@@ -53,15 +53,18 @@ exits non-zero:
      random bits over 33 planes at those sizes, and on config 2's 32 MB
      chunk (its planes, and all-set planes of its geometry), each with
      its planes and values also as views 1-15 elements past an aligned
-     address; and the record_verdicts kernel against
-     record_verdicts_reference, bit for bit (rows and summary), with AND
-     and OR, with and without -v, with and without a dropped pair, from
-     an acc of 0 and of endpos, on pair streams of K = 0, 1, 2047, 2048
-     (every pair a record end), 2049 (hits on record ends), 5000, 600,000
-     (no record end, more blocks than the combining block's threads) and
-     1,000,000 under one and three hit bits, and on config 2's and config
-     3's pairs over a 32 MB chunk, each also as views 1-15 elements past
-     an aligned address; and the line_index and line_rows kernels against
+     address, and each with its pairs' capacity forced to 0 and to 1
+     (a second launch at K); and the record_verdicts kernel against
+     record_verdicts_reference, bit for bit (rows and summary, its
+     events included), with AND and OR, with and without -v, with and
+     without a dropped event, from an acc of 0 and of endpos, on the
+     planes of event streams of K = 0, 1, 2047, 2048 (every event a
+     record end), 2049 (hits on record ends), 5000, 600,000 (no record
+     end) and 1,000,000 under one and three hit bits (one plane a word
+     bit, junk bits in the halo columns and past N), and on config 2's
+     and config 3's planes over a 32 MB chunk, each also as views 1-15
+     elements past an aligned address and with its rows' capacity
+     forced to 0 and to 1 (a second launch at R); and the line_index and line_rows kernels against
      line_index_reference and line_rows_reference, bit for bit, on the
      edge texts (empty, no newline, one newline, a leading newline, no
      final newline), lines of 127-129, 8,191-8,193, 49,153 and 60,000
@@ -119,14 +122,18 @@ exits non-zero:
      tracing on, every -d run must leave the counter qgram_candidates
      at 0 (no call of compile/multi.py's qgram_occurrences), and config5
      must take its records' rows from the native pass over the card's
-     anchors (native.qgram_first_per_anchor_at); configs 1-3, memagrep
+     anchors (native.qgram_first_per_anchor_at); config 1, memagrep
      and bool5m must read their events back through event_pairs, and no
      run may call the host's planes_to_events (both wrapped and counted);
      configs 2, 3 and config2c (config 2 as a count: CONFIG2C) must cut
-     their records through record_verdicts (wrapped and counted), and the
-     rows they read back (trace counter record_rows) must be the records
-     that fire, as record_verdicts_reference counts them on the same
-     pairs; config4, config4n and memagrep4 must index their lines
+     their records from mask_scan's planes through record_verdicts
+     (wrapped and counted), launching no event_pairs and taking no
+     second launch, the rows they read back (trace counter record_rows)
+     must be the records that fire, as record_verdicts_reference counts
+     them on the same planes, and their events (record_pairs) the pairs
+     event_pairs_reference gives there; config 2 with -v (config2v,
+     nearly every record fires) reports its second launches and must
+     equal the numpy backend; config4, config4n and memagrep4 must index their lines
      through line_index and read them back through line_rows, one launch
      of each a chunk (the buffer in memory mode), every line indexed on
      the card (trace counter regex_lines), one row read back a printed
@@ -141,14 +148,15 @@ exits non-zero:
      (Next form, table bytes, threads, blocks an SM, grid, registers,
      spills) and time at its two, qgram_filter's (threads, blocks an
      SM, grid) and time at config5q's, event_pairs' (pairs, planes, grid;
-     its two passes' device time, the wrapper's with the host's read of
-     K, the plain version's and a library composite's: unpack by shifts,
+     its launch's device time, the wrapper's with the host's read of K,
+     the plain version's and a library composite's: unpack by shifts,
      then torch.nonzero) at configs 1-3's 32 MB chunk, the memagrep
-     buffer and bool5m's last stream, and record_verdicts' (pairs, rows,
-     grid; its three passes' device time, the wrapper's with the host's
-     read of the summary, the plain version's and a library composite's:
-     torch.cumsum of the delimiter flags, scatter_add of the hit flags) at
-     the first 32 MB chunk's pairs of configs 2, 3 and config2c, and
+     buffer and bool5m's last stream, and record_verdicts' (events, rows,
+     grid; its launch's device time, the wrapper's with the host's read
+     of the summary, the plain version's and a library composite's: the
+     event_pairs composite, then torch.cumsum of the delimiter flags and
+     scatter_add of the hit flags) at the first 32 MB chunk's planes of
+     configs 2, 3 and config2c, and
      line_index's and line_rows' (lines, rows, grids; their passes'
      device time and line_index's by pass (timing.pass_split), the
      wrapper's with the host's read of K or the count,
@@ -856,12 +864,19 @@ def pairs_cases(device: str, seed: int):
            pairs_vals(m, device), W, text.numel())
 
 
+# capacities forced on a launch (its private argument): each must take a
+# second launch wherever the output holds more
+FORCED_CAPACITIES = (0, 1)
+
+
 def phase_parity_pairs(device: str, seed: int) -> float:
     """event_pairs against event_pairs_reference on the card, bit for
-    bit, on every shape of pairs_cases with keep_from 0 and W, and with
-    the planes and values as views PAIRS_OFFSETS elements past an aligned
-    address; all-set planes must give a pair at every kept position.
-    Returns the largest |kernel - plain| (0 or fail)."""
+    bit, on every shape of pairs_cases with keep_from 0 and W, with the
+    planes and values as views PAIRS_OFFSETS elements past an aligned
+    address, and with the pairs' capacity forced to FORCED_CAPACITIES
+    (each must launch again where K is larger); all-set planes must give
+    a pair at every kept position.  Returns the largest |kernel - plain|
+    (0 or fail)."""
     import torch
 
     from agrep_tpu_torch.ops import kernels
@@ -885,6 +900,15 @@ def phase_parity_pairs(device: str, seed: int) -> float:
                 worst = max(worst, diff)
                 if diff:
                     failed.append((name, N, kf, off, diff))
+            for cap in FORCED_CAPACITIES:
+                again = kernels.relaunches["event_pairs"]
+                got = kernels._pairs_launch(planes, vals, W, L, N, kf, cap)
+                again = kernels.relaunches["event_pairs"] - again
+                diff = _pairs_diff(got, want)
+                worst = max(worst, diff)
+                if diff or again != (K > cap):
+                    failed.append((name, N, kf, "capacity", cap, diff,
+                                   again))
             sh = shapes.setdefault(name, [0, set(), set(), set()])
             sh[0] += K
             sh[1].add(N)
@@ -894,8 +918,9 @@ def phase_parity_pairs(device: str, seed: int) -> float:
     torch.cuda.synchronize()
     for name, (K, sizes, n_planes, offs) in shapes.items():
         print("parity: event_pairs %-20s N=%s planes=%s keep_from 0 and W, "
-              "views at %s: %d pairs, equal bit for bit"
-              % (name, sorted(sizes), sorted(n_planes), sorted(offs), K))
+              "views at %s, capacity %s: %d pairs, equal bit for bit"
+              % (name, sorted(sizes), sorted(n_planes), sorted(offs),
+                 list(FORCED_CAPACITIES), K))
     print("parity: event_pairs %d shapes in %.1f s"
           % (len(shapes), time.perf_counter() - t0))
     if failed:
@@ -904,7 +929,7 @@ def phase_parity_pairs(device: str, seed: int) -> float:
     return float(worst)
 
 
-# record_verdicts' parity streams: (name, pairs K, hit and end shares)
+# record_verdicts' parity streams: (name, events K, hit and end shares)
 RECORD_STREAMS = [
     ("empty", 0, 0.5, 0.5),
     ("one_hit_end", 1, 1.0, 1.0),
@@ -920,6 +945,9 @@ RECORD_STREAMS = [
 # (endpos, d_endpos) of the synthetic streams: one hit bit, three
 RECORD_MASKS = [(0x1, 0x100), (0x2A, 0x400)]
 RECORD_OFFSETS = (0, 1, 3, 15)
+# the synthetic streams' tile and halo (W not a multiple of 32: a stream
+# word's bits straddle two plane words)
+RECORD_L, RECORD_W = 1024, 56
 
 
 def record_stream(rng, K: int, endpos: int, d_endpos: int, p_hit: float,
@@ -940,10 +968,36 @@ def record_stream(rng, K: int, endpos: int, d_endpos: int, p_hit: float,
     return pos, word.astype(np.uint32)
 
 
-def chunk_pairs(device: str, seed: int, argv):
-    """The (pos, word) pairs and the machine constants of a bitap query
-    over the main-path corpus's first STREAM_CHUNK bytes, as the card's
-    main path leaves them (mask_scan, then event_pairs)."""
+def stream_planes(rng, pos, word, N: int, W: int, L: int):
+    """(planes u32 [P, T, n_words], vals u32 [P]) in mask_scan's layout
+    holding the events (pos, word) of a scan of N bytes: one plane a bit
+    the words hold (value 1 << bit), its bit set at each position whose
+    word has the bit, and junk bits (a quarter) in the halo columns, the
+    columns past the tile and the positions at or past N, which the
+    kernels must ignore."""
+    import numpy as np
+    from agrep_tpu_torch.ops import kernels
+    T, nw = kernels.geometry(N, W, L)
+    bits = [b for b in range(32)
+            if np.bitwise_or.reduce(word, initial=0) >> b & 1] or [0]
+    body = np.zeros((T, 32 * nw), dtype=bool)
+    body[:, W:W + L] = np.arange(T * L).reshape(T, L) < N
+    live = np.packbits(body, axis=-1, bitorder="little").view(np.uint32)
+    planes = (rng.integers(0, 1 << 32, (len(bits), T, nw), dtype=np.uint64)
+              & rng.integers(0, 1 << 32, (len(bits), T, nw),
+                             dtype=np.uint64)).astype(np.uint32) & ~live
+    t, col = pos // L, W + pos % L
+    for k, b in enumerate(bits):
+        on = (word >> b & 1).astype(bool)
+        np.bitwise_or.at(planes[k], (t[on], col[on] >> 5),
+                         (np.uint32(1) << (col[on] & 31)).astype(np.uint32))
+    return planes, np.asarray([1 << b for b in bits], dtype=np.uint32)
+
+
+def chunk_planes(device: str, seed: int, argv):
+    """mask_scan's planes of a bitap query over the main-path corpus's
+    first STREAM_CHUNK bytes, as the card's main path leaves them, their
+    values, W, N and the machine's endpos and d_endpos."""
     from agrep_tpu_torch.compile.query import compile_query
     from agrep_tpu_torch.ops import kernels
     from agrep_tpu_torch.ops.scan import DEFAULT_TILE as L
@@ -955,10 +1009,8 @@ def chunk_pairs(device: str, seed: int, argv):
                                     q.costs, device)
     W = halo(q.consts, q.D, L)
     text = kernels.to_device(make_corpus(STREAM_CHUNK, seed), device)
-    planes = kernels.mask_scan(text, m, W, L)
-    pos, word = kernels.event_pairs(planes, pairs_vals(m, device), W, L,
-                                    text.numel())
-    return pos, word, int(q.consts["endpos"]), int(q.consts["d_endpos"])
+    return (kernels.mask_scan(text, m, W, L), pairs_vals(m, device), W,
+            text.numel(), int(q.consts["endpos"]), int(q.consts["d_endpos"]))
 
 
 def _rows_diff(got, want) -> int:
@@ -974,9 +1026,10 @@ def _rows_diff(got, want) -> int:
 
 
 def records_cases(device: str, seed: int):
-    """(name, pos, word, endpos, d_endpos) of every stream phase 3 holds
-    record_verdicts to: RECORD_STREAMS under each of RECORD_MASKS, and
-    config 2's and config 3's pairs over a STREAM_CHUNK chunk."""
+    """(name, planes, vals, W, N, endpos, d_endpos) of every stream phase
+    3 holds record_verdicts to: the planes of RECORD_STREAMS under each
+    of RECORD_MASKS (stream_planes), and config 2's and config 3's planes
+    over a STREAM_CHUNK chunk."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
@@ -984,49 +1037,73 @@ def records_cases(device: str, seed: int):
         for name, K, p_hit, p_end in RECORD_STREAMS:
             pos, word = record_stream(rng, K, endpos, d_endpos, p_hit,
                                       p_end)
+            N = int(pos[-1]) + 1 + int(rng.integers(0, 100)) if K else 77
+            planes, vals = stream_planes(rng, pos, word, N, RECORD_W,
+                                         RECORD_L)
             yield ("%s/%d-bit" % (name, bin(endpos).count("1")),
-                   torch.from_numpy(pos).to(device),
-                   torch.from_numpy(word).to(device), endpos, d_endpos)
+                   torch.from_numpy(planes).to(device),
+                   torch.from_numpy(vals).to(device), RECORD_W, N, endpos,
+                   d_endpos)
     for name, argv in CONFIGS[1:]:
-        yield (name + "_chunk",) + chunk_pairs(device, seed, argv)
+        yield (name + "_chunk",) + chunk_planes(device, seed, argv)
 
 
 def phase_parity_records(device: str, seed: int) -> float:
     """record_verdicts against record_verdicts_reference on the card, bit
     for bit (rows and summary), on every stream of records_cases with
-    and_flag and invert each off and on, with no pair dropped and with
-    the middle pair dropped, from an acc of 0 and of endpos, and with
-    the pairs as views RECORD_OFFSETS elements past an aligned address.
-    Returns the largest |kernel - plain| (0 or fail)."""
+    and_flag and invert each off and on, with no event dropped and with
+    the middle event dropped, from an acc of 0 and of endpos, with the
+    planes and values as views RECORD_OFFSETS elements past an aligned
+    address, and with the rows' capacity forced to FORCED_CAPACITIES
+    (each must launch again where R is larger).  Returns the largest
+    |kernel - plain| (0 or fail)."""
     import torch
 
     from agrep_tpu_torch.ops import kernels
+    from agrep_tpu_torch.ops.scan import DEFAULT_TILE as L
+    assert L == RECORD_L
     worst = 0
     failed = []
     t0 = time.perf_counter()
-    for name, pos, word, endpos, d_endpos in records_cases(device, seed):
+    for name, planes, vals, W, N, endpos, d_endpos in records_cases(device,
+                                                                    seed):
+        pos = kernels.event_pairs_reference(planes, vals, W, L, N, 0)[0]
         K = pos.numel()
         rows = 0
         for and_flag in (False, True):
             for invert in (False, True):
                 for skip in ((-1, int(pos[K // 2].item())) if K else (-1,)):
                     for acc in (0, endpos):
-                        args = (endpos, d_endpos, skip, and_flag, invert,
-                                acc)
-                        want = kernels.record_verdicts_reference(pos, word,
-                                                                 *args)
-                        rows += want[0].shape[0]
+                        args = (W, L, N, 0, endpos, d_endpos, skip, and_flag,
+                                invert, acc)
+                        want = kernels.record_verdicts_reference(
+                            planes, vals, *args)
+                        R = want[0].shape[0]
+                        rows += R
                         for off in RECORD_OFFSETS:
-                            p, w = ((pos, word) if off == 0
-                                    else (_view(pos, off), _view(word, off)))
+                            p, v = ((planes, vals) if off == 0
+                                    else (_view(planes, off),
+                                          _view(vals, off)))
                             diff = _rows_diff(kernels.record_verdicts(
-                                p, w, *args), want)
+                                p, v, *args), want)
                             worst = max(worst, diff)
                             if diff:
-                                failed.append((name, args, off, diff))
+                                failed.append((name, args[4:], off, diff))
+                        for cap in FORCED_CAPACITIES:
+                            again = kernels.relaunches["record_verdicts"]
+                            diff = _rows_diff(kernels._records_launch(
+                                planes, vals, *args, capacity=cap), want)
+                            again = (kernels.relaunches["record_verdicts"]
+                                     - again)
+                            worst = max(worst, diff)
+                            if diff or again != (R > cap):
+                                failed.append((name, args[4:], "capacity",
+                                               cap, diff, again))
         print("parity: record_verdicts %-22s K=%d, AND and OR, -v, skip, "
-              "acc, views at %s: %d rows, equal bit for bit"
-              % (name, K, list(RECORD_OFFSETS), rows))
+              "acc, views at %s, capacity %s: %d rows, equal bit for bit"
+              % (name, K, list(RECORD_OFFSETS), list(FORCED_CAPACITIES),
+                 rows))
+        del planes
     torch.cuda.synchronize()
     print("parity: record_verdicts in %.1f s" % (time.perf_counter() - t0))
     if failed:
@@ -1744,8 +1821,11 @@ def _max_diff(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
-# the runs that must read their events back through event_pairs
-PAIRS_RUNS = ("config1", "config2", "config3", "memagrep", "bool5m")
+# the runs that must read their events back through event_pairs, and
+# the shapes event_pairs is timed at (configs 2-3 cut their records from
+# the planes, but their chunks' planes are event_pairs' too elsewhere)
+PAIRS_RUNS = ("config1", "memagrep", "bool5m")
+PAIRS_SHAPES = ("config1", "config2", "config3", "memagrep", "bool5m")
 # the runs past the chain caps whose lines qgram_lines folds on the card
 QLINE_RUNS = ("config5q", "config5qn")
 # AGREP_TORCH_STREAM_MB of the runs that print a file whole, as a file
@@ -1839,9 +1919,10 @@ def pairs_alone(name, planes, vals, W: int, L: int, N: int,
                 keep_from: int) -> dict:
     """event_pairs at one main-path shape: the kernel against its plain
     version and against pairs_library, bit for bit; the kernel's device
-    time (both passes, without the host's read of K, by time_kernel),
-    the wrapper's time with that read, the plain version's, the
-    library composite's (host clock, synchronized) and the bound."""
+    time (its launch, without the host's read of K, by time_kernel), the
+    wrapper's time with that read (and its second launches past the
+    capacity), the plain version's, the library composite's (host
+    clock, synchronized) and the bound."""
     from agrep_tpu_torch.ops import kernels
     from agrep_tpu_torch.ops.timing import pairs_bound, time_kernel
     got = kernels._pairs_launch(planes, vals, W, L, N, keep_from)
@@ -1856,6 +1937,7 @@ def pairs_alone(name, planes, vals, W: int, L: int, N: int,
     K = pos.numel()
     ms = time_kernel(lambda: kernels.pairs_passes(planes, vals, W, L, N,
                                                   keep_from, pos, word))
+    again = kernels.relaunches["event_pairs"]
     wrapper_ms = _host_ms(lambda: kernels._pairs_launch(planes, vals, W, L,
                                                         N, keep_from))
     plain_ms = _time_plain(lambda: kernels.event_pairs_reference(
@@ -1866,7 +1948,9 @@ def pairs_alone(name, planes, vals, W: int, L: int, N: int,
     return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
             "K": K, "shape_b": N, "planes": planes.shape[0],
-            "grid": kernels.pairs_grid(N, keep_from, planes.device),
+            "grid": kernels.pairs_grid(N, keep_from, planes.shape[0],
+                                       planes.device)[0],
+            "relaunches": kernels.relaunches["event_pairs"] - again,
             "max_abs_err": diff}
 
 
@@ -1874,36 +1958,45 @@ def pairs_alone(name, planes, vals, W: int, L: int, N: int,
 RECORD_RUNS = ("config2", "config2c", "config3")
 
 
-def records_cut(name, launches: int, calls, counters) -> dict:
-    """The checks of a RECORD_RUNS run: it launched record_verdicts, and
-    the rows it read back (trace counter record_rows) are the records
-    that fire, as record_verdicts_reference counts them on the same
-    pairs, of the pairs cut on the card (record_pairs)."""
+def records_cut(name, n: dict, again: int, calls, counters) -> dict:
+    """The checks of a RECORD_RUNS run: it launched record_verdicts and
+    no event_pairs, took no second launch (again), and the rows it read
+    back (trace counter record_rows) are the records that fire, as
+    record_verdicts_reference counts them on the same planes, of the
+    events event_pairs_reference finds there (record_pairs)."""
     from agrep_tpu_torch.ops import kernels
-    if launches == 0 or not calls:
+    if n["record_verdicts"] == 0 or not calls:
         raise AssertionError("%s: the main path cut its records without "
                              "record_verdicts" % name)
+    if n["event_pairs"] or again:
+        raise AssertionError("%s: the records route launched event_pairs "
+                             "%d times and took %d second launches"
+                             % (name, n["event_pairs"], again))
     fire = sum(kernels.record_verdicts_reference(*a)[0].shape[0]
                for a in calls)
-    pairs = sum(a[0].numel() for a in calls)
+    pairs = sum(kernels.event_pairs_reference(*a[:6])[0].numel()
+                for a in calls)
     rows = counters.get("record_rows", 0)
     if rows != fire or counters.get("record_pairs", 0) != pairs:
         raise AssertionError(
-            "%s: %d rows read back of %d pairs (record_pairs %d), where %d "
-            "records fire" % (name, rows, pairs,
-                              counters.get("record_pairs", 0), fire))
-    return {"launches": launches, "rows": rows, "pairs": pairs,
+            "%s: %d rows read back of %d events (record_pairs %d), where "
+            "%d records fire" % (name, rows, pairs,
+                                 counters.get("record_pairs", 0), fire))
+    return {"launches": n["record_verdicts"], "rows": rows, "pairs": pairs,
             "fire": fire}
 
 
-def records_library(pos, word, endpos: int, d_endpos: int, skip_pos: int,
+def records_library(planes, vals, W: int, L: int, N: int, keep_from: int,
+                    endpos: int, d_endpos: int, skip_pos: int,
                     and_flag: bool, invert: bool, acc: int):
     """The function of record_verdicts as a composite of PyTorch calls on
-    the card (the yardstick of library_ms; the port never calls it): a
-    torch.cumsum of the delimiter flags numbers each pair's record, a
-    scatter_add of each endpos bit's flags counts its hits a record,
-    then the verdicts, and the rows by torch.nonzero."""
+    the card (the yardstick of library_ms; the port never calls it):
+    pairs_library's events, then a torch.cumsum of the delimiter flags
+    numbers each event's record, a scatter_add of each endpos bit's
+    flags counts its hits a record, the verdicts, and the rows by
+    torch.nonzero."""
     import torch
+    pos, word = pairs_library(planes, vals, W, L, N, keep_from)
     keep = pos != skip_pos
     p = pos[keep]
     w = word.to(torch.int64)[keep] & 0xFFFFFFFF
@@ -1927,39 +2020,91 @@ def records_library(pos, word, endpos: int, d_endpos: int, skip_pos: int,
     prev = torch.cat([ep.new_full((1,), -1), ep[:-1]])
     last = int(ep[-1].item()) if E else -1
     return (torch.stack([k, ep[k], prev[k]], 1),
-            (E, last, int(accs[E].item())))
+            (E, last, int(accs[E].item()), pos.numel()))
 
 
-def records_alone(name, pos, word, endpos, d_endpos, skip_pos, and_flag,
-                  invert, acc) -> dict:
-    """record_verdicts at one main-path input: the kernel against its
-    plain version and against records_library, bit for bit; its device
-    time (three passes, without the host's read of the summary, by
-    time_kernel), the wrapper's time with that read, the plain version's,
-    the library composite's (host clock, synchronized) and the bound."""
+def records_alone(name, planes, vals, W, L, N, keep_from, endpos, d_endpos,
+                  skip_pos, and_flag, invert, acc) -> dict:
+    """record_verdicts at one main-path input (a chunk's planes): the
+    kernel against its plain version and against records_library, bit
+    for bit; its device time (its launch, without the host's read of the
+    summary, by time_kernel), the wrapper's time with that read, the
+    plain version's, the library composite's (host clock, synchronized)
+    and the bound."""
     from agrep_tpu_torch.ops import kernels
-    from agrep_tpu_torch.ops.timing import records_bound, time_kernel
-    args = (endpos, d_endpos, skip_pos, and_flag, invert, acc)
-    got = kernels._records_launch(pos, word, *args)
-    diff = max(_rows_diff(got, kernels.record_verdicts_reference(
-        pos, word, *args)), _rows_diff(got, records_library(pos, word,
-                                                            *args)))
+    from agrep_tpu_torch.ops.timing import plane_records_bound, time_kernel
+    args = (planes, vals, W, L, N, keep_from, endpos, d_endpos, skip_pos,
+            and_flag, invert, acc)
+    got = kernels._records_launch(*args)
+    diff = max(_rows_diff(got, kernels.record_verdicts_reference(*args)),
+               _rows_diff(got, records_library(*args)))
     if diff:
         raise AssertionError("%s: record_verdicts differs from its plain "
-                             "version or the library composite on %d pairs "
-                             "(max |diff| %d)" % (name, pos.numel(), diff))
-    rows = got[0]
-    ms = time_kernel(lambda: kernels.records_passes(pos, word, *args, rows))
-    wrapper_ms = _host_ms(lambda: kernels._records_launch(pos, word, *args))
-    plain_ms = _time_plain(lambda: kernels.record_verdicts_reference(
-        pos, word, *args))
-    library_ms = _host_ms(lambda: records_library(pos, word, *args))
-    bms, by = records_bound(pos.numel(), rows.shape[0])
+                             "version or the library composite on %d bytes "
+                             "(max |diff| %d)" % (name, N, diff))
+    rows, (E, _last, _acc, K) = got
+    ms = time_kernel(lambda: kernels.records_passes(*args, rows))
+    wrapper_ms = _host_ms(lambda: kernels._records_launch(*args))
+    plain_ms = _time_plain(lambda: kernels.record_verdicts_reference(*args))
+    library_ms = _host_ms(lambda: records_library(*args))
+    bms, by = plane_records_bound(vals, endpos, d_endpos, N, keep_from, E,
+                                  rows.shape[0])
     return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
-            "K": pos.numel(), "R": rows.shape[0],
-            "grid": kernels.records_grid(pos.numel(), pos.device),
+            "K": K, "R": rows.shape[0], "ends": E,
+            "grid": kernels.records_grid(N, keep_from, planes.shape[0],
+                                         planes.device)[0],
             "max_abs_err": diff}
+
+
+# config 2 with -v: nearly every record fires, more rows than a first
+# chunk's capacity holds; its file (CONFIG2V_MB of the main-path corpus,
+# ~1.4 s of printing on each backend a MB) is streamed in CONFIG2V_CHUNK
+# chunks, so that the chunks after the first allocate from the first's
+# rows
+CONFIG2V = ("config2v", ["-1", "-v", "-n", "matching"])
+CONFIG2V_MB = 8
+CONFIG2V_CHUNK = 2 << 20
+
+
+def records_relaunch(path: str) -> dict:
+    """CONFIG2V over path on the card in CONFIG2V_CHUNK chunks: its
+    record_verdicts launches and second launches, rows, and its stdout
+    against the numpy backend's."""
+    from agrep_tpu_torch import api
+    from agrep_tpu_torch.ops import kernels
+    from agrep_tpu_torch.ops import scan as scan_ops
+    from agrep_tpu_torch.runtime import trace
+    n0 = kernels.launches["record_verdicts"]
+    r0 = kernels.relaunches["record_verdicts"]
+    trace_was = trace.ENABLED
+    chunk_was = scan_ops.STREAM_CHUNK
+    stream_was = os.environ.get("AGREP_TORCH_STREAM_MB")
+    trace.ENABLED = True
+    trace.counters.pop("record_rows", None)
+    scan_ops.STREAM_CHUNK = CONFIG2V_CHUNK
+    os.environ["AGREP_TORCH_STREAM_MB"] = "0"
+    try:
+        t0 = time.perf_counter()
+        got = _run(api.fileagrep, CONFIG2V[1] + [path])
+        wall = time.perf_counter() - t0
+        rows = trace.counters.get("record_rows", 0)
+        scan_ops.set_backend("numpy")
+        want = _run(api.fileagrep, CONFIG2V[1] + [path])
+    finally:
+        scan_ops.set_backend("torch")
+        trace.ENABLED = trace_was
+        scan_ops.STREAM_CHUNK = chunk_was
+        if stream_was is None:
+            os.environ.pop("AGREP_TORCH_STREAM_MB", None)
+        else:
+            os.environ["AGREP_TORCH_STREAM_MB"] = stream_was
+    if got[:2] != want[:2]:
+        raise AssertionError("config2v: stdout sha256/rc %s on the GPU, %s "
+                             "on the numpy backend" % (got[:2], want[:2]))
+    return {"launches": kernels.launches["record_verdicts"] - n0,
+            "relaunches": kernels.relaunches["record_verdicts"] - r0,
+            "rows": rows, "wall_s": wall}
 
 
 # the runs whose lines the card must index and read back (line_index,
@@ -2170,11 +2315,11 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
     rv_calls: list = []
 
     def recorder(kname, fn):
-        def call(*args):
+        def call(*args, **kw):
             seen.setdefault(kname, args)
             if kname == "record_verdicts":
                 rv_calls.append(args)
-            return fn(*args)
+            return fn(*args, **kw)
         return call
 
     # calls of the pure count's line count and of the read-back of start
@@ -2309,6 +2454,7 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
         try:
             for name, fn, argv, data, kname in runs:
                 before = {k: c[k] for k, c in counts.items()}
+                again = kernels.relaunches["record_verdicts"]
                 reads_before = dict(reads)
                 at_before = at_calls[0]
                 p2e_before = p2e_calls[0]
@@ -2380,8 +2526,8 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                              "filter_launches": n["qgram_filter"]}
                 if name in RECORD_RUNS:
                     res[name]["cut"] = records_cut(
-                        name, n["record_verdicts"], rv_calls,
-                        trace.counters)
+                        name, n, kernels.relaunches["record_verdicts"]
+                        - again, rv_calls, trace.counters)
                     inputs[name]["record_verdicts"] = rv_calls[0]
                 rv_calls.clear()
                 if name in LINE_RUNS:
@@ -2545,10 +2691,14 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
             res[name]["qlines"] = qlines_alone(
                 name, *inputs[name]["qgram_lines"][:3], name == "config5q")
 
-    # the record cut alone at the first chunk's pairs of each record run
+    # the record cut alone at the first chunk's planes of each record run
     for name in RECORD_RUNS:
         res[name]["verdicts"] = records_alone(
             name, *inputs[name]["record_verdicts"])
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        path = os.path.join(tmp, "corpus.txt")
+        corpus[:CONFIG2V_MB << 20].tofile(path)
+        res["config2v"] = records_relaunch(path)
 
     for name, fn, argv, data, kname in runs:
         r = res[name]
@@ -2612,10 +2762,17 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                   name, r["pairs_launches"]))
     for name in RECORD_RUNS:
         c = res[name]["cut"]
-        print("main: %s cut its records through record_verdicts (%d "
-              "launches): %d rows read back of %d pairs, the records that "
-              "fire (record_verdicts_reference on the same pairs: %d)"
+        print("main: %s cut its records from the planes through "
+              "record_verdicts (%d launches, no event_pairs, no second "
+              "launch): %d rows read back of %d events, the records that "
+              "fire (record_verdicts_reference on the same planes: %d)"
               % (name, c["launches"], c["rows"], c["pairs"], c["fire"]))
+    v = res["config2v"]
+    print("main: config2v %s over %d MB in %d B chunks: record_verdicts %d "
+          "launches, %d second launches past the rows' capacity, %d rows; "
+          "GPU route wall %.3f s, stdout equal to the numpy backend"
+          % (" ".join(CONFIG2V[1]), CONFIG2V_MB, CONFIG2V_CHUNK,
+             v["launches"], v["relaunches"], v["rows"], v["wall_s"]))
     for name in ("config4", "memagrep4"):
         r = res[name]
         print("main: the lanes kernel's %d B launch of %s holds %d lines, "
@@ -3174,8 +3331,8 @@ def qgram_filter_geometry_line(res) -> str:
 
 
 def event_pairs_line(res, card: str) -> str:
-    """event_pairs at each of PAIRS_RUNS' shapes: pairs, planes, grid,
-    the kernel's device ms against its bound, the wrapper's ms with the
+    """event_pairs at each of PAIRS_SHAPES: pairs, planes, grid, the
+    kernel's device ms against its bound, the wrapper's ms with the
     host's read of K, the plain version's and the library composite's."""
     return "times: event_pairs %s | card: %s" % (" | ".join(
         "%s %d B %d planes %d pairs grid=%d: %.4f ms (%.1f %% of its %.4f "
@@ -3183,16 +3340,16 @@ def event_pairs_line(res, card: str) -> str:
         % (n, p["shape_b"], p["planes"], p["K"], p["grid"], p["ms"],
            100 * p["bound_ms"] / p["ms"], p["bound_ms"], p["bound_by"],
            p["wrapper_ms"], p["plain_ms"], p["library_ms"])
-        for n in PAIRS_RUNS for p in [res[n]["pairs"]]), card)
+        for n in PAIRS_SHAPES for p in [res[n]["pairs"]]), card)
 
 
 def record_verdicts_line(res, card: str) -> str:
-    """record_verdicts at each of RECORD_RUNS' first chunks: pairs, rows,
-    grid, the three passes' device ms against the bound, the wrapper's ms
-    with the host's read of the summary, the plain version's and the
-    library composite's."""
+    """record_verdicts at each of RECORD_RUNS' first chunks: events, rows,
+    grid, the launch's device ms against the bound, the wrapper's ms with
+    the host's read of the summary, the plain version's and the library
+    composite's."""
     return "times: record_verdicts %s | card: %s" % (" | ".join(
-        "%s %d pairs %d rows grid=%d: %.4f ms (%.1f %% of its %.4f ms "
+        "%s %d events %d rows grid=%d: %.4f ms (%.1f %% of its %.4f ms "
         "bound, %s), wrapper %.4f ms, plain %.2f ms, library %.3f ms"
         % (n, r["K"], r["R"], r["grid"], r["ms"],
            100 * r["bound_ms"] / r["ms"], r["bound_ms"], r["bound_by"],
@@ -3294,8 +3451,8 @@ def main(argv=None) -> int:
                                           make_patterns(400, args.seed))
     res = phase_main("cuda", args.seed, args.mb, card)
 
-    c2, c4, c5, c5q = (res["config2"], res["config4"], res["config5"],
-                       res["config5q"])
+    c1, c2, c4, c5, c5q = (res["config1"], res["config2"], res["config4"],
+                           res["config5"], res["config5q"])
     c5qn = res["config5qn"]
     print(mask_scan_geometry_line(res))
     print(times_line(res, "mask_scan", MASK_SHAPES, card))
@@ -3384,14 +3541,14 @@ def main(argv=None) -> int:
         "replaces": "agrep_tpu/ops/kernels.py:521",
         "launches": res["launches"]["event_pairs"],
         "max_abs_err": max([err_pairs] + [res[n]["pairs"]["max_abs_err"]
-                                          for n in PAIRS_RUNS]),
-        "ms": c2["pairs"]["ms"],
-        "plain_ms": c2["pairs"]["plain_ms"],
-        "bound_ms": c2["pairs"]["bound_ms"],
-        "bound_by": c2["pairs"]["bound_by"],
+                                          for n in PAIRS_SHAPES]),
+        "ms": c1["pairs"]["ms"],
+        "plain_ms": c1["pairs"]["plain_ms"],
+        "bound_ms": c1["pairs"]["bound_ms"],
+        "bound_by": c1["pairs"]["bound_by"],
         # no one PyTorch call compacts bit planes into pairs: the
         # composite pairs_library (unpack by shifts, torch.nonzero)
-        "library_ms": c2["pairs"]["library_ms"],
+        "library_ms": c1["pairs"]["library_ms"],
     }, {
         "name": "record_verdicts",
         "route": "cuda",
@@ -3408,7 +3565,8 @@ def main(argv=None) -> int:
         "bound_ms": c2["verdicts"]["bound_ms"],
         "bound_by": c2["verdicts"]["bound_by"],
         # no one PyTorch call cuts records: the composite records_library
-        # (torch.cumsum of the delimiter flags, scatter_add of the hits)
+        # (pairs_library's events, torch.cumsum of the delimiter flags,
+        # scatter_add of the hits)
         "library_ms": c2["verdicts"]["library_ms"],
     }, {
         "name": "line_index",
@@ -3465,9 +3623,9 @@ def main(argv=None) -> int:
         "library_ms": c5qn["qlines"]["library_ms"],
     }]}
     print("kernels: times are per launch at the main path's %d B chunk "
-          "of config2 (%s; event_pairs: both passes on the card, without "
-          "the host's read of K; record_verdicts: its three passes over "
-          "that chunk's pairs, without the host's read of the summary) "
+          "of config2 (%s; record_verdicts: its launch over that chunk's "
+          "planes, without the host's read of the summary; event_pairs: "
+          "its launch over config1's chunk, without the host's read of K) "
           "and of config4 (%s; line_index and line_rows: every pass over "
           "its first window, without the host's read of K or the count), "
           "at config5's %d B "

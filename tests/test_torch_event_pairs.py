@@ -13,7 +13,10 @@
     machines and a -d record machine, across chunk seams;
   * the CLI: configs 1-3 (streamed), memagrep -c hello and bool5m at a
     small size through both packages, byte for byte, with the torch route
-    reading its events through event_pairs and never planes_to_events.
+    never calling planes_to_events: config 1, memagrep and bool5m read
+    their events through event_pairs, and configs 2-3 (the bitap
+    engine) cut their records from the planes through record_verdicts
+    without it.
 
 Every value is an integer, so every comparison is exact.  The CUDA kernel
 csrc/event_pairs.cu is held against event_pairs_reference by
@@ -312,6 +315,8 @@ def _run(api, argv, data=None):
     return buf.getvalue(), rc & 0xFF
 
 
+# the runs of the bitap engine, which cut their records from the planes
+RECORD_RUNS = ("config2", "config3")
 CLI_RUNS = [
     ("config1", ARGVS["config1"], False, None),
     ("config2", ARGVS["config2"], False, None),
@@ -327,23 +332,29 @@ def test_cli_matches_agrep_tpu(tmp_path, monkeypatch, name, argv, records,
                                mode):
     """Files over the streaming threshold (shrunk, in both packages) take
     the chunked engines; bool5m's records stream is over the device
-    route's 64 KiB, so its packed term words scan on the mask machine."""
+    route's 64 KiB, so its packed term words scan on the mask machine.
+    The bitap engine's records (configs 2-3) come from the planes through
+    record_verdicts, with no event_pairs call."""
     data = _lines(150_000, len(name), records)
     monkeypatch.setenv("AGREP_TORCH_STREAM_MB", "0")
     monkeypatch.setenv("AGREP_TPU_STREAM_MB", "0")
     monkeypatch.setattr(t_scan, "STREAM_CHUNK", 64 << 10)
     monkeypatch.setattr(j_scan, "STREAM_CHUNK", 64 << 10)
-    calls = []
-    real = t_kernels.event_pairs
+    calls = {"event_pairs": [], "record_verdicts": []}
 
-    def counted(*args):
-        calls.append(args[4])
-        return real(*args)
+    def counted(kname):
+        real = getattr(t_kernels, kname)
+
+        def call(*args, **kw):
+            calls[kname].append(args[4])
+            return real(*args, **kw)
+        return call
 
     def refused(*args):
         raise AssertionError("the torch route called planes_to_events")
 
-    monkeypatch.setattr(t_kernels, "event_pairs", counted)
+    for kname in calls:
+        monkeypatch.setattr(t_kernels, kname, counted(kname))
     monkeypatch.setattr(t_kernels, "planes_to_events", refused)
     if mode == "mem":
         got = _run(t_api, argv, b"\n" + data)
@@ -355,7 +366,11 @@ def test_cli_matches_agrep_tpu(tmp_path, monkeypatch, name, argv, records,
         want = _run(j_api, argv + [str(path)])
     assert got == want, "port vs agrep_tpu for %s" % name
     assert got[0], "no output -- test is vacuous"
-    assert calls, "%s read no events through event_pairs" % name
+    kname = "record_verdicts" if name in RECORD_RUNS else "event_pairs"
+    assert calls[kname], "%s read nothing through %s" % (name, kname)
+    if name in RECORD_RUNS:
+        assert not calls["event_pairs"], "%s wrote event pairs" % name
     if mode is None and name != "bool5m":
-        assert len(calls) > 1 and max(calls) <= (64 << 10) + L, \
+        sizes = calls[kname]
+        assert len(sizes) > 1 and max(sizes) <= (64 << 10) + L, \
             "the chunked path did not run"

@@ -1,14 +1,18 @@
 """The bitap engine's record cut on the scan device, against agrep_tpu,
 exactly, on the CPU.
 
-  * kernel module: agrep_tpu_torch's record_verdicts_reference (and the
-    record_verdicts wrapper, which takes it for a CPU tensor) against a
-    transcription of the per-event walk of agrep_tpu's
-    BitapEngine.search_stream_chunked (runtime/engine.py:107-132) on
-    random pair streams: AND and OR, with and without invert, with and
-    without a dropped pair, hits on record ends, K = 0 and 1, no record
-    end, every pair a record end; and random cuts into chunks, each from
-    the carry of the ones before, against the whole stream;
+  * kernel module: agrep_tpu_torch's pair_records_reference (the cut of
+    event pairs), and record_verdicts_reference and the record_verdicts
+    wrapper (which takes it for a CPU tensor) on planes that hold the same
+    pairs (planes_of_pairs: one plane a word bit, junk bits in the halo
+    columns and past N), against a transcription of the per-event walk
+    of agrep_tpu's BitapEngine.search_stream_chunked
+    (runtime/engine.py:107-132) on random pair streams: AND and OR, with
+    and without invert, with and without a dropped pair, hits on record
+    ends, K = 0 and 1, no record end, every pair a record end; and random
+    cuts into chunks of planes, each with a halo it drops through
+    keep_from and from the carry of the ones before, against the whole
+    stream;
   * scan module: scan_record_verdicts and the chunked scan_record_list
     on the torch backend (device cpu) against the same walk over
     agrep_tpu's scan_events on its numpy backend, across chunk seams;
@@ -23,7 +27,8 @@ exactly, on the CPU.
 
 Every value is an integer, so every comparison is exact.  The CUDA kernel
 csrc/record_verdicts.cu is held against record_verdicts_reference by
-chip_smoke.py on the GPU.
+chip_smoke.py on the GPU; tests/test_torch_plane_records.py holds a
+model of its word-at-a-time fold to pair_records_reference.
 """
 
 from __future__ import annotations
@@ -97,16 +102,57 @@ def _tensors(pos, word):
             torch.as_tensor(np.asarray(word, dtype=np.uint32)))
 
 
-def _check(pos, word, endpos, d_endpos, skip_pos, and_flag, invert, acc=0):
-    """The plain version and the CPU wrapper against walk; returns the
-    rows."""
+# the planes' tile and halo in the pair tests: W not a multiple of 32, so
+# that a stream word's bits straddle two plane words
+PL, PW = 256, 40
+
+
+def planes_of_pairs(pos, word, N, rng, W=PW, L=PL):
+    """(planes u32 [P, T, n_words] tensor, vals u32 [P] tensor): one
+    plane a bit that the words hold (value 1 << bit), its bit set at each
+    position whose word has the bit, as mask_scan lays planes out
+    (kernels.geometry), with random junk bits in the halo columns, the
+    columns past the tile and the positions at or past N, which
+    event_pairs ignores; event_pairs_reference of them gives (pos, word)
+    back."""
+    pos = np.asarray(pos, dtype=np.int64)
+    word = np.asarray(word, dtype=np.uint32)
+    assert not len(pos) or pos.max() < N
+    T, nw = t_kernels.geometry(N, W, L)
+    bits = [b for b in range(32)
+            if np.bitwise_or.reduce(word, initial=0) >> b & 1] or [0]
+    cols = np.zeros((len(bits), T, 32 * nw), dtype=bool)
+    t, j = pos // L, W + pos % L
+    for k, b in enumerate(bits):
+        on = (word >> b & 1).astype(bool)
+        cols[k, t[on], j[on]] = True
+    # junk wherever no position below N lies
+    body = np.zeros((T, 32 * nw), dtype=bool)
+    body[:, W:W + L] = np.arange(T * L).reshape(T, L) < N
+    cols |= (rng.random(cols.shape) < 0.2) & ~body
+    planes = np.packbits(cols, axis=-1, bitorder="little").view(np.uint32)
+    vals = np.asarray([1 << b for b in bits], dtype=np.uint32)
+    return torch.from_numpy(planes.copy()), torch.from_numpy(vals)
+
+
+def _check(pos, word, endpos, d_endpos, skip_pos, and_flag, invert, acc=0,
+           rng=None):
+    """The pair cut, and the plain version and the CPU wrapper on planes
+    of the same pairs, against walk; returns the rows."""
     want_rows, want_sum = walk(pos, word, endpos, d_endpos, skip_pos,
                                and_flag, invert, acc)
     pt, wt = _tensors(pos, word)
+    got = [t_kernels.pair_records_reference(pt, wt, endpos, d_endpos,
+                                            skip_pos, and_flag, invert, acc)]
+    N = int(pos[-1]) + 1 + int(rng.integers(0, 70)) if len(pos) else 5
+    planes, vals = planes_of_pairs(pos, word, N, rng)
     for fn in (t_kernels.record_verdicts_reference,
                t_kernels.record_verdicts):
-        rows, summary = fn(pt, wt, endpos, d_endpos, skip_pos, and_flag,
-                           invert, acc)
+        rows, summary = fn(planes, vals, PW, PL, N, 0, endpos, d_endpos,
+                           skip_pos, and_flag, invert, acc)
+        assert summary[3] == len(pos)
+        got.append((rows, summary[:3]))
+    for rows, summary in got:
         assert rows.dtype == torch.int64 and tuple(rows.shape) == (
             len(want_rows), 3)
         assert [tuple(r) for r in rows.tolist()] == want_rows
@@ -154,7 +200,7 @@ def test_reference_matches_the_event_walk(masks, and_flag, invert, skip):
         skip_pos = int(pos[K // 2]) if skip and K else -1
         for acc in (0, endpos):
             fired += len(_check(pos, word, endpos, d_endpos, skip_pos,
-                                and_flag, invert, acc))
+                                and_flag, invert, acc, rng))
     assert fired, "no record fired -- test is vacuous"
 
 
@@ -162,8 +208,10 @@ def test_reference_matches_the_event_walk(masks, and_flag, invert, skip):
                          [(False, False), (False, True), (True, False),
                           (True, True)])
 def test_random_cuts_equal_the_whole_stream(and_flag, invert):
-    """Chunks of a stream, each cut from the acc the chunk before left,
-    with their ordinals and previous ends carried on the host as
+    """Chunks of a stream's planes, each with a halo of up to 99
+    positions before it that it drops through keep_from (as
+    scan_record_list's chunks do) and cut from the acc the chunk before
+    left, with their ordinals and previous ends carried on the host as
     scan_record_list carries them, give the whole stream's rows: chunks
     with no record end and rows whose previous end lies two chunks back
     among them."""
@@ -180,47 +228,61 @@ def test_random_cuts_equal_the_whole_stream(and_flag, invert):
     word[lo:hi] &= ~np.uint32(endpos)
     skip_pos = int(pos[777])
     pt, wt = _tensors(pos, word)
-    whole, whole_sum = t_kernels.record_verdicts_reference(
+    whole, whole_sum = t_kernels.pair_records_reference(
         pt, wt, endpos, d_endpos, skip_pos, and_flag, invert)
+    n = int(pos[-1]) + 1
     back_two = 0
     for trial in range(6):
         cuts = np.unique(np.r_[rng.choice(np.arange(1, 2000),
                                           5 + 10 * trial), 1020, 1080,
                                1520, 1580])
-        got, acc, base, last, chunks_back = [], 0, 0, -1, 0
-        for lo, hi in zip(np.r_[0, cuts], np.r_[cuts, 2000]):
-            rows, (n, c_last, acc) = t_kernels.record_verdicts(
-                pt[lo:hi], wt[lo:hi], endpos, d_endpos, skip_pos, and_flag,
-                invert, acc)
-            for k, end, prev in rows.tolist():
+        got, acc, base, last, chunks_back, events = [], 0, 0, -1, 0, 0
+        for i, j in zip(np.r_[0, cuts], np.r_[cuts, 2000]):
+            g0, g1 = int(pos[i]) if i else 0, int(pos[j]) if j < 2000 else n
+            lo = max(0, g0 - int(rng.integers(0, 100)))
+            inside = (pos >= lo) & (pos < g1)
+            planes, vals = planes_of_pairs(pos[inside] - lo, word[inside],
+                                           g1 - lo, rng)
+            rows, (k, c_last, acc, ev) = t_kernels.record_verdicts(
+                planes, vals, PW, PL, g1 - lo, g0 - lo, endpos, d_endpos,
+                skip_pos - lo if skip_pos >= lo else -1, and_flag, invert,
+                acc)
+            events += ev
+            for o, end, prev in rows.tolist():
                 if prev < 0:
                     prev = last
                     back_two += chunks_back > 1
-                got.append((k + base, end, prev))
-            chunks_back = 1 if n else chunks_back + 1
-            if n:
-                last = c_last
-            base += n
+                else:
+                    prev += lo
+                got.append((o + base, end + lo, prev))
+            chunks_back = 1 if k else chunks_back + 1
+            if k:
+                last = c_last + lo
+            base += k
         assert got == [tuple(r) for r in whole.tolist()]
         assert (base, last, acc) == whole_sum
+        assert events == np.count_nonzero(word)
     assert back_two, "no row's previous end lay two chunks back"
 
 
 def test_wrapper_validates_and_counts_no_cpu_launch():
-    pt, wt = _tensors([3, 9], [0x100, 0x101])
+    rng = np.random.default_rng(3)
+    pt, vt = planes_of_pairs([3, 9], [0x100, 0x101], 12, rng)
+    args = (PW, PL, 12, 0, 1, 0x100)
     before = t_kernels.launches["record_verdicts"]
-    rows, _ = t_kernels.record_verdicts(pt, wt, 1, 0x100)
-    assert rows.tolist() == [[1, 9, 3]]
+    rows, summary = t_kernels.record_verdicts(pt, vt, *args)
+    assert rows.tolist() == [[1, 9, 3]] and summary == (2, 9, 0, 2)
     assert t_kernels.launches["record_verdicts"] == before
     with pytest.raises(TypeError):
-        t_kernels.record_verdicts(pt.to(torch.int32), wt, 1, 0x100)
+        t_kernels.record_verdicts(pt.to(torch.int32), vt, *args)
     with pytest.raises(TypeError):
-        t_kernels.record_verdicts(pt, wt.to(torch.int64), 1, 0x100)
+        t_kernels.record_verdicts(pt, vt.to(torch.int64), *args)
+    with pytest.raises(ValueError):          # one value a plane
+        t_kernels.record_verdicts(pt, vt[:1], *args)
+    with pytest.raises(ValueError):          # not the scan's geometry
+        t_kernels.record_verdicts(pt, vt, PW, PL, 3 * PL, 0, 1, 0x100)
     with pytest.raises(ValueError):
-        t_kernels.record_verdicts(pt, wt[:1], 1, 0x100)
-    p6, w6 = _tensors([1, 2, 3, 4, 5, 6], [0x100] * 6)
-    with pytest.raises(ValueError):
-        t_kernels.record_verdicts(p6[::2], w6[::2], 1, 0x100)
+        t_kernels.record_verdicts(pt[:, :, ::2], vt, *args)
 
 
 # ---------------------------------------------------------------------
@@ -415,9 +477,9 @@ def test_cli_matches_agrep_tpu(tmp_path, monkeypatch, name, argv, kind,
     calls = []
     real = t_kernels.record_verdicts
 
-    def counted(*args):
+    def counted(*args, **kw):
         calls.append(args[0].numel())
-        return real(*args)
+        return real(*args, **kw)
 
     def refused(*args, **kw):
         raise AssertionError("the bitap engine read event pairs on the "
@@ -452,9 +514,9 @@ def test_engine_cuts_records_once_a_chunk(tmp_path, monkeypatch, kind):
     calls = []
     real = t_kernels.record_verdicts
 
-    def counted(*args):
+    def counted(*args, **kw):
         calls.append(args[0].numel())
-        return real(*args)
+        return real(*args, **kw)
 
     def refused(*args, **kw):
         raise AssertionError("event pairs read on the torch route")

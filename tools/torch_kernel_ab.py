@@ -19,9 +19,20 @@ qgram_filter at config5q's.  The device stages run every pass of one
 call without the host's read (`index_passes`, `lines_passes`):
 line_index at config 4's first window and memagrep4's buffer,
 qgram_lines over config5q's plane (a count), config5qn's (its rows) and
-config5qs's first streamed chunk.  --only times the named kernels alone;
---split also splits each stage's time by pass (timing.pass_split: CUDA
-events around each pass, and the time before it: the launch gaps).
+config5qs's first streamed chunk; event_pairs (`pairs_passes`) at
+configs 1-3's first 32 MB chunk, the memagrep buffer and bool5m's
+stream; record_verdicts at the first chunk of config 2, config2c and
+config 3 (the inputs the main path's search gives mask_scan and
+record_verdicts), each tree through its own route: a tree whose
+record_verdicts takes pairs runs `pairs_passes` and then
+`records_passes` over them, a tree whose record_verdicts takes
+mask_scan's planes (it has `pair_records_reference`) runs its
+`records_passes` on the planes; their rows must be equal.  These two
+stages also get the wrapper's time with its read of K or the summary
+(chip_smoke's `_host_ms`: host clock, synchronized, median of 5).
+--only times the named kernels alone; --split also splits each stage's
+time by pass (timing.pass_split: CUDA events around each pass, and the
+time before it: the launch gaps and the torch kernels between passes).
 Every time comes from this checkout's timing.time_kernel and
 timing.profiled_ms (agrep_tpu_torch/ops/timing.py) -- CUDA events over
 --reps launches after the card's checked spin, and torch.profiler's
@@ -48,11 +59,19 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = ("mask_scan", "renfa_lanes", "chain_scan", "qgram_filter",
-           "line_index", "qgram_lines")
-# The device stages of several passes: the module attribute through which
-# each launches a pass (timing.pass_split wraps it for --split).
-STAGE_HOOKS = {"line_index": ("renfa_kernel", "_index_call"),
-               "qgram_lines": ("qgram_kernel", "_lines_call")}
+           "line_index", "qgram_lines", "event_pairs", "record_verdicts")
+# The device stages: the module and the attributes through which each
+# launches its passes, in any tree (timing.pass_split wraps those the
+# tree's module has, for --split).  An older event_pairs launched its
+# two passes through _pairs_count and _pairs_write, and an older
+# record_verdicts its three through _records_call after them.
+STAGE_HOOKS = {
+    "line_index": ("renfa_kernel", ("_index_call",)),
+    "qgram_lines": ("qgram_kernel", ("_lines_call",)),
+    "event_pairs": ("kernels", ("_pairs_call", "_pairs_count",
+                                "_pairs_write")),
+    "record_verdicts": ("kernels", ("_pairs_call", "_pairs_count",
+                                    "_pairs_write", "_records_call"))}
 
 
 def _load(name: str, path: str):
@@ -72,8 +91,9 @@ def _helpers():
 
 
 def shapes(cs, mb: int, seed: int, tmp: str, device: str = "cuda"):
-    """(name, kernel, launch function of no arguments) of every
-    main-path shape, with the tree's agrep_tpu_torch."""
+    """(name, kernel, launch function of no arguments[, function of the
+    output, wrapper function]) of every main-path shape, with the tree's
+    agrep_tpu_torch."""
     import io
 
     import numpy as np
@@ -93,6 +113,7 @@ def shapes(cs, mb: int, seed: int, tmp: str, device: str = "cuda"):
     mem_buf = np.frombuffer(b"\n" + corpus.tobytes(), np.uint8)
     mem = kernels.to_device(mem_buf, device)
     out = []
+    scans = []        # (name, mask_scan's arguments) of event_pairs' shapes
     for name, argv in cs.CONFIGS + [("memagrep", cs.CONFIGS[0][1])]:
         opts, pattern, _ = parse_args(argv + ["x"])
         q = compile_query(pattern, opts)
@@ -107,6 +128,7 @@ def shapes(cs, mb: int, seed: int, tmp: str, device: str = "cuda"):
         L = scan_ops.DEFAULT_TILE
         W = cs.halo(consts, q.D, L)
         t = mem if name == "memagrep" else chunk
+        scans.append((name, (t, m, W, L)))
         out.append((name, "mask_scan",
                     lambda t=t, m=m, W=W, L=L: kernels._launch(t, m, W, L)))
     # bool5m: the mask machine's packed term words, as the main path
@@ -129,6 +151,7 @@ def shapes(cs, mb: int, seed: int, tmp: str, device: str = "cuda"):
     if not seen:
         raise AssertionError("bool5m launched no mask_scan")
     args5m = seen[-1]
+    scans.append(("bool5m", args5m))
     out.append(("bool5m", "mask_scan", lambda: kernels._launch(*args5m)))
 
     mc = compile_query(cs.REGEX, parse_args(
@@ -193,6 +216,99 @@ def shapes(cs, mb: int, seed: int, tmp: str, device: str = "cuda"):
                     lambda t=t, plane=plane, rows=rows:
                     qgram_kernel.lines_passes(t, plane, tables, rows),
                     lambda res=res: res))
+    out += pairs_shapes(scans)
+    out += records_shapes(cs, corpus, tmp)
+    return out
+
+
+def _vals(m):
+    """The event word of each of mask_scan's planes (kernels.event_vals)
+    on the machine's device."""
+    import numpy as np
+    import torch
+
+    from agrep_tpu_torch.ops import kernels
+    return torch.from_numpy(np.asarray(kernels.event_vals(m),
+                                       dtype=np.uint32)).to(m.table.device)
+
+
+def pairs_shapes(scans) -> list:
+    """event_pairs over the planes of each (name, mask_scan arguments):
+    every pass of one call into the pairs of an earlier one
+    (kernels.pairs_passes), the pairs, and the wrapper."""
+    import torch
+
+    from agrep_tpu_torch.ops import kernels
+    out = []
+    for name, (t, m, W, L) in scans:
+        planes, vals, N = kernels.mask_scan(t, m, W, L), _vals(m), t.numel()
+        pos, word = kernels.event_pairs(planes, vals, W, L, N, 0)
+        out.append((name, "event_pairs",
+                    lambda a=(planes, vals, W, L, N, 0, pos, word):
+                    kernels.pairs_passes(*a),
+                    lambda pos=pos, word=word: torch.cat(
+                        [pos, word.to(torch.int64)]),
+                    lambda a=(planes, vals, W, L, N, 0):
+                    kernels.event_pairs(*a)))
+    return out
+
+
+def records_shapes(cs, corpus, tmp) -> list:
+    """record_verdicts at the first chunk of config 2, config2c and
+    config 3: the arguments the main path's search (the tree's
+    api.fileagrep on the torch backend) gives mask_scan and
+    record_verdicts first, then the tree's own route over them -- the
+    planes stage where record_verdicts takes planes, event_pairs and the
+    pair cut where it takes pairs."""
+    import io
+
+    from agrep_tpu_torch import api
+    from agrep_tpu_torch.ops import kernels
+    path = os.path.join(tmp, "corpus.txt")
+    corpus.tofile(path)
+    planes_route = hasattr(kernels, "pair_records_reference")
+    out = []
+    for name, argv in (cs.CONFIGS[1], cs.CONFIG2C, cs.CONFIGS[2]):
+        seen = {}
+        real = {k: getattr(kernels, k) for k in ("mask_scan",
+                                                 "record_verdicts")}
+
+        def recorder(k):
+            def call(*args, **kw):
+                seen.setdefault(k, args)
+                return real[k](*args, **kw)
+            return call
+        for k in real:
+            setattr(kernels, k, recorder(k))
+        try:
+            api.fileagrep(argv + [path], output=io.BytesIO())
+        finally:
+            for k, fn in real.items():
+                setattr(kernels, k, fn)
+        t, m, W, L = seen["mask_scan"]
+        rv = seen["record_verdicts"]
+        scal = rv[6:12] if planes_route else rv[2:8]
+        planes, vals, N = kernels.mask_scan(t, m, W, L), _vals(m), t.numel()
+        if planes_route:
+            rows = kernels.record_verdicts(planes, vals, W, L, N, 0,
+                                           *scal)[0]
+            out.append((name, "record_verdicts",
+                        lambda a=(planes, vals, W, L, N, 0) + scal, r=rows:
+                        kernels.records_passes(*a, r),
+                        lambda r=rows: r,
+                        lambda a=(planes, vals, W, L, N, 0) + scal:
+                        kernels.record_verdicts(*a)))
+            continue
+        pos, word = kernels.event_pairs(planes, vals, W, L, N, 0)
+        rows = kernels.record_verdicts(pos, word, *scal)[0]
+
+        def parent(a=(planes, vals, W, L, N, 0, pos, word), s=scal,
+                   r=rows):
+            kernels.pairs_passes(*a)
+            kernels.records_passes(a[6], a[7], *s, r)
+        out.append((name, "record_verdicts", parent, lambda r=rows: r,
+                    lambda a=(planes, vals, W, L, N, 0), s=scal:
+                    kernels.record_verdicts(*kernels.event_pairs(*a), *s)))
     return out
 
 
@@ -217,10 +333,10 @@ def child(tree: str, args) -> int:
     os.makedirs(build, exist_ok=True)
     res = {}
     with tempfile.TemporaryDirectory(dir=build) as tmp:
-        for name, kname, fn, *result in shapes(cs, args.mb, args.seed, tmp):
+        for name, kname, fn, *extra in shapes(cs, args.mb, args.seed, tmp):
             if args.only and kname not in args.only.split(","):
                 continue
-            got = (result[0] if result else fn)().contiguous()
+            got = (extra[0] if extra else fn)().contiguous()
             torch.cuda.synchronize()
             if got.dtype == torch.uint32:
                 got = got.view(torch.int32)
@@ -233,11 +349,14 @@ def child(tree: str, args) -> int:
                 "ms": timing.time_kernel(fn, args.reps),
                 "device_ms": None if kname in STAGE_HOOKS else
                 timing.profiled_ms(fn, kname + "_kernel", args.reps)}
+            if len(extra) > 1:
+                res[key]["wrapper_ms"] = cs._host_ms(extra[1])
             if args.split and kname in STAGE_HOOKS:
-                mod, hook = STAGE_HOOKS[kname]
+                mod, hooks = STAGE_HOOKS[kname]
+                mod = importlib.import_module("agrep_tpu_torch.ops." + mod)
                 res[key]["split"] = timing.pass_split(
-                    fn, importlib.import_module("agrep_tpu_torch.ops." + mod),
-                    hook, args.reps)
+                    fn, mod, tuple(h for h in hooks if hasattr(mod, h)),
+                    args.reps)
     print(json.dumps({"tree": tree, "times": res, "libs": {
         k: os.path.basename(v) for k, v in paths.items()}}))
     return 0
@@ -290,10 +409,12 @@ def main(argv=None) -> int:
             t = r["times"][name]
             if t["sha256"] != r0["sha256"]:
                 differ.append((name, i + 1))
-            cells.append("%s %.4f/%s" % (
+            cells.append("%s %.4f/%s%s" % (
                 os.path.basename(os.path.normpath(r["tree"])), t["ms"],
                 "n/a" if t["device_ms"] is None
-                else "%.4f" % t["device_ms"]))
+                else "%.4f" % t["device_ms"],
+                " [wrapper %.4f]" % t["wrapper_ms"] if "wrapper_ms" in t
+                else ""))
         print("ab: %-12s %-9s ms a launch, events/profiler: %s"
               % (r0["kernel"], name.split(":")[0], " | ".join(cells)))
         for r in runs:
