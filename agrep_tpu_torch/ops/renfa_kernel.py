@@ -580,14 +580,11 @@ def _rows_bind():
     if not getattr(lib, "_bound", False):
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         ip = ctypes.POINTER(ctypes.c_int)
-        head = [p, p, p, ll, i, ll, ll, ll, p]
-        for fn, args in (("flags", head + [i, p]),
-                         ("count", head + [p, i, p]),
-                         ("write", head + [p, p, i, p])):
-            getattr(lib, "line_rows_" + fn).restype = i
-            getattr(lib, "line_rows_" + fn).argtypes = args
+        lib.line_rows_launch.restype = i
+        lib.line_rows_launch.argtypes = [p, p, p, ll, i, ll, ll, ll, p, p,
+                                         i, p]
         lib.line_rows_geometry.restype = i
-        lib.line_rows_geometry.argtypes = [ip, ip, ip]
+        lib.line_rows_geometry.argtypes = [i, ip, ip, ip]
         lib.line_rows_error_string.restype = ctypes.c_char_p
         lib.line_rows_error_string.argtypes = [i]
         lib._bound = True
@@ -595,75 +592,68 @@ def _rows_bind():
 
 
 @functools.lru_cache(maxsize=None)
-def _rows_geometry(index: int) -> tuple:
-    """(threads, lines a block of pass 1, of passes 2-3) of the kernel."""
+def _rows_geometry(index: int, rows: bool) -> tuple:
+    """(threads a block, lines a thread's piece, blocks the device holds
+    at once) of the kernel's rows form or count form."""
     return _cuda.query(_rows_bind(), "line_rows", "line_rows_geometry",
-                       index, 3)
+                       index, 3, int(rows))
 
 
-def rows_grids(K: int, device) -> tuple:
-    """Blocks of line_rows' pass 1 and of passes 2-3 over K lines."""
-    _t, scatter, flags = _rows_geometry(_cuda.device_index(device))
-    return -(-K // scatter), -(-K // flags)
+def rows_blocks(K: int, threads: int, piece: int, max_blocks: int) -> int:
+    """Blocks of a launch of csrc/line_rows.cu over K lines: one piece of
+    `piece` lines a thread at most, no more than max_blocks."""
+    return max(1, min(max_blocks, -(-K // (piece * threads))))
 
 
-def _rows_call(fn: str, verdicts, ords, nl, args, *rest) -> None:
-    """One pass of the kernel on the verdicts' device and current
-    stream."""
+def rows_grid(K: int, rows: bool, device) -> int:
+    """Blocks of line_rows' launch over K lines on the device."""
+    return rows_blocks(K, *_rows_geometry(_cuda.device_index(device), rows))
+
+
+def _rows_call(name: str, verdicts, ords, nl, args, out,
+               grid) -> torch.Tensor:
+    """The kernel's one launch on the verdicts' device and current stream
+    (`name` labels it for timing.pass_split): the rows into out where it
+    is not None; returns the scratch tensor that holds R at [grid]."""
     lib = _rows_bind()
-    dev = verdicts.device
+    dev, K = nl.device, nl.numel()
+    scratch = torch.empty(grid + 1 + -(-K // 64), dtype=torch.int64,
+                          device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(_cuda.device_index(dev)):
-        _cuda.check(lib, "line_rows", getattr(lib, "line_rows_" + fn)(
-            verdicts.data_ptr(), ords.data_ptr(), nl.data_ptr(), nl.numel(),
-            *args, *rest, stream), fn + " launch")
-
-
-def _rows_counts(verdicts, ords, nl, args, grids) -> tuple:
-    """Passes 1-2: (flags, each block's lines that fire)."""
-    dev, K = nl.device, nl.numel()
-    flags = torch.zeros(-(-K // 16) * 16, dtype=torch.uint8, device=dev)
-    counts = torch.empty(grids[1], dtype=torch.int64, device=dev)
-    _rows_call("flags", verdicts, ords, nl, args, flags.data_ptr(),
-               grids[0])
-    _rows_call("count", verdicts, ords, nl, args, flags.data_ptr(),
-               counts.data_ptr(), grids[1])
-    return flags, counts
+        _cuda.check(lib, "line_rows", lib.line_rows_launch(
+            verdicts.data_ptr(), ords.data_ptr(), nl.data_ptr(), K, *args,
+            None if out is None else out.data_ptr(), scratch.data_ptr(),
+            grid, stream), name + " launch")
+    return scratch
 
 
 def rows_passes(verdicts, ords, nl, invert, first, end, glitch,
                 out) -> None:
-    """Every pass into out, an earlier call's rows of the same lines
-    (None for a count): the kernel's device work without the host's read
-    of the count (for timing it on the card)."""
-    args = (int(invert), first, end, glitch)
-    grids = rows_grids(nl.numel(), nl.device)
-    flags, counts = _rows_counts(verdicts, ords, nl, args, grids)
-    incl = torch.cumsum(counts, 0)
-    if out is not None and out.shape[0]:
-        _rows_call("write", verdicts, ords, nl, args, flags.data_ptr(),
-                   (incl - counts).data_ptr(), out.data_ptr(), grids[1])
+    """The kernel's launch into out, an earlier call's rows of the same
+    lines (None for a count): its device work without the host's read of
+    the count (for timing it on the card)."""
+    K = nl.numel()
+    if K:
+        _rows_call("rows" if out is not None else "count", verdicts, ords,
+                   nl, (int(invert), first, end, glitch), out,
+                   rows_grid(K, out is not None, nl.device))
 
 
 def _rows_launch(verdicts, ords, nl, invert, first, end, glitch,
                  rows) -> tuple:
-    """The kernel's passes on the verdicts' device, with the host's read
-    of the count after the second."""
+    """The kernel's one launch on the verdicts' device, the rows
+    allocated at K (R <= K: never a second launch), then the host's one
+    read of the count."""
     dev, K = nl.device, nl.numel()
     if K == 0:
         return (torch.empty((0, 3), dtype=torch.int64, device=dev)
                 if rows else None), 0
-    args = (int(invert), first, end, glitch)
-    grids = rows_grids(K, dev)
-    flags, counts = _rows_counts(verdicts, ords, nl, args, grids)
-    incl = torch.cumsum(counts, 0)
-    R = int(incl[-1].item())
-    out = None
-    if rows:
-        out = torch.empty((R, 3), dtype=torch.int64, device=dev)
-        if R:
-            _rows_call("write", verdicts, ords, nl, args, flags.data_ptr(),
-                       (incl - counts).data_ptr(), out.data_ptr(),
-                       grids[1])
+    out = torch.empty((K, 3), dtype=torch.int64, device=dev) if rows \
+        else None
+    grid = rows_grid(K, rows, dev)
+    scratch = _rows_call("rows" if rows else "count", verdicts, ords, nl,
+                         (int(invert), first, end, glitch), out, grid)
+    R = int(scratch[grid].item())
     launches["line_rows"] += 1
-    return out, R
+    return (out[:R] if rows else None), R

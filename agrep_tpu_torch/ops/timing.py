@@ -314,13 +314,16 @@ def line_index_bound(n_text: int, K: int) -> tuple:
     return _bound(n_text + 32 * K, 2 * -(-n_text // 4) + 8 * K)
 
 
-def line_rows_bound(K: int, R: int) -> tuple:
-    """(bound_ms, bound_by) of one verdict read-back of K lines into R
-    rows: each line's verdict (1 B) and stream ordinal (8 B) read once,
-    each row's two newline positions (16 B) read and the row (24 B)
-    written once over HBM's rate, against a line's invert, range test
-    and flag store (3) and a row's two index moves and glitch tests (4)."""
-    return _bound(9 * K + 40 * R, 3 * K + 4 * R)
+def line_rows_bound(K: int, F: int, R: int) -> tuple:
+    """(bound_ms, bound_by) of one verdict read-back of K lines, F of
+    whose verdicts ^ invert are set, into R rows (0 for a count): each
+    line's verdict (1 B) read once, the stream ordinal (8 B) of each of
+    the F lines (the others fire whatever their ordinal), each row's two
+    newline positions (16 B) read and the row (24 B) written once over
+    HBM's rate, against a four-byte verdict compare each four lines (1),
+    a range test of each of the F ordinals (2) and a row's two index
+    moves and glitch tests (4)."""
+    return _bound(K + 8 * F + 40 * R, -(-K // 4) + 2 * F + 4 * R)
 
 
 def qgram_lines_bound(N: int, K: int, cand: int = 0) -> tuple:

@@ -75,10 +75,14 @@ exits non-zero:
      block geometry texts of a block's bytes -1, +0, +1 and three blocks
      and 17 bytes, a line longer than two blocks, three blocks of newlines
      alone (K = n) and of no newline, and a scatter round's lines -1, +0
-     and +1 of one length, the texts also as
+     and +1 of one length, and line_rows' share of a block's lines -1,
+     +0, +1 and three shares and 17 lines, the texts also as
      views 1-15 bytes past an aligned address, line_rows with and without
      -v, three kept-ordinal ranges, with and without a glitch byte, rows
-     and count alone, and with ordinals outside 0..K-1; and the
+     and count alone, on verdicts all false and all true (R = K under
+     -v), with its verdicts, ords and nl as views, with its grid forced
+     to 1, 2 and 3 blocks, against rows_library too, and with ordinals
+     outside 0..K-1; and the
      qgram_lines stage against qgram_lines_reference, bit for bit (rows
      and count alone), on 2-gram and LONG tables with and without -i and
      -w, the edge set (a bucket's highest term failing -w where a lower
@@ -158,8 +162,9 @@ exits non-zero:
      scatter_add of the hit flags) at the first 32 MB chunk's planes of
      configs 2, 3 and config2c, and
      line_index's and line_rows' (lines, rows, grids; their passes'
-     device time and line_index's by pass (timing.pass_split), the
-     wrapper's with the host's read of K or the count,
+     device time and each one's by pass (timing.pass_split), the
+     wrapper's with the host's read of K or the count, line_rows' in
+     both forms (rows and count),
      the plain version's and a library composite's: torch.nonzero of the
      newlines and a stable torch.sort of the lengths; index_put_ of the
      flags, torch.nonzero and gathers) at config 4's first window (the
@@ -1116,7 +1121,8 @@ def phase_parity_records(device: str, seed: int) -> float:
 LINE_OFFSETS = (0, 1, 3, 15)
 
 
-def line_texts(seed: int, geometry=(256, 65536, 2048, 225)):
+def line_texts(seed: int, geometry=(256, 65536, 2048, 225),
+               rows_share: int = 8192):
     """(name, u8 numpy text, glitch position or -1) of every text phase 3
     holds line_index and line_rows to: the edge shapes (empty, no
     newline, one newline, a leading newline, no final newline), lines of
@@ -1132,7 +1138,8 @@ def line_texts(seed: int, geometry=(256, 65536, 2048, 225)):
     longer than two blocks between short ones, every byte a newline over
     3 B (K = n: R lines and more a block, many scatter rounds), no
     newline over 3 B, and R - 1, R and R + 1 lines of one length in one
-    block."""
+    block; and at line_rows' share of a block (threads times lines a
+    piece, S): S - 1, S, S + 1 and 3 S + 17 lines."""
     import numpy as np
 
     from agrep_tpu_torch.ops.scan import STREAM_CHUNK
@@ -1182,6 +1189,9 @@ def line_texts(seed: int, geometry=(256, 65536, 2048, 225)):
     yield "no_newline_3_blocks", rand(3 * B, 0.0), -1
     for k in (R - 1, R, R + 1):
         yield "round_lines_%d" % k, u8(b"abcdefg\n" * k), -1
+    for k in (rows_share - 1, rows_share, rows_share + 1,
+              3 * rows_share + 17):
+        yield "share_lines_%d" % k, lines(rng.integers(0, 9, k)), -1
 
 
 def _index_diff(got, want) -> int:
@@ -1211,24 +1221,64 @@ def _line_rows_diff(got, want) -> int:
     return diff
 
 
+def _rows_forced(v, ords, nl, args, rows: bool, grid: int) -> tuple:
+    """line_rows' one launch with its grid forced to grid blocks (each
+    thread then walks many pieces and each warp many bitmap steps), as
+    (rows, count) like the wrapper's; not counted in its launches."""
+    import torch
+
+    from agrep_tpu_torch.ops import renfa_kernel as rk
+    K = nl.numel()
+    out = torch.empty((K, 3), dtype=torch.int64, device=nl.device) \
+        if rows else None
+    scratch = rk._rows_call("forced", v, ords, nl, args[:4], out, grid)
+    R = int(scratch[grid].item())
+    return (out[:R] if rows else None), R
+
+
+def _rows_library_diff(got, v, ords, nl, args) -> int:
+    """Largest |kernel - rows_library| over line_rows' rows or count."""
+    lib = rows_library(v, ords, nl, *args[:4])
+    return _line_rows_diff(got, (lib if args[4] else None, lib.shape[0]))
+
+
 def phase_parity_lines(device: str, seed: int) -> tuple:
     """line_index and line_rows against their plain versions on the card,
     bit for bit, on every text of line_texts, the text also as views
     LINE_OFFSETS bytes past an aligned address (two of them for the
-    large ones); line_rows on random verdicts over each index, with and
-    without invert, with the kept ordinals [0, K), [1, K) and [2, K - 1),
-    the text's glitch byte or a byte a third in, rows and count alone,
-    the verdicts as views too, and with ordinals outside 0..K-1.  Returns the largest |kernel - plain|
-    of each (0 or fail)."""
+    large ones); line_rows, in both forms (rows and count alone), on
+    random verdicts over each index, with and without invert, with the
+    kept ordinals [0, K), [1, K) and [2, K - 1), the text's glitch byte
+    or a byte a third in, the verdicts as views too; on verdicts all
+    false and all true (with -v every kept line fires: R = K), on ords
+    and nl as views, with its grid forced to 1, 2 and 3 blocks (many
+    pieces a thread, many bitmap steps a warp), against rows_library
+    too, and with ordinals outside 0..K-1.  Returns the largest |kernel -
+    plain| of each (0 or fail)."""
     import numpy as np
     import torch
 
+    from agrep_tpu_torch.ops import _cuda
     from agrep_tpu_torch.ops import renfa_kernel as rk
     worst = [0, 0]
     failed = []
     t0 = time.perf_counter()
     rng = np.random.default_rng(seed + 16)
-    for name, arr, glitch in line_texts(seed, rk.index_geometry(device)):
+    threads, piece, _b = rk._rows_geometry(_cuda.device_index(device),
+                                           True)
+
+    def check(name, got, v, ords, nl, args, what, library=True):
+        ref = rk.line_rows_reference(v, ords, nl, *args)
+        diff = _line_rows_diff(got, ref)
+        if library:
+            diff = max(diff, _rows_library_diff(got, v, ords, nl, args))
+        worst[1] = max(worst[1], diff)
+        if diff:
+            failed.append(("line_rows", name, args, what, diff))
+        return ref[1] if args[4] else 0
+
+    for name, arr, glitch in line_texts(seed, rk.index_geometry(device),
+                                        threads * piece):
         text = torch.from_numpy(np.array(arr, dtype=np.uint8)).to(device)
         want = rk.line_index_reference(text)
         K = want.nl.numel()
@@ -1239,6 +1289,7 @@ def phase_parity_lines(device: str, seed: int) -> tuple:
             worst[0] = max(worst[0], diff)
             if diff:
                 failed.append(("line_index", name, off, diff))
+        ords, nl = want.ords, want.nl
         v = torch.from_numpy(rng.random(K) < 0.3).to(device)
         g = glitch if glitch >= 0 else arr.size // 3
         rows = 0
@@ -1247,33 +1298,42 @@ def phase_parity_lines(device: str, seed: int) -> tuple:
                 for gl in (-1, g):
                     for want_rows in (True, False):
                         args = (invert, first, end, gl, want_rows)
-                        ref = rk.line_rows_reference(v, want.ords, want.nl,
-                                                     *args)
-                        rows += ref[1] if want_rows else 0
-                        for off in offs[:2]:
+                        for off in offs:
                             vv = v if off == 0 else _view(v, off)
-                            diff = _line_rows_diff(rk.line_rows(
-                                vv, want.ords, want.nl, *args), ref)
-                            worst[1] = max(worst[1], diff)
-                            if diff:
-                                failed.append(("line_rows", name, args,
-                                               off, diff))
+                            rows += check(name, rk.line_rows(
+                                vv, ords, nl, *args), v, ords, nl, args,
+                                "view %d" % off)
+        # every line or none fires; ords and nl as views
+        for fill in (False, True):
+            vf = torch.full((K,), fill, dtype=torch.bool, device=device)
+            for invert in (False, True):
+                for want_rows in (True, False):
+                    args = (invert, 0, K, g, want_rows)
+                    rows += check(name, rk.line_rows(vf, ords, nl, *args),
+                                  vf, ords, nl, args, "all %s" % fill)
+        for want_rows in (True, False):
+            args = (True, 1, K, g, want_rows)
+            check(name, rk.line_rows(_view(v, 3), _view(ords, 1),
+                                     _view(nl, 1), *args),
+                  v, ords, nl, args, "ords and nl views")
+            if 0 < K <= 1 << 20:
+                for grid in (1, 2, 3):
+                    check(name, _rows_forced(v, ords, nl, args, want_rows,
+                                             grid),
+                          v, ords, nl, args, "grid %d" % grid)
         if K > 2:
             # ordinals outside 0..K-1 name no line: both skip them
-            bad = want.ords.clone()
+            bad = ords.clone()
             bad[::7] = -1
             bad[3::11] = K
-            args = (False, 0, K, -1, True)
-            diff = _line_rows_diff(
-                rk.line_rows(v, bad, want.nl, *args),
-                rk.line_rows_reference(v, bad, want.nl, *args))
-            worst[1] = max(worst[1], diff)
-            if diff:
-                failed.append(("line_rows", name, "bad ordinals", diff))
+            for want_rows in (True, False):
+                args = (False, 0, K, -1, want_rows)
+                check(name, rk.line_rows(v, bad, nl, *args), v, bad, nl,
+                      args, "bad ordinals", library=False)
         print("parity: line_index, line_rows %-18s %d B, %d lines, views "
               "at %s: equal bit for bit (line_rows: %d rows over -v, kept "
-              "ordinals and glitch)" % (name, arr.size, K, list(offs),
-                                         rows))
+              "ordinals, glitch, all or no verdict, forced grids)"
+              % (name, arr.size, K, list(offs), rows))
         del text
     torch.cuda.synchronize()
     print("parity: line_index, line_rows in %.1f s"
@@ -2244,37 +2304,49 @@ def index_alone(name, text) -> dict:
 
 
 def rows_alone(name, v, idx, invert, first, end, glitch) -> dict:
-    """line_rows at one main-path input (rows wanted, as a print takes
-    them): the kernel against its plain version and against
-    rows_library, bit for bit; its device time (every pass, without the
-    host's read of the count), the wrapper's with that read, the plain
-    version's, the library composite's and the bound."""
+    """line_rows at one main-path input in both forms (the rows a print
+    takes, and a count): the kernel against its plain version and
+    against rows_library, bit for bit; its launch's device time (without
+    the host's read of the count), the wrapper's with that read, the
+    plain version's, the library composite's (rows form) and the bound."""
     from agrep_tpu_torch.ops import renfa_kernel as rk
-    from agrep_tpu_torch.ops.timing import line_rows_bound, time_kernel
+    from agrep_tpu_torch.ops.timing import (line_rows_bound, pass_split,
+                                            time_kernel)
     args = (invert, first, end, glitch)
-    got = rk._rows_launch(v, idx.ords, idx.nl, *args, True)
-    diff = _line_rows_diff(got, rk.line_rows_reference(
-        v, idx.ords, idx.nl, *args))
-    lib = rows_library(v, idx.ords, idx.nl, *args)
-    diff = max(diff, _line_rows_diff(got, (lib, lib.shape[0])))
+    ords, nl = idx.ords, idx.nl
+    diff = 0
+    for want in (True, False):
+        got = rk._rows_launch(v, ords, nl, *args, want)
+        diff = max(diff, _line_rows_diff(got, rk.line_rows_reference(
+            v, ords, nl, *args, want)),
+            _rows_library_diff(got, v, ords, nl, args + (want,)))
+        if want:
+            rows = got[0]
     if diff:
         raise AssertionError("%s: line_rows differs from its plain version "
                              "or the library composite on %d lines (max "
-                             "|diff| %d)" % (name, idx.nl.numel(), diff))
-    rows = got[0]
-    K = idx.nl.numel()
-    ms = time_kernel(lambda: rk.rows_passes(v, idx.ords, idx.nl, *args,
-                                            rows))
-    wrapper_ms = _host_ms(lambda: rk._rows_launch(v, idx.ords, idx.nl,
-                                                  *args, True))
+                             "|diff| %d)" % (name, nl.numel(), diff))
+    K = nl.numel()
+    ms = time_kernel(lambda: rk.rows_passes(v, ords, nl, *args, rows))
+    count_ms = time_kernel(lambda: rk.rows_passes(v, ords, nl, *args, None))
+    wrapper_ms = _host_ms(lambda: rk._rows_launch(v, ords, nl, *args, True))
+    count_wrapper_ms = _host_ms(lambda: rk._rows_launch(v, ords, nl, *args,
+                                                        False))
     plain_ms = _time_plain(lambda: rk.line_rows_reference(
-        v, idx.ords, idx.nl, *args))
-    library_ms = _host_ms(lambda: rows_library(v, idx.ords, idx.nl, *args))
-    bms, by = line_rows_bound(K, rows.shape[0])
-    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+        v, ords, nl, *args))
+    library_ms = _host_ms(lambda: rows_library(v, ords, nl, *args))
+    F = int((v ^ bool(invert)).sum().item())
+    bms, by = line_rows_bound(K, F, rows.shape[0])
+    return {"ms": ms, "count_ms": count_ms, "wrapper_ms": wrapper_ms,
+            "count_wrapper_ms": count_wrapper_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
+            "count_bound_ms": line_rows_bound(K, F, 0)[0],
             "K": K, "R": rows.shape[0],
-            "grids": rk.rows_grids(K, v.device), "max_abs_err": diff}
+            "grids": (rk.rows_grid(K, True, v.device),
+                      rk.rows_grid(K, False, v.device)),
+            "max_abs_err": diff,
+            "split": pass_split(lambda: rk.rows_passes(
+                v, ords, nl, *args, rows), rk, "_rows_call")}
 
 
 def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
@@ -3367,13 +3439,20 @@ def line_stages_line(res, card: str) -> str:
                              ("line_rows", "rows", "rows")):
         out.append("times: %s %s | card: %s" % (stage, " | ".join(
             "%s %d B %d lines%s grids=%s: %.4f ms (%.1f %% of its %.4f ms "
-            "bound, %s%s), wrapper %.4f ms, plain %.2f ms, library %.3f ms"
+            "bound, %s%s), wrapper %.4f ms%s, plain %.2f ms, library "
+            "%.3f ms"
             % (n, res[n]["shape_b"], r["K"],
                " %d rows" % r["R"] if what == "rows" else "",
                list(r["grids"]), r["ms"], 100 * r["bound_ms"] / r["ms"],
                r["bound_ms"], r["bound_by"],
                "; passes " + split_text(r["split"]) if "split" in r else "",
-               r["wrapper_ms"], r["plain_ms"], r["library_ms"])
+               r["wrapper_ms"],
+               "; count %.4f ms (%.1f %% of its %.4f ms bound), wrapper "
+               "%.4f ms" % (r["count_ms"],
+                            100 * r["count_bound_ms"] / r["count_ms"],
+                            r["count_bound_ms"], r["count_wrapper_ms"])
+               if "count_ms" in r else "",
+               r["plain_ms"], r["library_ms"])
             for n in ("config4", "memagrep4") for r in [res[n][key]]),
             card))
     return "\n".join(out)
@@ -3597,6 +3676,8 @@ def main(argv=None) -> int:
         "max_abs_err": max([err_rows] + [res[n]["rows"]["max_abs_err"]
                                          for n in ("config4",
                                                    "memagrep4")]),
+        # the rows form (config4n's print); the count form (config 4's
+        # -c, memagrep4) beside it
         "ms": c4["rows"]["ms"],
         "plain_ms": c4["rows"]["plain_ms"],
         "bound_ms": c4["rows"]["bound_ms"],
@@ -3604,6 +3685,10 @@ def main(argv=None) -> int:
         # no one PyTorch call compacts flags into rows: the composite
         # rows_library (index_put_ of the flags, torch.nonzero, gathers)
         "library_ms": c4["rows"]["library_ms"],
+        "wrapper_ms": c4["rows"]["wrapper_ms"],
+        "count_ms": c4["rows"]["count_ms"],
+        "count_bound_ms": c4["rows"]["count_bound_ms"],
+        "count_wrapper_ms": c4["rows"]["count_wrapper_ms"],
     }, {
         "name": "qgram_lines",
         "route": "cuda",
@@ -3627,7 +3712,8 @@ def main(argv=None) -> int:
           "planes, without the host's read of the summary; event_pairs: "
           "its launch over config1's chunk, without the host's read of K) "
           "and of config4 (%s; line_index and line_rows: every pass over "
-          "its first window, without the host's read of K or the count), "
+          "its first window, without the host's read of K or the "
+          "count; line_rows' count_ms: its count form), "
           "at config5's %d B "
           "stream (chain_scan) and config5q's %d B stream (qgram_filter; "
           "qgram_lines: every pass of config5qn's print over it, without "

@@ -18,8 +18,11 @@ chunk and the memagrep buffer; chain_scan at config 5's records stream
 qgram_filter at config5q's.  The device stages run every pass of one
 call without the host's read (`index_passes`, `lines_passes`):
 line_index at config 4's first window and memagrep4's buffer,
-qgram_lines over config5q's plane (a count), config5qn's (its rows) and
-config5qs's first streamed chunk; event_pairs (`pairs_passes`) at
+line_rows (`rows_passes`, both forms: the rows and a count) over the
+main path's verdicts at config 4's first window, memagrep4's buffer and
+config 4's window with -v (nearly every line fires); qgram_lines over
+config5q's plane (a count), config5qn's (its rows) and config5qs's first
+streamed chunk; event_pairs (`pairs_passes`) at
 configs 1-3's first 32 MB chunk, the memagrep buffer and bool5m's
 stream; record_verdicts at the first chunk of config 2, config2c and
 config 3 (the inputs the main path's search gives mask_scan and
@@ -28,7 +31,8 @@ record_verdicts takes pairs runs `pairs_passes` and then
 `records_passes` over them, a tree whose record_verdicts takes
 mask_scan's planes (it has `pair_records_reference`) runs its
 `records_passes` on the planes; their rows must be equal.  These two
-stages also get the wrapper's time with its read of K or the summary
+stages and line_rows also get the wrapper's time with its read of K,
+the count or the summary
 (chip_smoke's `_host_ms`: host clock, synchronized, median of 5).
 --only times the named kernels alone; --split also splits each stage's
 time by pass (timing.pass_split: CUDA events around each pass, and the
@@ -59,7 +63,8 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = ("mask_scan", "renfa_lanes", "chain_scan", "qgram_filter",
-           "line_index", "qgram_lines", "event_pairs", "record_verdicts")
+           "line_index", "line_rows", "qgram_lines", "event_pairs",
+           "record_verdicts")
 # The device stages: the module and the attributes through which each
 # launches its passes, in any tree (timing.pass_split wraps those the
 # tree's module has, for --split).  An older event_pairs launched its
@@ -67,6 +72,7 @@ KERNELS = ("mask_scan", "renfa_lanes", "chain_scan", "qgram_filter",
 # record_verdicts its three through _records_call after them.
 STAGE_HOOKS = {
     "line_index": ("renfa_kernel", ("_index_call",)),
+    "line_rows": ("renfa_kernel", ("_rows_call",)),
     "qgram_lines": ("qgram_kernel", ("_lines_call",)),
     "event_pairs": ("kernels", ("_pairs_call", "_pairs_count",
                                 "_pairs_write")),
@@ -203,6 +209,7 @@ def shapes(cs, mb: int, seed: int, tmp: str, device: str = "cuda"):
                     lambda seg=seg, idx=idx: renfa_kernel.index_passes(
                         seg, idx),
                     lambda idx=idx: torch.cat(list(idx[:4]))))
+    out += rows_shapes(corpus, mem_buf, rm, cont, device)
     wide = cs.wide_patterns(pats)
     _tb, tables = cs.qgram_line_tables(wide, False, False, device)
     region = records[:scan_ops.STREAM_CHUNK + max(map(len, wide)) - 1]
@@ -218,6 +225,42 @@ def shapes(cs, mb: int, seed: int, tmp: str, device: str = "cuda"):
                     lambda res=res: res))
     out += pairs_shapes(scans)
     out += records_shapes(cs, corpus, tmp)
+    return out
+
+
+def rows_shapes(corpus, mem_buf, rm, cont, device) -> list:
+    """line_rows over the main path's own verdicts (renfa_lines over
+    line_index, from the regex engine's states after a newline) at
+    config 4's first window (the glitch byte at 49,152, every line kept),
+    at memagrep4's buffer (its leading line dropped) and at config 4's
+    window with -v (nearly every line fires), each in both forms: every
+    pass of one call into the rows of an earlier one, or of a count
+    (renfa_kernel.rows_passes), the rows or the count, and the wrapper
+    with its read of the count."""
+    import numpy as np
+    import torch
+
+    from agrep_tpu_torch.ops import kernels, renfa_kernel
+    from agrep_tpu_torch.ops import scan as scan_ops
+    window = np.insert(corpus[:scan_ops.STREAM_CHUNK], 49152, 0)
+    out = []
+    for name, buf, glitch, first, invert in (
+            ("config4", window, 49152, 0, False),
+            ("memagrep4", mem_buf, -1, 1, False),
+            ("config4v", window, 49152, 0, True)):
+        seg = kernels.to_device(buf, device)
+        idx = renfa_kernel.line_index(seg)
+        v = renfa_kernel.renfa_lines(seg, idx.starts, idx.lens, rm, cont)
+        args = (v, idx.ords, idx.nl, invert, first, idx.nl.numel(), glitch)
+        for form, want in (("rows", True), ("count", False)):
+            rows, k = renfa_kernel.line_rows(*args, want)
+            res = rows if want else torch.tensor([k])
+            out.append((name + "/" + form, "line_rows",
+                        lambda a=args, r=rows:
+                        renfa_kernel.rows_passes(*a, r),
+                        lambda res=res: res,
+                        lambda a=args, w=want: renfa_kernel.line_rows(
+                            *a, w)))
     return out
 
 
