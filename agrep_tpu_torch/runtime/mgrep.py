@@ -172,6 +172,8 @@ class MgrepEngine:
         is_bool = q.bool_tree is not None or q.bool_op == "and"
         if o.count and not is_bool:
             return False           # flat-OR -c has its own one-pass
+        if not (o.printrecord or o.count):
+            return False           # -u: the walks write records
         return not any(t and b"\n" in t for t in self.terms)
 
     def _stream_precheck(self, data) -> bool:

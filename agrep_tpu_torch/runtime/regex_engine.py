@@ -26,6 +26,71 @@ from .output import Sink
 
 MAXLINE_BUCKETS = renfa.MAXLINE_BUCKETS
 CHUNK_R = 1 << 22               # lines per numpy lane matrix
+BSR = 49152                     # BlockSize (agrep.h:48)
+MAXLINE = 1024                  # Maxline (agrep.h)
+
+
+def crosses(b, e):
+    """Whether the file-mode line data[b:e + 1] (e its newline) holds a
+    block boundary past its first byte, elementwise over arrays: only
+    such a line can print other bytes than its own (line_record)."""
+    return e // BSR * BSR > b
+
+
+def _nul_fill(seg) -> np.ndarray:
+    """seg as strncpy copies it: zero from its first NUL on."""
+    seg = np.array(seg, dtype=np.uint8)
+    z = np.flatnonzero(seg == 0)
+    if len(z):
+        seg[int(z[0]):] = 0
+    return seg
+
+
+def line_record(data, b: int, e: int, D: int):
+    """The record r_output prints for the file-mode line data[b:e + 1]
+    (e its newline) of a search with D errors, and the length -q gives
+    it: a function of the line and, for a line across a block boundary,
+    of the Maxline bytes before that boundary, so that the whole-file
+    walk and the streamed one print the same.
+
+    A line across block boundaries prints from the residue the scan
+    carried over the last one, j (agrep.c:1426-1431 for D == 0; the
+    D > 0 loop carries only the last Maxline bytes, :1739):
+    * a line that began Maxline or more before j is clamped: the first
+      Maxline - 1 bytes of the line (D == 0; none for D > 0), then the
+      bytes from j on, and -q counts the newline;
+    * otherwise the residue is strncpy'd, so a NUL zero-fills the rest
+      of it: for D == 0 the line's bytes before j; for D > 0 the last
+      Maxline bytes before j, which can erase the line's leading
+      newline, so that r_output's backscan starts at an earlier newline
+      of the residue, or at its start where none is left."""
+    j = e // BSR * BSR
+    if j <= b:
+        return data[b:e + 1], e - b
+    tail = np.asarray(data[j:e + 1])
+    if b <= j - MAXLINE:
+        head = (_nul_fill(data[b:b + MAXLINE - 1]) if D == 0
+                else tail[:0])
+        rec = np.concatenate([head, tail])
+        return rec, len(rec)
+    if D > 0:
+        res = _nul_fill(data[j - MAXLINE:j])
+        nls = np.flatnonzero(res == 0x0A)
+        head = res[int(nls[-1]) + 1:] if len(nls) else res[:0]
+    else:
+        head = _nul_fill(data[b:j])
+    rec = np.concatenate([head, tail])
+    return rec, len(rec) - 1
+
+
+def line_cbo(e: int, n: int, D: int) -> int:
+    """CurrentByteOffset at the check of the file-mode line whose
+    newline is data[e], in a file of n bytes: one byte late past the
+    49152 glitch byte, and for D > 0 lagging one more where the newline
+    lands on the first slot of re()'s two-byte unrolled loop (slot
+    parity == parity of the offset)."""
+    cbo = e + (1 if n > BSR and e >= BSR else 0)
+    return cbo - 1 if D > 0 and cbo % 2 == 0 else cbo
 
 
 class RegexEngine:
@@ -37,9 +102,8 @@ class RegexEngine:
         """Pure-count regex streams in O(chunk): lines are independent
         lanes, so chunks cut at line boundaries scan exactly like the
         whole file (the 49152-boundary glitch byte keeps its global
-        offset).  Plain record printing streams the same way; the
-        decorated/inverse modes keep the whole-file path (CBO parity
-        and residue-clamp emulation consult global state)."""
+        offset).  Record printing streams the same way; -u, -P, -G,
+        -M, -l, -s and the output limits keep the whole-file path."""
         o = self.q.opts
         if (o.filename_only or o.silent
                 or o.limit_output > 0 or o.limit_per_file > 0):
@@ -54,13 +118,13 @@ class RegexEngine:
         # chunk walk consumes the kernel's verdicts
         if o.count:
             return True
-        # round 5: -n/-b/-q decorations stream too -- they are
-        # cumulative counters (line index, byte offset + the 49152
-        # glitch lag), and the precheck already routes every
-        # residue-clamp shape to the whole-file emulation.  INVERSE
-        # streams the same way (round-5 continuation): the whole-file
-        # output pass is verdict-inversion followed by the identical
-        # r_output walk, so the chunked walk only flips the verdicts
+        # -n/-b/-q decorations stream too: they are cumulative
+        # counters (line index, byte offset + the 49152 glitch lag),
+        # and a line's record bytes are a function of the line and the
+        # Maxline bytes before its block boundary (line_record).
+        # INVERSE streams the same way: the whole-file output pass is
+        # verdict-inversion followed by the identical r_output walk,
+        # so the chunked walk only flips the verdicts
         return (o.printrecord
                 and not o.printpattern and not o.fileout
                 and not getattr(o, "multi_output", False))
@@ -118,7 +182,7 @@ class RegexEngine:
             list(mc["inits"]), int(mc["mask"][0x0A]), mc)
         N = len(data)
         chunk = max(scan_ops.STREAM_CHUNK, 1 << 16)
-        inj_g = 49152 if N > 49152 else -1
+        inj_g = BSR if N > BSR else -1
         lo = 0
         while lo < N:
             hi = min(lo + chunk, N)
@@ -184,201 +248,108 @@ class RegexEngine:
             i = j
         return verdicts
 
-    def _chunk_verdicts(self, seg: np.ndarray, inj: int, cont0):
-        """Verdicts for one line-aligned chunk (lines ending in '\\n'
-        within seg) on the numpy backend, by the native C twin; None
-        (without the native library) = caller falls back to the
-        whole-file path."""
+    def _host_chunks(self, data, rows: bool, drop_first: bool):
+        """The numpy backend's twin of _device_chunks: the same
+        line-aligned cut and glitch byte, the native C twin's verdicts a
+        chunk, and what line_rows gives the card's walk: (lo, cut, K,
+        rows, count), rows int64 [R, 3] (ordinal, start, newline,
+        relative to lo) of the lines that fire, or None for a count.
+        supports_streaming holds the native library to be there."""
         from .. import native
-        return native.renfa_scan_lines(seg, self.mc, cont0, inj)
-
-    def search_stream_chunked(self, data, sink: Sink, D: int) -> None:
-        """Chunked -c: per-chunk native line scans over line-aligned
-        segments; equivalent to the whole-file scan byte-for-byte
-        because every line starts from the same post-newline closure
-        state (re():1649 resets identically at every newline)."""
-        from .. import native
-        q, o, mc = self.q, self.q.opts, self.mc
-        if not o.count:
-            return self._print_stream_chunked(data, sink)
+        o, mc = self.q.opts, self.mc
         cont0, _ = renfa.step_newline(
             list(mc["inits"]), int(mc["mask"][0x0A]), mc)
         N = len(data)
-        if N == 0:
-            return
-        drop_first = bool(N and data[0] == 0x0A and int(mc["D"]) > 0)
-        if scan_ops._BACKEND == "torch":
-            # one count a chunk from the card
-            sink.num_matched += sum(
-                c for *_, c in self._device_chunks(data, False, drop_first))
-            return
         chunk = max(scan_ops.STREAM_CHUNK, 1 << 16)
-        inj_g = 49152 if N > 49152 else -1
-        total = 0
-        first_chunk = True
+        inj_g = BSR if N > BSR else -1
         lo = 0
         while lo < N:
             hi = min(lo + chunk, N)
             cut = N
-            if hi < N:
-                while hi < N:
-                    seg = np.asarray(data[lo:hi])
-                    nls = np.flatnonzero(seg == 0x0A)
-                    if len(nls):
-                        cut = lo + int(nls[-1]) + 1
-                        break
-                    hi = min(hi + chunk, N)
-                else:
-                    cut = N
+            while hi < N:
+                nls = np.flatnonzero(np.asarray(data[lo:hi]) == 0x0A)
+                if len(nls):
+                    cut = lo + int(nls[-1]) + 1
+                    break
+                hi = min(hi + chunk, N)
             seg = np.ascontiguousarray(data[lo:cut])
-            inj = (inj_g - lo if (inj_g >= 0 and lo <= inj_g < cut)
-                   else -1)
-            v = self._chunk_verdicts(seg, inj, cont0)
+            inj = inj_g - lo if lo <= inj_g < cut else -1
+            v = native.renfa_scan_lines(seg, mc, cont0, inj)
             if v is None:
-                # native lib vanished mid-run: whole-file fallback
-                self.search_stream(np.asarray(data), sink, D)
-                return
+                raise RuntimeError("the native library is not loaded")
             hits = (v != 0) ^ o.invert
-            if first_chunk and len(hits) and drop_first:
-                # D>0 A-phase CBO quirk drops the empty FIRST line
-                # (see search_stream)
-                hits = hits.copy()
+            if lo == 0 and drop_first and len(hits):
                 hits[0] = False
-            total += int(np.count_nonzero(hits))
-            first_chunk = False
+            if rows:
+                nls = np.flatnonzero(seg == 0x0A)
+                k = np.flatnonzero(hits[:len(nls)])
+                starts = np.where(k > 0, nls[np.maximum(k - 1, 0)] + 1, 0)
+                yield (lo, cut, len(nls),
+                       np.stack([k, starts, nls[k]], axis=1), len(k))
+            else:
+                yield lo, cut, None, None, int(np.count_nonzero(hits))
             lo = cut
-        sink.num_matched += total
 
-    def _print_stream_chunked(self, data, sink: Sink) -> None:
-        """Streaming plain record print: per line-aligned chunk, run
-        the native line scanner, emit matched lines with adjacent
-        records coalesced.  Lines crossing a 49152 block boundary from
-        more than Maxline back (or with a NUL in the carry window)
-        take the whole-file path, whose residue-clamp emulation
-        (agrep.c:1426-1431/:1739) needs global state."""
-        o, mc = self.q.opts, self.mc
-        N = len(data)
-        if N == 0:
+    def search_stream_chunked(self, data, sink: Sink, D: int) -> None:
+        """Streams the file by line-aligned chunks, byte for byte what
+        search_stream prints: every line starts from the same
+        post-newline closure state (re():1649 resets identically at
+        every newline), the 49152 glitch byte keeps its offset in the
+        chunk that holds it, and a print takes each line's record bytes
+        and offsets from line_record and line_cbo, as the whole-file
+        walk does.  The torch backend's chunks come from the card
+        (_device_chunks), the numpy backend's from the C twin
+        (_host_chunks)."""
+        mc = self.mc
+        if len(data) == 0:
             return
-        BSR = 49152
-        b = BSR
-        while b < N:
-            win = np.asarray(data[b - 1025:b])
-            if not bool((win == 0x0A).any()) \
-                    or bool((win == 0).any()):
-                self.search_stream(np.asarray(data), sink, 0)
-                return
-            b += BSR
+        # D>0 A-phase CBO quirk drops an empty FIRST line (search_stream)
         drop_first = bool(data[0] == 0x0A and int(mc["D"]) > 0)
+        chunks = (self._device_chunks if scan_ops._BACKEND == "torch"
+                  else self._host_chunks)
+        if self.q.opts.count:
+            sink.num_matched += sum(
+                c for *_, c in chunks(data, False, drop_first))
+            return
+        o = self.q.opts
+        N = len(data)
         fname = bool(getattr(sink, "fname", False))
         deco = bool(o.linenum or o.bytecount or o.printoffset)
-        inj_g = BSR if N > BSR else -1
         line_base = 0
-        # per chunk: (lo, cut, K, line index in the chunk, line start,
-        # line end past its newline) of each line that fires
-        chunks = (((lo, cut, K, r[:, 0], r[:, 1], r[:, 2] + 1)
-                   for lo, cut, K, r, _n in self._device_chunks(
-                       data, True, drop_first))
-                  if scan_ops._BACKEND == "torch"
-                  else self._host_row_chunks(data, drop_first))
-        for lo, cut, K, k_idx, begins, ends in chunks:
-            if k_idx is None:
-                self.search_stream(np.asarray(data), sink, 0)
-                return
-            seg = np.ascontiguousarray(data[lo:cut])
-            if len(ends):
-                sink.num_matched += len(ends)
-                if deco:
-                    # cumulative decorations (r_output: j-1 line
-                    # numbers; CBO at the line's newline with the
-                    # 49152 overrun lag and the D>0 pair parity)
-                    D_ = int(mc["D"])
-                    for t in range(len(ends)):
-                        gnl = lo + int(ends[t]) - 1   # '\n' data pos
-                        gb = lo + int(begins[t])
+        for lo, cut, K, r, _n in chunks(data, True, drop_first):
+            if len(r):
+                sink.num_matched += len(r)
+                # each firing line's start and newline in data
+                b, e = r[:, 1] + lo, r[:, 2] + lo
+                if deco or fname:
+                    for k, bt, et in zip(r[:, 0].tolist(), b.tolist(),
+                                         e.tolist()):
                         sink.emit_fname_prefix()
                         if o.linenum:
-                            sink.write_str(
-                                "%d: " % (line_base + int(k_idx[t])
-                                          + 1))
-                        glitch = 1 if (inj_g >= 0 and gnl >= BSR) \
-                            else 0
-                        cbo = gnl + glitch
-                        if D_ > 0 and (gnl + glitch) % 2 == 0:
-                            cbo -= 1
+                            sink.write_str("%d: " % (line_base + k + 1))
+                        cbo = line_cbo(et, N, D)
                         if o.bytecount:
                             sink.write_str("%d= " % cbo)
-                        rec_len = gnl - gb
+                        rec, rec_len = line_record(data, bt, et, D)
                         if o.printoffset:
                             sink.write_str("@%d{%d} " % (cbo - rec_len,
                                                          rec_len))
-                        sink.write(bytes(bytearray(
-                            seg[int(begins[t]):int(ends[t])])))
-                elif not fname:
-                    brk = np.flatnonzero(begins[1:] != ends[:-1])
-                    seg_lo = np.concatenate([[0], brk + 1])
-                    seg_hi = np.concatenate([brk, [len(ends) - 1]])
-                    for s_i, h_i in zip(seg_lo.tolist(),
-                                        seg_hi.tolist()):
-                        sink.write(bytes(bytearray(
-                            seg[int(begins[s_i]):int(ends[h_i])])))
+                        sink.write(np.asarray(rec).tobytes())
                 else:
-                    for b_, e_ in zip(begins.tolist(), ends.tolist()):
-                        sink.emit_fname_prefix()
-                        sink.write(bytes(bytearray(seg[b_:e_])))
+                    # adjacent lines in one write; a line across a
+                    # block boundary alone, through line_record
+                    cross = crosses(b, e)
+                    brk = np.flatnonzero((b[1:] != e[:-1] + 1)
+                                         | cross[1:] | cross[:-1])
+                    for s_i, h_i in zip([0] + (brk + 1).tolist(),
+                                        brk.tolist() + [len(b) - 1]):
+                        if cross[s_i]:
+                            rec = line_record(data, int(b[s_i]),
+                                              int(e[s_i]), D)[0]
+                        else:
+                            rec = data[int(b[s_i]):int(e[h_i]) + 1]
+                        sink.write(np.asarray(rec).tobytes())
             line_base += K
-
-    def _host_row_chunks(self, data, drop_first: bool):
-        """The numpy backend's chunks, as _print_stream_chunked takes them:
-        per line-aligned chunk the native line scanner's verdicts, and
-        the chunk's newline index; k_idx None where the native library
-        is missing (the caller takes the whole-file path)."""
-        o, mc = self.q.opts, self.mc
-        N = len(data)
-        cont0, _ = renfa.step_newline(
-            list(mc["inits"]), int(mc["mask"][0x0A]), mc)
-        chunk = max(scan_ops.STREAM_CHUNK, 1 << 16)
-        inj_g = 49152 if N > 49152 else -1
-        first_chunk = True
-        lo = 0
-        while lo < N:
-            hi = min(lo + chunk, N)
-            cut = N
-            if hi < N:
-                while hi < N:
-                    seg_ = np.asarray(data[lo:hi])
-                    nls_ = np.flatnonzero(seg_ == 0x0A)
-                    if len(nls_):
-                        cut = lo + int(nls_[-1]) + 1
-                        break
-                    hi = min(hi + chunk, N)
-                else:
-                    cut = N
-            seg = np.ascontiguousarray(data[lo:cut])
-            inj = (inj_g - lo if (inj_g >= 0 and lo <= inj_g < cut)
-                   else -1)
-            v = self._chunk_verdicts(seg, inj, cont0)
-            if v is None:
-                yield lo, cut, 0, None, None, None
-                return
-            hits = (v != 0) ^ o.invert
-            if first_chunk and len(hits) and drop_first:
-                hits = hits.copy()
-                hits[0] = False
-            first_chunk = False
-            if hits.any():
-                nls = np.flatnonzero(seg == 0x0A)
-                k_idx = np.flatnonzero(hits[:len(nls)])
-                ends = nls[k_idx] + 1
-                begins = np.where(k_idx > 0,
-                                  nls[np.maximum(k_idx - 1, 0)] + 1,
-                                  np.int64(0))
-                yield lo, cut, len(nls), k_idx, begins, ends
-            else:
-                none = np.zeros(0, dtype=np.int64)
-                yield (lo, cut, int(np.count_nonzero(seg == 0x0A)), none,
-                       none, none)
-            lo = cut
 
     def _stream_rows(self, stream, inject_at, memory_mode, appended,
                      drop_first, cont_states, seed0, count_only):
@@ -598,7 +569,6 @@ class RegexEngine:
                 sink.write_str("%d= " % cbo0)
             if o.printoffset:
                 sink.write_str("@%d{%d} " % (cbo0 - p0, p0))
-        BSR = 49152                            # BlockSize (agrep.h:48)
         for k, bp, p in hits:
             # line k: bp its start, p the stream pos of its '\n'
             if not memory_mode and appended and p == N - 1:
@@ -612,114 +582,30 @@ class RegexEngine:
             if o.filename_only:
                 sink.write_str("%s\n" % sink.current_filename)
                 return
-            # residue clamping (agrep.c:1426-1431 for D==0; the D>0
-            # loop carries only the last Maxline bytes, :1739): a line
-            # crossing a block boundary prints a preserved 1023-byte
-            # head + the final block's prefix (D==0), or the final
-            # block's prefix alone (D>0), unless it began within
-            # Maxline of the boundary
-            head_hi = None                     # clamp pieces (stream)
-            tail_lo = None
-            if not memory_mode:
-                pn_d = bp - 2                  # prev newline, data
-                e_d = p - 1
-                b_d = bp - 1
-                j1b = (e_d // BSR) * BSR
-                if D == 0:
-                    b0 = (max(pn_d, 0) // BSR + 1) * BSR
-                    if b0 <= j1b and (j1b > b0 or b0 - pn_d > 1024):
-                        head_hi = bp - 1 + 1024   # stream coord
-                        tail_lo = j1b + 1
-                else:
-                    if j1b > b_d and b_d <= j1b - 1024:
-                        head_hi = bp          # empty head
-                        tail_lo = j1b + 1
             printed = sink.emit_fname_prefix()
             if o.linenum:
                 sink.write_str("%d: " % (j - 1))
                 printed = True
-            # re()'s scan loop is unrolled two bytes per iteration and
-            # updates CurrentByteOffset once per pair (agrep.c re()
-            # CONSUME blocks): an event landing on the first slot
-            # reports a CBO lagging one byte.  Slot parity == parity of
-            # the event's data offset.
-            glitch = 1 if (inject_at is not None
-                           and p >= inject_at) else 0
-            # memory mode has no prepended sentinel newline, so the
-            # C's CurrentByteOffset at a record check sits one AHEAD
-            # of the file-mode convention relative to stream position
-            cbo = p - 1 + glitch + (1 if memory_mode else 0)
-            # pair-slot parity is anchored at the loop's start in BOTH
-            # modes (memory: i=0 with CurrentByteOffset=1, agrep.c
-            # RE1 memory loops): combined with the +1 base, the memory
-            # -b value rounds DOWN to even (newline_idx & ~1)
-            if D > 0 and (p - 1 + glitch) % 2 == 0:
-                cbo -= 1
+            if memory_mode:
+                # no prepended sentinel newline, so the C's
+                # CurrentByteOffset at a record check sits one AHEAD of
+                # the file-mode convention; the pair-slot parity is
+                # anchored at the loop's start in both modes (memory:
+                # i=0 with CurrentByteOffset=1, agrep.c RE1 memory
+                # loops), so the -b value rounds DOWN to even
+                cbo = p - 1 if D > 0 and (p - 1) % 2 == 0 else p
+                rec, rec_len = stream[bp:p + 1], p - bp
+            else:
+                cbo = line_cbo(p - 1, len(data), D)
+                rec, rec_len = line_record(data, bp - 1, p - 1, D)
             if o.bytecount:
                 sink.write_str("%d= " % cbo)
                 printed = True
-            # D>0 boundary crossings: the carried window is the LAST
-            # Maxline bytes (agrep.c:1739 strncpy), so the NUL clamp
-            # zero-fills from the RESIDUE's first NUL -- which can
-            # erase the line-start newline itself, moving r_output's
-            # backscan to an earlier (clamped) newline, or to the bp
-            # fallback (buffer[Maxline], i.e. the block start)
-            rec_override = None
-            if (head_hi is None and not memory_mode and D > 0):
-                j1b_ = ((p - 1) // BSR) * BSR
-                if j1b_ + 1 > bp and j1b_ >= 1024:
-                    res_lo = j1b_ - 1024       # data coords
-                    seg = np.asarray(
-                        stream[res_lo + 1:j1b_ + 1]).copy()
-                    z = np.flatnonzero(seg == 0)
-                    if len(z):
-                        seg[int(z[0]):] = 0
-                    nls_r = np.flatnonzero(seg == 0x0A)
-                    if len(nls_r):
-                        head_part = seg[int(nls_r[-1]) + 1:]
-                    else:
-                        head_part = seg[:0]    # bp fallback: Maxline
-                    rec_override = np.concatenate(
-                        [head_part,
-                         np.asarray(stream[j1b_ + 1:p + 1])])
-            if rec_override is not None:
-                rec_len = len(rec_override) - 1
-            else:
-                rec_len = (p - bp if head_hi is None
-                           else (head_hi - bp) + (p - tail_lo + 1))
             if o.printoffset:
                 sink.write_str("@%d{%d} " % (cbo - rec_len, rec_len))
                 printed = True
             if o.printrecord:
-                # the carried residue is strncpy'd (agrep.c:1430): a
-                # NUL in the preserved head zero-fills the rest of the
-                # copy; the final block's bytes are read fresh
-                if rec_override is not None:
-                    sink.write(bytes(bytearray(rec_override)))
-                elif head_hi is None:
-                    rec = stream[bp:p + 1]
-                    if not memory_mode:
-                        j1b_ = ((p - 1) // BSR) * BSR
-                        if j1b_ + 1 > bp:      # crosses a boundary
-                            lo_ = max(bp - 1, 0)
-                            seg_ = np.asarray(stream[lo_:j1b_ + 1])
-                            z_ = np.flatnonzero(seg_ == 0)
-                            if len(z_):
-                                rec = np.array(rec, copy=True)
-                                st_ = max(lo_ + int(z_[0]), bp) - bp
-                                rec[st_:j1b_ + 1 - bp] = 0
-                    sink.write(bytes(bytearray(rec)))
-                else:
-                    head = stream[bp:head_hi]
-                    lo_ = max(bp - 1, 0)
-                    seg_ = np.asarray(stream[lo_:head_hi])
-                    z_ = np.flatnonzero(seg_ == 0)
-                    if len(z_):
-                        head = np.array(head, copy=True)
-                        st_ = max(lo_ + int(z_[0]), bp) - bp
-                        head[st_:] = 0
-                    sink.write(bytes(bytearray(head)))
-                    sink.write(bytes(bytearray(stream[tail_lo:p + 1])))
+                sink.write(np.asarray(rec).tobytes())
             elif printed:
                 sink.write_str("\n")
             if (o.limit_output > 0

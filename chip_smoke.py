@@ -115,7 +115,9 @@ exits non-zero:
      32 MB chunks (STREAMED_RUNS: config5s launches chain_scan, config5qs
      qgram_filter and qgram_lines, once each a chunk; neither calls the
      host's per-term find, mgrep._find_occurrences; config5qs reads no
-     positions back, and its output must equal config5qn's), a
+     positions back, and its output must equal config5qn's, as
+     config4n's, streamed over the threshold on both backends, must
+     equal its output read whole on the numpy backend), a
      boolean AND over '$$' records (bool5, the chain kernel), and a
      boolean with a term of 136 byte classes, past the chain caps
      (bool5m, the mask machine's packed term words); stdout and return
@@ -217,12 +219,14 @@ exits non-zero:
      the cases that launch qgram_lines and the seconds; any divergence or
      crash, or a kernel launched no time, fails the run (qgram_lines
      excepted: only the past-caps stratum's 30-term counts and prints
-     take it, and its count is reported); then a streaming pass: the
-     grown seeds of SWEEP_RUNS again with scan_ops.STREAM_CHUNK at 64 KiB
-     and AGREP_TORCH_STREAM_MB=0 on both sides, so that every file is
-     searched in chunks on both backends; its line gives the
-     divergences, the crashes and the cases that printed a -f search in
-     chunks on the card, and any divergence or crash fails the run.
+     take it, and its count is reported); then a streaming pass (the
+     tool's --stream): the grown seeds of SWEEP_RUNS again, every file
+     searched in 64 KiB chunks on the card (scan_ops.STREAM_CHUNK,
+     AGREP_TORCH_STREAM_MB=0) and read whole on the numpy backend (its
+     threshold raised for its runs only), so that a streaming fault
+     both backends share shows; its line gives the divergences, the
+     crashes and the cases that printed a -f search in chunks on the
+     card, and any divergence or crash fails the run.
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device,
 or without the agrep_tpu_torch package beside it, the script exits
@@ -1890,8 +1894,10 @@ PAIRS_SHAPES = ("config1", "config2", "config3", "memagrep", "bool5m")
 QLINE_RUNS = ("config5q", "config5qn")
 # AGREP_TORCH_STREAM_MB of the runs that print a file whole, as a file
 # under the streaming threshold is printed: config5qn holds the
-# whole-file route, whose output config5qs's chunks must give
-WHOLE_FILE_RUNS = {"config5qn": "128"}
+# whole-file route, whose output config5qs's chunks must give, and
+# "config4n whole" is config4n read whole on the numpy backend, whose
+# output config4n's chunks must give
+WHOLE_FILE_RUNS = {"config5qn": "128", "config4n whole": "128"}
 # the -f prints streamed in chunks at the default 8 MB threshold, and
 # the kernels each of their chunks launches once
 STREAMED_RUNS = {"config5s": ("chain_scan",),
@@ -2634,6 +2640,14 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                     raise AssertionError(
                         "%s: stdout sha256/rc %s on the GPU, %s on the "
                         "numpy backend" % (name, got[name][:2], want[:2]))
+            # config4n streams on both backends: its bytes read whole
+            # too, on the numpy backend
+            name, fn, argv, data, _k = next(r for r in runs
+                                            if r[0] == "config4n")
+            t0 = time.perf_counter()
+            with stream_mb("config4n whole"):
+                whole4n = _run(fn, argv, data)
+            res[name]["whole_host_wall_s"] = time.perf_counter() - t0
         finally:
             scan_ops.set_backend("torch")
     if got["config5qs"][:2] != got["config5qn"][:2]:
@@ -2641,6 +2655,11 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
             "config5qs: stdout sha256/rc %s streamed in chunks, %s printed "
             "whole (config5qn)" % (got["config5qs"][:2],
                                    got["config5qn"][:2]))
+    if got["config4n"][:2] != whole4n[:2]:
+        raise AssertionError(
+            "config4n: stdout sha256/rc %s streamed in chunks, %s read "
+            "whole on the numpy backend" % (got["config4n"][:2],
+                                            whole4n[:2]))
 
     # the mask kernel alone at the main path's chunk shape, and at the
     # memagrep buffer's
@@ -2819,6 +2838,9 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                  ", stdout equal to config5qn's whole-file bytes"
                  if name == "config5qs" else "", r["wall_s"],
                  r["host_wall_s"]))
+    print("main: config4n streamed in chunks printed the bytes it prints "
+          "read whole on the numpy backend (sha256=%s.., wall %.3f s)"
+          % (got["config4n"][0][:12], res["config4n"]["whole_host_wall_s"]))
     for name, _fn, _argv, _data, kname in runs:
         r = res[name]
         if r["records"]:
@@ -3232,6 +3254,7 @@ SWEEP_RUNS = [
     ("regex", False, 100, 15000),
     ("uniform", True, 100, 16000),
     ("stratified", True, 60, 7000),
+    ("regex", True, 60, 17000),
 ]
 
 
@@ -3282,11 +3305,11 @@ def phase_sweep(card: str) -> None:
 
 
 def sweep_streamed(tool, card: str) -> None:
-    """SWEEP_RUNS' grown seeds again, every file searched in 64 KiB chunks
-    (scan_ops.STREAM_CHUNK; AGREP_TORCH_STREAM_MB=0 on both sides): the
-    chunk carries of every engine on the card against the numpy backend.
-    Counts the cases that printed a -f search in chunks on the card."""
-    from agrep_tpu_torch.ops import scan as scan_ops
+    """SWEEP_RUNS' grown seeds again, each file searched on the card in
+    64 KiB chunks and read whole on the numpy backend (the tool's
+    --stream): the chunk carries of every engine against the whole-file
+    walk.  Counts the cases that printed a -f search in chunks on the
+    card."""
     from agrep_tpu_torch.runtime import mgrep
     real_print = mgrep.MgrepEngine._print_stream_chunked
     on_card = [False]
@@ -3304,27 +3327,20 @@ def sweep_streamed(tool, card: str) -> None:
             return real_case(*a, **kw)
         finally:
             streamed[0] += on_card[0]
-    saved = scan_ops.STREAM_CHUNK, os.environ.get("AGREP_TORCH_STREAM_MB")
-    scan_ops.STREAM_CHUNK = 64 << 10
-    os.environ["AGREP_TORCH_STREAM_MB"] = "0"
     mgrep.MgrepEngine._print_stream_chunked = print_seen
     tool.check_case = case_seen
     try:
         res = tool.sweep([r for r in SWEEP_RUNS if r[1]], ref="numpy",
-                         device="cuda",
+                         device="cuda", stream=True,
                          out=lambda line: print("sweep: streamed %s" % line))
     finally:
         tool.check_case = real_case
         mgrep.MgrepEngine._print_stream_chunked = real_print
-        scan_ops.STREAM_CHUNK = saved[0]
-        if saved[1] is None:
-            os.environ.pop("AGREP_TORCH_STREAM_MB", None)
-        else:
-            os.environ["AGREP_TORCH_STREAM_MB"] = saved[1]
-    print("sweep: streamed in %d B chunks: cases %s, divergences %d, "
-          "crashes %d, over_limit %s, launches %s, cases that printed a -f "
-          "search in chunks on the card %d, %.1f s | card: %s"
-          % (64 << 10, json.dumps(res["cases"]), res["divergences"],
+    print("sweep: streamed in %d B chunks on the card, read whole on the "
+          "numpy backend: cases %s, divergences %d, crashes %d, over_limit "
+          "%s, launches %s, cases that printed a -f search in chunks on "
+          "the card %d, %.1f s | card: %s"
+          % (tool.STREAM_CHUNK, json.dumps(res["cases"]), res["divergences"],
              res["crashes"], json.dumps(res["over_limit"]),
              json.dumps(res["launches"]), streamed[0], res["seconds"], card))
     if res["divergences"] or res["crashes"]:

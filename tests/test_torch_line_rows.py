@@ -543,10 +543,12 @@ def _fileagrep(api, argv):
 
 
 def _stream_in_chunks(monkeypatch):
+    """The port streams every file in chunks; agrep_tpu reads it whole
+    (its own streamed print differs from its whole-file one on lines
+    across a block boundary)."""
     monkeypatch.setenv("AGREP_TORCH_STREAM_MB", "0")
-    monkeypatch.setenv("AGREP_TPU_STREAM_MB", "0")
+    monkeypatch.setenv("AGREP_TPU_STREAM_MB", "1048576")
     monkeypatch.setattr(t_scan, "STREAM_CHUNK", 1 << 10)
-    monkeypatch.setattr(j_scan, "STREAM_CHUNK", 1 << 10)
 
 
 @pytest.mark.parametrize("streamed", [False, True],
@@ -556,8 +558,9 @@ def _stream_in_chunks(monkeypatch):
 def test_cli_matches_agrep_tpu(tmp_path, monkeypatch, name, argv, kind,
                                streamed):
     """Both packages on the same files: whole (search_stream) and, with
-    the streaming threshold at 0 and STREAM_CHUNK cut to 1 KiB in both
-    (the engines' 64 KiB floor), chunked (search_stream_chunked)."""
+    the port's streaming threshold at 0 and its STREAM_CHUNK cut to 1 KiB
+    (the engines' 64 KiB floor), the port chunked (search_stream_chunked)
+    against agrep_tpu whole."""
     path = tmp_path / "corpus.txt"
     path.write_bytes(_corpus(kind))
     files = [str(path)]

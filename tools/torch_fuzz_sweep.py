@@ -3,13 +3,22 @@ random corpora and flag/pattern draws, agrep_tpu_torch against a
 reference, both in process, stdout and exit code compared exactly.
 
   python tools/torch_fuzz_sweep.py [--stratified | --regex] [--device-route]
-      [--ref tpu|numpy] [--device cpu|cuda] [--limit S] [n_cases] [seed0]
+      [--ref tpu|numpy] [--device cpu|cuda] [--port-backend torch|numpy]
+      [--stream] [--limit S] [n_cases] [seed0]
 
   --ref tpu     agrep_tpu on its numpy backend (imported only here: the
                 GPU machine has no JAX)
   --ref numpy   the port's own numpy backend (host passes, native C)
   --device      where the port's torch backend runs: cpu runs the
                 kernels' plain PyTorch versions, cuda the Hopper kernels
+  --port-backend
+                the port's backend under test: torch (default) or numpy
+  --stream      the port under test streams every file in 64 KiB chunks
+                (AGREP_TORCH_STREAM_MB=0, scan.STREAM_CHUNK = 64 KiB),
+                and the reference reads every file whole (its stream
+                threshold, AGREP_TPU_STREAM_MB or AGREP_TORCH_STREAM_MB,
+                raised for its runs only): a streaming fault that both
+                packages share shows
   --device-route
                 repeats each generated corpus past mgrep.DEVICE_MIN
                 (64 KiB), so that -f sets, booleans and long streams take
@@ -27,6 +36,9 @@ reference, both in process, stdout and exit code compared exactly.
                 over it is neither a pass nor a divergence: it is
                 printed with its seed, argv and side and counted as
                 over_limit
+  --skip S,...  seeds left out, each listed in the last line: a case
+                whose side loops inside native code, where SIGALRM's
+                handler never runs (the reference's -d ... -t loop)
 
 Each case is built as tools/fuzz_sweep.py's run_case builds it (the
 same draws in the same order; the generators are imported from that
@@ -60,6 +72,9 @@ if REPO not in sys.path:
 GROW = 70000
 ANSWER = b"y\n"
 LIMIT_S = 20.0
+# --stream: the subject's chunk, and a stream threshold no file reaches
+STREAM_CHUNK = 1 << 16
+WHOLE_MB = "1048576"
 # ASCII bytes the past-caps terms carry besides their words' letters, so
 # that the set stays past 127 classes under -i's fold too
 EXTRA = b"0123456789#%&+/:=@_"
@@ -222,9 +237,31 @@ def _run(api, helpmod, err_cls, overflow_cls, args, limit) -> tuple:
                                                   "surrogateescape"), rc
 
 
-def port_side(device: str, backend: str = "torch"):
+@contextlib.contextmanager
+def streaming(scan, var: str, stream):
+    """A run with files streamed in STREAM_CHUNK chunks (stream
+    "chunked": env var at 0) or read whole ("whole": at WHOLE_MB);
+    stream None leaves both as they are."""
+    if stream is None:
+        yield
+        return
+    saved = os.environ.get(var), scan.STREAM_CHUNK
+    os.environ[var] = "0" if stream == "chunked" else WHOLE_MB
+    if stream == "chunked":
+        scan.STREAM_CHUNK = STREAM_CHUNK
+    try:
+        yield
+    finally:
+        if saved[0] is None:
+            os.environ.pop(var, None)
+        else:
+            os.environ[var] = saved[0]
+        scan.STREAM_CHUNK = saved[1]
+
+
+def port_side(device: str, backend: str = "torch", stream=None):
     """A runner of the port on `backend` ("torch" on `device`, or
-    "numpy")."""
+    "numpy"), its files streamed as `stream` says (streaming)."""
     from agrep_tpu_torch import api, help as helpmod
     from agrep_tpu_torch.ops import scan
     from agrep_tpu_torch.options import AgrepError
@@ -235,15 +272,17 @@ def port_side(device: str, backend: str = "torch"):
         scan.set_backend(backend)
         scan.set_device(device)
         try:
-            return _run(api, helpmod, AgrepError, OutputOverflow, args,
-                        limit)
+            with streaming(scan, "AGREP_TORCH_STREAM_MB", stream):
+                return _run(api, helpmod, AgrepError, OutputOverflow,
+                            args, limit)
         finally:
             scan._BACKEND, scan._DEVICE = saved
     return run
 
 
-def tpu_side():
-    """A runner of agrep_tpu on its numpy backend."""
+def tpu_side(stream=None):
+    """A runner of agrep_tpu on its numpy backend, its files streamed as
+    `stream` says (streaming)."""
     from agrep_tpu import api, help as helpmod
     from agrep_tpu.ops import scan
     from agrep_tpu.options import AgrepError
@@ -253,17 +292,22 @@ def tpu_side():
         saved = scan._BACKEND
         scan.set_backend("numpy")
         try:
-            return _run(api, helpmod, AgrepError, OutputOverflow, args,
-                        limit)
+            with streaming(scan, "AGREP_TPU_STREAM_MB", stream):
+                return _run(api, helpmod, AgrepError, OutputOverflow,
+                            args, limit)
         finally:
             scan.set_backend(saved)
     return run
 
 
-def sides(ref: str, device: str) -> dict:
-    return {"ours": port_side(device),
-            "ref": tpu_side() if ref == "tpu" else port_side(device,
-                                                             "numpy")}
+def sides(ref: str, device: str, backend: str = "torch",
+          stream: bool = False) -> dict:
+    """The runners: the port on `backend` ("ours"), and the reference;
+    with stream, ours streams in chunks and the reference reads whole."""
+    ours, theirs = ("chunked", "whole") if stream else (None, None)
+    return {"ours": port_side(device, backend, ours),
+            "ref": (tpu_side(theirs) if ref == "tpu"
+                    else port_side(device, "numpy", theirs))}
 
 
 def check_case(i: int, seed: int, tmpdir: str, mode: str,
@@ -315,20 +359,24 @@ def launch_counts() -> dict:
 
 
 def sweep(runs, ref: str = "tpu", device: str = "cpu",
-          limit: float = LIMIT_S, out=print) -> dict:
-    """Every (mode, device_route, n_cases, seed0) of runs; prints each
-    case that did not pass, and returns the summary of the last line.
-    The launch counts are those the sweep added."""
+          limit: float = LIMIT_S, out=print, backend: str = "torch",
+          stream: bool = False, skip=()) -> dict:
+    """Every (mode, device_route, n_cases, seed0) of runs but the seeds
+    in skip; prints each case that did not pass, and returns the summary
+    of the last line.  The launch counts are those the sweep added."""
     import tempfile
-    runners = sides(ref, device)
+    runners = sides(ref, device, backend, stream)
     before = launch_counts()
     t0 = time.perf_counter()
-    cases, bad, over = {}, [], []
+    cases, bad, over, skipped = {}, [], [], []
     with tempfile.TemporaryDirectory(prefix="torch_sweep_") as tmpdir:
         for mode, device_route, n, seed0 in runs:
             name = mode_name(mode, device_route)
-            cases[name] = cases.get(name, 0) + n
             for i in range(n):
+                if seed0 + i in skip:
+                    skipped.append({"seed": seed0 + i, "mode": name})
+                    continue
+                cases[name] = cases.get(name, 0) + 1
                 res = check_case(i, seed0 + i, tmpdir, mode, device_route,
                                  runners, limit)
                 if res["status"] == "pass":
@@ -341,9 +389,10 @@ def sweep(runs, ref: str = "tpu", device: str = "cpu",
                     bad.append(res)
     after = launch_counts()
     return {"cases": cases, "ref": ref, "device": device,
+            "port_backend": backend, "stream": stream,
             "divergences": sum(r["status"] == "diverge" for r in bad),
             "crashes": sum(r["status"] == "crash" for r in bad),
-            "over_limit": over,
+            "over_limit": over, "skipped": skipped,
             "launches": {k: after[k] - before[k] for k in after},
             "seconds": round(time.perf_counter() - t0, 3)}
 
@@ -357,14 +406,20 @@ def main(argv=None) -> int:
     ap.add_argument("--device-route", action="store_true")
     ap.add_argument("--ref", choices=("tpu", "numpy"), default="tpu")
     ap.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
+    ap.add_argument("--port-backend", choices=("torch", "numpy"),
+                    default="torch")
+    ap.add_argument("--stream", action="store_true")
     ap.add_argument("--limit", type=float, default=LIMIT_S)
+    ap.add_argument("--skip", default="")
     ap.add_argument("n_cases", type=int, nargs="?", default=500)
     ap.add_argument("seed0", type=int, nargs="?", default=1000)
     a = ap.parse_args(argv)
     mode = "stratified" if a.stratified else "regex" if a.regex \
         else "uniform"
     res = sweep([(mode, a.device_route, a.n_cases, a.seed0)], a.ref,
-                a.device, a.limit, out=lambda s: print(s, flush=True))
+                a.device, a.limit, out=lambda s: print(s, flush=True),
+                backend=a.port_backend, stream=a.stream,
+                skip={int(x) for x in a.skip.split(",") if x})
     print("sweep: " + json.dumps(res))
     return 1 if res["divergences"] or res["crashes"] else 0
 
