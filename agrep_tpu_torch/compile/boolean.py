@@ -315,3 +315,23 @@ def eval_tree_vec(node: BoolNode | None, op: str,
     if node.negate:
         res = ~res
     return res
+
+
+def truth_table(node: BoolNode | None, op: str, live, NT: int) -> np.ndarray:
+    """The verdicts of every terminal mask of NT terms as u32 words (bit m
+    of word m >> 5 is mask m's, at least one word): eval_tree_vec of the
+    mask's hits, or for a flat AND (node None, op "and") every live term
+    hit, ANDed with m != 0 -- the reference evaluates only the records
+    that registered a terminal.  Dead (empty) terms never set a bit."""
+    if not 1 <= NT <= MAXNUM_PAT:
+        raise ValueError("%d terminals: a truth table holds 1 to %d"
+                         % (NT, MAXNUM_PAT))
+    m = np.arange(1 << NT, dtype=np.int64)
+    hits = ((m[:, None] >> np.arange(NT)) & 1).astype(bool)
+    if node is None and op == "and":
+        ok = hits[:, np.asarray(live, dtype=bool)].all(axis=1)
+    else:
+        ok = eval_tree_vec(node, op, hits)
+    bits = np.zeros(max(32, 1 << NT), dtype=bool)
+    bits[:1 << NT] = ok & (m != 0)
+    return np.packbits(bits, bitorder="little").view("<u4").astype(np.uint32)

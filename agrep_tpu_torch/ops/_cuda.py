@@ -37,7 +37,7 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # once.
 SOURCES = ("mask_scan", "renfa_lanes", "chain_scan", "qgram_filter",
            "event_pairs", "record_verdicts", "line_index", "line_rows",
-           "qgram_lines")
+           "qgram_lines", "line_terms")
 
 # Compile units of each source: the kernels of each D in an object of
 # their own, so their compiles run side by side.  A source not listed is

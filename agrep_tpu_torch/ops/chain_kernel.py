@@ -12,6 +12,13 @@ ops/_cuda.py) or raises; on a CPU tensor it runs chain_scan_reference(),
 the plain PyTorch version of the same function.  chain_match_starts()
 turns the plane into positions.
 
+line_terms() folds a chunk's candidate starts (chain_scan's start plane,
+or qgram_filter's candidate plane past the caps) into each line's
+terminal mask and reads each line's verdict from a boolean's truth table
+on the scan device (csrc/line_terms.cu): the streamed boolean's count, or
+the rows of its lines that fire; line_terms_reference() is its plain
+PyTorch version, term_tables() the terms and tables as it takes them.
+
 The match is exact: the engine (runtime/mgrep.py) only attributes term
 ids at true hits (compile/multi.py qgram_occurrences consumes the starts
 as cand_anchor_rel), or counts the lines that hold a start where the
@@ -25,6 +32,7 @@ holding u32 words.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -94,7 +102,7 @@ def fits(n_cls: int, n_pos: int, n_terms: int, maxlen: int,
 
 
 # Launches of each kernel since the counts were last set to 0.
-launches = {"chain_scan": 0}
+launches = {"chain_scan": 0, "line_terms": 0}
 
 
 def compile_chain(terms: list, tr: np.ndarray):
@@ -374,3 +382,270 @@ def chain_match_starts(text: torch.Tensor, prog) -> np.ndarray:
     if not isinstance(prog, ChainProgram):
         prog = device_program(prog, text.device)
     return plane_positions(chain_scan(text, prog), text.numel())
+
+
+# ---------------------------------------------------------------------
+# line_terms: the streamed boolean's lines that fire
+# ---------------------------------------------------------------------
+
+MAX_TERMS = 16           # a boolean's terminals (compile/boolean.py)
+
+
+@dataclass
+class TermTables:
+    """A boolean's terms and truth table on one device, as line_terms
+    takes them."""
+    t_bytes: torch.Tensor      # uint8: the terms' bytes, folded by tr
+    t_off: torch.Tensor        # int32 [terms + 1]; an empty term is dead
+    tr: torch.Tensor           # uint8 [256]: the fold
+    table: torch.Tensor        # int32: the truth table's u32 words
+    min_len: int               # the shortest live term
+
+    @property
+    def device(self) -> torch.device:
+        return self.t_off.device
+
+    @property
+    def n_terms(self) -> int:
+        return self.t_off.numel() - 1
+
+    @property
+    def n_bytes(self) -> int:
+        """Bytes of the tables on the device."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.t_bytes, self.t_off, self.tr, self.table))
+
+
+def term_tables(terms: list, tr: np.ndarray, table: np.ndarray,
+                device="cpu") -> TermTables:
+    """The terms (bytes, at most MAX_TERMS, none holding a newline), the
+    fold tr and the truth table's u32 words (compile/boolean.py
+    truth_table: bit m is the verdict of terminal mask m) on device."""
+    tr = np.asarray(tr, dtype=np.uint8)
+    NT = len(terms)
+    if not 1 <= NT <= MAX_TERMS:
+        raise ValueError("%d terms: line_terms takes 1 to %d"
+                         % (NT, MAX_TERMS))
+    if any(b"\n" in t for t in terms):
+        raise ValueError("a term holds a newline")
+    table = np.asarray(table, dtype=np.uint32)
+    if table.shape != (max(1, (1 << NT) // 32),):
+        raise ValueError("a truth table of %d terms has %d words, got %r"
+                         % (NT, max(1, (1 << NT) // 32), table.shape))
+    live = [len(t) for t in terms if t]
+    if not live:
+        raise ValueError("no live term")
+    t_bytes = np.frombuffer(b"".join(terms) or b"\0", dtype=np.uint8)
+    off = np.concatenate([[0], np.cumsum([len(t) for t in terms])])
+
+    def dev(a, dtype):
+        return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
+    return TermTables(dev(tr[t_bytes], np.uint8), dev(off, np.int32),
+                      dev(tr, np.uint8), dev(table.view(np.int32), np.int32),
+                      min(live))
+
+
+def line_terms(text: torch.Tensor, plane: torch.Tensor, shift: int,
+               tables: TermTables, body: int, carry: int = 0,
+               begin: int = 0, cap_e: int | None = None, last: bool = False,
+               count_only: bool = False, base: int = 0) -> tuple:
+    """The lines of a chunk that fire, from its candidate plane: (rows,
+    count, carry_out, last_nl).
+
+    text: the region (the chunk's body bytes [0, body) and its halo);
+    plane: int32 [ceil(N / 32)] over it, a set bit at a a candidate start
+    a - shift.  Term t is present at a start s when 0 <= s < body, s +
+    len_t <= N and its folded bytes equal the term's.  A start belongs
+    to the line of the first newline at or after it in the body; line 0
+    also holds the mask carried in (carry).  A line fires when its mask's
+    truth-table bit is set; the body's tail after its last newline is a
+    line ending at cap_e (default base + N) where last, and otherwise its
+    mask is carried out (carry_out).  rows: int64 [count, 2] on text's
+    device, one (begin, end) stream position pair a line that fires, in
+    order (line 0 begins at begin, line j > 0 at base + its previous
+    newline + 1, and ends at base + its newline + 1); None where
+    count_only.  last_nl: base + the body's last newline, or -1.  A CUDA
+    tensor goes to the kernel, a CPU tensor to line_terms_reference."""
+    if text.dtype != torch.uint8 or text.dim() != 1:
+        raise TypeError("text must be a 1-D uint8 tensor, got %s %r"
+                        % (text.dtype, tuple(text.shape)))
+    N = text.numel()
+    if N == 0:
+        raise ValueError("empty text")
+    if plane.dtype != torch.int32 or tuple(plane.shape) != (-(-N // 32),):
+        raise TypeError("plane must be int32[%d], got %s %r"
+                        % (-(-N // 32), plane.dtype, tuple(plane.shape)))
+    if not (text.is_contiguous() and plane.is_contiguous()):
+        raise ValueError("text and plane must be contiguous")
+    if plane.device != text.device or tables.device != text.device:
+        raise ValueError("text on %s, plane on %s, tables on %s"
+                         % (text.device, plane.device, tables.device))
+    if not 1 <= body <= N or shift < 0:
+        raise ValueError("body %d of a %d-byte region, shift %d"
+                         % (body, N, shift))
+    if not 0 <= carry < 1 << tables.n_terms:
+        raise ValueError("carried mask %#x of %d terms"
+                         % (carry, tables.n_terms))
+    args = (int(shift), tables, int(body), int(carry), int(begin),
+            int(base + N if cap_e is None else cap_e), bool(last),
+            bool(count_only), int(base))
+    if text.is_cuda:
+        return _terms_launch(text, plane, *args)
+    if text.device.type == "cpu":
+        return line_terms_reference(text, plane, *args)
+    raise ValueError("no line-terms kernel for device %s" % text.device)
+
+
+def terms_present(text: torch.Tensor, s: torch.Tensor,
+                  tables: TermTables) -> torch.Tensor:
+    """The terminal mask (int64, bit t for term t) of the terms present
+    at each start s: a loop over the terms and their bytes, vectorized
+    across the starts still matching."""
+    N = text.numel()
+    b = text.long()
+    tr = tables.tr.long()
+    tb = tables.t_bytes.long()
+    off = tables.t_off.cpu().tolist()
+    mask = torch.zeros_like(s)
+    for t in range(tables.n_terms):
+        o, L = off[t], off[t + 1] - off[t]
+        if L == 0:
+            continue
+        ok = s + L <= N
+        for k in range(L):
+            at = torch.nonzero(ok).flatten()
+            if not len(at):
+                break
+            ok[at[tr[b[s[at] + k]] != tb[o + k]]] = False
+        mask |= ok.long() << t
+    return mask
+
+
+def line_terms_reference(text: torch.Tensor, plane: torch.Tensor,
+                         shift: int, tables: TermTables, body: int,
+                         carry: int, begin: int, cap_e: int, last: bool,
+                         count_only: bool, base: int) -> tuple:
+    """Plain PyTorch version of the kernel, on any device: torch.nonzero
+    of the plane, each start's terminal mask (terms_present), each
+    start's line by torch.searchsorted over the body's newlines, the
+    lines' masks ORed a term at a time, their verdicts gathered from the
+    truth table."""
+    dev = text.device
+    w = plane.to(torch.int64) & 0xFFFFFFFF
+    nz = torch.nonzero(w).flatten()
+    shifts = torch.arange(32, dtype=torch.int64, device=dev)
+    bits = ((w[nz, None] >> shifts) & 1) != 0
+    s = (nz[:, None] * 32 + shifts)[bits] - shift
+    s = s[(s >= 0) & (s < body)]
+    m = terms_present(text, s, tables)
+    s, m = s[m != 0], m[m != 0]
+    nl = torch.nonzero(text[:body] == 0x0A).flatten()
+    K = nl.numel()
+    line = torch.searchsorted(nl, s)           # K: the tail
+    lm = torch.zeros(K + 1, dtype=torch.int64, device=dev)
+    for t in range(tables.n_terms):
+        hit = torch.zeros(K + 1, dtype=torch.bool, device=dev)
+        hit[line[((m >> t) & 1) != 0]] = True
+        lm |= hit.long() << t
+    lm[0] |= carry
+    tw = tables.table.to(torch.int64) & 0xFFFFFFFF
+    fire = (((tw[lm >> 5] >> (lm & 31)) & 1) != 0) & (lm != 0)
+    tail_fires = bool(last) and bool(fire[K])
+    carry_out = 0 if last else int(lm[K])
+    last_nl = base + int(nl[-1]) if K else -1
+    j = torch.nonzero(fire[:K]).flatten()
+    count = j.numel() + tail_fires
+    if count_only:
+        return None, count, carry_out, last_nl
+    prev = torch.where(j > 0, base + nl[(j - 1).clamp(min=0)] + 1,
+                       torch.full_like(j, begin))
+    rows = torch.stack([prev, base + nl[j] + 1], 1)
+    if tail_fires:
+        tail = torch.tensor([[last_nl + 1 if K else begin, cap_e]],
+                            dtype=torch.int64, device=dev)
+        rows = torch.cat([rows, tail])
+    return rows, count, carry_out, last_nl
+
+
+def _terms_bind():
+    lib = _cuda.load("line_terms")
+    if not getattr(lib, "_bound", False):
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        ip = ctypes.POINTER(ctypes.c_int)
+        lib.line_terms_launch.restype = i
+        lib.line_terms_launch.argtypes = [p, ll, ll, p, i, p, p, i, p, p, ll,
+                                          ll, ll, ll, i, p, ll, p, i, p]
+        lib.line_terms_geometry.restype = i
+        lib.line_terms_geometry.argtypes = [i, ip, ip]
+        lib.line_terms_error_string.restype = ctypes.c_char_p
+        lib.line_terms_error_string.argtypes = [i]
+        lib._bound = True
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _terms_geometry(index: int, rows: bool) -> tuple:
+    """(threads a block, blocks the device holds at once) of the kernel's
+    rows form or count form."""
+    return _cuda.query(_terms_bind(), "line_terms", "line_terms_geometry",
+                       index, 2, int(rows))
+
+
+def terms_capacity(body: int, min_len: int) -> int:
+    """Rows a chunk's print can give: a line that fires holds a whole
+    occurrence (min_len bytes at least, no newline) and its newline
+    within the body, but for the first line (its mask may be carried in)
+    and the tail line."""
+    return 2 + body // (min_len + 1)
+
+
+def _terms_call(text, plane, shift, tables: TermTables, body, carry, begin,
+                cap_e, last, base, rows, grid: int) -> torch.Tensor:
+    """The kernel's one launch on text's device and current stream: the
+    rows into `rows` where it is not None (its rows past its capacity are
+    not written); returns the scratch tensor whose last four hold the
+    count, the carried-out mask, the last newline and the tail line's
+    verdict."""
+    lib = _terms_bind()
+    dev = text.device
+    scratch = torch.empty(3 * grid + 4, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(_cuda.device_index(dev)):
+        _cuda.check(lib, "line_terms", lib.line_terms_launch(
+            text.data_ptr(), text.numel(), body, plane.data_ptr(), shift,
+            tables.t_bytes.data_ptr(), tables.t_off.data_ptr(),
+            tables.n_terms, tables.tr.data_ptr(), tables.table.data_ptr(),
+            carry, base, begin, cap_e, int(last),
+            None if rows is None else rows.data_ptr(),
+            0 if rows is None else rows.shape[0], scratch.data_ptr(), grid,
+            stream), "kernel launch")
+    return scratch
+
+
+def terms_grid(body: int, rows: bool, device) -> int:
+    """Blocks of line_terms' launch over a body of `body` bytes on the
+    device: a 32-word step (1 KiB) a warp at least, no more than the
+    device holds at once."""
+    threads, max_blocks = _terms_geometry(_cuda.device_index(device), rows)
+    steps = -(-body // 1024)
+    return max(1, min(max_blocks, -(-steps // (threads // 32))))
+
+
+def _terms_launch(text, plane, shift, tables: TermTables, body, carry, begin,
+                  cap_e, last, count_only, base) -> tuple:
+    """The kernel's one launch, the rows allocated at terms_capacity (the
+    count never exceeds it: never a second launch), then the host's one
+    read of the count, the carried mask and the last newline."""
+    dev = text.device
+    rows = None if count_only else torch.empty(
+        (terms_capacity(body, tables.min_len), 2), dtype=torch.int64,
+        device=dev)
+    scratch = _terms_call(text, plane, shift, tables, body, carry, begin,
+                          cap_e, last, base, rows,
+                          terms_grid(body, not count_only, dev))
+    K, carry_out, last_nl, _tail = scratch[-4:].tolist()
+    launches["line_terms"] += 1
+    if rows is not None and K > rows.shape[0]:
+        raise RuntimeError("line_terms: %d rows past the capacity %d"
+                           % (K, rows.shape[0]))
+    return (None if rows is None else rows[:K]), K, carry_out, last_nl

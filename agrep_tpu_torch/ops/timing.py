@@ -338,6 +338,18 @@ def qgram_lines_bound(N: int, K: int, cand: int = 0) -> tuple:
     return _bound(N + 4 * -(-N // 32) + 16 * K, N + 5 * cand)
 
 
+def line_terms_bound(N: int, K: int, table_bytes: int,
+                     count_only: bool = False) -> tuple:
+    """(bound_ms, bound_by) of one line_terms launch over an N-byte region
+    into K rows: the region's text and its candidate plane (N / 8 bytes)
+    read once, the term tables (table_bytes: the terms' bytes and
+    offsets, the fold and the truth table) read once, and 16 B written a
+    row (8 B, the count, for a count) over HBM's rate, against a byte's
+    newline test (1) over the card's int32 rate."""
+    return _bound(N + 4 * -(-N // 32) + table_bytes
+                  + (8 if count_only else 16 * K), N)
+
+
 def time_kernel(fn, reps: int = 5) -> float:
     """ms per call of fn on the card: CUDA events around reps calls after
     one warm-up call.  The card first spins (SPIN_CYCLES a call, doubled

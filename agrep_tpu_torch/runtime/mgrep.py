@@ -26,7 +26,11 @@ takes the host passes (the native C twins, else vectorized numpy).  A
 flat-OR print streamed in chunks (a file over AGREP_TORCH_STREAM_MB)
 takes its file's route for every chunk: chain_scan, or qgram_filter and
 qgram_lines, on the device; qgram_first_per_line on the host
-(_region_starts).
+(_region_starts).  A boolean print or count streamed in chunks takes, on
+the device route, its file's plane for every chunk (chain_scan's, or
+qgram_filter's past the caps) and line_terms, which verifies and folds
+the starts by line on the device (_region_lines); off it, one host find
+a term and the host's fold.
 """
 
 from __future__ import annotations
@@ -122,6 +126,7 @@ class MgrepEngine:
         self._chain_tried = False
         self._chain_dev = None        # its tensors on the scan device
         self._qgram_dev = None        # the q-gram tables on the device
+        self._terms_dev = None        # line_terms' tables on the device
         self._vmode = False          # scanning a clamped virtual stream
         self._plain_dirty = False    # non-newline trim mark on the
                                      # plain path (newline-free final
@@ -384,17 +389,88 @@ class MgrepEngine:
                 last_nl = int(nl[-1])
             g0 = g1
 
+    def _region_lines(self, n: int):
+        """The streamed boolean's source of each chunk's lines, chosen
+        once for a file of n bytes: on the device route a function of a
+        chunk's region and line_terms' other arguments (ops/chain_kernel.py)
+        that gives line_terms' (rows, count, carried mask, last newline),
+        from chain_scan's start plane within the chain caps, or from
+        qgram_filter's candidate plane (its anchors p_size - 1 past their
+        starts) past them; None off the device route (the host's find a
+        term and fold).  A streamed boolean has p_size >= 2
+        (supports_streaming), so its 2-gram projection exists.  Every chunk
+        of the file takes the same route, a last chunk under DEVICE_MIN
+        included; a failed build or launch raises."""
+        if not self._device_route(n):
+            return None
+        from ..ops import chain_kernel
+        from . import trace
+        if self._chain_program() is not None:
+            def plane_of(region):
+                return self._chain_plane(region), 0
+        else:
+            from ..compile import multi as multi_mod
+            tb = self._tables()
+            proj = multi_mod.member_projection_1024(tb)
+
+            def plane_of(region):
+                return self._qgram_plane(region, proj), tb.p_size - 1
+
+        def lines(region, **kw):
+            (text, plane), shift = plane_of(region)
+            got = chain_kernel.line_terms(text, plane, shift,
+                                          self._term_tables(text.device),
+                                          **kw)
+            if trace.ENABLED:
+                trace.add("line_terms")
+                trace.add("line_terms_rows",
+                          0 if got[0] is None else got[1])
+            return got
+        return lines
+
+    def _term_tables(self, device):
+        """The boolean's terms and truth table on device (line_terms'
+        tables), once per engine and device."""
+        if self._terms_dev is None or self._terms_dev.device != device:
+            from ..ops import chain_kernel
+            q = self.q
+            table = boolean.truth_table(
+                q.bool_tree, "and" if q.bool_tree is None else "or",
+                [bool(t) for t in self.terms], len(self.terms))
+            self._terms_dev = chain_kernel.term_tables(self.terms, self.tr,
+                                                       table, device)
+        return self._terms_dev
+
+    @staticmethod
+    def _write_lines(data, sink, begins, ends, fname: bool, n: int,
+                     no_rescan: bool) -> None:
+        """Prints the lines [begins[i], ends[i]) of a chunk, in order, and
+        the EOF rescan's newline (newmgrep.c:571) after a final line
+        without one -- unless the rescan never runs (no_rescan)."""
+        for b_, e_ in zip(begins.tolist(), ends.tolist()):
+            if fname:
+                sink.emit_fname_prefix()
+            sink.write(bytes(bytearray(np.asarray(data[b_:e_]))))
+        if (int(ends[-1]) == n and n and not no_rescan
+                and int(np.asarray(data[n - 1:n])[0]) != 0x0A):
+            sink.write(b"\n")
+
     def _bool_stream_chunked(self, data, sink) -> None:
         """Streaming boolean AND / complex-tree record print+count:
         per line-aligned chunk, per-term occurrences build the
         per-line terminal masks (newmgrep.c amatched_terminals[];
         terms never contain '\\n', so a line's mask is chunk-local
         once its newline arrives), the tree evaluates vectorized, and
-        matched lines print in order.  Byte-identical to the
-        whole-file walk (tests force small chunks)."""
-        from ..compile import boolean
+        matched lines print in order.  On the device route each chunk's
+        lines come from line_terms (_region_lines: no host find, only the
+        count or the rows of the lines that fire come back, and the mask
+        of the chunk's unterminated tail line carries to the next chunk);
+        otherwise from one host find a term and the host's fold.
+        Byte-identical to the whole-file walk (tests force small
+        chunks)."""
         from ..ops import scan as scan_ops
         from .. import native
+        from . import trace
         q, o = self.q, self.q.opts
         n = len(data)
         chunk = max(scan_ops.STREAM_CHUNK, 1 << 16)
@@ -406,8 +482,11 @@ class MgrepEngine:
         fname = bool(getattr(sink, "fname", False))
         no_rescan = (n % (2 * 16384) == 1 and n > 1
                      and int(np.asarray(data[n - 1:n])[0]) != 0x0A)
+        cap_e = n - 1 if no_rescan else n
+        lines_of = self._region_lines(n)
         g0 = 0
         last_nl = -1
+        carry = 0
         # pending rows of the unterminated tail line: (pos, tid)
         pend_p = np.empty(0, dtype=np.int64)
         pend_t = np.empty(0, dtype=np.int64)
@@ -415,6 +494,22 @@ class MgrepEngine:
             g1 = min(n, g0 + chunk)
             hi = min(g1 + maxlen - 1, n)
             region = np.ascontiguousarray(data[g0:hi])
+            if trace.ENABLED:
+                trace.add("bool_stream_chunks")
+            if lines_of is not None:
+                rows, k, carry, nl_at = lines_of(
+                    region, body=g1 - g0, carry=carry, begin=last_nl + 1,
+                    cap_e=cap_e, last=g1 >= n, count_only=bool(o.count),
+                    base=g0)
+                sink.num_matched += k
+                if k and not o.count:
+                    r = rows.cpu().numpy()
+                    self._write_lines(data, sink, r[:, 0], r[:, 1], fname,
+                                      n, no_rescan)
+                if nl_at >= 0:
+                    last_nl = nl_at
+                g0 = g1
+                continue
             pp, tt = [pend_p], [pend_t]
             for tid in term_ids:
                 st = _find_occurrences(region, self.terms[tid],
@@ -462,27 +557,16 @@ class MgrepEngine:
                 ok &= any_hit
                 sel = np.flatnonzero(ok)
                 if len(sel):
-                    cap_e = n - 1 if no_rescan else n
                     ends = np.where(sel < len(nl),
                                     nl[np.minimum(sel, len(nl) - 1)]
                                     + 1, np.int64(cap_e))
                     begins = np.where(
                         sel > 0, nl[np.maximum(sel - 1, 0)] + 1,
                         np.int64(last_nl + 1))
-                    if o.count:
-                        sink.num_matched += len(sel)
-                    else:
-                        sink.num_matched += len(sel)
-                        for b_, e_ in zip(begins.tolist(),
-                                          ends.tolist()):
-                            if fname:
-                                sink.emit_fname_prefix()
-                            sink.write(bytes(bytearray(np.asarray(
-                                data[b_:e_]))))
-                        if (int(ends[-1]) == n and n and not no_rescan
-                                and int(np.asarray(
-                                    data[n - 1:n])[0]) != 0x0A):
-                            sink.write(b"\n")
+                    sink.num_matched += len(sel)
+                    if not o.count:
+                        self._write_lines(data, sink, begins, ends, fname,
+                                          n, no_rescan)
             if len(nl):
                 last_nl = int(nl[-1])
             g0 = g1

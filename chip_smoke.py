@@ -8,11 +8,11 @@ exits non-zero:
 
   1. card: the GPU's name and power limit (nvidia-smi) and the torch and
      CUDA versions;
-  2. build: compiles the nine kernel sources (csrc/mask_scan.cu,
+  2. build: compiles the ten kernel sources (csrc/mask_scan.cu,
      renfa_lanes.cu, chain_scan.cu, qgram_filter.cu, event_pairs.cu,
-     record_verdicts.cu, line_index.cu, line_rows.cu, qgram_lines.cu)
-     with nvcc, every compile unit of all nine started together, and
-     times the build;
+     record_verdicts.cu, line_index.cu, line_rows.cu, qgram_lines.cu,
+     line_terms.cu) with nvcc, every compile unit of all ten started
+     together, and times the build;
   3. parity: the mask_scan kernel against its plain PyTorch version
      (mask_scan_reference) on the card, bit for bit, over every variant,
      D, cost wiring, endpos shape and edge size the kernel takes (sizes
@@ -93,7 +93,17 @@ exits non-zero:
      member hit (every word holds 32 candidates; with -w and LONG), each
      with qgram_filter's plane, with no
      bit and with every bit set, on views 1-15 bytes past an aligned
-     address; phase 4 repeats every check at the main path's shapes;
+     address; and the line_terms stage against line_terms_reference, bit
+     for bit (rows, count, carried mask, last newline), on boolean term
+     sets of 1, 2 (with and without -i), 4 and 16 terms, a tree with ~
+     and a set past the chain caps (TERM_SETS), over seeded texts of 1 KB
+     to 1 MB and one without a final newline, each cut at random seams
+     into chunks whose masks carry from one to the next and whose last
+     tail is a line, with chain_scan's plane (shift 0) and qgram_filter's
+     (shift p_size - 1), each also with junk bits that do not verify,
+     and with every bit set, in both forms, on views 1-15 bytes past an
+     aligned address; phase 4 repeats every check at the main path's
+     shapes;
   4. main path: a --mb MB ASCII corpus made from --seed, searched through
      agrep_tpu_torch.api.fileagrep with BASELINE configs 1-4 (the file
      is over the streaming threshold, so each run is chunked; config 4,
@@ -120,7 +130,16 @@ exits non-zero:
      equal its output read whole on the numpy backend), a
      boolean AND over '$$' records (bool5, the chain kernel), and a
      boolean with a term of 136 byte classes, past the chain caps
-     (bool5m, the mask machine's packed term words); stdout and return
+     (bool5m, the mask machine's packed term words); the booleans
+     streamed in 32 MB chunks over the line corpus at the default 8 MB
+     threshold (BOOL_STREAM_RUNS: bools 'hello;lazy' printed, boolsc -c
+     'lazy;dog;fox;over', boolst '{hello,matching};~lazy' and boolsq,
+     that tree with the 136-class term: one chain_scan, or past the caps
+     one qgram_filter, and one line_terms a chunk, no host find, no start
+     positions read back; boolsc's count equal to the numpy backend's
+     read whole, and the three prints' bytes over the corpus's first
+     BOOL_WHOLE_MB MB, streamed on the card, equal to the numpy
+     backend's read whole); stdout and return
      codes must equal the port's own numpy host backend, whose walls are
      printed beside the GPU route's, and every run must launch its
      kernel (config5q and config5qn the q-gram kernel and qgram_lines
@@ -176,7 +195,12 @@ exits non-zero:
      pass, the wrapper's with the host's read of the count, the plain
      version's and a library composite's: torch.nonzero of the plane,
      gathers, a padded term matrix's compare and torch.cumsum of the
-     newlines) at config5q's and config5qn's 100 MB streams, each checked
+     newlines) at config5q's and config5qn's 100 MB streams, and
+     line_terms' (rows or count, the plane's bits, grid; its launch's
+     device time, the wrapper's with the host's read, the plain
+     version's and a library composite's: torch.nonzero of the plane, a
+     padded term matrix's compare, torch.searchsorted of the newlines and
+     index_put_) at each streamed boolean's first chunk, each checked
      bit for bit against the plain version and the
      composite first, each on a line of its own; then one JSON line with
      each kernel's launches on the main path, its time, its plain
@@ -206,7 +230,8 @@ exits non-zero:
   7. bench: agrep_tpu_torch.bench.main at --mb 32 --gate-mb 8
      --para-mb 16, in this process: its JSON line is printed after
      "bench: ", its conformance gate must pass, and the launch counts
-     (set to 0 just before it) must show every kernel launched;
+     (set to 0 just before it) must show every kernel launched but
+     line_terms (the bench streams no boolean);
   8. sweep: tools/torch_fuzz_sweep.py, loaded by path, in this process,
      with --device cuda --ref numpy over the fixed seed ranges of
      SWEEP_RUNS in every mode (uniform, stratified, regex, and the
@@ -219,14 +244,16 @@ exits non-zero:
      the cases that launch qgram_lines and the seconds; any divergence or
      crash, or a kernel launched no time, fails the run (qgram_lines
      excepted: only the past-caps stratum's 30-term counts and prints
-     take it, and its count is reported); then a streaming pass (the
+     take it, and its count is reported; and line_terms, which only a
+     boolean streamed in chunks takes); then a streaming pass (the
      tool's --stream): the grown seeds of SWEEP_RUNS again, every file
      searched in 64 KiB chunks on the card (scan_ops.STREAM_CHUNK,
      AGREP_TORCH_STREAM_MB=0) and read whole on the numpy backend (its
      threshold raised for its runs only), so that a streaming fault
      both backends share shows; its line gives the divergences, the
-     crashes and the cases that printed a -f search in chunks on the
-     card, and any divergence or crash fails the run.
+     crashes, the cases that printed a -f search in chunks on the
+     card and those that streamed a boolean there, with line_terms'
+     launches, and any divergence or crash fails the run.
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device,
 or without the agrep_tpu_torch package beside it, the script exits
@@ -1847,6 +1874,284 @@ def qlines_alone(name, text, plane, tables, count_only: bool) -> dict:
             "max_abs_err": diff}
 
 
+# ---------------------------------------------------------------------
+# line_terms: the streamed boolean's lines on the card
+# ---------------------------------------------------------------------
+
+# (name, boolean pattern, -i): the term sets line_terms is held on; the
+# last is past the chain caps (a term of 136 byte classes)
+TERM_SETS = [
+    ("one", "hello", False),
+    ("and2", "hello;lazy", False),
+    ("and2-i", "HELLO;lazy", True),
+    ("and4", "lazy;dog;fox;over", False),
+    ("tree", "{hello,matching};~lazy", False),
+    ("sixteen", "{" + ",".join(
+        ["hello", "matching", "dog", "fox", "over", "quick", "brown",
+         "the", "pattern", "search", "world", "lorem", "ipsum",
+         "dolor", "grep"]) + "};~lazy", False),
+    ("wide", "{hello,matching};~" + WIDE_TERM, False),
+]
+TERM_OFFSETS = (0, 1, 3, 15)
+
+
+def term_set(pattern: str, nocase: bool, device):
+    """(terms, fold, line_terms' tables on device, chain program or None,
+    the 2-gram projection of the q-gram tables) of a boolean pattern."""
+    import numpy as np
+
+    from agrep_tpu_torch.compile import boolean, multi
+    from agrep_tpu_torch.ops import chain_kernel
+    split = boolean.split_pattern(pattern)
+    if split is None:
+        terms, tree, op = [pattern], None, "and"
+    else:
+        terms, tree = split.terminals, split.tree
+        op = "and" if tree is None else "or"
+    terms = [os.fsencode(t) for t in terms]
+    tr = np.arange(256, dtype=np.uint8)
+    if nocase:
+        tr[65:91] += 32
+    table = boolean.truth_table(tree, op, [True] * len(terms), len(terms))
+    tables = chain_kernel.term_tables(terms, tr, table, device)
+    prog = chain_kernel.compile_chain(terms, tr)
+    proj = multi.member_projection_1024(multi.build_qgram_tables(terms, tr))
+    return terms, tr, tables, prog, proj
+
+
+def term_texts(seed: int, terms) -> list:
+    """(name, u8 numpy text) of the texts line_terms is held on: lines of
+    filler and the terms (every line with every term now and then, upper
+    case now and then) at 1 KB, 200 KB and 1 MB, and 70 KB without a
+    final newline, ending in the set's longest term."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    words = FILLER + [t for t in terms if t] * 4
+
+    def lines(n):
+        out = bytearray()
+        while len(out) < n:
+            ws = [words[i] for i in rng.integers(0, len(words),
+                                                 int(rng.integers(0, 9)))]
+            if rng.random() < 0.03:
+                ws += [t for t in terms if t]
+            line = b" ".join(ws)
+            if rng.random() < 0.1:
+                line = line.upper()
+            out += line + b"\n"
+        return bytes(out[:n])
+    return [("1 KB", np.frombuffer(lines(1024), np.uint8)),
+            ("200 KB", np.frombuffer(lines(200_000), np.uint8)),
+            ("1 MB", np.frombuffer(lines(1 << 20), np.uint8)),
+            ("no final newline",
+             np.frombuffer(lines(70_000) + b"x " + max(terms, key=len),
+                           np.uint8))]
+
+
+def _terms_diff(got, want) -> int:
+    """Largest |kernel - plain| over line_terms' rows, count, carried mask
+    and last newline; a different count counts as the larger count."""
+    (gr, gk, gc, gn), (wr, wk, wc, wn) = got, want
+    if gk != wk:
+        return max(gk, wk, 1)
+    diff = max(abs(gc - wc), abs(gn - wn))
+    if (gr is None) != (wr is None):
+        return max(diff, 1)
+    if gr is None or gk == 0:
+        return diff
+    return max(diff, _max_diff(gr, wr))
+
+
+def phase_parity_line_terms(device: str, seed: int) -> float:
+    """line_terms against line_terms_reference on the card, bit for bit
+    (rows, count, carried mask, last newline), on every TERM_SETS set over
+    term_texts cut at random seams into chunks (each chunk's region its
+    body and the set's halo, the mask carried from chunk to chunk, the
+    last chunk's tail a line), with chain_scan's plane (shift 0, within
+    the caps) and qgram_filter's (shift p_size - 1), each also with junk
+    bits that do not verify and with every bit set, in both forms, and on
+    views TERM_OFFSETS bytes past an aligned address.  Returns the
+    largest |kernel - plain| (0 or fail)."""
+    import numpy as np
+    import torch
+
+    from agrep_tpu_torch.ops import chain_kernel as ck
+    from agrep_tpu_torch.ops import kernels, qgram_kernel as qk
+    rng = np.random.default_rng(seed + 22)
+    worst = 0
+    failed = []
+    t0 = time.perf_counter()
+    for name, pattern, nocase in TERM_SETS:
+        terms, tr, tables, prog, proj = term_set(pattern, nocase, device)
+        p = min(len(t) for t in terms)
+        maxlen = max(len(t) for t in terms)
+        dprog = None if prog is None else ck.device_program(prog, device)
+        fired = launches = 0
+        for tname, arr in term_texts(seed, terms):
+            n = arr.size
+            seams = [0] + sorted(set(rng.integers(1, n, 3).tolist())) + [n]
+            carry = {}
+            last_nl = {}
+            for g0, g1 in zip(seams[:-1], seams[1:]):
+                region = arr[g0:min(g1 + maxlen - 1, n)]
+                text = kernels.to_device(np.ascontiguousarray(region),
+                                         device)
+                planes = []
+                if dprog is not None:
+                    planes.append(("chain", ck.chain_scan(text, dprog), 0))
+                if proj is not None and p >= 2:
+                    planes.append(("qgram", qk.qgram_filter(
+                        text, qk.words_tensor(proj, device)), p - 1))
+                for pname, plane, shift in list(planes):
+                    junk = torch.from_numpy(
+                        (rng.random(plane.numel()) < 0.01)
+                        * rng.integers(1, 1 << 31, plane.numel())
+                    ).to(torch.int32).to(device)
+                    planes.append((pname + "+junk", plane | junk, shift))
+                planes.append(("every bit", torch.full_like(
+                    planes[0][1], -1), p - 1))
+                for pname, plane, shift in planes:
+                    key = (tname, pname)
+                    args = dict(body=g1 - g0, carry=carry.get(key, 0),
+                                begin=last_nl.get(key, -1) + 1, cap_e=n,
+                                last=g1 >= n, base=g0)
+                    want = ck.line_terms_reference(
+                        text, plane, shift, tables, count_only=False,
+                        **args)
+                    for off in TERM_OFFSETS:
+                        t = text if off == 0 else _view(text, off)
+                        for count_only in (False, True):
+                            got = ck.line_terms(t, plane, shift, tables,
+                                                count_only=count_only,
+                                                **args)
+                            launches += 1
+                            w = ((None,) + want[1:]) if count_only else want
+                            diff = _terms_diff(got, w)
+                            worst = max(worst, diff)
+                            if diff:
+                                failed.append((name, tname, pname, g0, off,
+                                               count_only, diff))
+                    carry[key], nl_at = want[2], want[3]
+                    if nl_at >= 0:
+                        last_nl[key] = nl_at
+                    fired += want[1]
+                del text
+        print("parity: line_terms %-8s %2d terms (p=%d, maxlen %d, chain "
+              "%s), %d launches over %d texts cut at 3 seams: %d lines "
+              "fire; equal bit for bit, rows and count, views at %s"
+              % (name, len(terms), p, maxlen, prog is not None, launches,
+                 len(term_texts(seed, terms)), fired, list(TERM_OFFSETS)))
+    torch.cuda.synchronize()
+    print("parity: line_terms in %.1f s" % (time.perf_counter() - t0))
+    if failed:
+        raise AssertionError("line_terms differs from its plain version: %s"
+                             % failed[:20])
+    return float(worst)
+
+
+def terms_library(text, plane, shift, tables, body, carry, begin, cap_e,
+                  last, count_only, base):
+    """The function of line_terms as a composite of PyTorch calls on the
+    card (the yardstick of library_ms): the plane unpacked by shifts and
+    torch.nonzero, every term compared whole at every start through a
+    gather of a padded term matrix, each start's line by torch.searchsorted
+    of the body's newlines, the lines' hits by index_put_ (accumulate),
+    their verdicts gathered from the truth table: (rows, count, carried
+    mask, last newline)."""
+    import torch
+    dev = text.device
+    N = text.numel()
+    shifts = torch.arange(32, dtype=torch.int64, device=dev)
+    bits = ((plane.to(torch.int64)[:, None] >> shifts) & 1).flatten()
+    s = torch.nonzero(bits).flatten() - shift
+    s = s[(s >= 0) & (s < body)]
+    t_off = tables.t_off.long()
+    lens = t_off[1:] - t_off[:-1]
+    NT = lens.numel()
+    k = torch.arange(int(lens.max()), dtype=torch.int64, device=dev)
+    at = (t_off[:-1, None] + k).clamp(max=tables.t_bytes.numel() - 1)
+    terms = tables.t_bytes.long()[at]                       # [NT, L]
+    tr, b = tables.tr.long(), text.long()
+    got = tr[b[(s[:, None] + k).clamp(max=N - 1)]]          # [S, L]
+    ok = ((got[:, None, :] == terms[None]) | (k >= lens[:, None])).all(2)
+    ok &= (s[:, None] + lens <= N) & (lens > 0)             # [S, NT]
+    nl = torch.nonzero(text[:body] == 0x0A).flatten()
+    K = nl.numel()
+    line = torch.searchsorted(nl, s)
+    cnt = torch.zeros((K + 1, NT), dtype=torch.int64, device=dev)
+    li, ti = torch.nonzero(ok, as_tuple=True)
+    cnt.index_put_((line[li], ti), torch.ones_like(li), accumulate=True)
+    lm = ((cnt > 0).long() << torch.arange(NT, device=dev)).sum(1)
+    lm[0] |= carry
+    tw = tables.table.to(torch.int64) & 0xFFFFFFFF
+    fire = (((tw[lm >> 5] >> (lm & 31)) & 1) != 0) & (lm != 0)
+    tail = bool(last) and bool(fire[K])
+    last_nl = base + int(nl[-1]) if K else -1
+    j = torch.nonzero(fire[:K]).flatten()
+    count = j.numel() + tail
+    carry_out = 0 if last else int(lm[K])
+    if count_only:
+        return None, count, carry_out, last_nl
+    prev = torch.where(j > 0, base + nl[(j - 1).clamp(min=0)] + 1,
+                       torch.full_like(j, begin))
+    rows = torch.stack([prev, base + nl[j] + 1], 1)
+    if tail:
+        rows = torch.cat([rows, torch.tensor(
+            [[last_nl + 1 if K else begin, cap_e]], device=dev)])
+    return rows, count, carry_out, last_nl
+
+
+def terms_alone(name, args, kw) -> dict:
+    """line_terms at one main-path input (a run's first chunk: the
+    wrapper's arguments args and keywords kw): the kernel against its
+    plain version and against terms_library, bit for bit, in both forms;
+    its launch's device time (without the host's read), the wrapper's
+    with that read, the plain version's, the library composite's and the
+    bound, in the run's own form."""
+    import torch
+
+    from agrep_tpu_torch.ops import chain_kernel as ck
+    from agrep_tpu_torch.ops.timing import line_terms_bound, time_kernel
+    text, plane, shift, tables = args
+    kw = dict(kw)
+    count_only = kw.pop("count_only")
+    diff = 0
+    for form in (False, True):
+        ref = ck.line_terms_reference(text, plane, shift, tables,
+                                      count_only=form, **kw)
+        for got in (ck.line_terms(text, plane, shift, tables,
+                                  count_only=form, **kw),
+                    terms_library(text, plane, shift, tables,
+                                  count_only=form, **kw)):
+            diff = max(diff, _terms_diff(got, ref))
+    if diff:
+        raise AssertionError("%s: line_terms differs from its plain version "
+                             "or the library composite on %d bytes (max "
+                             "|diff| %d)" % (name, text.numel(), diff))
+    K = ref[1]
+    N, body = text.numel(), kw["body"]
+    out = None if count_only else torch.empty(
+        (ck.terms_capacity(body, tables.min_len), 2), dtype=torch.int64,
+        device=text.device)
+    grid = ck.terms_grid(body, not count_only, text.device)
+    ms = time_kernel(lambda: ck._terms_call(
+        text, plane, shift, tables, body, kw["carry"], kw["begin"],
+        kw["cap_e"], kw["last"], kw["base"], out, grid))
+
+    def call(fn):
+        return lambda: fn(text, plane, shift, tables, count_only=count_only,
+                          **kw)
+    wrapper_ms = _host_ms(call(ck.line_terms))
+    plain_ms = _time_plain(call(ck.line_terms_reference))
+    library_ms = _host_ms(call(terms_library))
+    bms, by = line_terms_bound(N, K, tables.n_bytes, count_only)
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
+            "K": K, "shape_b": N, "count_only": count_only, "grid": grid,
+            "shift": shift, "starts": _set_bits(plane),
+            "max_abs_err": diff}
+
+
 def _run(api_fn, argv, data=None):
     """(stdout sha256, exit code, stdout bytes, lines printed but the
     Grand Total) of one search in this process."""
@@ -1898,21 +2203,35 @@ QLINE_RUNS = ("config5q", "config5qn")
 # "config4n whole" is config4n read whole on the numpy backend, whose
 # output config4n's chunks must give
 WHOLE_FILE_RUNS = {"config5qn": "128", "config4n whole": "128"}
-# the -f prints streamed in chunks at the default 8 MB threshold, and
-# the kernels each of their chunks launches once
+# the -f prints and the booleans streamed in chunks at the default 8 MB
+# threshold, and the kernels each of their chunks launches once
 STREAMED_RUNS = {"config5s": ("chain_scan",),
-                 "config5qs": ("qgram_filter", "qgram_lines")}
+                 "config5qs": ("qgram_filter", "qgram_lines"),
+                 "bools": ("chain_scan", "line_terms"),
+                 "boolsc": ("chain_scan", "line_terms"),
+                 "boolst": ("chain_scan", "line_terms"),
+                 "boolsq": ("qgram_filter", "line_terms")}
+# the streamed booleans on config 1's line corpus: an AND printed, an AND
+# of four counted, a tree with negation printed, and that tree past the
+# chain caps (a term of 136 byte classes: qgram_filter's plane)
+BOOL_STREAM_RUNS = [
+    ("bools", ["hello;lazy"]),
+    ("boolsc", ["-c", "lazy;dog;fox;over"]),
+    ("boolst", ["{hello,matching};~lazy"]),
+    ("boolsq", ["{hello,matching};~" + WIDE_TERM]),
+]
+# the streamed booleans held to the numpy backend's whole-file bytes: the
+# count over the whole corpus, the prints over its first BOOL_WHOLE_MB MB
+# (two chunks, one seam; the whole-file print walk is slow on the host)
+BOOL_WHOLE_MB = 40
 
 
 @contextlib.contextmanager
-def stream_mb(name: str):
-    """The run's AGREP_TORCH_STREAM_MB (WHOLE_FILE_RUNS; the default 8
-    for STREAMED_RUNS), restored after."""
+def stream_threshold(mb):
+    """AGREP_TORCH_STREAM_MB at mb (None: as it is), restored after."""
     was = os.environ.get("AGREP_TORCH_STREAM_MB")
-    if name in WHOLE_FILE_RUNS:
-        os.environ["AGREP_TORCH_STREAM_MB"] = WHOLE_FILE_RUNS[name]
-    elif name in STREAMED_RUNS:
-        os.environ["AGREP_TORCH_STREAM_MB"] = "8"
+    if mb is not None:
+        os.environ["AGREP_TORCH_STREAM_MB"] = mb
     try:
         yield
     finally:
@@ -1922,6 +2241,13 @@ def stream_mb(name: str):
             os.environ["AGREP_TORCH_STREAM_MB"] = was
 
 
+def stream_mb(name: str):
+    """The run's AGREP_TORCH_STREAM_MB (WHOLE_FILE_RUNS; the default 8
+    for STREAMED_RUNS), restored after."""
+    return stream_threshold(WHOLE_FILE_RUNS.get(
+        name, "8" if name in STREAMED_RUNS else None))
+
+
 # qgram_lines' inputs timed alone: the whole-file runs' streams and the
 # first chunk of config5qs
 QLINE_SHAPES = QLINE_RUNS + ("config5qs",)
@@ -1929,16 +2255,20 @@ QLINE_SHAPES = QLINE_RUNS + ("config5qs",)
 
 def stream_check(name: str, n: dict, reads: dict, finds: int, counters,
                  size: int, chunk: int) -> None:
-    """A streamed -f print on the card (STREAMED_RUNS): as many chunks as
-    the file holds (stream_print_chunks), one launch of each of its
-    kernels a chunk and of no other -f kernel, no host find and, past
-    the chain caps, no start positions read back."""
+    """A streamed -f print or boolean on the card (STREAMED_RUNS): as many
+    chunks as the file holds (stream_print_chunks, bool_stream_chunks),
+    one launch of each of its kernels a chunk and of no other -f kernel,
+    no host find and, past the chain caps or for a boolean, no start
+    positions read back."""
     chunks = -(-size // chunk)
     kinds = STREAMED_RUNS[name]
-    got = {k: n[k] for k in ("chain_scan", "qgram_filter", "qgram_lines")}
+    got = {k: n[k] for k in ("chain_scan", "qgram_filter", "qgram_lines",
+                             "line_terms")}
     want = {k: chunks if k in kinds else 0 for k in got}
-    streamed = counters.get("stream_print_chunks", 0)
-    positions = reads["plane_positions"] if "qgram_lines" in kinds else 0
+    streamed = counters.get("bool_stream_chunks" if "line_terms" in kinds
+                            else "stream_print_chunks", 0)
+    positions = (reads["plane_positions"] if kinds[-1] != "chain_scan"
+                 else 0)
     if got != want or streamed != chunks or finds or positions:
         raise AssertionError(
             "%s: %d chunks of %d B streamed (want %d), launches %s (want "
@@ -2388,13 +2718,15 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
             "event_pairs": (kernels, kernels.event_pairs),
             "record_verdicts": (kernels, kernels.record_verdicts),
             "line_index": (renfa_kernel, renfa_kernel.line_index),
-            "line_rows": (renfa_kernel, renfa_kernel.line_rows)}
+            "line_rows": (renfa_kernel, renfa_kernel.line_rows),
+            "line_terms": (chain_kernel, chain_kernel.line_terms)}
     # the inputs of every record_verdicts call of the run
     rv_calls: list = []
 
     def recorder(kname, fn):
         def call(*args, **kw):
-            seen.setdefault(kname, args)
+            # line_terms' keywords too (the engine passes its chunk's)
+            seen.setdefault(kname, (args, kw) if kw else args)
             if kname == "record_verdicts":
                 rv_calls.append(args)
             return fn(*args, **kw)
@@ -2506,6 +2838,11 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
              CONFIG5_DELIM + ["hello;matching," + WIDE_TERM, rec], None,
              "mask_scan"),
         ]
+        # the streamed booleans, on the line corpus
+        runs += [(name, api.fileagrep, argv + [path], None,
+                  STREAMED_RUNS[name][0]) for name, argv in BOOL_STREAM_RUNS]
+        path_whole = os.path.join(tmp, "corpus%d.txt" % BOOL_WHOLE_MB)
+        corpus[:BOOL_WHOLE_MB << 20].tofile(path_whole)
         ident = np.arange(256, dtype=np.uint8)
         if (chain_kernel.compile_chain(pats[:100], ident) is None
                 or chain_kernel.compile_chain(pats, ident) is None
@@ -2539,7 +2876,8 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                 finds_before = finds[0]
                 for k in ("qgram_candidates", "record_rows",
                           "record_pairs", "regex_lines", "regex_rows",
-                          "stream_print_chunks"):
+                          "stream_print_chunks", "bool_stream_chunks",
+                          "line_terms", "line_terms_rows"):
                     trace.counters.pop(k, None)
                 host_index.calls.clear()
                 seen.clear()
@@ -2601,7 +2939,12 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                              "anchor_passes": at_n, "finds": finds_n,
                              "chunks": trace.counters.get(
                                  "stream_print_chunks", 0),
-                             "filter_launches": n["qgram_filter"]}
+                             "filter_launches": n["qgram_filter"],
+                             "terms_launches": n["line_terms"],
+                             "bool_chunks": trace.counters.get(
+                                 "bool_stream_chunks", 0),
+                             "terms_rows": trace.counters.get(
+                                 "line_terms_rows", 0)}
                 if name in RECORD_RUNS:
                     res[name]["cut"] = records_cut(
                         name, n, kernels.relaunches["record_verdicts"]
@@ -2648,6 +2991,30 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
             with stream_mb("config4n whole"):
                 whole4n = _run(fn, argv, data)
             res[name]["whole_host_wall_s"] = time.perf_counter() - t0
+            # the streamed booleans' bytes read whole on the numpy
+            # backend: the count over the corpus, the prints over its
+            # first BOOL_WHOLE_MB MB (streamed on the card there too)
+            bool_whole = {}
+            for name, argv in BOOL_STREAM_RUNS:
+                f = path if "-c" in argv else path_whole
+                scan_ops.set_backend("numpy")
+                t0 = time.perf_counter()
+                with stream_threshold("128"):
+                    want = _run(api.fileagrep, argv + [f])
+                res[name]["whole_host_wall_s"] = time.perf_counter() - t0
+                if f == path:
+                    got_s = got[name]
+                else:
+                    scan_ops.set_backend("torch")
+                    with stream_threshold("8"):
+                        got_s = _run(api.fileagrep, argv + [f])
+                bool_whole[name] = (os.path.getsize(f) >> 20, got_s)
+                if got_s[:2] != want[:2]:
+                    raise AssertionError(
+                        "%s: stdout sha256/rc %s streamed in chunks on the "
+                        "card, %s read whole on the numpy backend (%s)"
+                        % (name, got_s[:2], want[:2],
+                           os.path.basename(f)))
         finally:
             scan_ops.set_backend("torch")
     if got["config5qs"][:2] != got["config5qn"][:2]:
@@ -2781,6 +3148,9 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
         if name in QLINE_SHAPES:
             res[name]["qlines"] = qlines_alone(
                 name, *inputs[name]["qgram_lines"][:3], name == "config5q")
+        if name in STREAMED_RUNS and "line_terms" in STREAMED_RUNS[name]:
+            res[name]["terms"] = terms_alone(name,
+                                             *inputs[name]["line_terms"])
 
     # the record cut alone at the first chunk's planes of each record run
     for name in RECORD_RUNS:
@@ -2825,6 +3195,8 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                              r["qlines"]["count_only"] else "rows read",
                              r["reads"]))
     for name, kinds in STREAMED_RUNS.items():
+        if "line_terms" in kinds:
+            continue
         r = res[name]
         print("main: %s printed its lines in %d chunks of %d B through %s "
               "(%s launches), %d host finds, %d reads of start positions"
@@ -2838,6 +3210,23 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                  ", stdout equal to config5qn's whole-file bytes"
                  if name == "config5qs" else "", r["wall_s"],
                  r["host_wall_s"]))
+    for name, argv in BOOL_STREAM_RUNS:
+        r = res[name]
+        whole_mb, whole = bool_whole[name]
+        print("main: %s %s streamed its %d B chunks (%d) through %s (%d/%d "
+              "launches), %d host finds, %d reads of start positions, %d "
+              "rows read back; GPU route wall %.3f s, numpy backend wall "
+              "%.3f s; equal to the numpy backend's whole-file bytes over "
+              "%d MB (sha256=%s.., numpy whole-file wall %.3f s)"
+              % (name, " ".join(argv).replace(WIDE_TERM, "hello<136 classes>"),
+                 scan_ops.STREAM_CHUNK, r["bool_chunks"],
+                 " and ".join(STREAMED_RUNS[name]), r["filter_launches"]
+                 if STREAMED_RUNS[name][0] == "qgram_filter"
+                 else r["launches"], r["terms_launches"], r["finds"],
+                 r["reads"]["plane_positions"], r["terms_rows"],
+                 r["wall_s"], r["host_wall_s"],
+                 whole_mb, whole[0][:12],
+                 r["whole_host_wall_s"]))
     print("main: config4n streamed in chunks printed the bytes it prints "
           "read whole on the numpy backend (sha256=%s.., wall %.3f s)"
           % (got["config4n"][0][:12], res["config4n"]["whole_host_wall_s"]))
@@ -2926,7 +3315,8 @@ def _launch_counts():
             "line_rows": renfa_kernel.launches,
             "chain_scan": chain_kernel.launches,
             "qgram_filter": qgram_kernel.launches,
-            "qgram_lines": qgram_kernel.launches}
+            "qgram_lines": qgram_kernel.launches,
+            "line_terms": chain_kernel.launches}
 
 
 def _launched(counts) -> dict:
@@ -3237,7 +3627,8 @@ def phase_bench(card: str) -> None:
     if rc != 0 or res["conformance"] != "pass":
         raise AssertionError("bench: conformance %r, rc %d"
                              % (res["conformance"], rc))
-    idle = [k for k, n in launched.items() if n == 0]
+    # the bench streams no boolean: line_terms is not on its path
+    idle = [k for k, n in launched.items() if n == 0 and k != "line_terms"]
     if idle:
         raise AssertionError("bench: launched no %s kernel" % idle)
 
@@ -3297,8 +3688,10 @@ def phase_sweep(card: str) -> None:
         raise AssertionError("sweep: %d divergences, %d crashes"
                              % (res["divergences"], res["crashes"]))
     # qgram_lines takes only the past-caps stratum's 30-term sets under a
-    # count or a print: its count is reported, not required
-    idle = [k for k, n in launched.items() if n == 0 and k != "qgram_lines"]
+    # count or a print, and line_terms only a boolean streamed in chunks
+    # (the streamed pass below): their counts are reported, not required
+    idle = [k for k, n in launched.items()
+            if n == 0 and k not in ("qgram_lines", "line_terms")]
     if idle:
         raise AssertionError("sweep: launched no %s kernel" % idle)
     sweep_streamed(tool, card)
@@ -3311,23 +3704,30 @@ def sweep_streamed(tool, card: str) -> None:
     walk.  Counts the cases that printed a -f search in chunks on the
     card."""
     from agrep_tpu_torch.runtime import mgrep
-    real_print = mgrep.MgrepEngine._print_stream_chunked
-    on_card = [False]
-    streamed = [0]
+    engine = mgrep.MgrepEngine
+    real = {k: getattr(engine, k) for k in ("_print_stream_chunked",
+                                            "_bool_stream_chunked")}
+    on_card = {k: False for k in real}
+    streamed = {k: 0 for k in real}
 
-    def print_seen(self, data, sink):
-        on_card[0] = on_card[0] or self._device_route(len(data))
-        return real_print(self, data, sink)
+    def seen(k):
+        def call(self, data, sink):
+            on_card[k] = on_card[k] or self._device_route(len(data))
+            return real[k](self, data, sink)
+        return call
 
     real_case = tool.check_case
 
     def case_seen(*a, **kw):
-        on_card[0] = False
+        for k in on_card:
+            on_card[k] = False
         try:
             return real_case(*a, **kw)
         finally:
-            streamed[0] += on_card[0]
-    mgrep.MgrepEngine._print_stream_chunked = print_seen
+            for k in on_card:
+                streamed[k] += on_card[k]
+    for k in real:
+        setattr(engine, k, seen(k))
     tool.check_case = case_seen
     try:
         res = tool.sweep([r for r in SWEEP_RUNS if r[1]], ref="numpy",
@@ -3335,14 +3735,19 @@ def sweep_streamed(tool, card: str) -> None:
                          out=lambda line: print("sweep: streamed %s" % line))
     finally:
         tool.check_case = real_case
-        mgrep.MgrepEngine._print_stream_chunked = real_print
+        for k, fn in real.items():
+            setattr(engine, k, fn)
     print("sweep: streamed in %d B chunks on the card, read whole on the "
           "numpy backend: cases %s, divergences %d, crashes %d, over_limit "
           "%s, launches %s, cases that printed a -f search in chunks on "
-          "the card %d, %.1f s | card: %s"
+          "the card %d, cases that streamed a boolean on the card %d "
+          "(line_terms launches %d), %.1f s | card: %s"
           % (tool.STREAM_CHUNK, json.dumps(res["cases"]), res["divergences"],
              res["crashes"], json.dumps(res["over_limit"]),
-             json.dumps(res["launches"]), streamed[0], res["seconds"], card))
+             json.dumps(res["launches"]),
+             streamed["_print_stream_chunked"],
+             streamed["_bool_stream_chunked"],
+             res["launches"].get("line_terms", 0), res["seconds"], card))
     if res["divergences"] or res["crashes"]:
         raise AssertionError("sweep, streamed: %d divergences, %d crashes"
                              % (res["divergences"], res["crashes"]))
@@ -3500,6 +3905,22 @@ def qgram_lines_line(res, card: str) -> str:
         for n in QLINE_SHAPES for r in [res[n]["qlines"]]), card)
 
 
+def line_terms_line(res, card: str) -> str:
+    """line_terms at the streamed booleans' first chunks: rows or count,
+    the plane's set bits and shift, the grid, the launch's device ms
+    against the bound, the wrapper's ms with the host's read, the plain
+    version's and the library composite's."""
+    return "times: line_terms %s | card: %s" % (" | ".join(
+        "%s %d B %s %d, %d plane bits (shift %d), grid=%d: %.4f ms (%.1f %% "
+        "of its %.4f ms bound, %s), wrapper %.4f ms, plain %.2f ms, "
+        "library %.3f ms"
+        % (n, r["shape_b"], "count" if r["count_only"] else "rows", r["K"],
+           r["starts"], r["shift"], r["grid"], r["ms"],
+           100 * r["bound_ms"] / r["ms"], r["bound_ms"], r["bound_by"],
+           r["wrapper_ms"], r["plain_ms"], r["library_ms"])
+        for n, _argv in BOOL_STREAM_RUNS for r in [res[n]["terms"]]), card)
+
+
 def times_line(res, kname: str, names, card: str) -> str:
     return "times: %s %s | card: %s" % (kname, " | ".join(
         "%s %.4f ms per %d B launch, %.1f %% of its %.4f ms bound (%s)"
@@ -3544,11 +3965,13 @@ def main(argv=None) -> int:
     err_index, err_rows = phase_parity_lines("cuda", args.seed)
     err_qlines = phase_parity_qgram_lines("cuda", args.seed,
                                           make_patterns(400, args.seed))
+    err_terms = phase_parity_line_terms("cuda", args.seed)
     res = phase_main("cuda", args.seed, args.mb, card)
 
     c1, c2, c4, c5, c5q = (res["config1"], res["config2"], res["config4"],
                            res["config5"], res["config5q"])
     c5qn = res["config5qn"]
+    bools = res["bools"]["terms"]
     print(mask_scan_geometry_line(res))
     print(times_line(res, "mask_scan", MASK_SHAPES, card))
     print(chain_scan_geometry_line(res))
@@ -3558,6 +3981,7 @@ def main(argv=None) -> int:
     print(qgram_filter_geometry_line(res))
     print(times_line(res, "qgram_filter", ("config5q", "config5qs"), card))
     print(qgram_lines_line(res, card))
+    print(line_terms_line(res, card))
     print(event_pairs_line(res, card))
     print(record_verdicts_line(res, card))
     print(line_stages_line(res, card))
@@ -3722,6 +4146,29 @@ def main(argv=None) -> int:
         # no one PyTorch call verifies and folds candidates by line: the
         # composite qlines_library (torch.nonzero, gathers, torch.cumsum)
         "library_ms": c5qn["qlines"]["library_ms"],
+    }, {
+        "name": "line_terms",
+        "route": "cuda",
+        "source": "agrep_tpu_torch/csrc/line_terms.cu",
+        # the host's find a term and line fold it replaces (no Pallas
+        # kernel: a device stage the port adds beside the TPU kernels)
+        "replaces": "agrep_tpu/runtime/mgrep.py:336",
+        "launches": res["launches"]["line_terms"],
+        "max_abs_err": max([err_terms] + [res[n]["terms"]["max_abs_err"]
+                                          for n, _a in BOOL_STREAM_RUNS]),
+        # the rows form at bools' first chunk; the count form (boolsc)
+        # beside it
+        "ms": bools["ms"],
+        "plain_ms": bools["plain_ms"],
+        "bound_ms": bools["bound_ms"],
+        "bound_by": bools["bound_by"],
+        # no one PyTorch call verifies terms and folds them by line: the
+        # composite terms_library (torch.nonzero, a padded term matrix's
+        # compare, torch.searchsorted, index_put_)
+        "library_ms": bools["library_ms"],
+        "wrapper_ms": bools["wrapper_ms"],
+        "count_ms": res["boolsc"]["terms"]["ms"],
+        "count_bound_ms": res["boolsc"]["terms"]["bound_ms"],
     }]}
     print("kernels: times are per launch at the main path's %d B chunk "
           "of config2 (%s; record_verdicts: its launch over that chunk's "
@@ -3733,11 +4180,12 @@ def main(argv=None) -> int:
           "at config5's %d B "
           "stream (chain_scan) and config5q's %d B stream (qgram_filter; "
           "qgram_lines: every pass of config5qn's print over it, without "
-          "the host's read of the count); launches are all main-path runs; "
-          "card: %s"
+          "the host's read of the count; line_terms: its launch over "
+          "bools' first %d B chunk, without the host's read); launches are "
+          "all main-path runs; card: %s"
           % (c2["shape_b"], " ".join(CONFIGS[1][1]),
              " ".join(REGEX_CONFIGS[0][1]), c5["shape_b"], c5q["shape_b"],
-             card))
+             bools["shape_b"], card))
     print(json.dumps(line))
     print("total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"ok": True, "device": {

@@ -27,7 +27,11 @@ and as the matching lines (config5qn; agrep refuses -n with -f; printed
 whole, at chip_smoke's WHOLE_FILE_RUNS streaming threshold), and the
 matching lines of chip_smoke's pats400 (within the chain caps; config5s)
 and of pats400w (config5qs) printed in chunks at the default 8 MB
-threshold (chip_smoke's STREAMED_RUNS; these four by name only), through
+threshold (chip_smoke's STREAMED_RUNS; these four by name only), and
+chip_smoke's BOOL_STREAM_RUNS, the booleans streamed in chunks at that
+threshold on the --mb MB file (bools `hello;lazy`, boolsc `-c
+lazy;dog;fox;over`, boolst `{hello,matching};~lazy`, boolsq that tree
+with the 136-class term; by name only), through
 the tree's agrep_tpu_torch.api, with
 AGREP_TORCH_STATS=2: one warm-up run, then --reps timed runs on the GPU
 route (each ended by a synchronize) and --reps on the tree's numpy host
@@ -41,7 +45,8 @@ their host length sort and gathers included --, else its _to_device,
 _fire and ops/renfa_kernel.py's line_index), and inside the mgrep
 engine's q-gram device calls (runtime/mgrep.py's MgrepEngine._qgram_plane,
 _qgram_positions and, where the tree has it, _qgram_lines, and its chain
-calls _chain_plane and _chain_starts; a call inside another is counted
+calls _chain_plane and _chain_starts, and ops/chain_kernel.py's
+line_terms where the tree has it; a call inside another is counted
 once): the device layer (the
 text's copy to the card, the kernels, the read-back; their wrappers
 here, in both trees alike), and the launches of each kernel.  The GPU route's output must equal the
@@ -108,7 +113,8 @@ def runs(cs, path: str, rec: str, data: bytes, p400: str,
         ("config5qn", "fileagrep", ["-f", p400w, rec], None),
         ("config5s", "fileagrep", ["-f", p400, rec], None),
         ("config5qs", "fileagrep", ["-f", p400w, rec], None),
-    ]
+    ] + [(name, "fileagrep", argv + [path], None)
+         for name, argv in cs.BOOL_STREAM_RUNS]
 
 
 def _median(xs):
@@ -164,6 +170,8 @@ def child(tree: str, args) -> int:
             setattr(engine, fn, timed(getattr(engine, fn)))
     if hasattr(renfa_kernel, "line_index"):
         renfa_kernel.line_index = timed(renfa_kernel.line_index)
+    if hasattr(chain_kernel, "line_terms"):
+        chain_kernel.line_terms = timed(chain_kernel.line_terms)
     for fn in ("_qgram_plane", "_qgram_positions", "_qgram_lines",
                "_chain_plane", "_chain_starts"):
         if hasattr(mgrep.MgrepEngine, fn):
@@ -304,7 +312,9 @@ def main(argv=None) -> int:
                 "".join(" %s=%d" % (k, cut[k]) for k in
                         ("record_pairs", "record_rows", "regex_lines",
                          "regex_rows", "chain_scans", "qgram_lines",
-                         "qgram_line_rows", "stream_print_chunks")
+                         "qgram_line_rows", "stream_print_chunks",
+                         "bool_stream_chunks", "line_terms",
+                         "line_terms_rows")
                         if k in cut)))
         print("walls: %-8s medians, s, GPU route [numpy backend]: %s"
               % (name, " | ".join(walls)))
