@@ -400,6 +400,7 @@ class TermTables:
     tr: torch.Tensor           # uint8 [256]: the fold
     table: torch.Tensor        # int32: the truth table's u32 words
     min_len: int               # the shortest live term
+    max_len: int               # the longest term
 
     @property
     def device(self) -> torch.device:
@@ -442,7 +443,7 @@ def term_tables(terms: list, tr: np.ndarray, table: np.ndarray,
         return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
     return TermTables(dev(tr[t_bytes], np.uint8), dev(off, np.int32),
                       dev(tr, np.uint8), dev(table.view(np.int32), np.int32),
-                      min(live))
+                      min(live), max(live))
 
 
 def line_terms(text: torch.Tensor, plane: torch.Tensor, shift: int,
@@ -573,10 +574,11 @@ def _terms_bind():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         ip = ctypes.POINTER(ctypes.c_int)
         lib.line_terms_launch.restype = i
-        lib.line_terms_launch.argtypes = [p, ll, ll, p, i, p, p, i, p, p, ll,
-                                          ll, ll, ll, i, p, ll, p, i, p]
+        lib.line_terms_launch.argtypes = [p, ll, ll, p, i, p, ll, p, i, i, p,
+                                          p, ll, ll, ll, ll, i, p, ll, p, ll,
+                                          ll, ll, p, i, p]
         lib.line_terms_geometry.restype = i
-        lib.line_terms_geometry.argtypes = [i, ip, ip]
+        lib.line_terms_geometry.argtypes = [i, ip, ip, ip]
         lib.line_terms_error_string.restype = ctypes.c_char_p
         lib.line_terms_error_string.argtypes = [i]
         lib._bound = True
@@ -585,10 +587,10 @@ def _terms_bind():
 
 @functools.lru_cache(maxsize=None)
 def _terms_geometry(index: int, rows: bool) -> tuple:
-    """(threads a block, blocks the device holds at once) of the kernel's
-    rows form or count form."""
+    """(threads a block, blocks the device holds at once, text bytes a
+    tile) of the kernel's rows form or count form."""
     return _cuda.query(_terms_bind(), "line_terms", "line_terms_geometry",
-                       index, 2, int(rows))
+                       index, 3, int(rows))
 
 
 def terms_capacity(body: int, min_len: int) -> int:
@@ -599,36 +601,74 @@ def terms_capacity(body: int, min_len: int) -> int:
     return 2 + body // (min_len + 1)
 
 
+@dataclass
+class _TermsScratch:
+    """The kernel's scratch on one device and stream: int64 [2 + 2 *
+    tiles] (the ticket counter and a pad, then a 16-byte status a tile),
+    zeroed when allocated; the epoch of its last launch and the tickets
+    its launches took."""
+    buf: torch.Tensor
+    tiles: int
+    epoch: int = 0
+    taken: int = 0
+
+
+_EPOCHS = 1 << 30           # a status holds 30 bits of its launch's epoch
+_terms_scratch: dict = {}   # (device index, stream) -> _TermsScratch
+
+
+def _scratch_for(dev, stream: int, tiles: int) -> _TermsScratch:
+    """The scratch of (dev, stream) for a launch of `tiles` tiles,
+    allocated anew (zeroed) where it holds fewer or its epochs would
+    wrap.  Each launch on it raises the epoch, so its status words need
+    no clearing; a second stream gets a scratch of its own."""
+    key = (_cuda.device_index(dev), stream)
+    sc = _terms_scratch.get(key)
+    if sc is None or sc.tiles < tiles or sc.epoch + 1 >= _EPOCHS:
+        cap = max(tiles, 64, 2 * sc.tiles if sc else 0)
+        sc = _TermsScratch(torch.zeros(2 + 2 * cap, dtype=torch.int64,
+                                       device=dev), cap)
+        _terms_scratch[key] = sc
+    return sc
+
+
 def _terms_call(text, plane, shift, tables: TermTables, body, carry, begin,
                 cap_e, last, base, rows, grid: int) -> torch.Tensor:
-    """The kernel's one launch on text's device and current stream: the
-    rows into `rows` where it is not None (its rows past its capacity are
-    not written); returns the scratch tensor whose last four hold the
-    count, the carried-out mask, the last newline and the tail line's
-    verdict."""
+    """The kernel's one launch of `grid` blocks on text's device and
+    current stream: the rows into `rows` where it is not None (its rows
+    past its capacity are not written); returns the int64 [4] tensor that
+    it fills with the count, the carried-out mask, the last newline and
+    the tail line's verdict."""
     lib = _terms_bind()
     dev = text.device
-    scratch = torch.empty(3 * grid + 4, dtype=torch.int64, device=dev)
+    out = torch.empty(4, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    tiles = -(-body // _terms_geometry(_cuda.device_index(dev),
+                                       rows is not None)[2])
+    sc = _scratch_for(dev, stream, tiles)
     with torch.cuda.device(_cuda.device_index(dev)):
         _cuda.check(lib, "line_terms", lib.line_terms_launch(
             text.data_ptr(), text.numel(), body, plane.data_ptr(), shift,
-            tables.t_bytes.data_ptr(), tables.t_off.data_ptr(),
-            tables.n_terms, tables.tr.data_ptr(), tables.table.data_ptr(),
+            tables.t_bytes.data_ptr(), tables.t_bytes.numel(),
+            tables.t_off.data_ptr(), tables.n_terms, tables.max_len,
+            tables.tr.data_ptr(), tables.table.data_ptr(),
             carry, base, begin, cap_e, int(last),
             None if rows is None else rows.data_ptr(),
-            0 if rows is None else rows.shape[0], scratch.data_ptr(), grid,
+            0 if rows is None else rows.shape[0], sc.buf.data_ptr(),
+            sc.tiles, sc.epoch + 1, sc.taken, out.data_ptr(), grid,
             stream), "kernel launch")
-    return scratch
+    sc.epoch += 1
+    sc.taken += tiles + grid
+    return out
 
 
 def terms_grid(body: int, rows: bool, device) -> int:
     """Blocks of line_terms' launch over a body of `body` bytes on the
-    device: a 32-word step (1 KiB) a warp at least, no more than the
-    device holds at once."""
-    threads, max_blocks = _terms_geometry(_cuda.device_index(device), rows)
-    steps = -(-body // 1024)
-    return max(1, min(max_blocks, -(-steps // (threads // 32))))
+    device: one a tile, no more than the device holds at once (each
+    block then takes tile after tile)."""
+    _threads, max_blocks, tile = _terms_geometry(_cuda.device_index(device),
+                                                 rows)
+    return max(1, min(max_blocks, -(-body // tile)))
 
 
 def _terms_launch(text, plane, shift, tables: TermTables, body, carry, begin,
@@ -640,10 +680,9 @@ def _terms_launch(text, plane, shift, tables: TermTables, body, carry, begin,
     rows = None if count_only else torch.empty(
         (terms_capacity(body, tables.min_len), 2), dtype=torch.int64,
         device=dev)
-    scratch = _terms_call(text, plane, shift, tables, body, carry, begin,
-                          cap_e, last, base, rows,
-                          terms_grid(body, not count_only, dev))
-    K, carry_out, last_nl, _tail = scratch[-4:].tolist()
+    out = _terms_call(text, plane, shift, tables, body, carry, begin, cap_e,
+                      last, base, rows, terms_grid(body, not count_only, dev))
+    K, carry_out, last_nl, _tail = out.tolist()
     launches["line_terms"] += 1
     if rows is not None and K > rows.shape[0]:
         raise RuntimeError("line_terms: %d rows past the capacity %d"

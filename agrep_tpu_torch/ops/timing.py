@@ -402,10 +402,10 @@ def pass_split(fn, module, hook, reps: int = 20) -> list:
     pass through module.<hook>(pass name, ...) -- or through any of the
     attributes a tuple `hook` names -- which is wrapped here to record a
     CUDA event just before and just after the launch: a pass's label (the
-    pass name a `*_call` hook is given, else the attribute's name) holds
-    its own time, and "<pass>:before" the time from the previous pass's
-    end (or the call's start) to its launch -- the torch kernels and the
-    launch gaps between passes.  The card spins first, as in
+    pass name a `*_call` hook is given as its first argument, else the
+    attribute's name) holds its own time, and "<pass>:before" the time
+    from the previous pass's end (or the call's start) to its launch --
+    the torch kernels and the launch gaps between passes.  The card spins first, as in
     time_kernel, and the first event must still be pending once the last
     call is queued."""
     import torch
@@ -420,7 +420,8 @@ def pass_split(fn, module, hook, reps: int = 20) -> list:
             a.record()
             out = real[h](*args, **kw)
             b.record()
-            marks.append((args[0] if h.endswith("_call") else h, a, b))
+            named = h.endswith("_call") and isinstance(args[0], str)
+            marks.append((args[0] if named else h, a, b))
             return out
         return call
 

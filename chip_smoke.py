@@ -102,8 +102,12 @@ exits non-zero:
      tail is a line, with chain_scan's plane (shift 0) and qgram_filter's
      (shift p_size - 1), each also with junk bits that do not verify,
      and with every bit set, in both forms, on views 1-15 bytes past an
-     aligned address; phase 4 repeats every check at the main path's
-     shapes;
+     aligned address; and at the geometry of its tiles (terms_tile_cases:
+     bodies at, one before and one after tile edges, a term longer than
+     the staged halo starting 20 bytes before tile ends, 8 MB of lines,
+     more tiles than the card's resident blocks), each launch at the
+     wrapper's grid and at grids of 1, 3 and one block a tile; phase 4
+     repeats every check at the main path's shapes;
   4. main path: a --mb MB ASCII corpus made from --seed, searched through
      agrep_tpu_torch.api.fileagrep with BASELINE configs 1-4 (the file
      is over the streaming threshold, so each run is chunked; config 4,
@@ -235,7 +239,8 @@ exits non-zero:
   8. sweep: tools/torch_fuzz_sweep.py, loaded by path, in this process,
      with --device cuda --ref numpy over the fixed seed ranges of
      SWEEP_RUNS in every mode (uniform, stratified, regex, and the
-     device route's grown corpora with its past-caps stratum): random
+     device route's grown corpora with its past-caps stratum and its
+     boolean stratum, whose booleans of 2-6 terms stream): random
      corpora and flag sets from tools/fuzz_sweep.py's generators, the
      port's GPU route against its own numpy host backend, stdout and
      exit code compared exactly.  Its line gives the cases by mode,
@@ -253,7 +258,8 @@ exits non-zero:
      both backends share shows; its line gives the divergences, the
      crashes, the cases that printed a -f search in chunks on the
      card and those that streamed a boolean there, with line_terms'
-     launches, and any divergence or crash fails the run.
+     launches, and any divergence or crash, or no line_terms launch,
+     fails the run.
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA device,
 or without the agrep_tpu_torch package beside it, the script exits
@@ -2041,12 +2047,113 @@ def phase_parity_line_terms(device: str, seed: int) -> float:
               "fire; equal bit for bit, rows and count, views at %s"
               % (name, len(terms), p, maxlen, prog is not None, launches,
                  len(term_texts(seed, terms)), fired, list(TERM_OFFSETS)))
+    worst = max(worst, terms_tile_cases(device, seed, failed))
     torch.cuda.synchronize()
     print("parity: line_terms in %.1f s" % (time.perf_counter() - t0))
     if failed:
         raise AssertionError("line_terms differs from its plain version: %s"
                              % failed[:20])
     return float(worst)
+
+
+# a term longer than line_terms' staged halo (kHalo, 256 bytes)
+TERM_LONG = "abcdefghijklmnopqrstuvwxyz" * 12
+
+
+def terms_tile_cases(device: str, seed: int, failed: list) -> int:
+    """line_terms at the geometry of its tiles, against
+    line_terms_reference bit for bit, in both forms, each launch with the
+    wrapper's grid and with forced ones (1, 3, and one a tile: more
+    blocks than the card holds at once where the tiles outnumber them):
+    bodies at, one before and one after tile edges, on chain_scan's plane,
+    qgram_filter's and every bit set; a 312-byte term (past the staged
+    halo) planted to start 20 bytes before tile ends; and 8 MB of lines
+    (more tiles than resident blocks).  Appends each difference to
+    failed; returns the largest |kernel - plain|."""
+    import numpy as np
+    import torch
+
+    from agrep_tpu_torch.ops import _cuda
+    from agrep_tpu_torch.ops import chain_kernel as ck
+    from agrep_tpu_torch.ops import kernels, qgram_kernel as qk
+    rng = np.random.default_rng(seed + 23)
+    idx = _cuda.device_index(device)
+    tile = ck._terms_geometry(idx, True)[2]
+    resident = ck._terms_geometry(idx, True)[1]
+
+    def lines(n, words):
+        out = bytearray()
+        while len(out) < n:
+            ws = [words[i] for i in rng.integers(0, len(words),
+                                                 int(rng.integers(0, 9)))]
+            out += b" ".join(ws) + b"\n"
+        return bytearray(out[:n])
+
+    edges = lines(3 * tile + 200, FILLER + [b"hello", b"lazy"] * 3)
+    long_text = lines(6 * tile, FILLER + [b"hello"] * 2)
+    for k in range(1, 6):
+        at = k * tile - 20
+        long_text[at:at + len(TERM_LONG)] = TERM_LONG.encode()
+    big = lines(8 << 20, FILLER + [b"hello", b"lazy", b"dog"] * 2)
+    cases = [
+        ("edges", "hello;lazy", edges,
+         [tile, 2 * tile - 1, 2 * tile, 2 * tile + 1, 3 * tile]),
+        ("long term", "hello," + TERM_LONG, long_text,
+         [len(long_text) - 300, len(long_text)]),
+        ("8 MB", "{hello,dog};~lazy", big, [len(big)]),
+    ]
+    worst = 0
+    t0 = time.perf_counter()
+    for cname, pattern, raw, bodies in cases:
+        terms, _tr, tables, prog, proj = term_set(pattern, False, device)
+        p = min(len(t) for t in terms)
+        text = kernels.to_device(np.frombuffer(bytes(raw), np.uint8), device)
+        N = text.numel()
+        planes = [("chain", ck.chain_scan(text, ck.device_program(prog,
+                                                                  device)),
+                   0),
+                  ("every bit", torch.full(((N + 31) // 32,), -1,
+                                           dtype=torch.int32, device=device),
+                   p - 1)]
+        if proj is not None:
+            planes.append(("qgram", qk.qgram_filter(
+                text, qk.words_tensor(proj, device)), p - 1))
+        n_launch = 0
+        for pname, plane, shift in planes:
+            for body in bodies:
+                kw = dict(body=body, carry=1, begin=3, cap_e=N + 5,
+                          last=body == N, base=11)
+                tiles = -(-body // tile)
+                for count_only in (False, True):
+                    want = ck.line_terms_reference(
+                        text, plane, shift, tables, count_only=count_only,
+                        **kw)
+                    grids = sorted({ck.terms_grid(body, not count_only,
+                                                  text.device),
+                                    1, 3, tiles})
+                    for grid in grids:
+                        rows = None if count_only else torch.empty(
+                            (ck.terms_capacity(body, tables.min_len), 2),
+                            dtype=torch.int64, device=device)
+                        out = ck._terms_call(
+                            text, plane, shift, tables, body, kw["carry"],
+                            kw["begin"], kw["cap_e"], kw["last"],
+                            kw["base"], rows, grid).tolist()
+                        got = (None if rows is None else rows[:out[0]],
+                               out[0], out[1], out[2])
+                        n_launch += 1
+                        diff = _terms_diff(got, want)
+                        worst = max(worst, diff)
+                        if diff:
+                            failed.append((cname, pname, body, grid,
+                                           count_only, diff))
+        print("parity: line_terms %-9s %d B, tiles of %d B (%d blocks "
+              "resident), bodies %s, %d launches at the wrapper's grid, 1, "
+              "3 and one block a tile" % (cname, N, tile, resident, bodies,
+                                          n_launch))
+    print("parity: line_terms tile cases in %.1f s"
+          % (time.perf_counter() - t0))
+    return worst
 
 
 def terms_library(text, plane, shift, tables, body, carry, begin, cap_e,
@@ -2150,6 +2257,43 @@ def terms_alone(name, args, kw) -> dict:
             "K": K, "shape_b": N, "count_only": count_only, "grid": grid,
             "shift": shift, "starts": _set_bits(plane),
             "max_abs_err": diff}
+
+
+class _Captured(BaseException):
+    """Ends a search once its first line_terms call is recorded."""
+
+
+def terms_inputs(path: str) -> dict:
+    """{run: (line_terms' arguments, keywords)} of the first chunk of each
+    BOOL_STREAM_RUNS run over the file at path (the file must pass the
+    8 MB streaming threshold), as the main path's search on the torch
+    backend gives them to the wrapper; the search stops there."""
+    from agrep_tpu_torch import api
+    from agrep_tpu_torch.ops import chain_kernel
+    from agrep_tpu_torch.ops import scan as scan_ops
+    real = chain_kernel.line_terms
+    got = {}
+
+    def recorder(*args, **kw):
+        got["call"] = (args, kw)
+        raise _Captured()
+    out = {}
+    scan_ops.set_backend("torch")
+    chain_kernel.line_terms = recorder
+    try:
+        for name, argv in BOOL_STREAM_RUNS:
+            got.clear()
+            try:
+                with stream_threshold("8"):
+                    api.fileagrep(argv + [path], output=io.BytesIO())
+            except _Captured:
+                pass
+            if "call" not in got:
+                raise AssertionError("%s made no line_terms call" % name)
+            out[name] = got["call"]
+    finally:
+        chain_kernel.line_terms = real
+    return out
 
 
 def _run(api_fn, argv, data=None):
@@ -3646,6 +3790,7 @@ SWEEP_RUNS = [
     ("uniform", True, 100, 16000),
     ("stratified", True, 60, 7000),
     ("regex", True, 60, 17000),
+    ("boolean", True, 40, 18000),
 ]
 
 
@@ -3751,6 +3896,9 @@ def sweep_streamed(tool, card: str) -> None:
     if res["divergences"] or res["crashes"]:
         raise AssertionError("sweep, streamed: %d divergences, %d crashes"
                              % (res["divergences"], res["crashes"]))
+    # the boolean stratum streams its booleans through line_terms
+    if not res["launches"].get("line_terms", 0):
+        raise AssertionError("sweep, streamed: no line_terms launch")
 
 
 MASK_SHAPES = ("config1", "config2", "config3", "memagrep", "bool5m")

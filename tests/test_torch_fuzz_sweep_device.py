@@ -3,7 +3,10 @@ past mgrep.DEVICE_MIN, so that -f sets and booleans take the port's
 device route (the plain versions of chain_scan, qgram_filter and the
 mask machine's packed term words), with the past-caps stratum (every
 seed divisible by 3), against agrep_tpu on its numpy backend.  Seeds:
-uniform 16000-16019, stratified 7000-7019."""
+uniform 16000-16019, stratified 7000-7019; and the boolean stratum
+(seeds 18000-18015) streamed in 64 KiB chunks (--stream) against
+agrep_tpu reading each file whole, so that its booleans reach
+line_terms' plain version."""
 
 import collections
 
@@ -15,6 +18,7 @@ from .torch_sweep import check, seeds, sweep
 
 CASES = (seeds("uniform", True, 16000, 20)
          + seeds("stratified", True, 7000, 20))
+BOOL_CASES = seeds("boolean", True, 18000, 16)
 
 
 @pytest.fixture(scope="module")
@@ -25,6 +29,17 @@ def runners():
 @pytest.mark.parametrize("mode,device_route,seed", CASES)
 def test_sweep_case(runners, tmp_path, mode, device_route, seed):
     check(runners, tmp_path, mode, device_route, seed)
+
+
+@pytest.fixture(scope="module")
+def stream_runners():
+    return sweep.sides("tpu", "cpu", stream=True)
+
+
+@pytest.mark.parametrize("mode,device_route,seed", BOOL_CASES)
+def test_boolean_stream_case(stream_runners, tmp_path, mode, device_route,
+                             seed):
+    check(stream_runners, tmp_path, mode, device_route, seed)
 
 
 @pytest.fixture
@@ -53,6 +68,25 @@ def test_device_route_takes_the_multi_pattern_kernels(runners, tmp_path,
         mode = "stratified" if seed < 16000 else "uniform"
         check(runners, tmp_path, mode, True, seed)
         assert wrapper_calls[kernel] > before, (seed, dict(wrapper_calls))
+
+
+def test_boolean_stratum_streams_through_line_terms(stream_runners,
+                                                   tmp_path, monkeypatch):
+    """The boolean stratum's streamed cases call line_terms (its plain
+    version on the CPU) a chunk: seeds 18000-18015 hold ANDs and trees
+    that stream, and their chunks' lines come from line_terms."""
+    calls = collections.Counter()
+
+    def counted(*a, _fn=chain_kernel.line_terms, **k):
+        calls["line_terms"] += 1
+        return _fn(*a, **k)
+    monkeypatch.setattr(chain_kernel, "line_terms", counted)
+    streamed = 0
+    for _mode, _route, seed in (c.values for c in BOOL_CASES):
+        before = calls["line_terms"]
+        check(stream_runners, tmp_path, "boolean", True, seed)
+        streamed += calls["line_terms"] > before
+    assert streamed >= 4, (streamed, dict(calls))
 
 
 def test_seed_7040_runs_over_its_limit(runners, tmp_path):

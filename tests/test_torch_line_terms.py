@@ -11,16 +11,17 @@
     next chunk), chunk by chunk, on seeded texts cut at random seams,
     with planes of the true starts (shift 0) or anchors (shift p - 1)
     plus junk bits that do not verify, -i, 1 to 16 terms, both forms;
-  * a Python model of the kernel's cooperative launch
-    (csrc/line_terms.cu: text words of 32 bytes, each warp a run of
-    32-word steps, phase 1's summaries with only the starts after a
-    word's last newline verified, each block's fold of its warps', block
-    0's scan of the blocks' from the carried mask, each warp's prefix
-    from its block's, phase 3's lane scan and fire masks over the starts
-    before a word's last newline, a start's terms filtered by its first
-    byte, the rows form's offsets by block and warp and its rows), at
-    1-5 blocks of 1, 2 and the kernel's own warps, against the plain
-    version;
+  * a Python model of the kernel's one-pass launch (csrc/line_terms.cu:
+    tiles of a 32-byte word a thread taken by ticket, staged with a halo
+    and misaligned views, candidates compacted and verified once each,
+    a term past the halo read on from the text, the words' aggregates
+    and a block scan by warp shuffles, the decoupled look-back over
+    epoch-tagged statuses, the rows), its blocks interleaved in seeded
+    random orders over a scratch that persists from launch to launch,
+    at 1-9 blocks of one, two and the kernel's own warps, against the
+    plain version: seeded texts at random seams, bodies that end inside
+    a tile and at a tile edge, q-gram anchors, lines longer than a tile,
+    carried masks in and out, both forms;
   * the wrapper's and term_tables' refusals.
 
 The kernel itself runs only on the card, where chip_smoke.py holds it to
@@ -297,292 +298,546 @@ def test_reference_seam_edges():
 # ---------------------------------------------------------------------
 
 def kernel_constants() -> dict:
-    """The constexpr ints of csrc/line_terms.cu."""
+    """The constexpr ints of csrc/line_terms.cu that are plain numbers."""
     with open(CSRC) as fh:
         return {k: int(v) for k, v in re.findall(
             r"constexpr int (k\w+) = (\d+);", fh.read())}
 
 
 K_CONST = kernel_constants()
-IDENT = (0, -1)
+IDENT = (0, 0, -1, 0)          # an aggregate: head, tail, last, cnt
+FULL = 0xFFFFFFFF
+PER = K_CONST["kBackLane"]     # the look-back's statuses a lane
+BACK = 32 * PER                # its window
 
 
-def _combine(a, b):
-    return b if b[1] >= 0 else (a[0] | b[0], a[1])
+def _set_bits(x):
+    while x:
+        b = (x & -x).bit_length() - 1
+        yield b
+        x &= x - 1
 
 
-def _warp_scan(x):
-    x = list(x)
-    d = 1
-    while d < 32:
-        y = [x[l - d] if l >= d else x[l] for l in range(32)]
-        x = [_combine(y[l], x[l]) if l >= d else x[l] for l in range(32)]
-        d <<= 1
-    return x
+def _nl_chunk(buf, at: int) -> int:
+    return sum(1 << j for j in range(32) if buf[at + j] == 0x0A)
 
 
-def _warp_reduce(x):
-    """The shfl_down reduction: lane 0 ends with the ordered fold."""
-    x = list(x)
-    d = 1
-    while d < 32:
-        y = [x[l + d] if l + d < 32 else x[l] for l in range(32)]
-        x = [_combine(x[l], y[l]) if l + d < 32 else x[l]
-             for l in range(32)]
-        d <<= 1
-    return x[0]
+class LaunchModel:
+    """csrc/line_terms.cu's launch, transcribed: the tiles of `threads`
+    32-byte words taken by ticket by `grid` blocks, each block's compute
+    warps and its look-back warp two coroutines joined by a stash of two
+    slots, which a seeded scheduler runs in random interleavings (a
+    coroutine yields where the kernel may be overtaken: after its
+    tickets, after each publication, at a full or empty stash, and at
+    every spin of a look-back on a status not yet of this launch's
+    epoch; the first block can be made slow, so that many tiles wait on
+    its first), each tile staged as the TMA copies and the ragged
+    loads leave it (the text at shared index lead + (x - t0) among
+    garbage newlines, the plane words at plead + (q - q0) among garbage
+    ones, zeros past the plane), its words' newline masks cut from the
+    aligned 32-byte chunks by the funnel, its candidates by the plane's
+    funnel shift, each warp's compacted into its part of a list and
+    verified once each (a byte past the staged halo read from the text), the
+    words' aggregates and fire bits, the block's scan by warp shuffles,
+    each word's stash (its fire bits with its first line's unless that is
+    the tile's first, its rows' offset in the tile, the newline before
+    it),
+    the look-back over windows of 32 statuses, and the rows.  The
+    scratch (ticket, statuses, aggregates, inclusive prefixes) persists
+    from launch to launch as the wrapper's does, with its epoch and the
+    tickets taken."""
 
+    def __init__(self, threads: int = K_CONST["kThreads"],
+                 halo_cap: int = K_CONST["kHalo"],
+                 term_smem: int = K_CONST["kTermSmem"],
+                 per: int = K_CONST["kPerThread"]):
+        self.threads = threads
+        self.per = per
+        self.tile = 32 * threads * per
+        self.halo_cap = halo_cap
+        self.term_smem = term_smem
+        self.sc = None
+        self.stats = {"verified": 0, "global_bytes": 0, "spins": 0,
+                      "staged": 0, "max_tiles_a_block": 0,
+                      "most_aggregates": 0}
 
-def kernel_model(text, plane, shift, tables, body, carry, begin, cap_e, last,
-                 count_only, base, grid, threads):
-    """csrc/line_terms.cu's launch, transcribed: (rows, count, carry_out,
-    last_nl) as the wrapper returns them."""
-    warps_b = threads // 32
-    t = text.numpy()
-    N = len(t)
-    pw = plane.numpy().view(np.uint32)
-    tr = tables.tr.numpy()
-    tb = tables.t_bytes.numpy()
-    off = tables.t_off.numpy().tolist()
-    tw = tables.table.numpy().view(np.uint32)
-    NT = tables.n_terms
-    words = -(-body // 32)
-    steps_all = -(-words // 32)
-    G = grid * warps_b
-    warp_words = 32 * -(-steps_all // G)
+    def scratch_for(self, tiles: int) -> dict:
+        sc = self.sc
+        if sc is None or sc["tiles"] < tiles:
+            cap = max(tiles, 64, 2 * sc["tiles"] if sc else 0)
+            sc = self.sc = {"tiles": cap, "ticket": 0,
+                            "status": [(0, (0, 0))] * cap, "epoch": 0,
+                            "taken": 0}
+        return sc
 
-    def load_word(w):
-        i0 = 32 * w
-        nl = 0
-        for b in range(32):
-            if i0 + b < N and t[i0 + b] == 0x0A:
-                nl |= 1 << b
-        a0 = i0 + shift
-        q, r = a0 >> 5, a0 & 31
-        lo = int(pw[q]) if q < len(pw) else 0
-        hi = int(pw[q + 1]) if q + 1 < len(pw) else 0
-        cand = ((lo | hi << 32) >> r) & 0xFFFFFFFF
-        left = body - i0
-        keep = 0xFFFFFFFF if left >= 32 else (1 << left) - 1
-        return nl & keep, cand & keep
-
-    # the terms whose first byte is each folded byte
-    first = [0] * 256
-    for k in range(NT):
-        if off[k + 1] > off[k]:
-            first[tb[off[k]]] |= 1 << k
-
-    def terms_at(s):
-        m = 0
+    def __call__(self, text, plane, shift, tables, body, carry, begin,
+                 cap_e, last, count_only, base, grid, rng, lead=0,
+                 plead=0, slow=1.0):
+        t = text.numpy()
+        N = len(t)
+        pw = -(-N // 32)
+        pl = [int(x) for x in plane.numpy().view(np.uint32)]
+        tr = tables.tr.numpy().tolist()
+        tb = tables.t_bytes.numpy().tolist()
+        off = tables.t_off.numpy().tolist()
+        tw = tables.table.numpy().view(np.uint32).tolist()
+        NT = tables.n_terms
+        halo = min(tables.max_len - 1, self.halo_cap)
+        TH, TILE, PT = self.threads, self.tile, self.per
+        WORDS = TH * PT
+        tiles = -(-body // TILE)
+        sc = self.scratch_for(tiles)
+        epoch, tbase = sc["epoch"] + 1, sc["taken"]
+        cap = 0 if count_only else t_chain.terms_capacity(body,
+                                                          tables.min_len)
+        rows = [None] * cap
+        out = [None] * 4
+        first = [0] * 256
         for k in range(NT):
-            if not first[tr[t[s]]] >> k & 1:
-                continue
-            o, L = off[k], off[k + 1] - off[k]
-            if s + L > N:
-                continue
-            if all(tr[t[s + j]] == tb[o + j] for j in range(1, L)):
-                m |= 1 << k
-        return m
+            if off[k + 1] > off[k]:
+                first[tb[off[k]]] |= 1 << k
+        stats = self.stats
 
-    def summary(w, wd):
-        nl, c = wd
-        tail, lastp = 0, -1
-        if nl:
-            hi = nl.bit_length() - 1
-            lastp = 32 * w + hi
-            c = 0 if hi == 31 else c & (0xFFFFFFFF << (hi + 1)) & 0xFFFFFFFF
-        for b in range(32):
-            if c >> b & 1:
-                tail |= terms_at(32 * w + b)
-        return tail, lastp
+        def fires(m):
+            return m != 0 and (tw[m >> 5] >> (m & 31)) & 1 == 1
 
-    def fires(m):
-        return m != 0 and (int(tw[m >> 5]) >> (m & 31)) & 1
+        def comb(a, b):
+            if a[2] < 0:
+                return (a[0] | b[0], b[1], b[2], b[3])
+            if b[2] < 0:
+                return (a[0], a[1] | b[0], a[2], a[3])
+            return (a[0], b[1], b[2], a[3] + fires(a[1] | b[0]) + b[3])
 
-    def fire_mask(w, wd, acc):
-        nl, c = wd
-        if not nl:
-            return 0
-        c &= (2 << (nl.bit_length() - 1)) - 1     # a start past the last
-        f = 0                                      # newline ends no line
-        for b in range(32):
-            if c >> b & 1:
-                acc |= terms_at(32 * w + b)
-            if nl >> b & 1:
-                if fires(acc):
-                    f |= 1 << b
-                acc = 0
-        return f
+        def apply(p, a):
+            if a[2] < 0:
+                return (p[0] | a[0], p[1], p[2])
+            return (a[1], a[2], p[2] + fires(p[0] | a[0]) + a[3])
 
-    def run_of(gw):
-        w0 = gw * warp_words
-        w1 = min(w0 + warp_words, words)
-        return w0, w1, (-(-(w1 - w0) // 32) if w0 < w1 else 0)
+        def warp_scan(x):
+            x = list(x)
+            d = 1
+            while d < 32:
+                x = [comb(x[ln - d], x[ln]) if ln >= d else x[ln]
+                     for ln in range(32)]
+                d <<= 1
+            return x
 
-    # phase 1: each warp's run, each block's fold of its warps
-    ws = []
-    for gw in range(G):
-        w0, w1, steps = run_of(gw)
-        run = IDENT
-        for st in range(steps):
-            s = []
-            for lane in range(32):
-                w = w0 + 32 * st + lane
-                s.append(summary(w, load_word(w)) if w < w1 else IDENT)
-            run = _combine(run, _warp_reduce(s))
-        ws.append(run)
-    bs = []
-    for blk in range(grid):
-        acc = IDENT
-        for k in range(warps_b):
-            acc = _combine(acc, ws[blk * warps_b + k])
-        bs.append(acc)
-    # phase 2, block 0: the blocks' exclusive prefixes
-    per = -(-grid // threads)
-    x = []
-    for th in range(threads):
-        i0, i1 = min(th * per, grid), min(th * per + per, grid)
-        acc = IDENT
-        for i in range(i0, i1):
-            acc = _combine(acc, bs[i])
-        x.append(acc)
-    incl = []
-    for wb in range(warps_b):
-        incl += _warp_scan(x[32 * wb:32 * wb + 32])
-    wpre, pre = [], (carry, -1)
-    for wb in range(warps_b):
-        wpre.append(pre)
-        pre = _combine(pre, incl[32 * wb + 31])
-    bpx = list(bs)
-    for th in range(threads):
-        lane, wb = th & 31, th >> 5
-        p = _combine(wpre[wb], incl[th - 1] if lane else IDENT)
-        i0, i1 = min(th * per, grid), min(th * per + per, grid)
-        for i in range(i0, i1):
-            bpx[i] = p
-            p = _combine(p, bs[i])
-        if th == threads - 1:
-            total = p
-    tail_fires = int(bool(last) and bool(fires(total[0])))
-    carry_out = 0 if last else total[0]
-    last_nl = base + total[1] if total[1] >= 0 else -1
-    # each warp's prefix: its block's, then its block's warps before it
-    px = []
-    for blk in range(grid):
-        p = bpx[blk]
-        for k in range(warps_b):
-            px.append(p)
-            p = _combine(p, ws[blk * warps_b + k])
+        def block_scan(vals):
+            """(each thread's exclusive aggregate, the total)."""
+            incl = []
+            for w in range(TH // 32):
+                incl += warp_scan(vals[32 * w:32 * w + 32])
+            tot = warp_scan([incl[32 * w + 31] for w in range(TH // 32)]
+                            + [IDENT] * (32 - TH // 32))
+            ex = [comb(tot[(i >> 5) - 1] if i >> 5 else IDENT,
+                       incl[i - 1] if i & 31 else IDENT) for i in range(TH)]
+            return ex, tot[TH // 32 - 1]
 
-    def walk(gw, visit):
-        w0, w1, steps = run_of(gw)
-        p = px[gw]
-        for st in range(steps):
-            ws_ = [w0 + 32 * st + lane for lane in range(32)]
-            wds = [load_word(w) if w < w1 else (0, 0) for w in ws_]
-            s = [summary(w, wd) if w < w1 else IDENT
-                 for w, wd in zip(ws_, wds)]
-            inc = _warp_scan(s)
-            before = [_combine(p, inc[lane - 1] if lane else IDENT)
-                      for lane in range(32)]
-            f = [fire_mask(w, wd, b[0]) if w < w1 else 0
-                 for w, wd, b in zip(ws_, wds, before)]
-            visit(ws_, wds, f, [b[1] for b in before])
-            p = _combine(p, inc[31])
+        def take():
+            sc["ticket"] += 1
+            return sc["ticket"] - 1 - tbase
 
-    counts = []
-    for gw in range(G):
-        c = [0]
-        walk(gw, lambda w, wd, f, lb: c.__setitem__(
-            0, c[0] + sum(bin(x).count("1") for x in f)))
-        counts.append(c[0])
-    K = sum(counts) + tail_fires
-    if count_only:
-        return None, K, carry_out, last_nl
-    rows = [None] * K
-    # block 0's scan of the blocks' counts, then each block's of its warps'
-    bc = [sum(counts[blk * warps_b:(blk + 1) * warps_b])
-          for blk in range(grid)]
-    boff = np.concatenate([[0], np.cumsum(bc)]).tolist()
-    offs = []
-    for blk in range(grid):
-        o = boff[blk]
-        for k in range(warps_b):
-            offs.append(o)
-            o += counts[blk * warps_b + k]
-    for gw in range(G):
-        o = [offs[gw]]
+        def stage(T):
+            t0 = T * TILE
+            t1 = min(t0 + TILE, body)
+            end = min(t1 + halo, N)
+            text_s = [0x0A] * (TILE + self.halo_cap + 32)
+            for x in range(t0, end):
+                text_s[lead + x - t0] = int(t[x])
+            stats["staged"] += t1 - t0
+            q0 = t0 // 32 + (shift >> 5)
+            q1 = max(q0, min(q0 + WORDS + 1, pw))
+            plane_s = [FULL] * (WORDS + 8)
+            for j in range(WORDS + 1):
+                plane_s[plead + j] = pl[q0 + j] if q0 + j < q1 else 0
+            return t0, t1, end, text_s, plane_s
 
-        def put(ws_, wds, f, lb):
-            x = 0
-            for lane in range(32):
-                i = o[0] + x
-                for b in range(32):
-                    if not f[lane] >> b & 1:
-                        continue
-                    below = wds[lane][0] & ((1 << b) - 1)
-                    prev = (32 * ws_[lane] + below.bit_length() - 1
-                            if below else lb[lane])
-                    rows[i] = (base + prev + 1 if prev >= 0 else begin,
-                               base + 32 * ws_[lane] + b + 1)
-                    i += 1
-                x += bin(f[lane]).count("1")
-            o[0] += x
-        walk(gw, put)
-    if tail_fires:
-        rows[K - 1] = (last_nl + 1 if total[1] >= 0 else begin, cap_e)
-    return torch.tensor(rows, dtype=torch.int64).reshape(-1, 2), K, \
-        carry_out, last_nl
+        def terms_at(x, t0, end, text_s):
+            sx = lead + x - t0
+            m = 0
+            stats["verified"] += 1
+            for k in _set_bits(first[tr[text_s[sx]]]):
+                o, L = off[k], off[k + 1] - off[k]
+                if x + L > N:
+                    continue
+                j = 1
+                while j < L:
+                    if x + j < end:
+                        v = text_s[sx + j]
+                    else:
+                        v = int(t[x + j])
+                        stats["global_bytes"] += 1
+                    if tr[v] != tb[o + j]:
+                        break
+                    j += 1
+                if j == L:
+                    m |= 1 << k
+            return m
+
+        def pack(a):
+            """A flag-1 status's payload: two u32 words."""
+            return (a[0] | a[1] << 16, (a[2] + 1) | a[3] << 16)
+
+        def agg_of(v, i):
+            last = v[1] & 0xFFFF
+            return (v[0] & 0xFFFF, v[0] >> 16,
+                    i * TILE + last - 1 if last else -1, v[1] >> 16)
+
+        def look_back(T):
+            """The look-back: windows of BACK tiles, PER a lane (lane
+            ln the entries PER ln + j), re-read until every entry nearer
+            than the nearest inclusive prefix is of this epoch."""
+            x = (0, 0, -1, 0)
+            top = T - 1
+            while True:
+                got = {}
+                gaps = [e for e in range(BACK) if top - e >= 0]
+                while True:
+                    for e in gaps:
+                        st, payload = sc["status"][top - e]
+                        if st >> 2 == epoch:
+                            got[e] = (st & 3, payload)
+                    gaps = [e for e in gaps if e not in got]
+                    pe = min([e for e, g in got.items() if g[0] == 2]
+                             + [top + 1 if top + 1 < BACK else BACK])
+                    ie = gaps[0] if gaps else BACK
+                    if ie > pe or ie == BACK:
+                        break
+                    stats["spins"] += 1
+                    yield
+                stats["most_aggregates"] = max(stats["most_aggregates"],
+                                               T - 1 - top + pe)
+                w = [(0, 0, -1, 0)] * 32
+                for ln in range(32):
+                    for j in range(PER - 1, -1, -1):
+                        e = PER * ln + j
+                        if e < pe:
+                            w[ln] = comb(w[ln], agg_of(got[e][1], top - e))
+                d = 1
+                while d < 32:
+                    w = [comb(w[ln + d], w[ln]) if ln + d < 32 else w[ln]
+                         for ln in range(32)]
+                    d <<= 1
+                x = comb(w[0], x)
+                if pe < BACK:
+                    q = got[pe][1] if top - pe >= 0 else (carry, -1, 0)
+                    return apply(q, x)
+                top -= BACK
+
+        def put_row(i, b, e):
+            if i < cap:
+                rows[i] = (b, e)
+
+        def do_tile(T, staged):
+            """The compute warps' fold of tile T: its stash."""
+            t0, t1, end, text_s, plane_s = staged
+            nls, cands = [], []
+            A = [_nl_chunk(text_s, 32 * i) for i in range(WORDS + 1)]
+            sh = shift & 31
+            for i in range(WORDS):
+                nl = A[i]
+                if lead:
+                    nl = (nl >> lead | A[i + 1] << (32 - lead)) & FULL
+                c = plane_s[plead + i]
+                if sh:
+                    c = ((c | plane_s[plead + i + 1] << 32) >> sh) & FULL
+                left = t1 - (t0 + 32 * i)
+                keep = FULL if left >= 32 else (1 << left) - 1 \
+                    if left > 0 else 0
+                nls.append(nl & keep)
+                cands.append(c & keep)
+            # a round a word of the lanes: each warp's list, verified
+            masks = {}
+            for j in range(PT):
+                for wp in range(TH // 32):
+                    ws = [PT * (32 * wp + ln) + j for ln in range(32)]
+                    lst = [32 * wd + b for wd in ws
+                           for b in _set_bits(cands[wd])]
+                    for r in lst:
+                        masks[r] = terms_at(t0 + r, t0, end, text_s)
+            words, fires_in = [], []
+            for i in range(WORDS):
+                w = list(IDENT)
+                fire, acc, seen = 0, 0, False
+                for b in _set_bits(nls[i] | cands[i]):
+                    if cands[i] >> b & 1:
+                        acc |= masks[32 * i + b]
+                    if nls[i] >> b & 1:
+                        if not seen:
+                            w[0], seen = acc, True
+                        elif fires(acc):
+                            fire |= 1 << b
+                            w[3] += 1
+                        w[2] = 32 * i + b
+                        acc = 0
+                if seen:
+                    w[1] = acc
+                else:
+                    w[0] = acc
+                words.append(tuple(w))
+                fires_in.append(fire)
+            # a thread's words combined, the threads' scan, each word's
+            # exclusive aggregate
+            mine = []
+            for i in range(TH):
+                a = words[PT * i]
+                for j in range(1, PT):
+                    a = comb(a, words[PT * i + j])
+                mine.append(a)
+            ex_t, tot = block_scan(mine)
+            ex = []
+            for i in range(TH):
+                x = ex_t[i]
+                for j in range(PT):
+                    ex.append(x)
+                    x = comb(x, words[PT * i + j])
+            if T > 0:
+                sc["status"][T] = (epoch << 2 | 1, pack(tot))
+            sh = {"T": T, "all": tot, "nl": nls, "fire": [], "first_nl": None,
+                  "roff": [x[3] for x in ex], "last": [x[2] for x in ex]}
+            for i in range(WORDS):
+                nl, x, f = nls[i], ex[i], fires_in[i]
+                # a word's first line, but for the tile's first
+                if nl and x[2] >= 0 and fires(x[1] | words[i][0]):
+                    f |= nl & -nl
+                if nl and x[2] < 0:
+                    sh["first_nl"] = 32 * i + (nl & -nl).bit_length() - 1
+                sh["fire"].append(f)
+            return sh
+
+        def finish_tile(sh):
+            """The look-back warp's work on a stashed tile."""
+            T, tot = sh["T"], sh["all"]
+            t0 = T * TILE
+            a = (tot[0], tot[1], t0 + tot[2] if tot[2] >= 0 else -1, tot[3])
+            pre = (carry, -1, 0)
+            if T > 0:
+                pre = yield from look_back(T)
+            inc = apply(pre, a)
+            sc["status"][T] = (epoch << 2 | 2, inc)
+            if T == tiles - 1:
+                tail = bool(last) and fires(inc[0])
+                if not count_only and tail:
+                    put_row(inc[2], base + inc[1] + 1 if inc[1] >= 0
+                            else begin, cap_e)
+                out[:] = [inc[2] + tail, 0 if last else inc[0],
+                          base + inc[1] if inc[1] >= 0 else -1, int(tail)]
+            yield
+            if count_only:
+                return
+            f0 = tot[2] >= 0 and fires(pre[0] | tot[0])
+            if f0:
+                put_row(pre[2], base + pre[1] + 1 if pre[1] >= 0 else begin,
+                        base + t0 + sh["first_nl"] + 1)
+            for i in range(WORDS):
+                nl, o = sh["nl"][i], pre[2] + f0 + sh["roff"][i]
+                w0 = base + t0 + 32 * i
+                for b in _set_bits(sh["fire"][i]):
+                    below = nl & ((1 << b) - 1)
+                    put_row(o, w0 + below.bit_length() if below
+                            else base + t0 + sh["last"][i] + 1, w0 + b + 1)
+                    o += 1
+
+        def compute(stash):
+            """A block's compute warps: tiles by ticket, each folded, its
+            aggregate published, and stashed once one of the two stash
+            slots is free (None: no more tiles)."""
+            T = take()
+            staged = stage(T) if T < tiles else None
+            yield
+            n = 0
+            while T < tiles:
+                nT = take()
+                nstaged = stage(nT) if nT < tiles else None
+                yield
+                sh = do_tile(T, staged)
+                yield
+                while len(stash) == 2:
+                    yield
+                stash.append(sh)
+                n += 1
+                T, staged = nT, nstaged
+            while len(stash) == 2:
+                yield
+            stash.append(None)
+            stats["max_tiles_a_block"] = max(stats["max_tiles_a_block"], n)
+
+        def back(stash):
+            """A block's look-back warp: the stashed tiles in turn."""
+            while True:
+                while not stash:
+                    yield
+                if stash[0] is None:
+                    return
+                yield from finish_tile(stash[0])
+                stash.pop(0)
+
+        # the scheduler: each block takes its first ticket in turn, then a
+        # block at random, the first one `slow` times as often as the others
+        live = []
+        for b in range(grid):
+            stash = []
+            live += [[compute(stash), slow if b == 0 else 1.0],
+                     [back(stash), slow if b == 0 else 1.0]]
+        for g in live[::2]:         # the blocks take their first tickets
+            next(g[0])
+        steps = 0
+        while live:
+            w = np.array([x[1] for x in live])
+            g = live[int(rng.choice(len(live), p=w / w.sum()))]
+            try:
+                next(g[0])
+            except StopIteration:
+                live.remove(g)
+            steps += 1
+            assert steps < 10 ** 7, "the launch does not finish"
+        sc["epoch"] = epoch
+        sc["taken"] += tiles + grid
+        assert sc["ticket"] == sc["taken"]
+        K = out[0]
+        assert K is not None and K <= max(cap, K if count_only else 0)
+        if count_only:
+            return None, K, out[1], out[2]
+        assert None not in rows[:K]
+        return (torch.tensor(rows[:K], dtype=torch.int64).reshape(-1, 2),
+                K, out[1], out[2])
 
 
-# (blocks, threads a block): one warp, two, and the kernel's own
-GEOMETRIES = [(1, 32), (3, 32), (2, 64), (5, 64), (2, K_CONST["kThreads"])]
+# (threads a block, halo cap, blocks, text lead, plane lead): one warp,
+# two, small halos, misaligned views, and the kernel's own
+GEOMETRIES = [(32, 8, 1, 0, 0), (32, 8, 3, 5, 1), (32, 2, 7, 15, 3),
+              (64, 3, 2, 1, 2),
+              (K_CONST["kThreads"], K_CONST["kHalo"], 4, 0, 0)]
 
 
-@pytest.mark.parametrize("grid,threads", GEOMETRIES,
-                         ids=["%dx%d" % g for g in GEOMETRIES])
+@pytest.mark.parametrize("threads,halo,grid,lead,plead", GEOMETRIES,
+                         ids=["%dt-h%d-%db-l%d-p%d" % g for g in GEOMETRIES])
 @pytest.mark.parametrize("case", [0, 3, 7])
-def test_kernel_model_matches_reference(grid, threads, case):
+def test_kernel_model_matches_reference(threads, halo, grid, lead, plead,
+                                        case):
+    """Seeded texts of three tiles cut at two random seams, the mask
+    carried from chunk to chunk, both forms, one model (one scratch) for
+    every launch, tiles run in a random order each."""
     pattern, nocase, junk = FOLD_CASES[case]
-    terms, tr, table, _verdict, rng, data = _setup(pattern, nocase, 11 + case,
-                                                   2800)
+    terms, tr, table, _verdict, rng, data = _setup(
+        pattern, nocase, 11 + case, 3 * 32 * threads * K_CONST["kPerThread"])
     shift = (min(map(len, terms)) - 1) * (case % 2)
-    seams = _seams(rng, len(data), 3)
+    seams = _seams(rng, len(data), 2)
+    model = LaunchModel(threads, halo)
+    order = np.random.default_rng(case)
 
-    def model(*a):
-        return kernel_model(*a, grid=grid, threads=threads)
+    def run(*a):
+        return model(*a, grid=grid, rng=order, lead=lead, plead=plead)
     for count_only in (False, True):
         want = _port_fold(data, seams, terms, tr, table, shift,
                           np.random.default_rng(1), junk, count_only, False)
         got = _port_fold(data, seams, terms, tr, table, shift,
                          np.random.default_rng(1), junk, count_only, False,
-                         fn=model)
+                         fn=run)
         assert got == want
+    assert model.sc["epoch"] == 2 * (len(seams) - 1)
 
 
-def test_kernel_model_dense_and_long():
-    """Every plane bit set (every position a candidate), a line longer
-    than a warp's run, a word whose last byte is a newline, a body that
-    ends inside a word, and more steps a warp than one."""
-    terms = [b"ab", b"b", b"ba"]
-    tr = _fold(False)
-    split = t_boolean.split_pattern("{ab,b};~ba")
-    table = t_boolean.truth_table(split.tree, "or", [True] * 3, 3)
-    tables = t_chain.term_tables(terms, tr, table)
+def _edge_text():
+    """Lines of a's and b's, one of 2,500 bytes (longer than two tiles of
+    one warp), a term of 40 bytes starting 20 bytes before each of three
+    tile ends, words whose last byte is a newline."""
+    long_term = b"qrstuvwxyz" * 4
     raw = (b"ab" * 700 + b"\n" + b"x" * 30 + b"\n" + b"bab\n" * 40
-           + b"ab" * 15 + b"a\n" + b"yb" * 300)
+           + b"ab" * 15 + b"a\n" + b"yb" * 300 + b"\n")
+    for _ in range(3):
+        raw += b"k" * ((1024 - 20 - len(raw)) % 1024) + long_term + b" ab\n"
+    raw += b"b" * 2500 + b"\n" + b"ab ba " + long_term + b"\n" + b"yb" * 200
+    return raw, long_term
+
+
+# (name, body: its length, or N less it where <= 0; shift, carry, last)
+EDGE_CASES = [("mid-tile", -37, 0, 5, False),
+              ("tile-edge", 4096, 0, 2, True),
+              ("two-tile-edges", 2048, 1, 0, True),
+              ("anchors", -1, 3, 6, False),
+              ("one-byte", 1, 0, 1, True),
+              ("whole", 0, 0, 7, True)]
+
+
+@pytest.mark.parametrize("name,cut,shift,carry,last", EDGE_CASES,
+                         ids=[c[0] for c in EDGE_CASES])
+@pytest.mark.parametrize("count_only", [False, True], ids=["rows", "count"])
+@pytest.mark.parametrize("per", sorted({1, K_CONST["kPerThread"]}),
+                         ids=lambda n: "%dw" % n)
+def test_kernel_model_edges(name, cut, shift, carry, last, count_only, per):
+    """Tiles of one warp (1,024 bytes a word a thread) and a halo of 8:
+    a body that ends
+    inside a tile and exactly at a tile edge, q-gram anchors (shift > 0),
+    a 40-byte term past the halo across a tile's end (read on from the
+    text), a line longer than two tiles, every plane bit set, carried
+    masks in and out; each launch after stale statuses of earlier
+    launches in the scratch, and the tiles in several random orders."""
+    terms = [b"ab", b"b", b"ba", b"qrstuvwxyz" * 4]
+    tr = _fold(False)
+    split = t_boolean.split_pattern("{ab,b};~ba,qrstuvwxyz"
+                                    "qrstuvwxyzqrstuvwxyzqrstuvwxyz")
+    assert [t.encode() for t in split.terminals] == terms
+    table = t_boolean.truth_table(split.tree, "or", [True] * 4, 4)
+    tables = t_chain.term_tables(terms, tr, table)
+    raw, _long = _edge_text()
     text = torch.from_numpy(np.frombuffer(raw, np.uint8).copy())
     N = text.numel()
+    body = N if cut == 0 else cut if cut > 0 else N + cut
     plane = torch.full((-(-N // 32),), -1, dtype=torch.int32)
-    for body in (N, N - 5, 1000, 1, 31, 32, 33):
-        for carry, last in ((0, True), (5, False), (2, True)):
-            args = (text, plane, 0, tables, body, carry, 3, N + 9, last,
-                    False, 100)
-            want = t_chain.line_terms_reference(*args)
-            for grid, threads in ((1, 32), (4, 32), (2, 64)):
-                got = kernel_model(*args, grid=grid, threads=threads)
-                assert got[1:] == want[1:], (body, carry, last)
-                assert got[0].tolist() == want[0].tolist()
+    model = LaunchModel(32, 8, per=per)
+    args = (text, plane, shift, tables, body, carry, 3, N + 9, last,
+            count_only, 100)
+    want = t_chain.line_terms_reference(*args)
+    for seed in range(3):
+        for grid in (1, 3, 9):
+            # stale statuses: the epoch before, every flag, junk values
+            sc = model.scratch_for(-(-body // model.tile))
+            for i in range(len(sc["status"])):
+                sc["status"][i] = (sc["epoch"] << 2 | 1, (0xF000F, 0x30100))
+                if i % 2:
+                    sc["status"][i] = (sc["epoch"] << 2 | 2, (0xF, 12345, 99))
+            got = model(*args, grid=grid, rng=np.random.default_rng(seed),
+                        lead=seed * 7 % 16, plead=seed)
+            assert got[1:] == want[1:], (grid, seed)
+            if not count_only:
+                assert got[0].tolist() == want[0].tolist(), (grid, seed)
+    tiles = -(-body // model.tile)
+    # every body byte staged once a launch, every candidate verified once
+    assert model.stats["staged"] == 9 * body
+    starts = min(body, 32 * plane.numel() - shift)
+    assert model.stats["verified"] == 9 * starts
+    if name == "whole":
+        assert model.stats["global_bytes"] > 0     # the term past the halo
+        assert tiles > 3 and model.stats["max_tiles_a_block"] > 1
+        assert want[1] > 3
+
+
+@pytest.mark.parametrize("count_only", [False, True], ids=["rows", "count"])
+def test_kernel_model_long_look_back(count_only):
+    """160 tiles of one warp and 150 blocks whose first (it holds tile 0)
+    is run 100 times less often: tiles publish their aggregates while
+    tile 0 stalls, so a look-back combines more than a window of them
+    before it reaches an inclusive prefix."""
+    terms = [b"ab", b"b", b"ba", b"qrstuvwxyz" * 4]
+    split = t_boolean.split_pattern("{ab,b};~ba,qrstuvwxyz"
+                                    "qrstuvwxyzqrstuvwxyzqrstuvwxyz")
+    table = t_boolean.truth_table(split.tree, "or", [True] * 4, 4)
+    tables = t_chain.term_tables(terms, _fold(False), table)
+    raw = (_edge_text()[0] * 20)[:160 * 1024 - 100]
+    text = torch.from_numpy(np.frombuffer(raw, np.uint8).copy())
+    N = text.numel()
+    rng = np.random.default_rng(5)
+    plane = _plane(N, rng.integers(0, N, N // 4), rng, 0.0)
+    args = (text, plane, 0, tables, N - 50, 3, 0, N, False, count_only, 7)
+    want = t_chain.line_terms_reference(*args)
+    model = LaunchModel(32, 8, per=1)
+    got = model(*args, grid=150, rng=np.random.default_rng(2), slow=0.01)
+    assert got[1:] == want[1:]
+    if not count_only:
+        assert got[0].tolist() == want[0].tolist()
+    assert model.stats["most_aggregates"] > BACK
+    assert want[1] > 10
 
 
 # ---------------------------------------------------------------------

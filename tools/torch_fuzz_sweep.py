@@ -2,7 +2,8 @@
 random corpora and flag/pattern draws, agrep_tpu_torch against a
 reference, both in process, stdout and exit code compared exactly.
 
-  python tools/torch_fuzz_sweep.py [--stratified | --regex] [--device-route]
+  python tools/torch_fuzz_sweep.py [--stratified | --regex | --boolean]
+      [--device-route]
       [--ref tpu|numpy] [--device cpu|cuda] [--port-backend torch|numpy]
       [--stream] [--limit S] [n_cases] [seed0]
 
@@ -31,6 +32,14 @@ reference, both in process, stdout and exit code compared exactly.
                 seed // 3 draw 30 terms (qgram_filter and the native
                 verify), the others 12 (the mask machine's packed term
                 words).
+  --boolean     the boolean stratum: an AND, an OR or a tree with ~ of
+                2-6 terms of letters (two bytes at least: mgrep streams
+                only such booleans), printed or counted (-c), with -i or
+                -h now and then and no flag that makes mgrep read the
+                file whole; a few lines that hold every term are put in
+                the corpus.  With --device-route and --stream its files
+                stream through MgrepEngine._bool_stream_chunked, which
+                on the torch backend launches line_terms a chunk.
   --limit S     each side of each case gets S seconds (default 20) by
                 SIGALRM (so the sweep runs in the main thread); a side
                 over it is neither a pass nor a divergence: it is
@@ -131,13 +140,80 @@ def plant(r: random.Random, corpus: bytes, terms: list) -> bytes:
     return bytes(out)
 
 
+# the boolean stratum's flags and the chance of each
+BOOL_FLAGS = (("-c", .4), ("-i", .3), ("-h", .1))
+
+
+def bool_terms(r: random.Random) -> list:
+    """2-6 terms of two or more letters: words of fuzz_sweep.WORDS and
+    drawn ones."""
+    fs = generators()
+    words = [w for w in fs.WORDS if len(w) >= 2 and w.isalpha()]
+    out = []
+    for _ in range(r.randint(2, 6)):
+        if r.random() < 0.6:
+            out.append(r.choice(words))
+        else:
+            out.append(bytes(r.choice(b"abcdehlmoxyz")
+                             for _ in range(r.randint(2, 5))))
+    return out
+
+
+def bool_pattern(r: random.Random, terms: list) -> str:
+    """An AND (;), an OR (,) or a tree of the terms, grouped by braces
+    with ~ on some of them."""
+    ts = [t.decode("latin-1") for t in terms]
+    shape = r.choice(["and", "or", "tree", "tree"])
+    if shape != "tree":
+        return (";" if shape == "and" else ",").join(ts)
+
+    def tree(xs):
+        if len(xs) == 1:
+            return ("~" if r.random() < 0.3 else "") + xs[0]
+        k = r.randint(1, len(xs) - 1)
+        op = r.choice(";,")
+        left, right = tree(xs[:k]), tree(xs[k:])
+        if k > 1:
+            left = "{" + left + "}"
+        if len(xs) - k > 1:
+            right = "{" + right + "}"
+        return left + op + right
+    return tree(ts)
+
+
+def plant_lines(r: random.Random, corpus: bytes, terms: list) -> bytes:
+    """corpus with 1-5 lines that hold every term put in at line
+    starts."""
+    out = bytearray(corpus)
+    for _ in range(r.randint(1, 5)):
+        line = b" ".join(r.sample(terms, len(terms))) + b"\n"
+        nl = [k + 1 for k in range(len(out)) if out[k] == 0x0A] or [0]
+        at = r.choice(nl)
+        out[at:at] = line
+    return bytes(out)
+
+
 def build_case(i: int, seed: int, tmpdir: str, mode: str = "uniform",
                device_route: bool = False) -> list:
     """The argv of case seed, its files written under tmpdir, drawn as
-    tools/fuzz_sweep.py's run_case draws it; then grown and, for the
-    past-caps stratum, given a -f file of wide terms."""
+    tools/fuzz_sweep.py's run_case draws it (the boolean stratum as
+    bool_pattern draws it); then grown and, for the past-caps stratum,
+    given a -f file of wide terms."""
     fs = generators()
     r = random.Random(seed)
+    if mode == "boolean":
+        corpus = (fs.make_corpus_straddle(r) if r.random() < 0.3
+                  else fs.make_corpus(r))
+        terms = bool_terms(r)
+        corpus = plant_lines(r, corpus, terms)
+        args = [f for f, p in BOOL_FLAGS if r.random() < p]
+        args += ["-e", bool_pattern(r, terms)]
+        if device_route:
+            corpus = grow(corpus)
+        path = os.path.join(tmpdir, "c%d.txt" % (i % 8))
+        with open(path, "wb") as f:
+            f.write(corpus)
+        return args + [path]
     if mode == "regex":
         corpus = (fs.make_corpus_straddle(r) if r.random() < 0.6
                   else fs.make_corpus(r))
@@ -403,6 +479,7 @@ def main(argv=None) -> int:
     group = ap.add_mutually_exclusive_group()
     group.add_argument("--stratified", action="store_true")
     group.add_argument("--regex", action="store_true")
+    group.add_argument("--boolean", action="store_true")
     ap.add_argument("--device-route", action="store_true")
     ap.add_argument("--ref", choices=("tpu", "numpy"), default="tpu")
     ap.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
@@ -414,8 +491,8 @@ def main(argv=None) -> int:
     ap.add_argument("n_cases", type=int, nargs="?", default=500)
     ap.add_argument("seed0", type=int, nargs="?", default=1000)
     a = ap.parse_args(argv)
-    mode = "stratified" if a.stratified else "regex" if a.regex \
-        else "uniform"
+    mode = ("stratified" if a.stratified else "regex" if a.regex
+            else "boolean" if a.boolean else "uniform")
     res = sweep([(mode, a.device_route, a.n_cases, a.seed0)], a.ref,
                 a.device, a.limit, out=lambda s: print(s, flush=True),
                 backend=a.port_backend, stream=a.stream,

@@ -26,13 +26,15 @@ streamed chunk; event_pairs (`pairs_passes`) at
 configs 1-3's first 32 MB chunk, the memagrep buffer and bool5m's
 stream; record_verdicts at the first chunk of config 2, config2c and
 config 3 (the inputs the main path's search gives mask_scan and
-record_verdicts), each tree through its own route: a tree whose
-record_verdicts takes pairs runs `pairs_passes` and then
+record_verdicts), and line_terms (`_terms_call`, its one launch) at the
+first 32 MB chunk of the streamed booleans bools, boolsc, boolst and
+boolsq (chip_smoke.terms_inputs), each tree through its own route: a
+tree whose record_verdicts takes pairs runs `pairs_passes` and then
 `records_passes` over them, a tree whose record_verdicts takes
 mask_scan's planes (it has `pair_records_reference`) runs its
 `records_passes` on the planes; their rows must be equal.  These two
-stages and line_rows also get the wrapper's time with its read of K,
-the count or the summary
+stages, line_rows and line_terms also get the wrapper's time with its
+read of K, the count or the summary
 (chip_smoke's `_host_ms`: host clock, synchronized, median of 5).
 --only times the named kernels alone; --split also splits each stage's
 time by pass (timing.pass_split: CUDA events around each pass, and the
@@ -64,7 +66,7 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = ("mask_scan", "renfa_lanes", "chain_scan", "qgram_filter",
            "line_index", "line_rows", "qgram_lines", "event_pairs",
-           "record_verdicts")
+           "record_verdicts", "line_terms")
 # The device stages: the module and the attributes through which each
 # launches its passes, in any tree (timing.pass_split wraps those the
 # tree's module has, for --split).  An older event_pairs launched its
@@ -77,7 +79,8 @@ STAGE_HOOKS = {
     "event_pairs": ("kernels", ("_pairs_call", "_pairs_count",
                                 "_pairs_write")),
     "record_verdicts": ("kernels", ("_pairs_call", "_pairs_count",
-                                    "_pairs_write", "_records_call"))}
+                                    "_pairs_write", "_records_call")),
+    "line_terms": ("chain_kernel", ("_terms_call",))}
 
 
 def _load(name: str, path: str):
@@ -96,10 +99,14 @@ def _helpers():
                                             "timing.py")))
 
 
-def shapes(cs, mb: int, seed: int, tmp: str, device: str = "cuda"):
+def shapes(cs, mb: int, seed: int, tmp: str, device: str = "cuda",
+           only=()):
     """(name, kernel, launch function of no arguments[, function of the
     output, wrapper function]) of every main-path shape, with the tree's
-    agrep_tpu_torch."""
+    agrep_tpu_torch (line_terms' alone, which need no other stage's
+    inputs, where only line_terms is asked for)."""
+    if only and set(only) <= {"line_terms"}:
+        return terms_shapes(cs, cs.make_corpus(mb << 20, seed), tmp)
     import io
 
     import numpy as np
@@ -225,6 +232,44 @@ def shapes(cs, mb: int, seed: int, tmp: str, device: str = "cuda"):
                     lambda res=res: res))
     out += pairs_shapes(scans)
     out += records_shapes(cs, corpus, tmp)
+    out += terms_shapes(cs, corpus, tmp)
+    return out
+
+
+def terms_shapes(cs, corpus, tmp) -> list:
+    """line_terms at the first 32 MB chunk of each streamed boolean
+    (chip_smoke.BOOL_STREAM_RUNS: the arguments the main path's search
+    gives the tree's wrapper, chip_smoke.terms_inputs): its one launch
+    into the rows of an earlier call (or a count), the rows or the
+    count, carried mask and last newline, and the wrapper with its
+    read."""
+    import torch
+
+    from agrep_tpu_torch.ops import chain_kernel as ck
+    path = os.path.join(tmp, "bools.txt")
+    corpus.tofile(path)
+    out = []
+    for name, (a, kw) in cs.terms_inputs(path).items():
+        text, plane, shift, tables = a
+        kw = dict(kw)
+        count_only = kw.pop("count_only")
+        body = kw["body"]
+        rows, k, carry, nl_at = ck.line_terms(text, plane, shift, tables,
+                                              count_only=count_only, **kw)
+        res = torch.tensor([k, carry, nl_at])
+        if rows is not None:
+            res = torch.cat([rows.flatten().cpu(), res])
+        dest = None if count_only else torch.empty(
+            (ck.terms_capacity(body, tables.min_len), 2), dtype=torch.int64,
+            device=text.device)
+        grid = ck.terms_grid(body, not count_only, text.device)
+        out.append((name, "line_terms",
+                    lambda a=a, kw=kw, dest=dest, grid=grid: ck._terms_call(
+                        *a, kw["body"], kw["carry"], kw["begin"],
+                        kw["cap_e"], kw["last"], kw["base"], dest, grid),
+                    lambda res=res: res,
+                    lambda a=a, kw=kw, c=count_only: ck.line_terms(
+                        *a, count_only=c, **kw)))
     return out
 
 
@@ -376,7 +421,9 @@ def child(tree: str, args) -> int:
     os.makedirs(build, exist_ok=True)
     res = {}
     with tempfile.TemporaryDirectory(dir=build) as tmp:
-        for name, kname, fn, *extra in shapes(cs, args.mb, args.seed, tmp):
+        only = [k for k in args.only.split(",") if k]
+        for name, kname, fn, *extra in shapes(cs, args.mb, args.seed, tmp,
+                                              only=only):
             if args.only and kname not in args.only.split(","):
                 continue
             got = (extra[0] if extra else fn)().contiguous()
