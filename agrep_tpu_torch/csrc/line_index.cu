@@ -8,8 +8,10 @@
 // go to the card.  Here the text already lies on the card, and the lines
 // are cut and ordered there for renfa_lanes.
 //
-// The function.  Input: a u8 text of n bytes.  Output, with K the text's
-// newlines and nl[j] the position of the j-th (line j is
+// The function.  Input: a u8 text of n bytes and a delimiter byte (the
+// regex engine's newline, or the bitap engine's one-byte -d for
+// bitap_lanes.cu); "newline" below is that byte.  Output, with K the
+// text's newlines and nl[j] the position of the j-th (line j is
 // [start_j, nl[j]), start_0 = 0 and start_j = nl[j-1] + 1 after):
 //   * nl, int64 [K], in stream order; the last newline, nl[K-1], is where
 //     the caller cuts the next chunk;
@@ -83,14 +85,16 @@ struct Text {
     long long n;
     uintptr_t lo, hi, base;         // [lo, hi) the text; base = lo & ~15
     long long pieces;               // 16-byte pieces from base to hi
+    uint32_t delim4;                // the delimiter byte in each byte
 };
 
 namespace {
 
-Text make_text(const uint8_t* text, long long n) {
+Text make_text(const uint8_t* text, long long n, int delim = 0x0a) {
     Text t;
     t.text = text;
     t.n = n;
+    t.delim4 = 0x01010101u * (uint32_t)(delim & 0xff);
     t.lo = reinterpret_cast<uintptr_t>(text);
     t.hi = t.lo + (uintptr_t)n;
     t.base = t.lo & ~(uintptr_t)15;
@@ -102,22 +106,28 @@ long long text_grid(const Text& t) {
     return (t.pieces + kBytesPerBlock / 16 - 1) / (kBytesPerBlock / 16);
 }
 
-// Bit k set where byte k of x is a newline: the bytes equal to 0x0a get
-// 0x80, gathered by one multiply.
-__device__ __forceinline__ uint32_t newline4(uint32_t x) {
-    const uint32_t y = x ^ 0x0a0a0a0au;
+// Bit k set where byte k of x is a newline (d4: the newline byte in each
+// byte): the bytes equal to it get 0x80, gathered by one multiply.
+__device__ __forceinline__ uint32_t newline4(uint32_t x, uint32_t d4) {
+    const uint32_t y = x ^ d4;
     const uint32_t z = ~(((y & 0x7f7f7f7fu) + 0x7f7f7f7fu) | y) & 0x80808080u;
     return (z * 0x00204081u) >> 28;
 }
 
-__device__ __forceinline__ uint32_t newline16(uint4 v) {
-    return newline4(v.x) | newline4(v.y) << 4 | newline4(v.z) << 8
-           | newline4(v.w) << 12;
+__device__ __forceinline__ uint32_t newline16(uint4 v, uint32_t d4) {
+    return newline4(v.x, d4) | newline4(v.y, d4) << 4
+           | newline4(v.z, d4) << 8 | newline4(v.w, d4) << 12;
 }
 
-// Bit b set where byte b of piece g is a newline of the text.
+// Bit b set where byte b of piece g is a newline of the text: text_piece
+// reads the bytes outside the text as 0, so a piece at an edge keeps only
+// its bits inside [lo, hi) (a 0 delimiter would match them).
 __device__ __forceinline__ uint32_t newline_bits(const Text& t, long long g) {
-    return newline16(text_piece(t.base + 16 * (uintptr_t)g, t.lo, t.hi));
+    const uintptr_t a = t.base + 16 * (uintptr_t)g;
+    uint32_t m = newline16(text_piece(a, t.lo, t.hi), t.delim4);
+    if (a < t.lo) m &= 0xffffu << (t.lo - a);
+    if (a + 16 > t.hi) m &= t.hi > a ? 0xffffu >> (a + 16 - t.hi) : 0u;
+    return m;
 }
 
 // Text position of byte b of piece g.
@@ -179,7 +189,7 @@ __device__ __forceinline__ void piece_masks(const Text& t,
 #pragma unroll
         for (int r = 0; r < kRounds; ++r) v[r] = __ldg(q + 32 * r);
 #pragma unroll
-        for (int r = 0; r < kRounds; ++r) m[r] = newline16(v[r]);
+        for (int r = 0; r < kRounds; ++r) m[r] = newline16(v[r], t.delim4);
         return;
     }
 #pragma unroll
@@ -490,19 +500,20 @@ long long line_index_text_grid(const uint8_t* text, long long n) {
 }
 
 // Pass 1 on `stream`: counts[b] and last[b] (int64 [grid] each) = the
-// newlines of block b's bytes and the last one's position (-1 without
-// one), with grid = line_index_text_grid(text, n), and masks u16 [grid *
-// bytes_per_block / 16], each 16-byte piece's newline bits (0 past the
-// text) for pass 3.  Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue for arguments the kernel does not take).  All
-// pointers are device pointers.
+// newlines (bytes equal to delim, 0-255) of block b's bytes and the last
+// one's position (-1 without one), with grid = line_index_text_grid(text,
+// n), and masks u16 [grid * bytes_per_block / 16], each 16-byte piece's
+// newline bits (0 past the text) for pass 3.  Returns cudaGetLastError()
+// after the launch (cudaErrorInvalidValue for arguments the kernel does
+// not take).  All pointers are device pointers.
 int line_index_count(const uint8_t* text, long long n, long long* counts,
-                     long long* last, uint16_t* masks, int grid,
+                     long long* last, uint16_t* masks, int grid, int delim,
                      void* stream) {
-    if (n < 1 || grid != line_index_text_grid(text, n))
+    if (n < 1 || grid != line_index_text_grid(text, n) || delim < 0
+        || delim > 255)
         return (int)cudaErrorInvalidValue;
     count_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        make_text(text, n), counts, last, masks);
+        make_text(text, n, delim), counts, last, masks);
     return (int)cudaGetLastError();
 }
 

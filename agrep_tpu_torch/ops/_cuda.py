@@ -37,7 +37,7 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 # once.
 SOURCES = ("mask_scan", "renfa_lanes", "chain_scan", "qgram_filter",
            "event_pairs", "record_verdicts", "line_index", "line_rows",
-           "qgram_lines", "line_terms")
+           "qgram_lines", "line_terms", "bitap_lanes")
 
 # Compile units of each source: the kernels of each D in an object of
 # their own, so their compiles run side by side.  A source not listed is
@@ -45,6 +45,7 @@ SOURCES = ("mask_scan", "renfa_lanes", "chain_scan", "qgram_filter",
 UNITS = {
     "mask_scan": [()] + [("-DMASK_SCAN_D=%d" % d,) for d in range(9)],
     "renfa_lanes": [()] + [("-DRENFA_D=%d" % d,) for d in range(5)],
+    "bitap_lanes": [()] + [("-DBITAP_D=%d" % d,) for d in range(9)],
 }
 
 _lock = threading.Lock()

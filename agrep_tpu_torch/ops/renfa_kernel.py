@@ -364,27 +364,33 @@ def len_key(lens: torch.Tensor) -> torch.Tensor:
                        key)
 
 
-def line_index(text: torch.Tensor) -> LineIndex:
-    """The lines of a 1-D uint8 text: their newlines in stream order, and
-    their starts, lengths and ordinals in length order, a stable sort by
-    len_key (a warp of renfa_lines walks lines of close lengths).  A CUDA
-    tensor goes to the kernel, a CPU tensor to line_index_reference."""
+def line_index(text: torch.Tensor, delim: int = 0x0A) -> LineIndex:
+    """The lines of a 1-D uint8 text, cut at the byte delim (the regex
+    engine's newline; the bitap engine's one-byte -d for bitap_lanes):
+    their delimiters ("newlines") in stream order, and their starts,
+    lengths and ordinals in length order, a stable sort by len_key (a
+    warp of renfa_lines or bitap_lanes walks lines of close lengths).  A
+    CUDA tensor goes to the kernel, a CPU tensor to
+    line_index_reference."""
     if text.dtype != torch.uint8 or text.dim() != 1:
         raise TypeError("text must be a 1-D uint8 tensor, got %s %r"
                         % (text.dtype, tuple(text.shape)))
     if not text.is_contiguous():
         raise ValueError("text must be contiguous")
+    if not 0 <= delim <= 255:
+        raise ValueError("delim must be a byte value, got %r" % (delim,))
     if text.is_cuda:
-        return _index_launch(text)
+        return _index_launch(text, delim)
     if text.device.type == "cpu":
-        return line_index_reference(text)
+        return line_index_reference(text, delim)
     raise ValueError("no line-index kernel for device %s" % text.device)
 
 
-def line_index_reference(text: torch.Tensor) -> LineIndex:
+def line_index_reference(text: torch.Tensor,
+                         delim: int = 0x0A) -> LineIndex:
     """Plain PyTorch version of the kernel, on any device: torch.nonzero
-    of the newlines, then a stable torch.sort of the lengths' keys."""
-    nl = torch.nonzero(text == 0x0A).flatten()
+    of the delimiters, then a stable torch.sort of the lengths' keys."""
+    nl = torch.nonzero(text == delim).flatten()
     starts = torch.cat([nl.new_zeros(min(1, nl.numel())), nl[:-1] + 1])
     lens = nl - starts
     order = torch.sort(len_key(lens), stable=True).indices
@@ -399,7 +405,7 @@ def _index_bind():
         ip = ctypes.POINTER(ctypes.c_int)
         lib.line_index_text_grid.restype = ll
         lib.line_index_text_grid.argtypes = [p, ll]
-        for fn, args in (("count", [p, ll, p, p, p, i, p]),
+        for fn, args in (("count", [p, ll, p, p, p, i, i, p]),
                          ("offsets", [p, p, i, p, p, p, p]),
                          ("write", [p, ll, p, p, p, p, p, i, p]),
                          ("keys", [p, i, p, p, p]),
@@ -442,10 +448,10 @@ def _index_call(fn: str, dev, *args) -> None:
             *args, stream), fn + " launch")
 
 
-def _index_head(text, grid) -> tuple:
+def _index_head(text, grid, delim: int = 0x0A) -> tuple:
     """Passes 1-2: (each 16-byte piece's newline bits, offs int64 [grid +
     1], prev int64 [grid], meta int64 [2] = (K, the last newline)), on
-    the card."""
+    the card; the newlines are the bytes equal to delim."""
     dev = text.device
     counts, last, prev = (torch.empty(grid, dtype=torch.int64, device=dev)
                           for _ in range(3))
@@ -454,7 +460,8 @@ def _index_head(text, grid) -> tuple:
     masks = torch.empty(grid * (index_geometry(dev)[1] // 16),
                         dtype=torch.int16, device=dev)
     _index_call("count", dev, text.data_ptr(), text.numel(),
-                counts.data_ptr(), last.data_ptr(), masks.data_ptr(), grid)
+                counts.data_ptr(), last.data_ptr(), masks.data_ptr(), grid,
+                delim)
     _index_call("offsets", dev, counts.data_ptr(), last.data_ptr(), grid,
                 offs.data_ptr(), prev.data_ptr(), meta.data_ptr())
     return masks, offs, prev, meta
@@ -478,17 +485,18 @@ def _index_lines(text, head, idx: LineIndex, grid) -> None:
                 idx.lens.data_ptr(), idx.ords.data_ptr(), grid)
 
 
-def index_passes(text: torch.Tensor, idx: LineIndex) -> None:
-    """Every pass into idx, an earlier call's index of the same text: the
-    kernel's device work without the host's read of K (for timing it on
-    the card)."""
+def index_passes(text: torch.Tensor, idx: LineIndex,
+                 delim: int = 0x0A) -> None:
+    """Every pass into idx, an earlier call's index of the same text
+    (and delimiter): the kernel's device work without the host's read of
+    K (for timing it on the card)."""
     grid = index_grid(text)
-    head = _index_head(text, grid)
+    head = _index_head(text, grid, delim)
     if idx.nl.numel():
         _index_lines(text, head, idx, grid)
 
 
-def _index_launch(text: torch.Tensor) -> LineIndex:
+def _index_launch(text: torch.Tensor, delim: int = 0x0A) -> LineIndex:
     """The kernel's passes on the text's device, with the host's read of
     K and the last newline after the second."""
     dev = text.device
@@ -496,7 +504,7 @@ def _index_launch(text: torch.Tensor) -> LineIndex:
     if text.numel() == 0:
         return LineIndex(empty, empty, empty, empty, -1)
     grid = index_grid(text)
-    head = _index_head(text, grid)
+    head = _index_head(text, grid, delim)
     K, end = head[3].tolist()
     idx = LineIndex(*(torch.empty(K, dtype=torch.int64, device=dev)
                       for _ in range(4)), end)

@@ -36,15 +36,26 @@ scan_record_verdicts and scan_record_list go one step further on the
 torch backend: the planes are cut into records on the scan device
 (ops/kernels.py record_verdicts, no pair written), and only the rows of
 the records that fire cross to the host.
+
+Sticky machines (-p, '#' wildcards) have no bounded window, so they are
+scanned a record a lane: scan_lanes on the numpy backend; on the torch
+backend scan_lane_rows cuts the records at a one-byte delimiter on the
+scan device (renfa_kernel.line_index), steps them there (bitap_lanes:
+csrc/bitap_lanes.cu, or its plain version bitap_lanes_reference on the
+CPU) and sends back only the rows of the records that fire
+(renfa_kernel.line_rows).
 """
 
 from __future__ import annotations
 
+import functools
 import os
+from typing import NamedTuple
 
 import numpy as np
 
 DEFAULT_TILE = 1024
+U32 = 0xFFFFFFFF
 
 BACKENDS = ("torch", "numpy")
 DEVICES = ("cuda", "cpu")
@@ -359,6 +370,326 @@ def _records_torch(text, mask_table, consts, D, W, L, N, costs, keep_from,
         trace.add("record_pairs", pairs)
         trace.add("record_rows", len(rows))
     return rows, (n_ends, last, acc)
+
+
+# ---------------------------------------------------------------------
+# the sticky machines' record lanes (torch backend)
+# ---------------------------------------------------------------------
+
+LANES_MAX_D = 8
+# Threads a block of csrc/bitap_lanes.cu.
+LANES_THREADS = 256
+# plain version: lane cells a vectorized pass, and the fewest lanes of a
+# length bucket it steps as tensors (fewer walk on Python ints)
+_LANE_CELLS = 1 << 22
+_SCALAR_LANES = 16
+_LANE_BUCKETS = (64, 256, 1024, 8192, 49152 + 64)
+
+# Launches of bitap_lanes since the counts were last set to 0.
+launches = {"bitap_lanes": 0}
+
+
+class LanesMachine(NamedTuple):
+    """A sticky bitap machine as bitap_lanes takes it."""
+    table: "object"         # torch u32[256], the folded mask table, on
+                            # the scan device
+    init1: int              # the sticky Init1 (~0 for -p)
+    noerr: int
+    endpos: int
+    D: int
+    costs: tuple | None     # (I, S, DD), each 1..D+1; None: uniform
+
+
+def lanes_machine(mask_table: np.ndarray, consts: dict, D: int,
+                  costs: tuple | None, device) -> LanesMachine:
+    """bitap_lanes' machine from a compiled query's folded mask table and
+    its sticky consts (consts["init1"] is the Init1 the lanes step
+    with)."""
+    import torch
+    if not 0 <= int(D) <= LANES_MAX_D:
+        raise ValueError("D=%r outside 0..%d" % (D, LANES_MAX_D))
+    table = np.ascontiguousarray(np.asarray(mask_table, dtype=np.uint32))
+    if table.shape != (256,):
+        raise ValueError("mask table must be u32[256], got %r"
+                         % (table.shape,))
+    if costs is not None and not all(1 <= int(c) <= D + 1 for c in costs):
+        raise ValueError("costs %r outside 1..D+1 = %d" % (costs, D + 1))
+    return LanesMachine(
+        table=torch.from_numpy(table.copy()).to(device),
+        init1=int(consts["init1"]) & U32, noerr=int(consts["noerr"]) & U32,
+        endpos=int(consts["endpos"]) & U32, D=int(D),
+        costs=None if costs is None else tuple(int(c) for c in costs))
+
+
+def bitap_lanes(text, starts, lens, m: LanesMachine, init, first=None,
+                and_flag: bool = False, invert: bool = False) -> tuple:
+    """The R lanes of a 1-D uint8 text through a sticky machine: lane r
+    is the lens[r] + 1 bytes text[starts[r] .. starts[r] + lens[r]], a
+    record and its one-byte delimiter, stepped from the D+1 states init
+    (the lane that starts at 0 from `first`, init where None) without a
+    reset.  Returns (verdicts bool[R], hits u32[R]) on the text's device:
+    hits the OR over the lane's columns of (state_D & endpos), scan_lanes'
+    value; the verdict, with and_flag, hits == endpos or invert, else
+    (hits != 0) ^ invert.  A CUDA tensor goes to the kernel
+    (csrc/bitap_lanes.cu), a CPU tensor to bitap_lanes_reference."""
+    import torch
+    if text.dtype != torch.uint8 or text.dim() != 1:
+        raise TypeError("text must be a 1-D uint8 tensor, got %s %r"
+                        % (text.dtype, tuple(text.shape)))
+    for name, t in (("starts", starts), ("lens", lens)):
+        if t.dtype != torch.int64 or t.dim() != 1:
+            raise TypeError("%s must be a 1-D int64 tensor, got %s %r"
+                            % (name, t.dtype, tuple(t.shape)))
+    if starts.shape != lens.shape:
+        raise ValueError("starts %r and lens %r differ in shape"
+                         % (tuple(starts.shape), tuple(lens.shape)))
+    if not (text.is_contiguous() and starts.is_contiguous()
+            and lens.is_contiguous()):
+        raise ValueError("text, starts and lens must be contiguous")
+    dev = text.device
+    if starts.device != dev or lens.device != dev or m.table.device != dev:
+        raise ValueError("text on %s, starts on %s, lens on %s, the "
+                         "machine on %s" % (dev, starts.device, lens.device,
+                                            m.table.device))
+    first = init if first is None else first
+    if len(init) != m.D + 1 or len(first) != m.D + 1:
+        raise ValueError("init and first take D+1 = %d states, got %d and "
+                         "%d" % (m.D + 1, len(init), len(first)))
+    if not (text.is_cuda or dev.type == "cpu"):
+        raise ValueError("no bitap lanes kernel for device %s" % dev)
+    if starts.numel() == 0:
+        return (torch.zeros(0, dtype=torch.bool, device=dev),
+                torch.zeros(0, dtype=torch.uint32, device=dev))
+    if bool(((starts < 0) | (lens < 0)
+             | (starts + lens >= text.numel())).any()):
+        raise ValueError("a lane [start, start + len] lies outside the "
+                         "%d-byte text" % text.numel())
+    if text.is_cuda:
+        return _lanes_launch(text, starts, lens, m, init, first, and_flag,
+                             invert)
+    return bitap_lanes_reference(text, starts, lens, m, init, first,
+                                 and_flag, invert)
+
+
+def _lane_levels(s: list, cm, m: LanesMachine) -> list:
+    """One column of every level (states list of D+1, ints or int64
+    tensors holding u32 values: only >>, & and | touch them)."""
+    init1, noerr, D = m.init1, m.noerr, m.D
+    if m.costs is None:
+        new = [((s[0] >> 1) & cm) | (init1 & s[0])]
+        for k in range(1, D + 1):
+            new.append(((s[k] >> 1) & cm) | (init1 & s[k]) | s[k - 1]
+                       | (((new[k - 1] | s[k - 1]) >> 1) & noerr))
+        return new
+    ci, cs, cd = m.costs
+    new = []
+    for k in range(D + 1):
+        r = ((s[k] >> 1) & cm) | (init1 & s[k])
+        if k - ci >= 0:
+            r = r | s[k - ci]
+        err = 0
+        if k - cd >= 0:
+            err = err | new[k - cd]
+        if k - cs >= 0:
+            err = err | s[k - cs]
+        new.append(r | ((err >> 1) & noerr))
+    return new
+
+
+def _lane_bucket(n: int) -> int:
+    for b in _LANE_BUCKETS:
+        if n <= b:
+            return b
+    return n
+
+
+def bitap_lanes_reference(text, starts, lens, m: LanesMachine, init,
+                          first=None, and_flag: bool = False,
+                          invert: bool = False,
+                          scalar_lanes: int = _SCALAR_LANES) -> tuple:
+    """Plain PyTorch version of the kernel, on any device: the lanes
+    bucketed by length, each bucket stepped as tensors over its lanes
+    with one Python step a column, and a bucket of fewer than
+    scalar_lanes lanes walked a lane at a time on Python ints.  States
+    are int64 holding u32 values (CPU torch has no >> on uint32)."""
+    import torch
+    dev = text.device
+    R = starts.numel()
+    first = init if first is None else first
+    hits = torch.zeros(R, dtype=torch.int64, device=dev)
+    tab = m.table.to(torch.int64)
+    tab_list = None
+    init_v = [int(v) & U32 for v in init]
+    first_v = [int(v) & U32 for v in first]
+    lens_h = lens.cpu().numpy()
+    starts_h = starts.cpu().numpy()
+    order = np.argsort(lens_h, kind="stable")
+    sorted_lens = lens_h[order]
+    i = 0
+    while i < R:
+        L = _lane_bucket(int(sorted_lens[i]) + 1)
+        j = int(np.searchsorted(sorted_lens, L - 1, side="right"))
+        if j - i < scalar_lanes:
+            if tab_list is None:
+                tab_list = tab.tolist()
+            for r in order[i:j].tolist():
+                st, n = int(starts_h[r]), int(lens_h[r])
+                s = list(first_v if st == 0 else init_v)
+                acc = 0
+                for b in text[st:st + n + 1].tolist():
+                    s = _lane_levels(s, tab_list[b], m)
+                    acc |= s[m.D]
+                hits[r] = acc
+            i = j
+            continue
+        rows = max(1, _LANE_CELLS // L)
+        for s0 in range(i, j, rows):
+            idx_h = order[s0:min(s0 + rows, j)]
+            idx = torch.from_numpy(idx_h).to(dev)
+            st, ln = starts[idx], lens[idx]
+            n_col = int(lens_h[idx_h].max()) + 1
+            # columns past a lane's delimiter read the delimiter again:
+            # every read stays inside the lane, and the hits ignore them
+            pos = torch.minimum(
+                st[:, None] + torch.arange(n_col, device=dev)[None, :],
+                (st + ln)[:, None])
+            cms = tab[text[pos].long()]                   # [rows, n_col]
+            at0 = st == 0
+            s = [torch.where(at0, f, v) for f, v in zip(
+                torch.tensor(first_v, dtype=torch.int64, device=dev),
+                torch.tensor(init_v, dtype=torch.int64, device=dev))]
+            acc = torch.zeros(len(idx_h), dtype=torch.int64, device=dev)
+            for col in range(n_col):
+                s = _lane_levels(s, cms[:, col], m)
+                acc = torch.where(ln >= col, acc | s[m.D], acc)
+            hits[idx] = acc
+        i = j
+    hits &= m.endpos
+    if and_flag:
+        fire = (hits == m.endpos) | bool(invert)
+    else:
+        fire = (hits != 0) ^ bool(invert)
+    return fire, hits.to(torch.uint32)
+
+
+def _lanes_bind():
+    import ctypes
+
+    from . import _cuda
+    lib = _cuda.load("bitap_lanes")
+    if not getattr(lib, "_bound", False):
+        p, i, u, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
+                       ctypes.c_longlong)
+        up, ip = ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_int)
+        lib.bitap_lanes_launch.restype = i
+        lib.bitap_lanes_launch.argtypes = [
+            p, ll, p, p, ll, p, u, u, u, i, i, i, i, up, up, i, i, p, p, i,
+            i, p]
+        lib.bitap_lanes_geometry.restype = i
+        lib.bitap_lanes_geometry.argtypes = [i, i, i, ip, ip, ip]
+        lib.bitap_lanes_error_string.restype = ctypes.c_char_p
+        lib.bitap_lanes_error_string.argtypes = [i]
+        lib._bound = True
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lanes_occupancy(index: int, D: int, cost: bool, threads: int) -> tuple:
+    """(blocks an SM, registers a thread, local bytes) of the kernel."""
+    from . import _cuda
+    return _cuda.query(_lanes_bind(), "bitap_lanes", "bitap_lanes_geometry",
+                       index, 3, D, int(cost), threads)
+
+
+def lanes_geometry(R: int, m: LanesMachine, device) -> dict:
+    """What _lanes_launch runs for R lanes on a CUDA device: LANES_THREADS
+    a block, the blocks an SM holds (the occupancy calculator's), the
+    grid (a persistent one, no larger than the lanes need), registers
+    and local bytes."""
+    from . import _cuda
+    from .kernels import _sm_count
+    index = _cuda.device_index(device)
+    bps, regs, local = _lanes_occupancy(index, m.D, m.costs is not None,
+                                        LANES_THREADS)
+    grid = max(1, min(_sm_count(index) * max(bps, 1),
+                      -(-R // LANES_THREADS)))
+    return {"threads": LANES_THREADS, "blocks_per_sm": bps, "grid": grid,
+            "regs": regs, "local_bytes": local}
+
+
+def _lanes_launch(text, starts, lens, m: LanesMachine, init, first,
+                  and_flag: bool, invert: bool) -> tuple:
+    """The kernel on text's device at lanes_geometry's grid, the lane at 0
+    from first (init where None)."""
+    import ctypes
+
+    import torch
+
+    from . import _cuda
+    lib = _lanes_bind()
+    R = starts.numel()
+    dev = text.device
+    first = init if first is None else first
+    geo = lanes_geometry(R, m, dev)
+    verdicts = torch.empty(R, dtype=torch.uint8, device=dev)
+    hits = torch.empty(R, dtype=torch.uint32, device=dev)
+    states = [(ctypes.c_uint32 * (LANES_MAX_D + 1))(
+        *[int(v) & U32 for v in vs]) for vs in (init, first)]
+    ci, cs, cd = (0, 0, 0) if m.costs is None else m.costs
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # the runtime launches on its current device: make it the tensor's
+    with torch.cuda.device(_cuda.device_index(dev)):
+        _cuda.check(lib, "bitap_lanes", lib.bitap_lanes_launch(
+            text.data_ptr(), text.numel(), starts.data_ptr(),
+            lens.data_ptr(), R, m.table.data_ptr(), m.init1, m.noerr,
+            m.endpos, m.D, ci, cs, cd, *states, int(and_flag), int(invert),
+            verdicts.data_ptr(), hits.data_ptr(), geo["threads"],
+            geo["grid"], stream), "kernel launch")
+    launches["bitap_lanes"] += 1
+    return verdicts.view(torch.bool), hits
+
+
+def scan_lane_rows(text: np.ndarray, delim: int, mask_table: np.ndarray,
+                   consts: dict, D: int, costs: tuple | None, init,
+                   first=None, and_flag: bool = False,
+                   invert: bool = False) -> np.ndarray:
+    """The records of a stream (each ended by the byte delim) that fire
+    in a sticky machine, cut and stepped on the scan device: int64 [R,
+    3] rows in stream order, each (ordinal of the record, its
+    delimiter's position, the previous delimiter's or -1), as
+    scan_record_list gives them.  renfa_kernel.line_index cuts the
+    records at delim, bitap_lanes steps them (lanes_machine(mask_table,
+    consts, D, costs), from the states init, the record at 0 from
+    first) and renfa_kernel.line_rows sends back the rows of those that
+    fire; bytes after the last delimiter end no record.  Torch backend
+    only: the numpy backend steps its lanes with scan_lanes."""
+    if _BACKEND != "torch":
+        raise ValueError("the record lanes run on the torch backend, not "
+                         "on %r" % (_BACKEND,))
+    import torch
+
+    from . import kernels, renfa_kernel
+    from ..runtime import trace
+    require_device()
+    dev = torch.device(_DEVICE)
+    with trace.stage("device_scan"):
+        t = kernels.to_device(text, dev)
+        idx = renfa_kernel.line_index(t, delim)
+        K = idx.nl.numel()
+        if K == 0:
+            return np.zeros((0, 3), dtype=np.int64)
+        m = lanes_machine(mask_table, consts, D, costs, dev)
+        v, _hits = bitap_lanes(t, idx.starts, idx.lens, m, init, first,
+                               and_flag, invert)
+        rows, _n = renfa_kernel.line_rows(v, idx.ords, idx.nl, False, 0, K)
+        rows = rows.cpu().numpy()
+    if trace.ENABLED:
+        trace.add("lane_records", K)
+        trace.add("lane_rows", len(rows))
+    # (ordinal, start, delimiter) -> (ordinal, delimiter, previous
+    # delimiter): a record starts one past the delimiter before it, the
+    # first at 0
+    return np.stack([rows[:, 0], rows[:, 2], rows[:, 1] - 1], 1)
 
 
 def scan_lanes(lanes: np.ndarray, lens: np.ndarray, mask_table: np.ndarray,

@@ -2,7 +2,7 @@
 
 card_line names the card; time_kernel and profiled_ms time a call on it
 (CUDA events after a spin, and torch.profiler's device time);
-level_ops ... line_rows_bound count the least work of each kernel's function
+level_ops ... lanes_bound count the least work of each kernel's function
 at its inputs and turn it into (bound_ms, bound_by) at the peak rates of
 one H100 below.  chip_smoke.py, agrep_tpu_torch.bench and the timing
 tools under tools/ use them.
@@ -11,6 +11,7 @@ tools under tools/ use them.
 from __future__ import annotations
 
 import subprocess
+from types import SimpleNamespace
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 at 3.35 TB/s; 67 TFLOP/s fp32
 # outside the tensor cores is 132 SMs x 128 lanes x 2 (FMA) x 1.98 GHz, and
@@ -348,6 +349,29 @@ def line_terms_bound(N: int, K: int, table_bytes: int,
     newline test (1) over the card's int32 rate."""
     return _bound(N + 4 * -(-N // 32) + table_bytes
                   + (8 if count_only else 16 * K), N)
+
+
+def lanes_bound(m, n_text: int, lens) -> tuple:
+    """(bound_ms, bound_by) of one bitap_lanes launch over R lanes (lane r
+    is lens[r] + 1 bytes: its record and its delimiter): the larger of
+    the bytes its function must move -- the text read once, 16 B of lane
+    index (start, length) read and 5 B (verdict, hits) written a lane,
+    and the 1 KB mask table, over HBM's rate -- and its operations at
+    their least: a lane byte's extract and CMask address (2), the level
+    pass (level_ops: kernels.Machine's count for the same wiring) and
+    the hit OR (1), and a lane's verdict (3), over the card's int32
+    rate, against a byte's CMask load over the shared-memory rate."""
+    R = len(lens)
+    n = int(lens.sum()) + R
+    level = level_ops(SimpleNamespace(D=m.D, variant="bitap",
+                                      costs=m.costs))
+    n_bytes = n_text + 21 * R + 256 * 4
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = max((n * (3 + level) + 3 * R) / INT32_OPS_PER_S,
+                n / SHARED_LOADS_PER_S)
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
 
 
 def time_kernel(fn, reps: int = 5) -> float:

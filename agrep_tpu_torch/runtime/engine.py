@@ -54,13 +54,18 @@ class BitapEngine:
     def __init__(self, q):
         self.q = q
 
-    def supports_streaming(self) -> bool:
-        """Sticky machines (-p supersequence, '#' wildcards) have an
-        unbounded dependence window -- the chunk-halo restart is
-        invalid for them; everything else streams."""
+    def sticky(self) -> bool:
+        """True for the sticky machines, -p supersequence (Init1 = ~0,
+        bitap.c:123) and '#' wildcards: their bits have an unbounded
+        dependence window, so they are scanned a record a lane."""
         q = self.q
-        return not (q.opts.cost_insert == 0
-                    or (q.tables is not None and q.tables.wildmask != 0))
+        return (q.opts.cost_insert == 0
+                or (q.tables is not None and q.tables.wildmask != 0))
+
+    def supports_streaming(self) -> bool:
+        """The chunk-halo restart is invalid for the sticky machines;
+        everything else streams."""
+        return not self.sticky()
 
     def search_stream_chunked(self, data, sink: Sink, D: int) -> None:
         """Streaming twin of search_stream: chunked scan with halo
@@ -248,6 +253,14 @@ class BitapEngine:
         rows = scan_ops.scan_record_verdicts(
             stream, q.folded_mask, q.consts, D, q.costs,
             -1 if inject_at is None else inject_at, q.and_flag, o.invert)
+        self._rows_out(rows, stream, data, inject_at, sink)
+
+    def _rows_out(self, rows: np.ndarray, stream: np.ndarray,
+                  data: np.ndarray, inject_at, sink: Sink) -> None:
+        """Count or print the rows (ordinal, end, previous end; stream
+        positions, the glitch byte at inject_at included) of the records
+        of search_stream's stream that fire."""
+        q, o = self.q, self.q.opts
         if inject_at is not None:
             stream = np.concatenate([stream[:inject_at],
                                      stream[inject_at + 1:]])
@@ -328,16 +341,104 @@ class BitapEngine:
 
     def _memory_search(self, data: np.ndarray, sink: Sink,
                        D: int) -> None:
-        """Faithful memory-mode scan (bitap.c:309-446): ONE pass over
-        the caller's buffer -- no prefill, no residue copies, no EOF
-        delimiter append; lasti starts at 1 (:318), a leading
-        delimiter pre-decrements j (:320-323), and the pair-unrolled
-        loop's overrun byte reads the writable slack (zeros).
+        """Memory-mode scan (bitap.c:309-446) from the records that fire,
+        walked as _memory_search_loop walks them (_walk_memory): ONE
+        pass over the caller's buffer, plus one zero byte where its
+        length is odd (the pair-unrolled loop's overrun).  A machine
+        that is not sticky takes its records from the scan
+        (_memory_rows: mask_scan and record_verdicts on the torch
+        backend, the native scan's events on the numpy backend); a
+        sticky one with a one-byte delimiter from its record lanes
+        (_memory_lane_rows), the first record from Init0; a sticky one
+        with a multi-byte delimiter, whose record events fire at the
+        delimiter's subsequences, keeps the per-byte loop."""
+        q = self.q
+        if self.sticky() and len(q.delim) > 1:
+            return self._memory_search_loop(data, sink, D)
+        stream = (np.concatenate([data, np.zeros(1, np.uint8)])
+                  if len(data) & 1 else data)
+        if self.sticky():
+            rows = self._memory_lane_rows(stream, D)
+        else:
+            rows = self._memory_rows(stream, D)
+        if self._walk_memory(rows, data, sink):
+            sink.finish()
 
-        Per-byte python: conformance-grade for the embedding API's
-        buffer sizes (Glimpse passes records, not corpora).  Bulk
-        scanning belongs to the file path, which is the device-backed
-        one."""
+    def _memory_rows(self, stream: np.ndarray, D: int) -> np.ndarray:
+        """The rows (ordinal, end, previous end or -1) of the records of
+        a memory-mode stream that fire, for a machine that is not
+        sticky: on the torch backend from the card (scan_record_verdicts:
+        no glitch byte, the loop's AND and -v verdict), on the numpy
+        backend cut from the scan's events (_event_rows).  The pulses
+        of the scan's end positions, ORed over a record, are the loop's
+        sticky end-position bits at its delimiter."""
+        q, o = self.q, self.q.opts
+        if scan_ops.records_on_device():
+            return scan_ops.scan_record_verdicts(
+                stream, q.folded_mask, q.consts, D, q.costs, -1, q.and_flag,
+                o.invert)
+        pos, ev = scan_ops.scan_event_pairs(stream, q.folded_mask, q.consts,
+                                            D, "bitap", q.costs)
+        return _event_rows(pos, ev, q.consts, q.and_flag, o.invert)
+
+    def _memory_lane_rows(self, stream: np.ndarray, D: int) -> np.ndarray:
+        """_memory_rows for a sticky machine with a one-byte delimiter: a
+        record a lane, from the post-reset states, the first from Init0
+        as the loop starts (scan_lane_rows on the torch backend, the host
+        lanes on the numpy backend)."""
+        q, o = self.q, self.q.opts
+        first = [int(q.consts["init0"])] * (D + 1)
+        if scan_ops.records_on_device():
+            return scan_ops.scan_lane_rows(
+                stream, q.delim[0], q.folded_mask, _sticky_consts(q), D,
+                q.costs, _lane_inits(q, D), first, q.and_flag, o.invert)
+        events = _bitap_record_lane_events(q, stream, D, first)
+        pos = np.flatnonzero(events)
+        return _event_rows(pos, events[pos], q.consts, q.and_flag,
+                           o.invert)
+
+    def _walk_memory(self, rows: np.ndarray, data: np.ndarray,
+                     sink: Sink) -> bool:
+        """_memory_search_loop's walk over the rows of the records that
+        fire: j counts every record end (a leading delimiter
+        pre-decrements it), a record starts at 1 or at its previous
+        delimiter's first byte, prints only where it starts inside the
+        buffer, and -l or a limit ends the walk (False; True where it
+        ran to its end)."""
+        q, o = self.q, self.q.opts
+        dl = len(q.delim)
+        n = len(data)
+        j0 = 0
+        if q.delimiter_opt and bytes(bytearray(data[:dl])) == q.delim:
+            j0 = -1                          # bitap.c:320-323
+        dl_off = dl if q.delimiter_opt else 1
+        for k, p, prev in rows.tolist():
+            if o.filename_only and (sink.new_file or not o.post_filter):
+                sink.num_matched += 1
+                sink.write_str("%s\n" % sink.current_filename)
+                sink.new_file = False
+                return False
+            lasti = 1 if prev < 0 else prev + 1 - dl
+            if lasti < n:                    # !(lasti >= num_read)
+                output_bitap_record(
+                    sink, data, lasti, p - dl, k + 1 + j0, p + 1 - dl_off,
+                    dl, q.delimiter_opt, q.delim, q.outtail)
+            if _limits_reached(o, sink):
+                return False
+        return True
+
+    def _memory_search_loop(self, data: np.ndarray, sink: Sink,
+                            D: int) -> None:
+        """Faithful memory-mode scan (bitap.c:309-446), one byte at a
+        time: ONE pass over the caller's buffer -- no prefill, no residue
+        copies, no EOF delimiter append; lasti starts at 1 (:318), a
+        leading delimiter pre-decrements j (:320-323), and the
+        pair-unrolled loop's overrun byte reads the writable slack
+        (zeros).
+
+        Per-byte python: the route of a sticky machine with a multi-byte
+        delimiter, and the independent check that tools and tests hold
+        _memory_search's record routes to."""
         from ..ops import bitword
         q, o = self.q, self.q.opts
         c = dict(q.consts)
@@ -436,17 +537,22 @@ class BitapEngine:
         c = q.consts
         if scan_ops.records_on_device() and self.supports_streaming():
             return self._search_rows(stream, data, inject_at, sink, D)
-        if q.opts.cost_insert == 0 or (q.tables is not None
-                                       and q.tables.wildmask != 0):
+        if self.sticky():
             # -p supersequence (Init1 = ~0, bitap.c:123) and '#'
             # wildcards have sticky bits with unbounded reach: the
             # tile+halo restart is invalid, so scan record-parallel
-            # (one lane per record).  A MULTI-BYTE -d makes even the
-            # lane split invalid (the sticky machine fires record
-            # events at delimiter SUBSEQUENCE completions): sequential
-            # faithful scan instead.
+            # (one lane per record: on the torch backend on the card,
+            # scan_lane_rows).  A MULTI-BYTE -d makes even the lane
+            # split invalid (the sticky machine fires record events at
+            # delimiter SUBSEQUENCE completions): sequential faithful
+            # scan instead.
             if len(q.delim) > 1:
                 events = _bitap_sticky_seq_events(q, stream, D)
+            elif scan_ops.records_on_device():
+                rows = scan_ops.scan_lane_rows(
+                    stream, q.delim[0], q.folded_mask, _sticky_consts(q), D,
+                    q.costs, _lane_inits(q, D), None, q.and_flag, o.invert)
+                return self._rows_out(rows, stream, data, inject_at, sink)
             else:
                 events = _bitap_record_lane_events(q, stream, D)
             pos = np.flatnonzero(events)
@@ -828,42 +934,79 @@ def _bitap_sticky_seq_events(q, stream: np.ndarray, D: int) -> np.ndarray:
     return events
 
 
-def _bitap_record_lane_events(q, stream: np.ndarray, D: int) -> np.ndarray:
-    """Record-parallel evaluation of the mask machine (used when sticky
-    bits make the windowed scan invalid).  Returns a synthetic event
-    array: at each record's delimiter end, d_endpos plus the sticky
-    part bits accumulated over the record."""
-    from ..ops import bitword
-    c = q.consts
-    consts = dict(c)
+def _event_rows(pos: np.ndarray, ev: np.ndarray, consts: dict,
+                and_flag: bool, invert: bool) -> np.ndarray:
+    """The rows (ordinal, end, previous end or -1) of the records that
+    fire, cut from a stream's events as record_verdicts cuts them: an
+    event with d_endpos ends a record, its own hit bits in it; a record
+    fires, with and_flag, when its hit bits make up endpos or invert,
+    else when it has any ^ invert."""
+    endpos = np.uint32(consts["endpos"])
+    ends = pos[(ev & np.uint32(consts["d_endpos"])) != 0]
+    if not len(ends):
+        return np.zeros((0, 3), dtype=np.int64)
+    hit = ev & endpos
+    seg = np.searchsorted(ends, pos, side="left")
+    if and_flag:
+        acc = np.zeros(len(ends) + 1, dtype=np.uint32)
+        np.bitwise_or.at(acc, seg, hit)
+        fire = ((acc[:len(ends)] & endpos) == endpos) | bool(invert)
+    else:
+        any_hit = np.bincount(seg[hit != 0], minlength=len(ends) + 1)
+        fire = (any_hit[:len(ends)] != 0) ^ bool(invert)
+    k = np.flatnonzero(fire)
+    prev = np.concatenate([[-1], ends[:-1]])
+    return np.stack([k, ends[k], prev[k]], 1).astype(np.int64)
+
+
+def _sticky_consts(q) -> dict:
+    """The machine constants the record lanes step with: Init1 is ~0 for
+    -p (bitap.c:123 / asearch.c:49)."""
+    consts = dict(q.consts)
     if q.opts.cost_insert == 0:
-        consts["init1"] = 0xFFFFFFFF    # bitap.c:123 / asearch.c:49
+        consts["init1"] = 0xFFFFFFFF
+    return consts
+
+
+def _lane_inits(q, D: int) -> list:
+    """The D+1 post-reset states a record lane starts from: one
+    delimiter scalar-scanned from Init0 with the sticky Init1."""
+    from ..ops import bitword
+    sticky = _sticky_consts(q)
+    sticky["init1_ns"] = sticky["init1"]
+    mask = q.folded_mask
+    if D == 0 and q.costs is None:
+        st = sticky["init0"]
+        for b in q.delim:
+            st, _ = bitword.step_exact(st, int(mask[b]), sticky)
+        return [st]
+    sts = [sticky["init0"]] * (D + 1)
+    for b in q.delim:
+        if q.costs is not None:
+            sts, _ = bitword.step_jump(sts, int(mask[b]), sticky, D,
+                                       *q.costs)
+        else:
+            sts, _ = bitword.step_kerr(sts, int(mask[b]), sticky, D)
+    return sts
+
+
+def _bitap_record_lane_events(q, stream: np.ndarray, D: int,
+                              first=None) -> np.ndarray:
+    """Record-parallel evaluation of the mask machine (used when sticky
+    bits make the windowed scan invalid), on the host: the numpy
+    backend's route (the torch backend's is scan_ops.scan_lane_rows).
+    Returns a synthetic event array: at each record's delimiter end,
+    d_endpos plus the sticky part bits accumulated over the record.
+    Every record starts from the post-reset states, the first from the
+    D+1 states `first` where given (memory mode's Init0)."""
+    c = q.consts
+    sticky = _sticky_consts(q)
     P = _nonoverlapping_delims(stream, q.delim)
     events = np.zeros(len(stream), dtype=np.uint32)
     if len(P) == 0:
         return events
-    dl = len(q.delim)
-    # post-reset state: scalar-scan one delimiter from Init0
     mask = q.folded_mask
-    if D == 0 and q.costs is None:
-        st = consts["init0"]
-        sticky = dict(consts)
-        sticky["init1_ns"] = consts["init1"] if "init1" in consts else \
-            c["init1"]
-        for b in q.delim:
-            st, _ = bitword.step_exact(st, int(mask[b]), sticky)
-        init_states = np.asarray([st], dtype=np.uint32)
-    else:
-        sticky = dict(consts)
-        sticky["init1_ns"] = consts.get("init1", c["init1"])
-        sts = [consts["init0"]] * (D + 1)
-        for b in q.delim:
-            if q.costs is not None:
-                sts, _ = bitword.step_jump(sts, int(mask[b]), sticky, D,
-                                           *q.costs)
-            else:
-                sts, _ = bitword.step_kerr(sts, int(mask[b]), sticky, D)
-        init_states = np.asarray(sts, dtype=np.uint32)
+    init_states = np.asarray(_lane_inits(q, D), dtype=np.uint32)
 
     # lanes: record content + trailing delimiter
     starts = np.concatenate([[0], P[:-1] + 1])
@@ -871,6 +1014,13 @@ def _bitap_record_lane_events(q, stream: np.ndarray, D: int) -> np.ndarray:
     order = np.argsort(lens, kind="stable")
     hits_all = np.zeros(len(P), dtype=np.uint32)
     from ..ops.scan import scan_lanes
+    if first is not None:
+        # the first record alone, from its own states
+        order = order[order != 0]
+        lane0 = np.asarray(stream[:P[0] + 1], dtype=np.uint8)[None, :]
+        hits_all[0] = scan_lanes(
+            lane0, lens[:1], mask, sticky, D, q.costs,
+            np.asarray(first, dtype=np.uint32), sticky_endpos=True)[0]
     i = 0
     while i < len(order):
         Lmax = int(lens[order[i]]) + 1

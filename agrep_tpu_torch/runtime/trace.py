@@ -14,7 +14,8 @@ Counters are plain module-level ints -- zero overhead when disabled
 (every instrumentation site checks the ENABLED flag first).  The device
 stages of the torch backend count what crosses from the card: the bitap
 engine's record_pairs (pairs cut) and record_rows (rows read back,
-ops/scan.py), the regex engine's regex_lines (lines indexed on the card)
+ops/scan.py) and, for its sticky machines, lane_records (records cut on
+the card) and lane_rows (rows read back, ops/scan.py), the regex engine's regex_lines (lines indexed on the card)
 and regex_rows (rows read back, runtime/regex_engine.py), and the mgrep
 engine's chain_scans, qgram_lines and qgram_line_rows (launches, rows
 read back) and stream_print_chunks (chunks of a streamed -f print,

@@ -8,11 +8,11 @@ exits non-zero:
 
   1. card: the GPU's name and power limit (nvidia-smi) and the torch and
      CUDA versions;
-  2. build: compiles the ten kernel sources (csrc/mask_scan.cu,
+  2. build: compiles the eleven kernel sources (csrc/mask_scan.cu,
      renfa_lanes.cu, chain_scan.cu, qgram_filter.cu, event_pairs.cu,
      record_verdicts.cu, line_index.cu, line_rows.cu, qgram_lines.cu,
-     line_terms.cu) with nvcc, every compile unit of all ten started
-     together, and times the build;
+     line_terms.cu, bitap_lanes.cu) with nvcc, every compile unit of all
+     eleven started together, and times the build;
   3. parity: the mask_scan kernel against its plain PyTorch version
      (mask_scan_reference) on the card, bit for bit, over every variant,
      D, cost wiring, endpos shape and edge size the kernel takes (sizes
@@ -106,8 +106,17 @@ exits non-zero:
      bodies at, one before and one after tile edges, a term longer than
      the staged halo starting 20 bytes before tile ends, 8 MB of lines,
      more tiles than the card's resident blocks), each launch at the
-     wrapper's grid and at grids of 1, 3 and one block a tile; phase 4
-     repeats every check at the main path's shapes;
+     wrapper's grid and at grids of 1, 3 and one block a tile; and the
+     bitap_lanes kernel against bitap_lanes_reference, bit for bit
+     (verdicts and hits), on fourteen sticky machines (-p and '#', D 0-8,
+     uniform and cost wiring, AND and OR) over one lane, 33, 5,000,
+     empty lanes, lanes of 8-49 KB and a 1 MB lane (at D 0), on views
+     1-15 bytes past an aligned address, the first lane from Init0 and
+     from the post-reset states, with and without -v, and at the sticky
+     runs' shapes (the STICKY_MB file stream and memory buffer of phase
+     4), and line_index at the delimiter bytes 'o', '$' and 0 against
+     line_index_reference; phase 4 repeats every check at the main
+     path's shapes;
   4. main path: a --mb MB ASCII corpus made from --seed, searched through
      agrep_tpu_torch.api.fileagrep with BASELINE configs 1-4 (the file
      is over the streaming threshold, so each run is chunked; config 4,
@@ -168,7 +177,20 @@ exits non-zero:
      the card (trace counter regex_lines), one row read back a printed
      line (regex_rows; 0 for a count), and the regex engine may call no
      numpy index or sort over 65,536 or more elements (a host newline
-     index or length sort);
+     index or length sort); memagrep2 (config 2, -1 -n matching) and
+     memagrep3 (config 3) through memagrep on the 100 MB buffer must cut
+     their records from mask_scan's planes through record_verdicts, one
+     launch of each a buffer, no per-byte loop; wild (-n 'appr#mate'),
+     wildp (-p -c aproximat) over a STICKY_MB MB file of the corpus and
+     memwild ('appr#mate' through memagrep over a STICKY_MB MB buffer)
+     must cut every record on the card through line_index, bitap_lanes
+     and line_rows, one launch each, reading back one row a printed
+     record, with no host lane scan and no per-byte loop; memagrep2,
+     memagrep3 and memwild over the buffer's first LOOP_MB MB must equal
+     the per-byte memory loop (BitapEngine._memory_search_loop) on the
+     card; and the serial lane: -p -c aproximat over a STICKY_MB MB file
+     with no delimiter, one lane walked by one thread, its hits equal to
+     the native sequential scan's, its launch timed;
   5. kernels: mask_scan's launch geometry (split, tiles a block, threads,
      dynamic shared memory; registers and spills from ptxas) and its
      time against its bound at all five main-path shapes, chain_scan's
@@ -204,7 +226,10 @@ exits non-zero:
      device time, the wrapper's with the host's read, the plain
      version's and a library composite's: torch.nonzero of the plane, a
      padded term matrix's compare, torch.searchsorted of the newlines and
-     index_put_) at each streamed boolean's first chunk, each checked
+     index_put_) at each streamed boolean's first chunk, and
+     bitap_lanes' (lanes, threads, blocks an SM, grid, registers; its
+     launch's device time, the plain version's, the bound) at each
+     sticky run, each checked
      bit for bit against the plain version and the
      composite first, each on a line of its own; then one JSON line with
      each kernel's launches on the main path, its time, its plain
@@ -240,7 +265,9 @@ exits non-zero:
      with --device cuda --ref numpy over the fixed seed ranges of
      SWEEP_RUNS in every mode (uniform, stratified, regex, and the
      device route's grown corpora with its past-caps stratum and its
-     boolean stratum, whose booleans of 2-6 terms stream): random
+     boolean stratum, whose booleans of 2-6 terms stream, and the memory
+     stratum: memagrep cases held against the per-byte memory loop,
+     whose sticky one-byte cases launch bitap_lanes): random
      corpora and flag sets from tools/fuzz_sweep.py's generators, the
      port's GPU route against its own numpy host backend, stdout and
      exit code compared exactly.  Its line gives the cases by mode,
@@ -2296,6 +2323,304 @@ def terms_inputs(path: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------
+# the sticky machines' record lanes: bitap_lanes (phases 3-5)
+# ---------------------------------------------------------------------
+
+# the sticky machines phase 3 holds bitap_lanes to: -p and '#', D 0-8,
+# uniform and cost wiring, AND and OR
+LANE_MACHINES = [
+    ["-p", "aproximat"], ["-2", "-p", "hello"], ["appr#mate"], ["-1", "h#o"],
+    ["al#ha;ko#la"], ["-1", "br#vo,zz"], ["-2", "-D2", "-I1", "-S1", "br#vo"],
+    ["-3", "-I2", "-S1", "-D3", "ma#ing"], ["-4", "-p", "hello"],
+    ["-5", "h#llo#orld"], ["-6", "-p", "approximate"],
+    ["-7", "-p", "abcdefghi"], ["-8", "abcdefgh#ijklm"],
+    ["-8", "-p", "abcdefghijkl"],
+]
+LANE_WORDS = [b"hello", b"aproximate", b"approximately", b"koala", b"alpha",
+              b"bravo", b"zz", b"matching", b"abcdefghijklm", b"helloworld"]
+LANE_OFFSETS = (0, 1, 3, 15)
+# the sticky runs of phase 4 and the size of their file and buffer
+STICKY_MB = 16
+STICKY_RUNS = ("wild", "wildp", "memwild")
+MEMORY_RECORD_RUNS = ("memagrep2", "memagrep3")
+# the memory runs held at this size against the per-byte loop
+LOOP_MB = 1
+
+
+def lane_machine(argv, device):
+    """(compiled query, bitap_lanes' machine, the post-reset states, Init0
+    states) of a sticky search's argv."""
+    from agrep_tpu_torch.compile.query import compile_query
+    from agrep_tpu_torch.ops import scan as scan_ops
+    from agrep_tpu_torch.options import parse_args
+    from agrep_tpu_torch.runtime import engine
+    opts, pattern, _ = parse_args(argv + ["x"])
+    q = compile_query(pattern, opts)
+    if q.engine_class != "bitap" or not engine.BitapEngine(q).sticky():
+        raise AssertionError("%s is not a sticky bitap machine" % argv)
+    m = scan_ops.lanes_machine(q.folded_mask, engine._sticky_consts(q), q.D,
+                               q.costs, device)
+    return (q, m, engine._lane_inits(q, q.D),
+            [int(q.consts["init0"])] * (q.D + 1))
+
+
+def lane_texts(rng) -> list:
+    """(name, u8 numpy text of '\\n'-ended lanes, views: "all" offsets,
+    "some" or none) of every lane set
+    phase 3 holds bitap_lanes to: one lane, 33, 5,000 of 0-200 bytes with
+    words planted, empty lanes alone, lanes of 8,191, 8,192, 12,345 and
+    49,153 bytes among short ones, and a 1 MB lane (held at D 0 only)."""
+    import numpy as np
+
+    def lanes(lens):
+        out = []
+        for n in lens:
+            t = bytearray(rng.integers(97, 123, n, dtype=np.uint8).tobytes())
+            for _ in range(2):
+                w = LANE_WORDS[int(rng.integers(0, len(LANE_WORDS)))]
+                if len(t) > len(w):
+                    at = int(rng.integers(0, len(t) - len(w)))
+                    t[at:at + len(w)] = w
+            out.append(bytes(t) + b"\n")
+        return np.frombuffer(b"".join(out), dtype=np.uint8)
+    return [("R1", lanes([40]), "all"),
+            ("R33", lanes(rng.integers(0, 200, 33)), "all"),
+            ("R5000", lanes(rng.integers(0, 200, 5000)), "some"),
+            ("empty", np.full(100, 0x0A, dtype=np.uint8), "all"),
+            ("long", lanes([8191, 8192, 12345, 49153]
+                           + list(rng.integers(0, 200, 300))), False),
+            ("lane1MB", lanes([1 << 20]), False)]
+
+
+def _lanes_diff(got, want) -> int:
+    """0 when bitap_lanes' (verdicts, hits) equal the plain version's, else
+    the largest |hits| difference (at least 1)."""
+    import torch
+    if torch.equal(got[0], want[0]) and torch.equal(got[1].long(),
+                                                    want[1].long()):
+        return 0
+    return max(1, _max_diff(got[1], want[1]))
+
+
+def lanes_check(name, text, m, init, first, and_flag, failed: list,
+                delim: int = 0x0A) -> int:
+    """bitap_lanes on text's lines (line_index at delim) against its plain
+    version, with -v and without (the kernel's verdicts against the
+    plain hits' under -v); returns the lanes held."""
+    from agrep_tpu_torch.ops import renfa_kernel
+    from agrep_tpu_torch.ops import scan as scan_ops
+    idx = renfa_kernel.line_index(text, delim)
+    if idx.nl.numel() == 0:
+        return 0
+    args = (text, idx.starts, idx.lens, m, init, first, and_flag)
+    want = scan_ops.bitap_lanes_reference(*args, False)
+    for inv in (False, True):
+        got = scan_ops.bitap_lanes(*args, inv)
+        v = (want[0] | inv) if and_flag else (want[0] ^ inv)
+        d = _lanes_diff(got, (v, want[1]))
+        if d:
+            failed.append((name, inv, d))
+    return idx.nl.numel()
+
+
+def sticky_streams(corpus):
+    """(file stream of the STICKY_MB file as the bitap engine builds it --
+    the prefilled newline, the glitch byte at 49,153, the EOF newline --
+    and memory mode's buffer: a newline, the corpus, a 0 byte where odd)
+    of phase 4's sticky runs, as u8 numpy arrays."""
+    import numpy as np
+    data = corpus[:STICKY_MB << 20]
+    nl = np.frombuffer(b"\n", np.uint8)
+    stream = np.concatenate([nl, data[:49152], np.zeros(1, np.uint8),
+                             data[49152:], nl])
+    mem = np.concatenate([nl, data])
+    if len(mem) & 1:
+        mem = np.concatenate([mem, np.zeros(1, np.uint8)])
+    return stream, mem
+
+
+def phase_parity_lanes(device: str, seed: int) -> int:
+    """bitap_lanes against bitap_lanes_reference, bit for bit (verdicts
+    and hits), on every LANE_MACHINES machine over lane_texts (also as
+    views 1-15 bytes past an aligned address), the first lane from Init0
+    and from the post-reset states, with and without -v; then at the
+    sticky runs' shapes (phase 4's STICKY_MB file stream and memory
+    buffer, 'appr#mate' and -p aproximat); and line_index at the bytes
+    'o', '$' and 0 against line_index_reference.  Returns the largest
+    difference (0 or fail)."""
+    import numpy as np
+    import torch
+
+    from agrep_tpu_torch.ops import renfa_kernel
+    rng = np.random.default_rng(seed + 24)
+    failed, held, t0 = [], 0, time.perf_counter()
+    texts = lane_texts(rng)
+    for argv in LANE_MACHINES:
+        q, m, init, first = lane_machine(argv, device)
+        for name, text, views in texts:
+            if name == "lane1MB" and q.D > 0:
+                continue
+            for off in (LANE_OFFSETS if views == "all" else (0, 15)
+                        if views else (0,)):
+                buf = torch.zeros(len(text) + 16, dtype=torch.uint8,
+                                  device=device)
+                buf[off:off + len(text)] = torch.from_numpy(text.copy())
+                t = buf[off:off + len(text)]
+                for fst in ((first, init) if off == 0 and views
+                            else (first,)):
+                    held += lanes_check(
+                        "%s %s +%d" % (" ".join(argv), name, off), t, m,
+                        init, fst, q.and_flag, failed)
+    corpus = make_corpus(STICKY_MB << 20, seed)
+    stream, mem = sticky_streams(corpus)
+    for argv in (["appr#mate"], ["-p", "aproximat"]):
+        q, m, init, first = lane_machine(argv, device)
+        for name, text, fst in (("file stream", stream, init),
+                                ("memory buffer", mem, first)):
+            held += lanes_check("%s %s" % (" ".join(argv), name),
+                                torch.from_numpy(text).to(device), m, init,
+                                fst, q.and_flag, failed)
+    idx_bad = 0
+    for delim in (ord("o"), ord("$"), 0):
+        for n in (1, 17, 4096, 70001, 1 << 20):
+            text = rng.choice(np.frombuffer(b"ab\nxyo$\x00", np.uint8), n)
+            for off in (0, 3):
+                buf = torch.zeros(n + 16, dtype=torch.uint8, device=device)
+                buf[off:off + n] = torch.from_numpy(text)
+                t = buf[off:off + n]
+                a = renfa_kernel.line_index(t, delim)
+                b = renfa_kernel.line_index_reference(t, delim)
+                if not (all(torch.equal(x, y) for x, y in zip(a[:4], b[:4]))
+                        and a.last == b.last):
+                    idx_bad += 1
+                    failed.append(("line_index", delim, n, off))
+    print("parity: bitap_lanes vs bitap_lanes_reference on %d machines "
+          "(D 0-8, -p and '#', uniform and cost wiring, AND and OR), %d "
+          "lanes (one, 33, 5,000, empty, 8-49 KB, a 1 MB lane at D 0, "
+          "views at offsets 1-15, the first lane from Init0 and not, with "
+          "and without -v) and at the sticky runs' %d MB file stream and "
+          "memory buffer: %d mismatches; line_index at the bytes 'o', '$' "
+          "and 0: %d mismatches; %.1f s"
+          % (len(LANE_MACHINES), held, STICKY_MB, len(failed) - idx_bad,
+             idx_bad, time.perf_counter() - t0))
+    if failed:
+        raise AssertionError("bitap_lanes parity failed: %s" % failed[:10])
+    return 0
+
+
+def lanes_cut(name, n: dict, counters, printed, loop_calls: int,
+              host_lanes: int, want_records: int) -> dict:
+    """The checks of a STICKY_RUNS run: one line_index, one bitap_lanes and
+    one line_rows launch, every record cut on the card (trace counter
+    lane_records), one row read back a printed record (lane_rows; a -c
+    run's rows are reported), no host lane and no per-byte loop."""
+    recs, rows = counters.get("lane_records", 0), counters.get("lane_rows",
+                                                               0)
+    if (n["bitap_lanes"] != 1 or n["line_index"] != 1 or n["line_rows"] != 1
+            or recs != want_records or loop_calls or host_lanes
+            or (printed is not None and rows != printed)):
+        raise AssertionError(
+            "%s: bitap_lanes %d, line_index %d, line_rows %d launches, %d "
+            "records cut on the card of %d, %d rows for %s printed, %d "
+            "host lane scans, %d per-byte loops"
+            % (name, n["bitap_lanes"], n["line_index"], n["line_rows"],
+               recs, want_records, rows, printed, host_lanes, loop_calls))
+    return {"records": recs, "rows": rows}
+
+
+def lanes_alone(name, args, device, plain: bool = True) -> dict:
+    """bitap_lanes alone on the inputs the main path gave it (text,
+    starts, lens, machine, init, first, and_flag, invert): its launch's
+    device time (time_kernel: the wrapper's bounds check reads back),
+    the bound, the geometry, and with plain the plain version's time and
+    the kernel against the plain version."""
+    from agrep_tpu_torch.ops import scan as scan_ops
+    from agrep_tpu_torch.ops.timing import lanes_bound, time_kernel
+    text, starts, lens, m = args[:4]
+    ms = time_kernel(lambda: scan_ops._lanes_launch(*args))
+    got = scan_ops._lanes_launch(*args)
+    plain_ms = diff = None
+    if plain:
+        plain_ms = _time_plain(
+            lambda: scan_ops.bitap_lanes_reference(*args))
+        diff = _lanes_diff(got, scan_ops.bitap_lanes_reference(*args))
+        if diff:
+            raise AssertionError("%s: bitap_lanes differs from its plain "
+                                 "version (%d)" % (name, diff))
+    lens_h = lens.cpu().numpy()
+    bms, by = lanes_bound(m, text.numel(), lens_h)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "shape_b": text.numel(), "lanes": len(lens_h),
+            "longest": int(lens_h.max()) + 1, "true": int(got[0].sum()),
+            "max_abs_err": diff,
+            "geometry": scan_ops.lanes_geometry(len(lens_h), m, device)}
+
+
+def serial_lane(corpus, seed: int, device: str, card: str) -> dict:
+    """The serial lane: a STICKY_MB file with no delimiter in it is one
+    record, one lane walked by one thread.  `-p -c aproximat` over it on
+    the card (wall, launches), bitap_lanes alone on its inputs (time
+    against the bound), and the lane's hits against the native
+    sequential scan of the same stream with the sticky Init1 (the
+    per-byte loop's machine in C: its event at the last byte)."""
+    import numpy as np
+
+    from agrep_tpu_torch import api, native
+    from agrep_tpu_torch.ops import scan as scan_ops
+    from agrep_tpu_torch.runtime import engine
+    data = corpus[:STICKY_MB << 20].copy()
+    data[data == 0x0A] = 0x20
+    argv = ["-p", "-c", "aproximat"]
+    got = {}
+    real = scan_ops.bitap_lanes
+
+    def recorder(*args):
+        got.setdefault("args", args)
+        return real(*args)
+    build = os.path.join(REPO, "build")
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        path = os.path.join(tmp, "serial.txt")
+        data.tofile(path)
+        scan_ops.bitap_lanes = recorder
+        before = scan_ops.launches["bitap_lanes"]
+        try:
+            t0 = time.perf_counter()
+            out = _run(api.fileagrep, argv + [path])
+            wall = time.perf_counter() - t0
+        finally:
+            scan_ops.bitap_lanes = real
+        launches = scan_ops.launches["bitap_lanes"] - before
+    if launches != 1:
+        raise AssertionError("serial lane: %d bitap_lanes launches"
+                             % launches)
+    alone = lanes_alone("serial", got["args"], device, plain=False)
+    q, m, init, _first = lane_machine(["-p", "aproximat"], device)
+    stream = np.concatenate([np.frombuffer(b"\n", np.uint8), data,
+                             np.frombuffer(b"\n", np.uint8)])
+    consts = dict(engine._sticky_consts(q))
+    consts["init1_ns"] = consts["init1"]
+    pos, words = native.bitap_scan_events(stream, q.folded_mask, consts,
+                                          q.D, "bitap", q.costs)
+    want = int(words[-1]) & int(q.consts["endpos"]) \
+        if len(pos) and pos[-1] == len(stream) - 1 else 0
+    hits = scan_ops._lanes_launch(*got["args"])[1].cpu().numpy()
+    lens = got["args"][2].cpu().numpy()
+    lane = int(hits[int(np.argmax(lens))])
+    if lane != want:
+        raise AssertionError("serial lane: hits %#x on the card, %#x by the "
+                             "native sequential scan" % (lane, want))
+    print("lanes: serial lane %s over a %d MB file with no delimiter (one "
+          "lane of %d B): rc=%d out=%d B, GPU route wall %.3f s, 1 "
+          "bitap_lanes launch; the launch alone %.3f ms (%.1f MB/s), bound "
+          "%.4f ms (%s), hits %#x equal to the native sequential scan's | "
+          "card: %s"
+          % (" ".join(argv), STICKY_MB, alone["longest"], out[1], out[2],
+             wall, alone["ms"], alone["longest"] / alone["ms"] / 1e3,
+             alone["bound_ms"], alone["bound_by"], lane, card))
+    return dict(alone, wall_s=wall)
+
+
 def _run(api_fn, argv, data=None):
     """(stdout sha256, exit code, stdout bytes, lines printed but the
     Grand Total) of one search in this process."""
@@ -2863,7 +3188,8 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
             "record_verdicts": (kernels, kernels.record_verdicts),
             "line_index": (renfa_kernel, renfa_kernel.line_index),
             "line_rows": (renfa_kernel, renfa_kernel.line_rows),
-            "line_terms": (chain_kernel, chain_kernel.line_terms)}
+            "line_terms": (chain_kernel, chain_kernel.line_terms),
+            "bitap_lanes": (scan_ops, scan_ops.bitap_lanes)}
     # the inputs of every record_verdicts call of the run
     rv_calls: list = []
 
@@ -2919,6 +3245,26 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
     def find_counted(*args):
         finds[0] += 1
         return real_find(*args)
+
+    # calls of the bitap engine's per-byte memory loop and of the host's
+    # record lanes, which no run on the card makes
+    from agrep_tpu_torch.runtime import engine
+    host_calls = {"loop": 0, "lanes": 0}
+    real_loop = engine.BitapEngine._memory_search_loop
+    real_lanes = scan_ops.scan_lanes
+
+    def loop_counted(*args, **kw):
+        host_calls["loop"] += 1
+        return real_loop(*args, **kw)
+
+    def lanes_counted(*args, **kw):
+        host_calls["lanes"] += 1
+        return real_lanes(*args, **kw)
+    sticky_stream, sticky_mem = sticky_streams(corpus)
+    want_records = {"wild": int(np.count_nonzero(sticky_stream == 0x0A)),
+                    "memwild": int(np.count_nonzero(sticky_mem == 0x0A))}
+    want_records["wildp"] = want_records["wild"]
+    mem16 = b"\n" + corpus[:STICKY_MB << 20].tobytes()
 
     # calls of the dense host read-back, which the torch route no longer
     # makes
@@ -2985,6 +3331,22 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
         # the streamed booleans, on the line corpus
         runs += [(name, api.fileagrep, argv + [path], None,
                   STREAMED_RUNS[name][0]) for name, argv in BOOL_STREAM_RUNS]
+        # the bitap engine's memory mode with errors and its cost wiring
+        # (records from mask_scan's planes through record_verdicts), and
+        # the sticky machines ('#', -p: line_index, bitap_lanes and
+        # line_rows) over a STICKY_MB file and buffer
+        path16 = os.path.join(tmp, "corpus%d.txt" % STICKY_MB)
+        corpus[:STICKY_MB << 20].tofile(path16)
+        runs += [
+            ("memagrep2", api.memagrep, CONFIGS[1][1], mem_data, "mask_scan"),
+            ("memagrep3", api.memagrep, CONFIGS[2][1], mem_data, "mask_scan"),
+            ("wild", api.fileagrep, ["-n", "appr#mate", path16], None,
+             "bitap_lanes"),
+            ("wildp", api.fileagrep, ["-p", "-c", "aproximat", path16], None,
+             "bitap_lanes"),
+            ("memwild", api.memagrep, ["-n", "appr#mate"], mem16,
+             "bitap_lanes"),
+        ]
         path_whole = os.path.join(tmp, "corpus%d.txt" % BOOL_WHOLE_MB)
         corpus[:BOOL_WHOLE_MB << 20].tofile(path_whole)
         ident = np.arange(256, dtype=np.uint8)
@@ -3005,6 +3367,8 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
             setattr(chain_kernel, name, read_counter(name, fn))
         native.qgram_first_per_anchor_at = at_counted
         kernels.planes_to_events = p2e_counted
+        engine.BitapEngine._memory_search_loop = loop_counted
+        scan_ops.scan_lanes = lanes_counted
         mgrep._find_occurrences = find_counted
         regex_engine.np = host_index
         trace_was = trace.ENABLED
@@ -3018,10 +3382,12 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                 at_before = at_calls[0]
                 p2e_before = p2e_calls[0]
                 finds_before = finds[0]
+                host_before = dict(host_calls)
                 for k in ("qgram_candidates", "record_rows",
                           "record_pairs", "regex_lines", "regex_rows",
                           "stream_print_chunks", "bool_stream_chunks",
-                          "line_terms", "line_terms_rows"):
+                          "line_terms", "line_terms_rows", "lane_records",
+                          "lane_rows"):
                     trace.counters.pop(k, None)
                 host_index.calls.clear()
                 seen.clear()
@@ -3089,11 +3455,28 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                                  "bool_stream_chunks", 0),
                              "terms_rows": trace.counters.get(
                                  "line_terms_rows", 0)}
-                if name in RECORD_RUNS:
+                host_n = {k: host_calls[k] - host_before[k]
+                          for k in host_calls}
+                if name in RECORD_RUNS + MEMORY_RECORD_RUNS:
                     res[name]["cut"] = records_cut(
                         name, n, kernels.relaunches["record_verdicts"]
                         - again, rv_calls, trace.counters)
                     inputs[name]["record_verdicts"] = rv_calls[0]
+                if name in MEMORY_RECORD_RUNS and (
+                        n["mask_scan"] != 1 or n["record_verdicts"] != 1
+                        or host_n["loop"]):
+                    raise AssertionError(
+                        "%s: memory mode launched mask_scan %d and "
+                        "record_verdicts %d times for one buffer, and ran "
+                        "the per-byte loop %d times" % (
+                            name, n["mask_scan"], n["record_verdicts"],
+                            host_n["loop"]))
+                if name in STICKY_RUNS:
+                    res[name]["lanes_cut"] = lanes_cut(
+                        name, n, trace.counters,
+                        None if "-c" in argv else got[name][3],
+                        host_n["loop"], host_n["lanes"],
+                        want_records[name])
                 rv_calls.clear()
                 if name in LINE_RUNS:
                     res[name]["lines_cut"] = lines_cut(
@@ -3110,6 +3493,8 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                 setattr(chain_kernel, name, fn)
             native.qgram_first_per_anchor_at = real_at
             kernels.planes_to_events = real_p2e
+            engine.BitapEngine._memory_search_loop = real_loop
+            scan_ops.scan_lanes = real_lanes
             mgrep._find_occurrences = real_find
             regex_engine.np = real_np
             trace.ENABLED = trace_was
@@ -3171,13 +3556,37 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
             "config4n: stdout sha256/rc %s streamed in chunks, %s read "
             "whole on the numpy backend" % (got["config4n"][:2],
                                             whole4n[:2]))
+    # the memory runs at LOOP_MB on the card against the per-byte loop,
+    # which the numpy backend's walk does not give
+    for name, fn, argv, data, _k in runs:
+        if name not in MEMORY_RECORD_RUNS + ("memwild",):
+            continue
+        part = data[:LOOP_MB << 20]
+        got1 = _run(fn, argv, part)
+        real_ms = engine.BitapEngine._memory_search
+        engine.BitapEngine._memory_search = real_loop
+        try:
+            t0 = time.perf_counter()
+            want1 = _run(fn, argv, part)
+            loop_s = time.perf_counter() - t0
+        finally:
+            engine.BitapEngine._memory_search = real_ms
+        if got1[:2] != want1[:2] or not got1[3]:
+            raise AssertionError(
+                "%s: stdout sha256/rc %s over %d MB on the card, %s by the "
+                "per-byte loop (%d lines)" % (name, got1[:2], LOOP_MB,
+                                             want1[:2], got1[3]))
+        res[name]["loop"] = {"sha": got1[0], "lines": got1[3],
+                             "loop_s": loop_s}
 
     # the mask kernel alone at the main path's chunk shape, and at the
     # memagrep buffer's
     chunk = corpus[:scan_ops.STREAM_CHUNK]
     text = kernels.to_device(chunk, device)
     mem_text = kernels.to_device(np.frombuffer(mem_data, np.uint8), device)
-    for name, argv in CONFIGS + [CONFIG2C, ("memagrep", CONFIGS[0][1])]:
+    for name, argv in CONFIGS + [CONFIG2C, ("memagrep", CONFIGS[0][1]),
+                                 ("memagrep2", CONFIGS[1][1]),
+                                 ("memagrep3", CONFIGS[2][1])]:
         opts, pattern, _ = parse_args(argv + ["x"])
         q = compile_query(pattern, opts)
         if q.engine_class == "sgrep":
@@ -3190,7 +3599,7 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                                         device)
         W, L = halo(consts, q.D, scan_ops.DEFAULT_TILE), \
             scan_ops.DEFAULT_TILE
-        t = mem_text if name == "memagrep" else text
+        t = mem_text if name.startswith("memagrep") else text
         ms = time_kernel(lambda: kernels.mask_scan(t, m, W, L))
         planes = kernels.mask_scan(t, m, W, L)
         plain_ms = _time_plain(
@@ -3262,6 +3671,8 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                   "mask_scan": kernels._launch}
     first5 = [r[0] for r in runs].index("config5")
     for name, _fn, _argv, _data, kname in runs[first5:]:
+        if name in MEMORY_RECORD_RUNS + STICKY_RUNS:
+            continue                 # timed with configs 1-3 and below
         args = inputs[name][kname]
         N = args[0].numel()
         ms = time_kernel(lambda: launch_fns[kname](*args))
@@ -3296,6 +3707,11 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
             res[name]["terms"] = terms_alone(name,
                                              *inputs[name]["line_terms"])
 
+    # bitap_lanes alone on the inputs each sticky run gave it
+    for name in STICKY_RUNS:
+        res[name].update(lanes_alone(name, inputs[name]["bitap_lanes"],
+                                     device))
+
     # the record cut alone at the first chunk's planes of each record run
     for name in RECORD_RUNS:
         res[name]["verdicts"] = records_alone(
@@ -3310,8 +3726,9 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
         src = ("records " if name.endswith(("5", "5c", "5c400", "5q", "5qn",
                                             "5s", "5qs", "5m"))
                else "")
-        where = ("%d MB %sbuffer" % (mb, src) if data is not None
-                 else "%d MB %sfile" % (mb, src))
+        size = STICKY_MB if name in STICKY_RUNS else mb
+        where = ("%d MB %sbuffer" % (size, src) if data is not None
+                 else "%d MB %sfile" % (size, src))
         print("main: %-9s %-38s %s rc=%d out=%d B sha256=%s.. GPU route "
               "wall=%.3f s (%.3f GB/s), numpy backend wall=%.3f s | %s "
               "launches=%d | kernel %.4f ms per %d B launch (%.1f GB/s, "
@@ -3319,7 +3736,7 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
               % (name, " ".join(argv[:len(argv) - (data is None)]).replace(
                   WIDE_TERM, "hello<136 classes>"), where,
                  got[name][1], got[name][2], got[name][0][:12],
-                 r["wall_s"], n_bytes / r["wall_s"] / 1e9,
+                 r["wall_s"], (size << 20) / r["wall_s"] / 1e9,
                  r["host_wall_s"], kname, r["launches"], r["ms"],
                  r["shape_b"], r["shape_b"] / r["ms"] / 1e6,
                  r["plain_ms"], r["bound_ms"], r["bound_by"], card))
@@ -3400,6 +3817,33 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
           "GPU route wall %.3f s, stdout equal to the numpy backend"
           % (" ".join(CONFIG2V[1]), CONFIG2V_MB, CONFIG2V_CHUNK,
              v["launches"], v["relaunches"], v["rows"], v["wall_s"]))
+    for name in MEMORY_RECORD_RUNS:
+        r, c = res[name], res[name]["cut"]
+        print("main: %s (memory mode) cut its records from mask_scan's "
+              "planes through record_verdicts (%d launch a buffer, no "
+              "per-byte loop): %d rows read back of %d events, the records "
+              "that fire; at %d MB equal to the per-byte loop (%d lines, "
+              "sha256=%s.., the loop's wall %.3f s); GPU route wall %.3f s, "
+              "numpy backend wall %.3f s | card: %s"
+              % (name, c["launches"], c["rows"], c["pairs"], LOOP_MB,
+                 r["loop"]["lines"], r["loop"]["sha"][:12],
+                 r["loop"]["loop_s"], r["wall_s"], r["host_wall_s"], card))
+    for name in STICKY_RUNS:
+        r, c = res[name], res[name]["lanes_cut"]
+        print("main: %s cut its %d records on the card through line_index, "
+              "bitap_lanes and line_rows (one launch each), %d rows read "
+              "back, no host lane, no per-byte loop; bitap_lanes %.4f ms per "
+              "%d B launch (%d lanes, the longest %d B, %d fire), bound "
+              "%.4f ms (%s), plain %.1f ms%s; GPU route wall %.3f s, numpy "
+              "backend wall %.3f s | card: %s"
+              % (name, c["records"], c["rows"], r["ms"], r["shape_b"],
+                 r["lanes"], r["longest"], r["true"], r["bound_ms"],
+                 r["bound_by"], r["plain_ms"],
+                 "; at %d MB equal to the per-byte loop (%d lines, the "
+                 "loop's wall %.3f s)" % (LOOP_MB, r["loop"]["lines"],
+                                           r["loop"]["loop_s"])
+                 if "loop" in r else "", r["wall_s"], r["host_wall_s"],
+                 card))
     for name in ("config4", "memagrep4"):
         r = res[name]
         print("main: the lanes kernel's %d B launch of %s holds %d lines, "
@@ -3451,6 +3895,7 @@ def _zero(counts) -> None:
 def _launch_counts():
     from agrep_tpu_torch.ops import chain_kernel, kernels, qgram_kernel
     from agrep_tpu_torch.ops import renfa_kernel
+    from agrep_tpu_torch.ops import scan as scan_ops
     return {"mask_scan": kernels.launches,
             "event_pairs": kernels.launches,
             "record_verdicts": kernels.launches,
@@ -3460,7 +3905,8 @@ def _launch_counts():
             "chain_scan": chain_kernel.launches,
             "qgram_filter": qgram_kernel.launches,
             "qgram_lines": qgram_kernel.launches,
-            "line_terms": chain_kernel.launches}
+            "line_terms": chain_kernel.launches,
+            "bitap_lanes": scan_ops.launches}
 
 
 def _launched(counts) -> dict:
@@ -3771,8 +4217,10 @@ def phase_bench(card: str) -> None:
     if rc != 0 or res["conformance"] != "pass":
         raise AssertionError("bench: conformance %r, rc %d"
                              % (res["conformance"], rc))
-    # the bench streams no boolean: line_terms is not on its path
-    idle = [k for k, n in launched.items() if n == 0 and k != "line_terms"]
+    # the bench streams no boolean and runs no sticky machine: line_terms
+    # and bitap_lanes are not on its path
+    idle = [k for k, n in launched.items()
+            if n == 0 and k not in ("line_terms", "bitap_lanes")]
     if idle:
         raise AssertionError("bench: launched no %s kernel" % idle)
 
@@ -3791,6 +4239,7 @@ SWEEP_RUNS = [
     ("stratified", True, 60, 7000),
     ("regex", True, 60, 17000),
     ("boolean", True, 40, 18000),
+    ("memory", False, 120, 19000),
 ]
 
 
@@ -4069,6 +4518,24 @@ def line_terms_line(res, card: str) -> str:
         for n, _argv in BOOL_STREAM_RUNS for r in [res[n]["terms"]]), card)
 
 
+def lanes_geometry_line(res) -> str:
+    """bitap_lanes' launch at each sticky run, and the registers and
+    spills ptxas reported for its kernels."""
+    from agrep_tpu_torch.ops import _cuda
+    log = _cuda.build_logs.get("bitap_lanes", "")
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+    return "geometry: bitap_lanes %s | kernels' registers %s-%s, %d spill" % (
+        " | ".join("%s: %d lanes, threads %d, blocks an SM %d, grid %d, "
+                   "registers %d" % (n, res[n]["lanes"], g["threads"],
+                                     g["blocks_per_sm"], g["grid"],
+                                     g["regs"])
+                   for n in STICKY_RUNS for g in [res[n]["geometry"]]),
+        min(regs, default=0), max(regs, default=0),
+        sum(1 for sp in spills if sp))
+
+
 def times_line(res, kname: str, names, card: str) -> str:
     return "times: %s %s | card: %s" % (kname, " | ".join(
         "%s %.4f ms per %d B launch, %.1f %% of its %.4f ms bound (%s)"
@@ -4114,6 +4581,7 @@ def main(argv=None) -> int:
     err_qlines = phase_parity_qgram_lines("cuda", args.seed,
                                           make_patterns(400, args.seed))
     err_terms = phase_parity_line_terms("cuda", args.seed)
+    err_lanes = phase_parity_lanes("cuda", args.seed)
     res = phase_main("cuda", args.seed, args.mb, card)
 
     c1, c2, c4, c5, c5q = (res["config1"], res["config2"], res["config4"],
@@ -4133,8 +4601,11 @@ def main(argv=None) -> int:
     print(event_pairs_line(res, card))
     print(record_verdicts_line(res, card))
     print(line_stages_line(res, card))
-    t6 = time.perf_counter()
+    print(lanes_geometry_line(res))
+    print(times_line(res, "bitap_lanes", STICKY_RUNS, card))
     corpus = make_corpus(args.mb << 20, args.seed)
+    serial = serial_lane(corpus, args.seed, "cuda", card)
+    t6 = time.perf_counter()
     phase_dist(corpus, card)
     phase_entries()
     phase_ranks(corpus, make_records(corpus, args.seed),
@@ -4317,6 +4788,25 @@ def main(argv=None) -> int:
         "wrapper_ms": bools["wrapper_ms"],
         "count_ms": res["boolsc"]["terms"]["ms"],
         "count_bound_ms": res["boolsc"]["terms"]["bound_ms"],
+    }, {
+        "name": "bitap_lanes",
+        "route": "cuda",
+        "source": "agrep_tpu_torch/csrc/bitap_lanes.cu",
+        # the host lane scan it replaces (no Pallas kernel: a numpy column
+        # loop of agrep_tpu, fed by engine.py:721's per-record copies)
+        "replaces": "agrep_tpu/ops/scan.py:337",
+        "launches": res["launches"]["bitap_lanes"],
+        "max_abs_err": max([err_lanes] + [res[n]["max_abs_err"]
+                                          for n in STICKY_RUNS]),
+        "ms": res["wild"]["ms"],
+        "plain_ms": res["wild"]["plain_ms"],
+        "bound_ms": res["wild"]["bound_ms"],
+        "bound_by": res["wild"]["bound_by"],
+        # no PyTorch call runs a shift-or machine
+        "library_ms": None,
+        # a STICKY_MB record with no delimiter: one lane, one thread
+        "serial_ms": serial["ms"],
+        "serial_bound_ms": serial["bound_ms"],
     }]}
     print("kernels: times are per launch at the main path's %d B chunk "
           "of config2 (%s; record_verdicts: its launch over that chunk's "
@@ -4329,11 +4819,13 @@ def main(argv=None) -> int:
           "stream (chain_scan) and config5q's %d B stream (qgram_filter; "
           "qgram_lines: every pass of config5qn's print over it, without "
           "the host's read of the count; line_terms: its launch over "
-          "bools' first %d B chunk, without the host's read); launches are "
-          "all main-path runs; card: %s"
+          "bools' first %d B chunk, without the host's read; bitap_lanes: "
+          "its launch over wild's %d B stream, serial_ms over one lane of "
+          "%d B); launches are all main-path runs; card: %s"
           % (c2["shape_b"], " ".join(CONFIGS[1][1]),
              " ".join(REGEX_CONFIGS[0][1]), c5["shape_b"], c5q["shape_b"],
-             bools["shape_b"], card))
+             bools["shape_b"], res["wild"]["shape_b"], serial["longest"],
+             card))
     print(json.dumps(line))
     print("total: %.1f s" % (time.perf_counter() - t_start))
     print(json.dumps({"ok": True, "device": {

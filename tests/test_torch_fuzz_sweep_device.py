@@ -6,7 +6,10 @@ seed divisible by 3), against agrep_tpu on its numpy backend.  Seeds:
 uniform 16000-16019, stratified 7000-7019; and the boolean stratum
 (seeds 18000-18015) streamed in 64 KiB chunks (--stream) against
 agrep_tpu reading each file whole, so that its booleans reach
-line_terms' plain version."""
+line_terms' plain version; and the memory stratum (--memory: memagrep
+cases drawn as tests/test_memagrep_oracle.py's test_memagrep_fuzz_wide
+draws them, its seeds 951000-951015) against the port's per-byte
+memory-mode loop."""
 
 import collections
 
@@ -19,6 +22,7 @@ from .torch_sweep import check, seeds, sweep
 CASES = (seeds("uniform", True, 16000, 20)
          + seeds("stratified", True, 7000, 20))
 BOOL_CASES = seeds("boolean", True, 18000, 16)
+MEMORY_CASES = seeds("memory", False, 951000, 16)
 
 
 @pytest.fixture(scope="module")
@@ -40,6 +44,11 @@ def stream_runners():
 def test_boolean_stream_case(stream_runners, tmp_path, mode, device_route,
                              seed):
     check(stream_runners, tmp_path, mode, device_route, seed)
+
+
+@pytest.mark.parametrize("mode,device_route,seed", MEMORY_CASES)
+def test_memory_case(runners, tmp_path, mode, device_route, seed):
+    check(runners, tmp_path, mode, device_route, seed)
 
 
 @pytest.fixture

@@ -2,8 +2,8 @@
 random corpora and flag/pattern draws, agrep_tpu_torch against a
 reference, both in process, stdout and exit code compared exactly.
 
-  python tools/torch_fuzz_sweep.py [--stratified | --regex | --boolean]
-      [--device-route]
+  python tools/torch_fuzz_sweep.py
+      [--stratified | --regex | --boolean | --memory] [--device-route]
       [--ref tpu|numpy] [--device cpu|cuda] [--port-backend torch|numpy]
       [--stream] [--limit S] [n_cases] [seed0]
 
@@ -40,6 +40,16 @@ reference, both in process, stdout and exit code compared exactly.
                 the corpus.  With --device-route and --stream its files
                 stream through MgrepEngine._bool_stream_chunked, which
                 on the torch backend launches line_terms a chunk.
+  --memory      the memory stratum: memagrep cases (a buffer and an argv)
+                drawn as tests/test_memagrep_oracle.py's
+                test_memagrep_fuzz_wide draws them (boolean trees,
+                classes, '#' wildcards, ~, -t/-x/-k/-l/-s, costs, -d
+                '$$', 'o' and 'll', buffers across 32 and 64 KB), each
+                held against the port's per-byte memory-mode loop
+                (BitapEngine._memory_search_loop, on the numpy backend)
+                whatever --ref says: the bitap engine's memory records
+                from the scan and the record lanes against the loop,
+                the other engines against the numpy backend.
   --limit S     each side of each case gets S seconds (default 20) by
                 SIGALRM (so the sweep runs in the main thread); a side
                 over it is neither a pass nor a divergence: it is
@@ -265,6 +275,49 @@ def build_case(i: int, seed: int, tmpdir: str, mode: str = "uniform",
     return args + paths
 
 
+# the memory stratum's words and patterns (test_memagrep_fuzz_wide's)
+MEM_WORDS = [b"alpha", b"hello", b"matching", b"zz", b"koala", b"d$d",
+             b"bravo", b"CaSe"]
+MEM_PATS = ["hello", "koala", "alpha", "nosuch", "hel*o", "h#o",
+            "hello;zz", "al(p|f)ha", "alpha;koala;zz", "hello,zz", "br#vo",
+            "[a-h]ello", "~hello", "{alpha;bravo},koala"]
+
+
+def memory_case(seed: int) -> tuple:
+    """(argv, buffer) of memory case seed, drawn as
+    tests/test_memagrep_oracle.py's test_memagrep_fuzz_wide draws its
+    case of that seed."""
+    rnd = random.Random(seed)
+    out = bytearray(b"\n")
+    size = rnd.choice([3, 30, 300, 3000, 20000, 33000, 65600])
+    style = rnd.randrange(3)
+    while len(out) < size:
+        if style == 0:
+            out += b" ".join(rnd.choice(MEM_WORDS)
+                             for _ in range(rnd.randint(1, 6)))
+            out += rnd.choice([b"\n", b"$$", b""])
+        elif style == 1:
+            out += rnd.choice(MEM_WORDS) * rnd.randint(1, 9)
+            out += rnd.choice([b"\n", b" ", b"o", b"ll"])
+        else:
+            out += bytes(rnd.choice(b"ab\nxyo$") for _ in range(64))
+    data = bytes(out[:size]) + rnd.choice(
+        [b"\n", b"\n", b"", b" tail no newline"])
+    flags = []
+    for f, p in (("-c", .4), ("-n", .2), ("-v", .2), ("-i", .2),
+                 ("-b", .1), ("-w", .15), ("-t", .1), ("-l", .05),
+                 ("-s", .05), ("-x", .05), ("-k", .05)):
+        if rnd.random() < p:
+            flags.append(f)
+    if rnd.random() < .3:
+        flags.append("-%d" % rnd.randint(1, 3))
+    if rnd.random() < .25:
+        flags += ["-d", rnd.choice(["$$", "o", "ll"])]
+    if rnd.random() < .1:
+        flags += ["-D2", "-I1", "-S1"]
+    return flags + [rnd.choice(MEM_PATS)], data
+
+
 class OverLimit(BaseException):
     """A side ran past its time limit (a BaseException, so that no
     `except Exception` on the way swallows it)."""
@@ -284,11 +337,12 @@ def time_limit(seconds):
         signal.signal(signal.SIGALRM, old)
 
 
-def _run(api, helpmod, err_cls, overflow_cls, args, limit) -> tuple:
-    """(stdout bytes, exit code) of one in-process fileagrep, errors
-    mapped as tools/fuzz_sweep.py's run_case maps them.  Text a run
-    prints to sys.stdout lands after its output bytes; stderr is
-    dropped."""
+def _run(api, helpmod, err_cls, overflow_cls, args, limit,
+         data=None) -> tuple:
+    """(stdout bytes, exit code) of one in-process fileagrep (memagrep
+    over data where it is not None), errors mapped as
+    tools/fuzz_sweep.py's run_case maps them.  Text a run prints to
+    sys.stdout lands after its output bytes; stderr is dropped."""
     buf = io.BytesIO()
     out, err = io.StringIO(), io.StringIO()
     saved = sys.stdin
@@ -297,7 +351,8 @@ def _run(api, helpmod, err_cls, overflow_cls, args, limit) -> tuple:
         with contextlib.redirect_stdout(out), \
                 contextlib.redirect_stderr(err), time_limit(limit):
             try:
-                rc = api.fileagrep(args, output=buf) & 0xFF
+                rc = (api.fileagrep(args, output=buf) if data is None
+                      else api.memagrep(args, data, output=buf)) & 0xFF
             except err_cls as e:
                 rc = 255
                 if getattr(e, "version", False):
@@ -335,24 +390,31 @@ def streaming(scan, var: str, stream):
         scan.STREAM_CHUNK = saved[1]
 
 
-def port_side(device: str, backend: str = "torch", stream=None):
+def port_side(device: str, backend: str = "torch", stream=None,
+              loop: bool = False):
     """A runner of the port on `backend` ("torch" on `device`, or
-    "numpy"), its files streamed as `stream` says (streaming)."""
+    "numpy"), its files streamed as `stream` says (streaming); with
+    loop, the bitap engine's memory mode runs its per-byte loop."""
     from agrep_tpu_torch import api, help as helpmod
     from agrep_tpu_torch.ops import scan
     from agrep_tpu_torch.options import AgrepError
+    from agrep_tpu_torch.runtime.engine import BitapEngine
     from agrep_tpu_torch.runtime.output import OutputOverflow
 
-    def run(args, limit):
+    def run(args, limit, data=None):
         saved = scan._BACKEND, scan._DEVICE
         scan.set_backend(backend)
         scan.set_device(device)
+        real = BitapEngine._memory_search
+        if loop:
+            BitapEngine._memory_search = BitapEngine._memory_search_loop
         try:
             with streaming(scan, "AGREP_TORCH_STREAM_MB", stream):
                 return _run(api, helpmod, AgrepError, OutputOverflow,
-                            args, limit)
+                            args, limit, data)
         finally:
             scan._BACKEND, scan._DEVICE = saved
+            BitapEngine._memory_search = real
     return run
 
 
@@ -383,7 +445,8 @@ def sides(ref: str, device: str, backend: str = "torch",
     ours, theirs = ("chunked", "whole") if stream else (None, None)
     return {"ours": port_side(device, backend, ours),
             "ref": (tpu_side(theirs) if ref == "tpu"
-                    else port_side(device, "numpy", theirs))}
+                    else port_side(device, "numpy", theirs)),
+            "loop": port_side(device, "numpy", loop=True)}
 
 
 def check_case(i: int, seed: int, tmpdir: str, mode: str,
@@ -392,13 +455,20 @@ def check_case(i: int, seed: int, tmpdir: str, mode: str,
     """One case: {"status": "pass" | "diverge" | "over_limit" | "crash",
     "seed", "mode", "args", and per side its output and exit code, or
     the side that ran over or crashed and its error}."""
-    args = build_case(i, seed, tmpdir, mode, device_route)
+    data = None
+    if mode == "memory":
+        args, data = memory_case(seed)
+    else:
+        args = build_case(i, seed, tmpdir, mode, device_route)
     res = {"seed": seed, "mode": mode_name(mode, device_route),
            "args": args}
     got = {}
     for side in ("ref", "ours"):
+        run = runners["loop" if data is not None and side == "ref"
+                      else side]
         try:
-            got[side] = runners[side](args, limit)
+            got[side] = (run(args, limit) if data is None
+                         else run(args, limit, data))
         except OverLimit:
             return dict(res, status="over_limit", side=side)
         except Exception as e:       # noqa: BLE001 -- reported
@@ -428,9 +498,10 @@ def describe(res: dict) -> str:
 
 def launch_counts() -> dict:
     from agrep_tpu_torch.ops import (chain_kernel, kernels, qgram_kernel,
-                                     renfa_kernel)
+                                     renfa_kernel, scan)
     return {k: v for c in (kernels.launches, renfa_kernel.launches,
-                           chain_kernel.launches, qgram_kernel.launches)
+                           chain_kernel.launches, qgram_kernel.launches,
+                           scan.launches)
             for k, v in c.items()}
 
 
@@ -480,6 +551,7 @@ def main(argv=None) -> int:
     group.add_argument("--stratified", action="store_true")
     group.add_argument("--regex", action="store_true")
     group.add_argument("--boolean", action="store_true")
+    group.add_argument("--memory", action="store_true")
     ap.add_argument("--device-route", action="store_true")
     ap.add_argument("--ref", choices=("tpu", "numpy"), default="tpu")
     ap.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
@@ -492,7 +564,8 @@ def main(argv=None) -> int:
     ap.add_argument("seed0", type=int, nargs="?", default=1000)
     a = ap.parse_args(argv)
     mode = ("stratified" if a.stratified else "regex" if a.regex
-            else "boolean" if a.boolean else "uniform")
+            else "boolean" if a.boolean else "memory" if a.memory
+            else "uniform")
     res = sweep([(mode, a.device_route, a.n_cases, a.seed0)], a.ref,
                 a.device, a.limit, out=lambda s: print(s, flush=True),
                 backend=a.port_backend, stream=a.stream,
