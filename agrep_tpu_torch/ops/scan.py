@@ -43,7 +43,10 @@ backend scan_lane_rows cuts the records at a one-byte delimiter on the
 scan device (renfa_kernel.line_index), steps them there (bitap_lanes:
 csrc/bitap_lanes.cu, or its plain version bitap_lanes_reference on the
 CPU) and sends back only the rows of the records that fire
-(renfa_kernel.line_rows).
+(renfa_kernel.line_rows).  The step is linear over (OR, AND), so a
+record longer than LANES_LONG is cut into segments whose Boolean maps
+(one column a relevant node) compose exactly: no sticky bit is lost at
+a cut (lane_maps_reference is the plain version of that route).
 """
 
 from __future__ import annotations
@@ -377,16 +380,26 @@ def _records_torch(text, mask_table, consts, D, W, L, N, costs, keep_from,
 # ---------------------------------------------------------------------
 
 LANES_MAX_D = 8
-# Threads a block of csrc/bitap_lanes.cu.
+# Threads a block of csrc/bitap_lanes.cu's one-thread walk.
 LANES_THREADS = 256
+# A lane whose record is longer than this takes the segment maps
+# (bitap_lane_maps_kernel), every other the one-thread walk.  Both give
+# the same hits; the constant comes from tools/torch_lanes_sweep.py's
+# sweep on the card (PERF.md) and is never measured at run time.
+LANES_LONG = 4096
+# Warps a block of the maps kernel at most (kMapsThreads / 32), and the
+# least bytes of a segment.
+MAPS_WARPS = 16
+MAPS_MIN_SEG = 1024
 # plain version: lane cells a vectorized pass, and the fewest lanes of a
 # length bucket it steps as tensors (fewer walk on Python ints)
 _LANE_CELLS = 1 << 22
 _SCALAR_LANES = 16
 _LANE_BUCKETS = (64, 256, 1024, 8192, 49152 + 64)
 
-# Launches of bitap_lanes since the counts were last set to 0.
-launches = {"bitap_lanes": 0}
+# Calls of bitap_lanes that launched on the card, and launches of its
+# segment maps kernel, since the counts were last set to 0.
+launches = {"bitap_lanes": 0, "bitap_lane_maps": 0}
 
 
 class LanesMachine(NamedTuple):
@@ -398,13 +411,48 @@ class LanesMachine(NamedTuple):
     endpos: int
     D: int
     costs: tuple | None     # (I, S, DD), each 1..D+1; None: uniform
+    relevant: tuple         # D+1 masks: the nodes that reach a hit
+                            # (relevant_nodes)
+    nodes: int              # how many: the segment maps' columns
+
+
+def relevant_nodes(table: np.ndarray, noerr: int, endpos: int, D: int,
+                   costs: tuple | None) -> tuple:
+    """The (level, bit) nodes of a sticky machine from which the step's
+    edges reach an endpos bit of level D, as D+1 masks.  The edges: a
+    bit to the next lower one through the union of the mask table (the
+    >> 1 & cm) and, from a lower level, through noerr (the error terms
+    after >> 1); level k - 1 to k (uniform), or k - I to k and, through
+    noerr, k - S and k - DD to k (costs).  Every edge into a relevant
+    node starts at one, so the levels ANDed with these masks step to the
+    same hits: the segment maps keep a column a node."""
+    union = int(np.bitwise_or.reduce(np.asarray(table, dtype=np.uint32)))
+    rel = [0] * D + [int(endpos) & U32]
+    while True:
+        old = list(rel)
+        for k in range(D, -1, -1):
+            down = (rel[k] << 1) & U32
+            rel[k] |= down & (union << 1)
+            err = down & ((int(noerr) << 1) & U32)
+            if costs is None:
+                if k:
+                    rel[k - 1] |= rel[k] | err
+            else:
+                ci, cs, cd = costs
+                if k - ci >= 0:
+                    rel[k - ci] |= rel[k]
+                for c in (cs, cd):
+                    if k - c >= 0:
+                        rel[k - c] |= err
+        if rel == old:
+            return tuple(rel)
 
 
 def lanes_machine(mask_table: np.ndarray, consts: dict, D: int,
                   costs: tuple | None, device) -> LanesMachine:
     """bitap_lanes' machine from a compiled query's folded mask table and
     its sticky consts (consts["init1"] is the Init1 the lanes step
-    with)."""
+    with), with its relevant nodes."""
     import torch
     if not 0 <= int(D) <= LANES_MAX_D:
         raise ValueError("D=%r outside 0..%d" % (D, LANES_MAX_D))
@@ -414,11 +462,39 @@ def lanes_machine(mask_table: np.ndarray, consts: dict, D: int,
                          % (table.shape,))
     if costs is not None and not all(1 <= int(c) <= D + 1 for c in costs):
         raise ValueError("costs %r outside 1..D+1 = %d" % (costs, D + 1))
+    costs = None if costs is None else tuple(int(c) for c in costs)
+    noerr, endpos = int(consts["noerr"]) & U32, int(consts["endpos"]) & U32
+    if not endpos:
+        raise ValueError("a machine without endpos bits never hits")
+    rel = relevant_nodes(table, noerr, endpos, int(D), costs)
     return LanesMachine(
         table=torch.from_numpy(table.copy()).to(device),
-        init1=int(consts["init1"]) & U32, noerr=int(consts["noerr"]) & U32,
-        endpos=int(consts["endpos"]) & U32, D=int(D),
-        costs=None if costs is None else tuple(int(c) for c in costs))
+        init1=int(consts["init1"]) & U32, noerr=noerr, endpos=endpos,
+        D=int(D), costs=costs, relevant=rel,
+        nodes=sum(bin(r).count("1") for r in rel))
+
+
+def maps_plan(nodes: int) -> dict:
+    """The maps kernel's shape for a machine of `nodes` relevant nodes
+    (at least 1): a map's u32 `size` ((ceil(nodes / 32) + 1) x nodes);
+    `groups` segments a block (32 // nodes a warp of MAPS_WARPS for
+    nodes <= 16, else one a ceil(nodes / 32) warps, as many as MAPS_WARPS
+    warps hold), `threads` a block and its shared bytes (`smem`, the
+    groups' maps); `seg`, the bytes a segment: the least power of two
+    from MAPS_MIN_SEG with a chunk's map no larger than the chunk
+    (`chunk`, groups x seg bytes)."""
+    words = -(-nodes // 32)
+    if nodes <= 16:
+        groups, threads = MAPS_WARPS * (32 // nodes), 32 * MAPS_WARPS
+    else:
+        groups = max(1, MAPS_WARPS // words)
+        threads = 32 * words * groups
+    size = (words + 1) * nodes
+    seg = MAPS_MIN_SEG
+    while seg * groups < 4 * size:
+        seg *= 2
+    return {"size": size, "groups": groups, "threads": threads,
+            "smem": 4 * size * groups, "seg": seg, "chunk": seg * groups}
 
 
 def bitap_lanes(text, starts, lens, m: LanesMachine, init, first=None,
@@ -430,8 +506,12 @@ def bitap_lanes(text, starts, lens, m: LanesMachine, init, first=None,
     reset.  Returns (verdicts bool[R], hits u32[R]) on the text's device:
     hits the OR over the lane's columns of (state_D & endpos), scan_lanes'
     value; the verdict, with and_flag, hits == endpos or invert, else
-    (hits != 0) ^ invert.  A CUDA tensor goes to the kernel
-    (csrc/bitap_lanes.cu), a CPU tensor to bitap_lanes_reference."""
+    (hits != 0) ^ invert.  A CUDA tensor goes to the kernels
+    (csrc/bitap_lanes.cu): a lane of at most LANES_LONG record bytes is
+    walked by one thread, a longer one is cut into segments whose maps
+    (one column a relevant node) are composed on the card; a CPU tensor
+    goes to bitap_lanes_reference.  The bounds check and the long lanes'
+    chunk count come back in one read."""
     import torch
     if text.dtype != torch.uint8 or text.dim() != 1:
         raise TypeError("text must be a 1-D uint8 tensor, got %s %r"
@@ -460,15 +540,35 @@ def bitap_lanes(text, starts, lens, m: LanesMachine, init, first=None,
     if starts.numel() == 0:
         return (torch.zeros(0, dtype=torch.bool, device=dev),
                 torch.zeros(0, dtype=torch.uint32, device=dev))
-    if bool(((starts < 0) | (lens < 0)
-             | (starts + lens >= text.numel())).any()):
-        raise ValueError("a lane [start, start + len] lies outside the "
-                         "%d-byte text" % text.numel())
+    chunks = lane_chunks(text, starts, lens, m)
     if text.is_cuda:
         return _lanes_launch(text, starts, lens, m, init, first, and_flag,
-                             invert)
+                             invert, chunks)
     return bitap_lanes_reference(text, starts, lens, m, init, first,
                                  and_flag, invert)
+
+
+def _lane_chunk_counts(lens, m: LanesMachine):
+    """Each lane's chunks of the maps kernel (maps_plan's chunk bytes): 0
+    for a lane of at most LANES_LONG record bytes."""
+    import torch
+    chunk = maps_plan(m.nodes)["chunk"]
+    return torch.where(lens > LANES_LONG,
+                       torch.div(lens, chunk, rounding_mode="floor") + 1, 0)
+
+
+def lane_chunks(text, starts, lens, m: LanesMachine) -> int:
+    """The maps kernel's chunks over the lanes (its grid; 0 when no lane
+    is longer than LANES_LONG), read back in one read with the check
+    that every lane lies inside the text (ValueError if not)."""
+    import torch
+    bad = ((starts < 0) | (lens < 0) | (starts + lens >= text.numel())).any()
+    bad, chunks = torch.stack([bad.to(torch.int64),
+                               _lane_chunk_counts(lens, m).sum()]).tolist()
+    if bad:
+        raise ValueError("a lane [start, start + len] lies outside the "
+                         "%d-byte text" % text.numel())
+    return int(chunks)
 
 
 def _lane_levels(s: list, cm, m: LanesMachine) -> list:
@@ -572,6 +672,142 @@ def bitap_lanes_reference(text, starts, lens, m: LanesMachine, init,
     return fire, hits.to(torch.uint32)
 
 
+class LaneMap(NamedTuple):
+    """The Boolean map of a stretch of lane bytes (or a batch of them,
+    over leading dimensions): cols[i, j] is set where node j (of
+    lane_nodes) is set after the stretch from node i's one-bit state;
+    hits[i] is that walk's OR of (state_D & endpos)."""
+    cols: "object"          # torch bool [..., n, n]
+    hits: "object"          # torch int64 [..., n], holding u32
+
+
+def lane_nodes(m: LanesMachine) -> list:
+    """The relevant nodes (level, bit), level by level from 0 and bit by
+    bit from 0: node j is bit j of a projected vector."""
+    return [(k, b) for k in range(m.D + 1) for b in range(32)
+            if (m.relevant[k] >> b) & 1]
+
+
+def project_state(states, m: LanesMachine):
+    """The D+1 states projected onto the relevant nodes: torch bool[n]."""
+    import torch
+    return torch.tensor([(int(states[k]) >> b) & 1 for k, b in lane_nodes(m)],
+                        dtype=torch.bool)
+
+
+def segment_maps(text, starts, cnts, m: LanesMachine) -> LaneMap:
+    """The maps of the stretches text[starts[q] .. starts[q] + cnts[q])
+    (int64 tensors; a stretch of 0 bytes is the identity), batched over
+    q: every node's one-bit state stepped as int64 tensors holding u32,
+    one Python step a column."""
+    import torch
+    dev = text.device
+    nodes = lane_nodes(m)
+    Q = starts.numel()
+    lv = torch.tensor([k for k, _b in nodes], device=dev)
+    one = torch.tensor([1 << b for _k, b in nodes], dtype=torch.int64,
+                       device=dev)
+    s = [torch.where(lv == k, one, 0).repeat(Q, 1) for k in range(m.D + 1)]
+    acc = torch.zeros_like(s[0])
+    tab = m.table.to(torch.int64)
+    last = text.numel() - 1
+    for t in range(int(cnts.max()) if Q else 0):
+        active = (cnts > t)[:, None]
+        cm = tab[text[(starts + t).clamp(max=last)].long()][:, None]
+        s = [torch.where(active, x, y)
+             for x, y in zip(_lane_levels(s, cm, m), s)]
+        acc = torch.where(active, acc | s[m.D], acc)
+    cols = torch.stack([(s[k] >> b) & 1 for k, b in nodes], -1).bool()
+    return LaneMap(cols, acc & m.endpos)
+
+
+def _hit_bits(hits):
+    import torch
+    return ((hits[..., None] >> torch.arange(32, device=hits.device)) & 1
+            ).float()
+
+
+def _pack_bits(bits):
+    import torch
+    return (bits.long() << torch.arange(32, device=bits.device)).sum(-1)
+
+
+def compose_maps(a: LaneMap, b: LaneMap) -> LaneMap:
+    """The map of a's stretch followed by b's (batched alike): column i
+    is the OR of b's columns j over the set j of a's column i, a Boolean
+    product; the hits a.hits[i] | OR_j b.hits[j]."""
+    af = a.cols.float()
+    return LaneMap((af @ b.cols.float()) > 0,
+                   a.hits | _pack_bits((af @ _hit_bits(b.hits)) > 0))
+
+
+def apply_map(mp: LaneMap, v) -> tuple:
+    """(the vector after the map's stretch from the projected vector v,
+    bool[n]; the stretch's hits from v)."""
+    vf = v.to(mp.cols.device).float()
+    return ((vf @ mp.cols.float()) > 0,
+            int(_pack_bits((vf @ _hit_bits(mp.hits)) > 0)))
+
+
+def _tree(maps: LaneMap) -> LaneMap:
+    """The maps [S, n, n] composed in order, pairwise as a tree."""
+    import torch
+    cols, hits = maps
+    while cols.shape[0] > 1:
+        if cols.shape[0] & 1:
+            cols = torch.cat([cols, torch.eye(cols.shape[1], dtype=torch.bool,
+                                              device=cols.device)[None]])
+            hits = torch.cat([hits, torch.zeros_like(hits[:1])])
+        cols, hits = compose_maps(LaneMap(cols[0::2], hits[0::2]),
+                                  LaneMap(cols[1::2], hits[1::2]))
+    return LaneMap(cols[0], hits[0])
+
+
+def lane_maps_reference(text, starts, lens, m: LanesMachine, init,
+                        first=None, and_flag: bool = False,
+                        invert: bool = False, seg: int | None = None,
+                        groups: int | None = None,
+                        cuts: list | None = None) -> tuple:
+    """Plain PyTorch version of the segment maps route, on any device:
+    each lane (its lens[r] + 1 bytes) cut into segments of seg bytes
+    (maps_plan's where None), or at the offsets cuts[r] inside it; each
+    segment's map (segment_maps); `groups` consecutive maps (maps_plan's
+    where None) composed into a chunk's map, a tree of Boolean products;
+    the lane's projected entry vector (init, the lane at 0 from first)
+    carried across its chunks' maps in order, its hits the OR of theirs.
+    Returns (verdicts bool[R], hits u32[R]) as bitap_lanes_reference."""
+    import torch
+    plan = maps_plan(m.nodes)
+    seg = plan["seg"] if seg is None else int(seg)
+    groups = plan["groups"] if groups is None else int(groups)
+    first = init if first is None else first
+    dev = text.device
+    R = starts.numel()
+    hits = torch.zeros(R, dtype=torch.int64)
+    for r in range(R):
+        st, cnt = int(starts[r]), int(lens[r]) + 1
+        at = (sorted({int(c) for c in cuts[r] if 0 < int(c) < cnt})
+              if cuts is not None else list(range(seg, cnt, seg)))
+        bounds = [0] + at + [cnt]
+        seg_starts = torch.tensor(bounds[:-1], dtype=torch.int64,
+                                  device=dev) + st
+        seg_cnts = torch.tensor(np.diff(bounds), dtype=torch.int64,
+                                device=dev)
+        maps = segment_maps(text, seg_starts, seg_cnts, m)
+        v = project_state(first if st == 0 else init, m)
+        h = 0
+        for c in range(0, len(bounds) - 1, groups):
+            step, hc = apply_map(_tree(LaneMap(maps.cols[c:c + groups],
+                                               maps.hits[c:c + groups])), v)
+            v, h = step, h | hc
+        hits[r] = h
+    if and_flag:
+        fire = (hits == m.endpos) | bool(invert)
+    else:
+        fire = (hits != 0) ^ bool(invert)
+    return fire.to(dev), hits.to(torch.uint32).to(dev)
+
+
 def _lanes_bind():
     import ctypes
 
@@ -581,12 +817,15 @@ def _lanes_bind():
         p, i, u, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                        ctypes.c_longlong)
         up, ip = ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_int)
+        common = [p, ll, p, p, ll, p, u, u, u, i, i, i, i, up, up, i, i, p, p,
+                  ll]
         lib.bitap_lanes_launch.restype = i
-        lib.bitap_lanes_launch.argtypes = [
-            p, ll, p, p, ll, p, u, u, u, i, i, i, i, up, up, i, i, p, p, i,
-            i, p]
+        lib.bitap_lanes_launch.argtypes = common + [i, i, p]
+        lib.bitap_lane_maps_launch.restype = i
+        lib.bitap_lane_maps_launch.argtypes = common + [
+            up, i, i, i, p, p, p, i, i, i, p]
         lib.bitap_lanes_geometry.restype = i
-        lib.bitap_lanes_geometry.argtypes = [i, i, i, ip, ip, ip]
+        lib.bitap_lanes_geometry.argtypes = [i, i, i, i, i, ip, ip, ip]
         lib.bitap_lanes_error_string.restype = ctypes.c_char_p
         lib.bitap_lanes_error_string.argtypes = [i]
         lib._bound = True
@@ -594,33 +833,51 @@ def _lanes_bind():
 
 
 @functools.lru_cache(maxsize=None)
-def _lanes_occupancy(index: int, D: int, cost: bool, threads: int) -> tuple:
-    """(blocks an SM, registers a thread, local bytes) of the kernel."""
+def _lanes_occupancy(index: int, D: int, cost: bool, maps: bool,
+                     threads: int, smem: int) -> tuple:
+    """(blocks an SM, registers a thread, local bytes) of a kernel: the
+    one-thread walk, or with maps the segment maps kernel."""
     from . import _cuda
     return _cuda.query(_lanes_bind(), "bitap_lanes", "bitap_lanes_geometry",
-                       index, 3, D, int(cost), threads)
+                       index, 3, D, int(cost), int(maps), threads, smem)
 
 
-def lanes_geometry(R: int, m: LanesMachine, device) -> dict:
-    """What _lanes_launch runs for R lanes on a CUDA device: LANES_THREADS
-    a block, the blocks an SM holds (the occupancy calculator's), the
-    grid (a persistent one, no larger than the lanes need), registers
-    and local bytes."""
+def lanes_geometry(R: int, m: LanesMachine, device, chunks: int = 0) -> dict:
+    """What _lanes_launch runs for R lanes on a CUDA device: the
+    one-thread walk's LANES_THREADS a block, the blocks an SM holds (the
+    occupancy calculator's), its grid (a persistent one, no larger than
+    the lanes need), registers and local bytes; the split, `long`
+    (LANES_LONG); and the segment maps kernel's shape (maps_plan: `n`
+    columns, `seg` bytes a segment, `groups` a block) with its
+    `maps_`-prefixed threads, blocks an SM, registers, local bytes and
+    grid (one block a chunk: `chunks`, lane_chunks' count)."""
     from . import _cuda
     from .kernels import _sm_count
     index = _cuda.device_index(device)
-    bps, regs, local = _lanes_occupancy(index, m.D, m.costs is not None,
-                                        LANES_THREADS)
+    cost = m.costs is not None
+    bps, regs, local = _lanes_occupancy(index, m.D, cost, False,
+                                        LANES_THREADS, 0)
     grid = max(1, min(_sm_count(index) * max(bps, 1),
                       -(-R // LANES_THREADS)))
+    plan = maps_plan(m.nodes)
+    mbps, mregs, mlocal = _lanes_occupancy(index, m.D, cost, True,
+                                           plan["threads"], plan["smem"])
     return {"threads": LANES_THREADS, "blocks_per_sm": bps, "grid": grid,
-            "regs": regs, "local_bytes": local}
+            "regs": regs, "local_bytes": local, "long": LANES_LONG,
+            "n": m.nodes, "seg": plan["seg"], "groups": plan["groups"],
+            "maps_threads": plan["threads"], "maps_smem": plan["smem"],
+            "maps_blocks_per_sm": mbps, "maps_regs": mregs,
+            "maps_local_bytes": mlocal, "maps_grid": chunks}
 
 
 def _lanes_launch(text, starts, lens, m: LanesMachine, init, first,
-                  and_flag: bool, invert: bool) -> tuple:
-    """The kernel on text's device at lanes_geometry's grid, the lane at 0
-    from first (init where None)."""
+                  and_flag: bool, invert: bool, chunks: int) -> tuple:
+    """The kernels on text's device: with chunks (lane_chunks' count of
+    these lanes) the lanes of at most LANES_LONG record bytes through the
+    one-thread walk at lanes_geometry's grid and the longer ones through
+    the segment maps, one block a chunk; with chunks 0 every lane
+    through the one-thread walk.  The lane at 0 from first (init where
+    None)."""
     import ctypes
 
     import torch
@@ -630,21 +887,34 @@ def _lanes_launch(text, starts, lens, m: LanesMachine, init, first,
     R = starts.numel()
     dev = text.device
     first = init if first is None else first
-    geo = lanes_geometry(R, m, dev)
+    geo = lanes_geometry(R, m, dev, chunks)
     verdicts = torch.empty(R, dtype=torch.uint8, device=dev)
     hits = torch.empty(R, dtype=torch.uint32, device=dev)
     states = [(ctypes.c_uint32 * (LANES_MAX_D + 1))(
         *[int(v) & U32 for v in vs]) for vs in (init, first)]
     ci, cs, cd = (0, 0, 0) if m.costs is None else m.costs
+    long_len = LANES_LONG if chunks else (1 << 62)
+    common = (text.data_ptr(), text.numel(), starts.data_ptr(),
+              lens.data_ptr(), R, m.table.data_ptr(), m.init1, m.noerr,
+              m.endpos, m.D, ci, cs, cd, *states, int(and_flag),
+              int(invert), verdicts.data_ptr(), hits.data_ptr(), long_len)
     stream = torch.cuda.current_stream(dev).cuda_stream
     # the runtime launches on its current device: make it the tensor's
     with torch.cuda.device(_cuda.device_index(dev)):
         _cuda.check(lib, "bitap_lanes", lib.bitap_lanes_launch(
-            text.data_ptr(), text.numel(), starts.data_ptr(),
-            lens.data_ptr(), R, m.table.data_ptr(), m.init1, m.noerr,
-            m.endpos, m.D, ci, cs, cd, *states, int(and_flag), int(invert),
-            verdicts.data_ptr(), hits.data_ptr(), geo["threads"],
-            geo["grid"], stream), "kernel launch")
+            *common, geo["threads"], geo["grid"], stream), "kernel launch")
+        if chunks:
+            cum = torch.cumsum(_lane_chunk_counts(lens, m), 0)
+            done = torch.zeros(chunks, dtype=torch.int32, device=dev)
+            maps = torch.empty(chunks * maps_plan(m.nodes)["size"],
+                               dtype=torch.uint32, device=dev)
+            rel = (ctypes.c_uint32 * (LANES_MAX_D + 1))(*m.relevant)
+            _cuda.check(lib, "bitap_lanes", lib.bitap_lane_maps_launch(
+                *common, rel, m.nodes, geo["seg"], geo["groups"],
+                cum.data_ptr(), done.data_ptr(), maps.data_ptr(),
+                geo["maps_threads"], chunks, geo["maps_smem"], stream),
+                "maps kernel launch")
+            launches["bitap_lane_maps"] += 1
     launches["bitap_lanes"] += 1
     return verdicts.view(torch.bool), hits
 

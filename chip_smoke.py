@@ -114,7 +114,12 @@ exits non-zero:
      1-15 bytes past an aligned address, the first lane from Init0 and
      from the post-reset states, with and without -v, and at the sticky
      runs' shapes (the STICKY_MB file stream and memory buffer of phase
-     4), and line_index at the delimiter bytes 'o', '$' and 0 against
+     4), and, past LANES_LONG (the segment maps), on every machine lanes
+     of LANES_LONG - 1, LANES_LONG and LANES_LONG + 1 bytes, a chunk and
+     one either side, two chunks and a segment, 64 KiB, 256 KiB at D 2
+     and 4 MiB for -p aproximat, at offsets 0 and 7, the first lane from
+     Init0 and not, with and without -v (bitap_lane_maps must launch),
+     and line_index at the delimiter bytes 'o', '$' and 0 against
      line_index_reference; phase 4 repeats every check at the main
      path's shapes;
   4. main path: a --mb MB ASCII corpus made from --seed, searched through
@@ -188,9 +193,15 @@ exits non-zero:
      record, with no host lane scan and no per-byte loop; memagrep2,
      memagrep3 and memwild over the buffer's first LOOP_MB MB must equal
      the per-byte memory loop (BitapEngine._memory_search_loop) on the
-     card; and the serial lane: -p -c aproximat over a STICKY_MB MB file
-     with no delimiter, one lane walked by one thread, its hits equal to
-     the native sequential scan's, its launch timed;
+     card; wildl (-p -n aproximat over the STICKY_MB MB file with one
+     newline every LONG_RECORD bytes) must cut its records the same way
+     with one bitap_lane_maps launch (the sticky runs above with none);
+     and the serial lanes: SERIAL_RUNS (-p -c aproximat, -2 -p -c hello,
+     -2 -D2 -I1 -S1 -c 'br#vo') over a STICKY_MB MB file with no
+     delimiter, one lane through the segment maps, each one
+     bitap_lane_maps launch, its hits equal to the native sequential
+     scan's, its launches timed against the bound and n x the bound;
+     bitap_lane_maps alone on a 1 MiB lane against its plain version;
   5. kernels: mask_scan's launch geometry (split, tiles a block, threads,
      dynamic shared memory; registers and spills from ptxas) and its
      time against its bound at all five main-path shapes, chain_scan's
@@ -229,7 +240,9 @@ exits non-zero:
      index_put_) at each streamed boolean's first chunk, and
      bitap_lanes' (lanes, threads, blocks an SM, grid, registers; its
      launch's device time, the plain version's, the bound) at each
-     sticky run, each checked
+     sticky run, and its segment maps' (n, seg, segments a block,
+     threads, shared bytes, blocks an SM, grid, registers) at wildl,
+     each checked
      bit for bit against the plain version and the
      composite first, each on a line of its own; then one JSON line with
      each kernel's launches on the main path, its time, its plain
@@ -297,6 +310,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import hashlib
 import io
 import json
@@ -2343,6 +2357,10 @@ LANE_OFFSETS = (0, 1, 3, 15)
 # the sticky runs of phase 4 and the size of their file and buffer
 STICKY_MB = 16
 STICKY_RUNS = ("wild", "wildp", "memwild")
+# a sticky run whose records are past LANES_LONG (the segment maps): the
+# STICKY_MB file with one newline every LONG_RECORD bytes
+LONG_STICKY_RUNS = ("wildl",)
+LONG_RECORD = 256 << 10
 MEMORY_RECORD_RUNS = ("memagrep2", "memagrep3")
 # the memory runs held at this size against the per-byte loop
 LOOP_MB = 1
@@ -2365,6 +2383,43 @@ def lane_machine(argv, device):
             [int(q.consts["init0"])] * (q.D + 1))
 
 
+def lane_bytes(rng, lens):
+    """u8 numpy text of one '\\n'-ended lane a length: seeded letters
+    with two of LANE_WORDS planted."""
+    import numpy as np
+    out = []
+    for n in lens:
+        t = bytearray(rng.integers(97, 123, n, dtype=np.uint8).tobytes())
+        for _ in range(2):
+            w = LANE_WORDS[int(rng.integers(0, len(LANE_WORDS)))]
+            if len(t) > len(w):
+                at = int(rng.integers(0, len(t) - len(w)))
+                t[at:at + len(w)] = w
+        out.append(bytes(t) + b"\n")
+    return np.frombuffer(b"".join(out), dtype=np.uint8)
+
+
+def long_lane_texts(rng, m, D: int) -> list:
+    """(name, text, views) of the long lanes phase 3 holds the segment
+    maps to on a machine: lanes of LANES_LONG - 1, LANES_LONG and
+    LANES_LONG + 1 record bytes, of a chunk's bytes and one either side,
+    of two chunks and a segment, and of 64 KiB, among 50 short ones
+    (views: also 7 bytes past an aligned address, and the first lane
+    from the post-reset states); at D 2 a 256 KiB lane (lane_texts' 1 MB
+    lane is D 0's)."""
+    from agrep_tpu_torch.ops import scan as scan_ops
+    T = scan_ops.LANES_LONG
+    plan = scan_ops.maps_plan(m.nodes)
+    chunk = plan["chunk"]
+    edges = [T - 1, T, T + 1, chunk - 2, chunk - 1, chunk,
+             2 * chunk + plan["seg"] + 3, 64 << 10]
+    out = [("edges", lane_bytes(rng, edges
+                                + list(rng.integers(0, 200, 50))), True)]
+    if D == 2:
+        out.append(("lane256KiB", lane_bytes(rng, [256 << 10]), False))
+    return out
+
+
 def lane_texts(rng) -> list:
     """(name, u8 numpy text of '\\n'-ended lanes, views: "all" offsets,
     "some" or none) of every lane set
@@ -2372,18 +2427,7 @@ def lane_texts(rng) -> list:
     words planted, empty lanes alone, lanes of 8,191, 8,192, 12,345 and
     49,153 bytes among short ones, and a 1 MB lane (held at D 0 only)."""
     import numpy as np
-
-    def lanes(lens):
-        out = []
-        for n in lens:
-            t = bytearray(rng.integers(97, 123, n, dtype=np.uint8).tobytes())
-            for _ in range(2):
-                w = LANE_WORDS[int(rng.integers(0, len(LANE_WORDS)))]
-                if len(t) > len(w):
-                    at = int(rng.integers(0, len(t) - len(w)))
-                    t[at:at + len(w)] = w
-            out.append(bytes(t) + b"\n")
-        return np.frombuffer(b"".join(out), dtype=np.uint8)
+    lanes = functools.partial(lane_bytes, rng)
     return [("R1", lanes([40]), "all"),
             ("R33", lanes(rng.integers(0, 200, 33)), "all"),
             ("R5000", lanes(rng.integers(0, 200, 5000)), "some"),
@@ -2440,6 +2484,16 @@ def sticky_streams(corpus):
     return stream, mem
 
 
+def long_records(corpus):
+    """The LONG_STICKY_RUNS file: the STICKY_MB corpus with its newlines
+    made spaces and one newline ending every LONG_RECORD bytes, and its
+    file stream as the bitap engine builds it (sticky_streams')."""
+    data = corpus[:STICKY_MB << 20].copy()
+    data[data == 0x0A] = 0x20
+    data[LONG_RECORD - 1::LONG_RECORD] = 0x0A
+    return data, sticky_streams(data)[0]
+
+
 def phase_parity_lanes(device: str, seed: int) -> int:
     """bitap_lanes against bitap_lanes_reference, bit for bit (verdicts
     and hits), on every LANE_MACHINES machine over lane_texts (also as
@@ -2453,6 +2507,7 @@ def phase_parity_lanes(device: str, seed: int) -> int:
     import torch
 
     from agrep_tpu_torch.ops import renfa_kernel
+    from agrep_tpu_torch.ops import scan as scan_ops
     rng = np.random.default_rng(seed + 24)
     failed, held, t0 = [], 0, time.perf_counter()
     texts = lane_texts(rng)
@@ -2472,6 +2527,37 @@ def phase_parity_lanes(device: str, seed: int) -> int:
                     held += lanes_check(
                         "%s %s +%d" % (" ".join(argv), name, off), t, m,
                         init, fst, q.and_flag, failed)
+    # lanes past LANES_LONG: the segment maps
+    maps_before = scan_ops.launches["bitap_lane_maps"]
+    long_held, t_long = 0, time.perf_counter()
+    for argv in LANE_MACHINES:
+        q, m, init, first = lane_machine(argv, device)
+        texts = long_lane_texts(rng, m, q.D)
+        if argv == ["-p", "aproximat"]:
+            texts.append(("lane4MiB", lane_bytes(rng, [4 << 20]), False))
+        for name, text, views in texts:
+            for off, fst in (((0, first), (0, init), (7, first)) if views
+                             else ((0, first),)):
+                buf = torch.zeros(len(text) + 16, dtype=torch.uint8,
+                                  device=device)
+                buf[off:off + len(text)] = torch.from_numpy(text.copy())
+                long_held += lanes_check(
+                    "%s %s +%d" % (" ".join(argv), name, off),
+                    buf[off:off + len(text)], m, init, fst, q.and_flag,
+                    failed)
+    maps_n = scan_ops.launches["bitap_lane_maps"] - maps_before
+    held += long_held
+    if not maps_n:
+        failed.append(("the long lanes launched no segment maps", 0))
+    print("parity: bitap_lanes' segment maps (lanes past LANES_LONG = %d) "
+          "vs bitap_lanes_reference on %d machines: %d lanes (LANES_LONG - "
+          "1, LANES_LONG, LANES_LONG + 1, a chunk and one either side, two "
+          "chunks and a segment, 64 KiB among 50 short ones, at offsets 0 "
+          "and 7, the first lane from Init0 and not; 256 KiB at D 2, 4 MiB "
+          "for -p aproximat; with and without -v), %d "
+          "bitap_lane_maps launches, %.1f s"
+          % (scan_ops.LANES_LONG, len(LANE_MACHINES), long_held, maps_n,
+             time.perf_counter() - t_long))
     corpus = make_corpus(STICKY_MB << 20, seed)
     stream, mem = sticky_streams(corpus)
     for argv in (["appr#mate"], ["-p", "aproximat"]):
@@ -2511,35 +2597,43 @@ def phase_parity_lanes(device: str, seed: int) -> int:
 
 def lanes_cut(name, n: dict, counters, printed, loop_calls: int,
               host_lanes: int, want_records: int) -> dict:
-    """The checks of a STICKY_RUNS run: one line_index, one bitap_lanes and
-    one line_rows launch, every record cut on the card (trace counter
-    lane_records), one row read back a printed record (lane_rows; a -c
-    run's rows are reported), no host lane and no per-byte loop."""
+    """The checks of a STICKY_RUNS or LONG_STICKY_RUNS run: one
+    line_index, one bitap_lanes call and one line_rows launch, one
+    bitap_lane_maps launch where records are past LANES_LONG (the
+    LONG_STICKY_RUNS) and none where none is, every record cut on the
+    card (trace counter lane_records), one row read back a printed
+    record (lane_rows; a -c run's rows are reported), no host lane and
+    no per-byte loop."""
     recs, rows = counters.get("lane_records", 0), counters.get("lane_rows",
                                                                0)
+    maps = int(name in LONG_STICKY_RUNS)
     if (n["bitap_lanes"] != 1 or n["line_index"] != 1 or n["line_rows"] != 1
+            or n["bitap_lane_maps"] != maps
             or recs != want_records or loop_calls or host_lanes
             or (printed is not None and rows != printed)):
         raise AssertionError(
-            "%s: bitap_lanes %d, line_index %d, line_rows %d launches, %d "
-            "records cut on the card of %d, %d rows for %s printed, %d "
-            "host lane scans, %d per-byte loops"
-            % (name, n["bitap_lanes"], n["line_index"], n["line_rows"],
-               recs, want_records, rows, printed, host_lanes, loop_calls))
-    return {"records": recs, "rows": rows}
+            "%s: bitap_lanes %d, bitap_lane_maps %d (want %d), line_index "
+            "%d, line_rows %d launches, %d records cut on the card of %d, "
+            "%d rows for %s printed, %d host lane scans, %d per-byte loops"
+            % (name, n["bitap_lanes"], n["bitap_lane_maps"], maps,
+               n["line_index"], n["line_rows"], recs, want_records, rows,
+               printed, host_lanes, loop_calls))
+    return {"records": recs, "rows": rows, "maps_launches": maps}
 
 
 def lanes_alone(name, args, device, plain: bool = True) -> dict:
     """bitap_lanes alone on the inputs the main path gave it (text,
-    starts, lens, machine, init, first, and_flag, invert): its launch's
-    device time (time_kernel: the wrapper's bounds check reads back),
-    the bound, the geometry, and with plain the plain version's time and
-    the kernel against the plain version."""
+    starts, lens, machine, init, first, and_flag, invert): its launches'
+    device time (time_kernel: the one-thread walk, and the segment maps
+    where a lane is past LANES_LONG; the wrapper's bounds check and
+    chunk count read back), the bound, the geometry, and with plain the
+    plain version's time and the kernels against the plain version."""
     from agrep_tpu_torch.ops import scan as scan_ops
     from agrep_tpu_torch.ops.timing import lanes_bound, time_kernel
     text, starts, lens, m = args[:4]
-    ms = time_kernel(lambda: scan_ops._lanes_launch(*args))
-    got = scan_ops._lanes_launch(*args)
+    chunks = scan_ops.lane_chunks(text, starts, lens, m)
+    ms = time_kernel(lambda: scan_ops._lanes_launch(*args, chunks))
+    got = scan_ops._lanes_launch(*args, chunks)
     plain_ms = diff = None
     if plain:
         plain_ms = _time_plain(
@@ -2553,16 +2647,24 @@ def lanes_alone(name, args, device, plain: bool = True) -> dict:
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "shape_b": text.numel(), "lanes": len(lens_h),
             "longest": int(lens_h.max()) + 1, "true": int(got[0].sum()),
-            "max_abs_err": diff,
-            "geometry": scan_ops.lanes_geometry(len(lens_h), m, device)}
+            "max_abs_err": diff, "chunks": chunks,
+            "geometry": scan_ops.lanes_geometry(len(lens_h), m, device,
+                                                chunks)}
 
 
-def serial_lane(corpus, seed: int, device: str, card: str) -> dict:
-    """The serial lane: a STICKY_MB file with no delimiter in it is one
-    record, one lane walked by one thread.  `-p -c aproximat` over it on
-    the card (wall, launches), bitap_lanes alone on its inputs (time
-    against the bound), and the lane's hits against the native
-    sequential scan of the same stream with the sticky Init1 (the
+# the serial lanes: searches over a STICKY_MB file with no delimiter in
+# it (one record, one lane, past LANES_LONG: the segment maps)
+SERIAL_RUNS = (["-p", "-c", "aproximat"], ["-2", "-p", "-c", "hello"],
+               ["-2", "-D2", "-I1", "-S1", "-c", "br#vo"])
+
+
+def serial_lanes(corpus, device: str, card: str) -> list:
+    """The serial lanes: a STICKY_MB file with no delimiter in it is one
+    record, one lane of 16 MB.  Each of SERIAL_RUNS over it on the card
+    (wall; one bitap_lanes call, one bitap_lane_maps launch), bitap_lanes
+    alone on its inputs (time against the bound, and against n times the
+    bound, the segment maps' floor), and the lane's hits against the
+    native sequential scan of the same stream with the sticky Init1 (the
     per-byte loop's machine in C: its event at the last byte)."""
     import numpy as np
 
@@ -2571,54 +2673,106 @@ def serial_lane(corpus, seed: int, device: str, card: str) -> dict:
     from agrep_tpu_torch.runtime import engine
     data = corpus[:STICKY_MB << 20].copy()
     data[data == 0x0A] = 0x20
-    argv = ["-p", "-c", "aproximat"]
-    got = {}
+    stream = np.concatenate([np.frombuffer(b"\n", np.uint8), data,
+                             np.frombuffer(b"\n", np.uint8)])
     real = scan_ops.bitap_lanes
-
-    def recorder(*args):
-        got.setdefault("args", args)
-        return real(*args)
+    out = []
     build = os.path.join(REPO, "build")
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         path = os.path.join(tmp, "serial.txt")
         data.tofile(path)
-        scan_ops.bitap_lanes = recorder
-        before = scan_ops.launches["bitap_lanes"]
-        try:
-            t0 = time.perf_counter()
-            out = _run(api.fileagrep, argv + [path])
-            wall = time.perf_counter() - t0
-        finally:
-            scan_ops.bitap_lanes = real
-        launches = scan_ops.launches["bitap_lanes"] - before
-    if launches != 1:
-        raise AssertionError("serial lane: %d bitap_lanes launches"
-                             % launches)
-    alone = lanes_alone("serial", got["args"], device, plain=False)
-    q, m, init, _first = lane_machine(["-p", "aproximat"], device)
-    stream = np.concatenate([np.frombuffer(b"\n", np.uint8), data,
-                             np.frombuffer(b"\n", np.uint8)])
-    consts = dict(engine._sticky_consts(q))
-    consts["init1_ns"] = consts["init1"]
-    pos, words = native.bitap_scan_events(stream, q.folded_mask, consts,
-                                          q.D, "bitap", q.costs)
-    want = int(words[-1]) & int(q.consts["endpos"]) \
-        if len(pos) and pos[-1] == len(stream) - 1 else 0
-    hits = scan_ops._lanes_launch(*got["args"])[1].cpu().numpy()
-    lens = got["args"][2].cpu().numpy()
-    lane = int(hits[int(np.argmax(lens))])
-    if lane != want:
-        raise AssertionError("serial lane: hits %#x on the card, %#x by the "
-                             "native sequential scan" % (lane, want))
-    print("lanes: serial lane %s over a %d MB file with no delimiter (one "
-          "lane of %d B): rc=%d out=%d B, GPU route wall %.3f s, 1 "
-          "bitap_lanes launch; the launch alone %.3f ms (%.1f MB/s), bound "
-          "%.4f ms (%s), hits %#x equal to the native sequential scan's | "
-          "card: %s"
-          % (" ".join(argv), STICKY_MB, alone["longest"], out[1], out[2],
-             wall, alone["ms"], alone["longest"] / alone["ms"] / 1e3,
-             alone["bound_ms"], alone["bound_by"], lane, card))
-    return dict(alone, wall_s=wall)
+        for argv in SERIAL_RUNS:
+            got = {}
+
+            def recorder(*args):
+                got.setdefault("args", args)
+                return real(*args)
+            scan_ops.bitap_lanes = recorder
+            before = dict(scan_ops.launches)
+            try:
+                t0 = time.perf_counter()
+                ran = _run(api.fileagrep, argv + [path])
+                wall = time.perf_counter() - t0
+            finally:
+                scan_ops.bitap_lanes = real
+            n = {k: scan_ops.launches[k] - before[k] for k in before}
+            if n != {"bitap_lanes": 1, "bitap_lane_maps": 1}:
+                raise AssertionError("serial lane %s: launches %s, not one "
+                                     "call through the segment maps"
+                                     % (" ".join(argv), n))
+            alone = lanes_alone("serial", got["args"], device, plain=False)
+            q, m, _init, _first = lane_machine(
+                [a for a in argv if a != "-c"], device)
+            consts = dict(engine._sticky_consts(q))
+            consts["init1_ns"] = consts["init1"]
+            pos, words = native.bitap_scan_events(
+                stream, q.folded_mask, consts, q.D, "bitap", q.costs)
+            want = int(words[-1]) & int(q.consts["endpos"]) \
+                if len(pos) and pos[-1] == len(stream) - 1 else 0
+            args = got["args"]
+            hits = scan_ops._lanes_launch(
+                *args, scan_ops.lane_chunks(*args[:4]))[1].cpu().numpy()
+            lens = args[2].cpu().numpy()
+            lane = int(hits[int(np.argmax(lens))])
+            if lane != want:
+                raise AssertionError("serial lane %s: hits %#x on the card, "
+                                     "%#x by the native sequential scan"
+                                     % (" ".join(argv), lane, want))
+            g = alone["geometry"]
+            print("lanes: serial lane %s over a %d MB file with no "
+                  "delimiter (one lane of %d B): rc=%d out=%d B, GPU route "
+                  "wall %.3f s, %d bitap_lanes call, %d bitap_lane_maps "
+                  "launch; the launches alone %.3f ms (%.1f MB/s), bound "
+                  "%.4f ms (%s), n %d columns: n x bound %.4f ms; seg %d B, "
+                  "%d segments a block, %d chunks, maps threads %d, blocks "
+                  "an SM %d, registers %d; hits %#x equal to the native "
+                  "sequential scan's | card: %s"
+                  % (" ".join(argv), STICKY_MB, alone["longest"], ran[1],
+                     ran[2], wall, n["bitap_lanes"], n["bitap_lane_maps"],
+                     alone["ms"], alone["longest"] / alone["ms"] / 1e3,
+                     alone["bound_ms"], alone["bound_by"], g["n"],
+                     g["n"] * alone["bound_ms"], g["seg"], g["groups"],
+                     alone["chunks"], g["maps_threads"],
+                     g["maps_blocks_per_sm"], g["maps_regs"], lane, card))
+            out.append(dict(alone, wall_s=wall, argv=argv,
+                            maps_launches=n["bitap_lane_maps"]))
+    return out
+
+
+def maps_alone(device: str, seed: int, card: str) -> dict:
+    """bitap_lanes on one 1 MiB lane of -p aproximat (D 0), past
+    LANES_LONG: the call's device time (the one-thread walk's launch,
+    which skips the lane, and the segment maps'), the plain version's
+    time and the kernels against it, and the bound."""
+    import numpy as np
+    import torch
+
+    from agrep_tpu_torch.ops import scan as scan_ops
+    from agrep_tpu_torch.ops.timing import lanes_bound, time_kernel
+    q, m, init, first = lane_machine(["-p", "aproximat"], device)
+    text = torch.from_numpy(lane_bytes(np.random.default_rng(seed + 25),
+                                       [1 << 20]).copy()).to(device)
+    starts = torch.zeros(1, dtype=torch.int64, device=device)
+    lens = torch.full((1,), 1 << 20, dtype=torch.int64, device=device)
+    args = (text, starts, lens, m, init, first, q.and_flag, False)
+    chunks = scan_ops.lane_chunks(text, starts, lens, m)
+    if not chunks:
+        raise AssertionError("a 1 MiB lane is not past LANES_LONG")
+    ms = time_kernel(lambda: scan_ops._lanes_launch(*args, chunks))
+    plain_ms = _time_plain(lambda: scan_ops.bitap_lanes_reference(*args))
+    diff = _lanes_diff(scan_ops._lanes_launch(*args, chunks),
+                       scan_ops.bitap_lanes_reference(*args))
+    if diff:
+        raise AssertionError("bitap_lane_maps differs from the plain "
+                             "version on a 1 MiB lane (%d)" % diff)
+    bms, by = lanes_bound(m, text.numel(), np.array([1 << 20]))
+    print("times: bitap_lane_maps -p aproximat one 1 MiB lane: %.4f ms a "
+          "call (%d chunks), %.2f %% of its %.4f ms bound (%s), n %d "
+          "columns: n x bound %.4f ms; plain %.1f ms | card: %s"
+          % (ms, chunks, 100 * bms / ms, bms, by, m.nodes, m.nodes * bms,
+             plain_ms, card))
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "max_abs_err": diff, "n": m.nodes}
 
 
 def _run(api_fn, argv, data=None):
@@ -3265,6 +3419,8 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                     "memwild": int(np.count_nonzero(sticky_mem == 0x0A))}
     want_records["wildp"] = want_records["wild"]
     mem16 = b"\n" + corpus[:STICKY_MB << 20].tobytes()
+    long_data, long_stream = long_records(corpus)
+    want_records["wildl"] = int(np.count_nonzero(long_stream == 0x0A))
 
     # calls of the dense host read-back, which the torch route no longer
     # makes
@@ -3347,6 +3503,12 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
             ("memwild", api.memagrep, ["-n", "appr#mate"], mem16,
              "bitap_lanes"),
         ]
+        # records past LANES_LONG: the segment maps
+        path_long = os.path.join(tmp, "long%d.txt" % STICKY_MB)
+        long_data.tofile(path_long)
+        runs.append(("wildl", api.fileagrep,
+                     ["-p", "-n", "aproximat", path_long], None,
+                     "bitap_lane_maps"))
         path_whole = os.path.join(tmp, "corpus%d.txt" % BOOL_WHOLE_MB)
         corpus[:BOOL_WHOLE_MB << 20].tofile(path_whole)
         ident = np.arange(256, dtype=np.uint8)
@@ -3471,7 +3633,7 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                         "the per-byte loop %d times" % (
                             name, n["mask_scan"], n["record_verdicts"],
                             host_n["loop"]))
-                if name in STICKY_RUNS:
+                if name in STICKY_RUNS + LONG_STICKY_RUNS:
                     res[name]["lanes_cut"] = lanes_cut(
                         name, n, trace.counters,
                         None if "-c" in argv else got[name][3],
@@ -3671,7 +3833,7 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                   "mask_scan": kernels._launch}
     first5 = [r[0] for r in runs].index("config5")
     for name, _fn, _argv, _data, kname in runs[first5:]:
-        if name in MEMORY_RECORD_RUNS + STICKY_RUNS:
+        if name in MEMORY_RECORD_RUNS + STICKY_RUNS + LONG_STICKY_RUNS:
             continue                 # timed with configs 1-3 and below
         args = inputs[name][kname]
         N = args[0].numel()
@@ -3707,10 +3869,12 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
             res[name]["terms"] = terms_alone(name,
                                              *inputs[name]["line_terms"])
 
-    # bitap_lanes alone on the inputs each sticky run gave it
-    for name in STICKY_RUNS:
+    # bitap_lanes alone on the inputs each sticky run gave it (the plain
+    # version, a Python step a column, is not timed at wildl's 256 KiB
+    # records: phase 3 holds the segment maps to it)
+    for name in STICKY_RUNS + LONG_STICKY_RUNS:
         res[name].update(lanes_alone(name, inputs[name]["bitap_lanes"],
-                                     device))
+                                     device, name in STICKY_RUNS))
 
     # the record cut alone at the first chunk's planes of each record run
     for name in RECORD_RUNS:
@@ -3726,20 +3890,23 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
         src = ("records " if name.endswith(("5", "5c", "5c400", "5q", "5qn",
                                             "5s", "5qs", "5m"))
                else "")
-        size = STICKY_MB if name in STICKY_RUNS else mb
+        size = STICKY_MB if name in STICKY_RUNS + LONG_STICKY_RUNS else mb
         where = ("%d MB %sbuffer" % (size, src) if data is not None
                  else "%d MB %sfile" % (size, src))
+        plain = ("equal to plain), plain %.1f ms" % r["plain_ms"]
+                 if r["plain_ms"] is not None else
+                 "held to plain in phase 3), plain not timed")
         print("main: %-9s %-38s %s rc=%d out=%d B sha256=%s.. GPU route "
               "wall=%.3f s (%.3f GB/s), numpy backend wall=%.3f s | %s "
               "launches=%d | kernel %.4f ms per %d B launch (%.1f GB/s, "
-              "equal to plain), plain %.1f ms, bound %.4f ms (%s) | card: %s"
+              "%s, bound %.4f ms (%s) | card: %s"
               % (name, " ".join(argv[:len(argv) - (data is None)]).replace(
                   WIDE_TERM, "hello<136 classes>"), where,
                  got[name][1], got[name][2], got[name][0][:12],
                  r["wall_s"], (size << 20) / r["wall_s"] / 1e9,
                  r["host_wall_s"], kname, r["launches"], r["ms"],
                  r["shape_b"], r["shape_b"] / r["ms"] / 1e6,
-                 r["plain_ms"], r["bound_ms"], r["bound_by"], card))
+                 plain, r["bound_ms"], r["bound_by"], card))
     for name in ("config5", "config5c400", "config5q", "bool5", "bool5m"):
         r = res[name]
         print("main: the %s kernel's %d B launch of %s sets %d bits"
@@ -3844,6 +4011,20 @@ def phase_main(device: str, seed: int, mb: int, card: str) -> dict:
                                            r["loop"]["loop_s"])
                  if "loop" in r else "", r["wall_s"], r["host_wall_s"],
                  card))
+    for name in LONG_STICKY_RUNS:
+        r, c, g = res[name], res[name]["lanes_cut"], res[name]["geometry"]
+        print("main: %s cut its %d records (%d B each) on the card through "
+              "line_index, bitap_lanes (one call: %d bitap_lane_maps launch, "
+              "%d chunks) and line_rows, %d rows read back, no host lane; "
+              "both kernels %.4f ms per %d B call (%d lanes, the longest %d "
+              "B, %d fire), bound %.4f ms (%s), n %d columns: n x bound "
+              "%.4f ms; seg %d B, %d segments a block; GPU route wall %.3f "
+              "s, numpy backend wall %.3f s | card: %s"
+              % (name, c["records"], LONG_RECORD, c["maps_launches"],
+                 r["chunks"], c["rows"], r["ms"], r["shape_b"], r["lanes"],
+                 r["longest"], r["true"], r["bound_ms"], r["bound_by"],
+                 g["n"], g["n"] * r["bound_ms"], g["seg"], g["groups"],
+                 r["wall_s"], r["host_wall_s"], card))
     for name in ("config4", "memagrep4"):
         r = res[name]
         print("main: the lanes kernel's %d B launch of %s holds %d lines, "
@@ -3906,7 +4087,8 @@ def _launch_counts():
             "qgram_filter": qgram_kernel.launches,
             "qgram_lines": qgram_kernel.launches,
             "line_terms": chain_kernel.launches,
-            "bitap_lanes": scan_ops.launches}
+            "bitap_lanes": scan_ops.launches,
+            "bitap_lane_maps": scan_ops.launches}
 
 
 def _launched(counts) -> dict:
@@ -4218,9 +4400,10 @@ def phase_bench(card: str) -> None:
         raise AssertionError("bench: conformance %r, rc %d"
                              % (res["conformance"], rc))
     # the bench streams no boolean and runs no sticky machine: line_terms
-    # and bitap_lanes are not on its path
+    # and bitap_lanes (both of its kernels) are not on its path
     idle = [k for k, n in launched.items()
-            if n == 0 and k not in ("line_terms", "bitap_lanes")]
+            if n == 0 and k not in ("line_terms", "bitap_lanes",
+                                    "bitap_lane_maps")]
     if idle:
         raise AssertionError("bench: launched no %s kernel" % idle)
 
@@ -4282,10 +4465,12 @@ def phase_sweep(card: str) -> None:
         raise AssertionError("sweep: %d divergences, %d crashes"
                              % (res["divergences"], res["crashes"]))
     # qgram_lines takes only the past-caps stratum's 30-term sets under a
-    # count or a print, and line_terms only a boolean streamed in chunks
-    # (the streamed pass below): their counts are reported, not required
+    # count or a print, line_terms only a boolean streamed in chunks
+    # (the streamed pass below), and bitap_lane_maps only a sticky record
+    # past LANES_LONG: their counts are reported, not required
     idle = [k for k, n in launched.items()
-            if n == 0 and k not in ("qgram_lines", "line_terms")]
+            if n == 0 and k not in ("qgram_lines", "line_terms",
+                                    "bitap_lane_maps")]
     if idle:
         raise AssertionError("sweep: launched no %s kernel" % idle)
     sweep_streamed(tool, card)
@@ -4526,14 +4711,26 @@ def lanes_geometry_line(res) -> str:
     regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
     spills = [int(a) + int(b) for a, b in re.findall(
         r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
-    return "geometry: bitap_lanes %s | kernels' registers %s-%s, %d spill" % (
-        " | ".join("%s: %d lanes, threads %d, blocks an SM %d, grid %d, "
-                   "registers %d" % (n, res[n]["lanes"], g["threads"],
-                                     g["blocks_per_sm"], g["grid"],
-                                     g["regs"])
-                   for n in STICKY_RUNS for g in [res[n]["geometry"]]),
-        min(regs, default=0), max(regs, default=0),
-        sum(1 for sp in spills if sp))
+    return ("geometry: bitap_lanes %s | %s | kernels' registers %s-%s, %d "
+            "spill" % (
+                " | ".join("%s: %d lanes, threads %d, blocks an SM %d, grid "
+                           "%d, registers %d"
+                           % (n, res[n]["lanes"], g["threads"],
+                              g["blocks_per_sm"], g["grid"], g["regs"])
+                           for n in STICKY_RUNS
+                           for g in [res[n]["geometry"]]),
+                " | ".join("%s: segment maps past LANES_LONG = %d: n %d, seg "
+                           "%d B, %d segments a block, threads %d, shared "
+                           "%d B, blocks an SM %d, grid %d, registers %d, "
+                           "local %d B"
+                           % (n, g["long"], g["n"], g["seg"], g["groups"],
+                              g["maps_threads"], g["maps_smem"],
+                              g["maps_blocks_per_sm"], g["maps_grid"],
+                              g["maps_regs"], g["maps_local_bytes"])
+                           for n in LONG_STICKY_RUNS
+                           for g in [res[n]["geometry"]]),
+                min(regs, default=0), max(regs, default=0),
+                sum(1 for sp in spills if sp)))
 
 
 def times_line(res, kname: str, names, card: str) -> str:
@@ -4604,7 +4801,8 @@ def main(argv=None) -> int:
     print(lanes_geometry_line(res))
     print(times_line(res, "bitap_lanes", STICKY_RUNS, card))
     corpus = make_corpus(args.mb << 20, args.seed)
-    serial = serial_lane(corpus, args.seed, "cuda", card)
+    serial = serial_lanes(corpus, "cuda", card)
+    maps = maps_alone("cuda", args.seed, card)
     t6 = time.perf_counter()
     phase_dist(corpus, card)
     phase_entries()
@@ -4804,9 +5002,30 @@ def main(argv=None) -> int:
         "bound_by": res["wild"]["bound_by"],
         # no PyTorch call runs a shift-or machine
         "library_ms": None,
-        # a STICKY_MB record with no delimiter: one lane, one thread
-        "serial_ms": serial["ms"],
-        "serial_bound_ms": serial["bound_ms"],
+    }, {
+        "name": "bitap_lane_maps",
+        "route": "cuda",
+        "source": "agrep_tpu_torch/csrc/bitap_lanes.cu",
+        # the host lane scan it replaces for lanes past LANES_LONG (no
+        # Pallas kernel: a numpy column loop of agrep_tpu)
+        "replaces": "agrep_tpu/ops/scan.py:337",
+        "launches": res["launches"]["bitap_lane_maps"],
+        "max_abs_err": max(err_lanes, maps["max_abs_err"]),
+        # one 1 MiB lane of -p aproximat (D 0), both kernels' launches
+        "ms": maps["ms"],
+        "plain_ms": maps["plain_ms"],
+        "bound_ms": maps["bound_ms"],
+        "bound_by": maps["bound_by"],
+        # no PyTorch call runs a shift-or machine
+        "library_ms": None,
+        "n": maps["n"],
+        "wildl_ms": res["wildl"]["ms"],
+        "wildl_bound_ms": res["wildl"]["bound_ms"],
+        # a STICKY_MB record with no delimiter, one a SERIAL_RUNS search
+        "serial": [{"argv": " ".join(r["argv"]), "ms": r["ms"],
+                    "bound_ms": r["bound_ms"], "n": r["geometry"]["n"],
+                    "seg": r["geometry"]["seg"],
+                    "launches": r["maps_launches"]} for r in serial],
     }]}
     print("kernels: times are per launch at the main path's %d B chunk "
           "of config2 (%s; record_verdicts: its launch over that chunk's "
@@ -4820,11 +5039,13 @@ def main(argv=None) -> int:
           "qgram_lines: every pass of config5qn's print over it, without "
           "the host's read of the count; line_terms: its launch over "
           "bools' first %d B chunk, without the host's read; bitap_lanes: "
-          "its launch over wild's %d B stream, serial_ms over one lane of "
-          "%d B); launches are all main-path runs; card: %s"
+          "its launch over wild's %d B stream; bitap_lane_maps: the call's "
+          "launches over a 1 MiB lane, wildl_ms over wildl's stream, "
+          "serial over one lane of %d B); launches are all main-path runs; "
+          "card: %s"
           % (c2["shape_b"], " ".join(CONFIGS[1][1]),
              " ".join(REGEX_CONFIGS[0][1]), c5["shape_b"], c5q["shape_b"],
-             bools["shape_b"], res["wild"]["shape_b"], serial["longest"],
+             bools["shape_b"], res["wild"]["shape_b"], serial[0]["longest"],
              card))
     print(json.dumps(line))
     print("total: %.1f s" % (time.perf_counter() - t_start))
