@@ -16,6 +16,7 @@ from .compile.query import CompiledQuery, compile_query
 from .ops import scan as scan_ops
 from .options import AgrepError, Options, compat_check, parse_args
 from .parallel import multihost
+from .runtime import trace
 from .runtime.engine import Executor
 from .runtime.output import (OutputOverflow, Sink, make_buffer_sink,
                              make_stream_sink)
@@ -63,8 +64,7 @@ class Query:
         # the PRE-compat flags (-c -n still counts as LINENUM for the
         # fast-path bar; -c -B still bars it), while output honors the
         # post-compat mutations.
-        from .runtime import trace
-        with trace.stage("compile"):
+        with trace.span("compile"):
             self.compiled: CompiledQuery = compile_query(self.pattern,
                                                          self.opts)
         compat_check(self.opts, self.opts.pat_file is not None
@@ -131,17 +131,19 @@ class Query:
 
     def search_files(self, files: list[str], output=None) -> int:
         """Search files; returns total number of matched records."""
-        sink = make_stream_sink(self.opts, output)
-        ex = Executor(self.compiled, sink)
-        return ex.run_files(files)
+        with trace.search():
+            sink = make_stream_sink(self.opts, output)
+            ex = Executor(self.compiled, sink)
+            return ex.run_files(files)
 
     def search_buffer(self, data: bytes, output=None) -> int:
         """Search an in-memory buffer (memagrep semantics: the buffer
         should start with a newline)."""
-        sink = make_stream_sink(self.opts, output)
-        ex = Executor(self.compiled, sink)
-        arr = np.frombuffer(data, dtype=np.uint8)
-        return ex.run_buffer(arr)
+        with trace.search():
+            sink = make_stream_sink(self.opts, output)
+            ex = Executor(self.compiled, sink)
+            arr = np.frombuffer(data, dtype=np.uint8)
+            return ex.run_buffer(arr)
 
 
 def fileagrep(argv: list[str], output=None, verbose_total=True) -> int:

@@ -39,7 +39,8 @@ import numpy as np
 import torch
 
 from . import _cuda
-from .kernels import _sm_count
+from .kernels import _sm_count, read, to_host, upload
+from ..runtime import trace
 
 NO_CLASS = 255            # class id of a byte that no term holds
 
@@ -198,7 +199,7 @@ def device_program(prog, device="cpu") -> ChainProgram:
     single[[s[0] for s in specs if len(s) == 1]] = 1
 
     def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return upload(torch.from_numpy(np.ascontiguousarray(a)), device)
 
     return ChainProgram(class_of=dev(class_of), term_cls=dev(term_cls),
                         term_off=dev(term_off), pair=dev(pair),
@@ -290,7 +291,7 @@ def _launch(text: torch.Tensor, p: ChainProgram, tile: int | None = None,
     stream = torch.cuda.current_stream(text.device).cuda_stream
     # the runtime launches on its current device: make it the tensor's
     index = _cuda.device_index(text.device)
-    with torch.cuda.device(index):
+    with torch.cuda.device(index), trace.span("launch"):
         _cuda.check(lib, "chain_scan", lib.chain_scan_launch(
             text.data_ptr(), N, p.class_of.data_ptr(), p.single.data_ptr(),
             p.n_cls, p.term_cls.data_ptr(), p.n_pos, p.term_off.data_ptr(),
@@ -320,7 +321,7 @@ def plane_positions(plane: torch.Tensor, N: int) -> np.ndarray:
     shifts = torch.arange(32, dtype=torch.int64, device=plane.device)
     bits = ((words[:, None] >> shifts) & 1) != 0
     pos = (nz[:, None] * 32 + shifts)[bits]
-    pos = pos.cpu().numpy().astype(np.int64)
+    pos = to_host(pos).astype(np.int64)
     return pos[pos < N]
 
 
@@ -371,7 +372,7 @@ def lines_with_starts(text: torch.Tensor, plane: torch.Tensor) -> int:
     line = torch.cumsum(text == 0x0A, 0, dtype=torch.int32)[pos]
     new = torch.ones_like(line, dtype=torch.bool)
     new[1:] = line[1:] != line[:-1]
-    return int(new.sum())
+    return read(new.sum())
 
 
 def chain_match_starts(text: torch.Tensor, prog) -> np.ndarray:
@@ -440,7 +441,7 @@ def term_tables(terms: list, tr: np.ndarray, table: np.ndarray,
     off = np.concatenate([[0], np.cumsum([len(t) for t in terms])])
 
     def dev(a, dtype):
-        return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
+        return upload(torch.from_numpy(np.array(a, dtype=dtype)), device)
     return TermTables(dev(tr[t_bytes], np.uint8), dev(off, np.int32),
                       dev(tr, np.uint8), dev(table.view(np.int32), np.int32),
                       min(live), max(live))
@@ -646,7 +647,7 @@ def _terms_call(text, plane, shift, tables: TermTables, body, carry, begin,
     tiles = -(-body // _terms_geometry(_cuda.device_index(dev),
                                        rows is not None)[2])
     sc = _scratch_for(dev, stream, tiles)
-    with torch.cuda.device(_cuda.device_index(dev)):
+    with torch.cuda.device(_cuda.device_index(dev)), trace.span("launch"):
         _cuda.check(lib, "line_terms", lib.line_terms_launch(
             text.data_ptr(), text.numel(), body, plane.data_ptr(), shift,
             tables.t_bytes.data_ptr(), tables.t_bytes.numel(),
@@ -682,7 +683,7 @@ def _terms_launch(text, plane, shift, tables: TermTables, body, carry, begin,
         device=dev)
     out = _terms_call(text, plane, shift, tables, body, carry, begin, cap_e,
                       last, base, rows, terms_grid(body, not count_only, dev))
-    K, carry_out, last_nl, _tail = out.tolist()
+    K, carry_out, last_nl, _tail = read(out)
     launches["line_terms"] += 1
     if rows is not None and K > rows.shape[0]:
         raise RuntimeError("line_terms: %d rows past the capacity %d"

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from . import _cuda
+from ..runtime import trace
 
 MAX_D = 8
 MAX_PLANES = 32
@@ -114,7 +115,7 @@ def machine_from_arrays(mask_table, consts: dict, D: int,
     bits = tuple(1 << b for b in range(32) if endpos >> b & 1)
     multi = variant == "bitap" and len(bits) > 1
     return Machine(
-        table=torch.from_numpy(table.copy()).to(device),
+        table=upload(torch.from_numpy(table.copy()), device),
         D=int(D), variant=variant,
         costs=(tuple(int(c) for c in costs)
                if costs is not None and variant == "bitap" else None),
@@ -126,13 +127,38 @@ def machine_from_arrays(mask_table, consts: dict, D: int,
         hit_masks=bits if multi else (endpos,))
 
 
-def to_device(text: np.ndarray, device) -> torch.Tensor:
-    """u8[N] numpy (possibly read-only, e.g. a file mapping) -> tensor
-    on device.  The scan only reads it."""
+def host_tensor(text: np.ndarray) -> torch.Tensor:
+    """u8[N] numpy (possibly read-only, e.g. a file mapping) as a host
+    tensor over the same bytes.  The scan only reads it."""
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message=".*not writable.*")
-        t = torch.from_numpy(np.ascontiguousarray(text, dtype=np.uint8))
-    return t.to(device)
+        return torch.from_numpy(np.ascontiguousarray(text, dtype=np.uint8))
+
+
+def to_device(text: np.ndarray, device) -> torch.Tensor:
+    """u8[N] numpy (host_tensor's) -> tensor on device."""
+    return upload(host_tensor(text), device)
+
+
+def upload(t: torch.Tensor, device) -> torch.Tensor:
+    """The host tensor t on device: a host-to-card copy (an `upload`
+    span of its bytes, runtime/trace.py)."""
+    with trace.span("upload", t.numel() * t.element_size()):
+        return t.to(device)
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """t as a numpy array on the host: a read that waits for the card (a
+    `readback` span of its bytes)."""
+    with trace.span("readback", t.numel() * t.element_size()):
+        return t.cpu().numpy()
+
+
+def read(t: torch.Tensor):
+    """t.tolist(): a scalar, or a list of Python numbers, read from the
+    card (a `readback` span of its bytes)."""
+    with trace.span("readback", t.numel() * t.element_size()):
+        return t.tolist()
 
 
 def geometry(N: int, W: int, L: int) -> tuple:
@@ -303,7 +329,7 @@ def _launch(text: torch.Tensor, m: Machine, W: int, L: int,
     stream = torch.cuda.current_stream(text.device).cuda_stream
     # the runtime launches on its current device: make it the tensor's
     index = _cuda.device_index(text.device)
-    with torch.cuda.device(index):
+    with torch.cuda.device(index), trace.span("launch"):
         err = lib.mask_scan_launch(
             text.data_ptr(), N, m.table.data_ptr(), out.data_ptr(), T, W, L,
             m.D, code, m.init0, m.init1_ns, m.noerr, m.d_endpos, m.d_mask,
@@ -547,7 +573,8 @@ def _pairs_call(name: str, planes, vals, W, L, N, keep_from, pos, word,
     P, T, n_words = planes.shape
     grid, warp_words = pairs_grid(N, keep_from, P, planes.device)
     stream = torch.cuda.current_stream(planes.device).cuda_stream
-    with torch.cuda.device(_cuda.device_index(planes.device)):
+    with torch.cuda.device(_cuda.device_index(planes.device)), \
+            trace.span("launch"):
         _cuda.check(lib, "event_pairs", lib.event_pairs_launch(
             planes.data_ptr(), P, T, n_words, vals.data_ptr(), W, L, N,
             keep_from, pos.data_ptr(), word.data_ptr(), pos.numel(),
@@ -590,7 +617,7 @@ def _pairs_launch(planes, vals, W, L, N, keep_from,
     cap = pairs_capacity(N, keep_from) if capacity is None else capacity
     pos, word, scratch = _pairs_run("pairs", planes, vals, W, L, N,
                                     keep_from, cap)
-    K = int(scratch[-1].item())
+    K = read(scratch[-1])
     launches["event_pairs"] += 1
     if K > cap:
         pos, word, _ = _pairs_run("relaunch", planes, vals, W, L, N,
@@ -730,7 +757,8 @@ def _records_call(name: str, planes, vals, W, L, N, keep_from, args, rows,
     P, T, n_words = planes.shape
     grid, warp_words = records_grid(N, keep_from, P, planes.device)
     stream = torch.cuda.current_stream(planes.device).cuda_stream
-    with torch.cuda.device(_cuda.device_index(planes.device)):
+    with torch.cuda.device(_cuda.device_index(planes.device)), \
+            trace.span("launch"):
         _cuda.check(lib, "record_verdicts", lib.record_verdicts_launch(
             planes.data_ptr(), P, T, n_words, vals.data_ptr(), W, L, N,
             keep_from, *args, rows.data_ptr(), rows.shape[0],
@@ -780,7 +808,7 @@ def _records_launch(planes, vals, W, L, N, keep_from, endpos, d_endpos,
     cap = rows_capacity(N) if capacity is None else capacity
     rows, scratch = _records_run("records", planes, vals, W, L, N,
                                  keep_from, args, cap)
-    n_ends, last, acc_out, R, pairs = scratch[-5:].tolist()
+    n_ends, last, acc_out, R, pairs = read(scratch[-5:])
     launches["record_verdicts"] += 1
     if R > cap:
         rows, _ = _records_run("relaunch", planes, vals, W, L, N, keep_from,

@@ -36,7 +36,8 @@ import torch
 
 from . import _cuda
 from .chain_kernel import pack_bits, plane_positions
-from .kernels import _sm_count
+from .kernels import _sm_count, read, upload
+from ..runtime import trace
 
 # Launches of each kernel since the counts were last set to 0.
 launches = {"qgram_filter": 0, "qgram_lines": 0}
@@ -63,7 +64,7 @@ def words_tensor(member: np.ndarray, device="cpu") -> torch.Tensor:
     words of member_words."""
     w = np.asarray(member_words(np.asarray(member, dtype=bool)),
                    dtype=np.uint32)
-    return torch.from_numpy(w.view(np.int32).copy()).to(device)
+    return upload(torch.from_numpy(w.view(np.int32).copy()), device)
 
 
 def qgram_filter(text: torch.Tensor, words: torch.Tensor) -> torch.Tensor:
@@ -143,7 +144,7 @@ def _launch(text: torch.Tensor, words: torch.Tensor,
     stream = torch.cuda.current_stream(text.device).cuda_stream
     # the runtime launches on its current device: make it the tensor's
     index = _cuda.device_index(text.device)
-    with torch.cuda.device(index):
+    with torch.cuda.device(index), trace.span("launch"):
         _cuda.check(lib, "qgram_filter", lib.qgram_filter_launch(
             text.data_ptr(), N, words.data_ptr(), out.data_ptr(), geo["grid"],
             stream), "kernel launch")
@@ -221,7 +222,7 @@ def line_tables(member, hash_id, b_off, b_tids, t_bytes, t_off, tr, p: int,
         t_bytes = np.zeros(1, dtype=np.uint8)
 
     def dev(a, dtype):
-        return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
+        return upload(torch.from_numpy(np.array(a, dtype=dtype)), device)
     return LineTables(dev(words, np.int32), dev(hid, np.int32),
                       dev(b_off, np.int64), dev(b_tids, np.int64),
                       dev(t_bytes, np.uint8), dev(t_off, np.int64),
@@ -379,7 +380,7 @@ def _lines_call(fn: str, text, *args) -> None:
     lib = _lines_bind()
     dev = text.device
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(_cuda.device_index(dev)):
+    with torch.cuda.device(_cuda.device_index(dev)), trace.span("launch"):
         _cuda.check(lib, "qgram_lines", getattr(lib, "qgram_lines_" + fn)(
             *args, stream), fn + " launch")
 
@@ -437,7 +438,7 @@ def _lines_launch(text, plane, tables: LineTables, count_only: bool) -> tuple:
     count after the second."""
     total, pf, pmid, masks, tiles, args = _prefix(text, plane, tables,
                                                   not count_only)
-    K = int(total.item())
+    K = read(total[0])
     rows = None
     if not count_only:
         rows = torch.empty((K, 2), dtype=torch.int64, device=text.device)

@@ -37,7 +37,8 @@ import numpy as np
 import torch
 
 from . import _cuda, renfa
-from .kernels import _sm_count
+from .kernels import _sm_count, read, upload
+from ..runtime import trace
 
 MAX_D = 4                       # compile/query.py's late error caps D
 _CELLS = 1 << 24                # plain version: lane cells per pass
@@ -82,7 +83,7 @@ def machine_from_mc(mc, device="cpu") -> RegexMachine:
                          % (cmask.shape,))
     tables = np.concatenate([cmask[None, :], renfa.nxt_byte_tables(mc)])
     return RegexMachine(
-        tables=torch.from_numpy(np.ascontiguousarray(tables)).to(device),
+        tables=upload(torch.from_numpy(np.ascontiguousarray(tables)), device),
         head_bit=int(mc["head_bit"]) & renfa.U32,
         init1=int(mc["init1"]) & renfa.U32,
         no_err=int(mc["no_err"]) & renfa.U32,
@@ -121,8 +122,8 @@ def renfa_lines(text: torch.Tensor, starts: torch.Tensor,
         raise ValueError("no regex lanes kernel for device %s" % dev)
     if starts.numel() == 0:
         return torch.zeros(0, dtype=torch.bool, device=dev)
-    if bool(((starts < 0) | (lens < 0)
-             | (starts + lens >= text.numel())).any()):
+    if read(((starts < 0) | (lens < 0)
+            | (starts + lens >= text.numel())).any()):
         raise ValueError("a line (start, start + len] lies outside the "
                          "%d-byte text" % text.numel())
     if text.is_cuda:
@@ -208,7 +209,7 @@ def _launch(text, starts, lens, m: RegexMachine, init,
     stream = torch.cuda.current_stream(text.device).cuda_stream
     # the runtime launches on its current device: make it the tensor's
     index = _cuda.device_index(text.device)
-    with torch.cuda.device(index):
+    with torch.cuda.device(index), trace.span("launch"):
         _cuda.check(lib, "renfa_lanes", lib.renfa_lanes_launch(
             text.data_ptr(), text.numel(), starts.data_ptr(), lens.data_ptr(),
             R, m.tables.data_ptr(), m.head_bit, m.init1, m.no_err,
@@ -443,7 +444,7 @@ def _index_call(fn: str, dev, *args) -> None:
     """One pass of the kernel on dev's current stream."""
     lib = _index_bind()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(_cuda.device_index(dev)):
+    with torch.cuda.device(_cuda.device_index(dev)), trace.span("launch"):
         _cuda.check(lib, "line_index", getattr(lib, "line_index_" + fn)(
             *args, stream), fn + " launch")
 
@@ -505,7 +506,7 @@ def _index_launch(text: torch.Tensor, delim: int = 0x0A) -> LineIndex:
         return LineIndex(empty, empty, empty, empty, -1)
     grid = index_grid(text)
     head = _index_head(text, grid, delim)
-    K, end = head[3].tolist()
+    K, end = read(head[3])
     idx = LineIndex(*(torch.empty(K, dtype=torch.int64, device=dev)
                       for _ in range(4)), end)
     if K:
@@ -628,7 +629,7 @@ def _rows_call(name: str, verdicts, ords, nl, args, out,
     scratch = torch.empty(grid + 1 + -(-K // 64), dtype=torch.int64,
                           device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(_cuda.device_index(dev)):
+    with torch.cuda.device(_cuda.device_index(dev)), trace.span("launch"):
         _cuda.check(lib, "line_rows", lib.line_rows_launch(
             verdicts.data_ptr(), ords.data_ptr(), nl.data_ptr(), K, *args,
             None if out is None else out.data_ptr(), scratch.data_ptr(),
@@ -662,6 +663,6 @@ def _rows_launch(verdicts, ords, nl, invert, first, end, glitch,
     grid = rows_grid(K, rows, dev)
     scratch = _rows_call("rows" if rows else "count", verdicts, ords, nl,
                          (int(invert), first, end, glitch), out, grid)
-    R = int(scratch[grid].item())
+    R = read(scratch[grid])
     launches["line_rows"] += 1
     return (out[:R] if rows else None), R

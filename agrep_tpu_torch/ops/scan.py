@@ -140,16 +140,11 @@ def scan_event_pairs(text: np.ndarray, mask_table: np.ndarray,
     N = int(text.shape[0])
     if N <= keep_from:
         return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.uint32)
-    from ..runtime import trace
-    if trace.ENABLED:
-        trace.add("device_scans")
-        trace.add("scan_bytes", N)
     W = _halo(consts, D, tile)
     L = tile
     if _BACKEND == "torch":
-        if trace.ENABLED:
-            trace.add("kernel_scans")
-        with trace.stage("device_scan"):
+        from ..runtime import trace
+        with trace.span("device_layer"):
             return _scan_torch(text, mask_table, consts, D, W, L, N,
                                variant, costs, keep_from)
     if _BACKEND != "numpy":
@@ -277,11 +272,7 @@ def scan_record_list(reader, n: int, mask_table: np.ndarray, consts: dict,
         g1 = min(n, g0 + chunk)
         lo = g0 - W if g0 >= W else 0
         text = reader(lo, g1)
-        if trace.ENABLED:
-            trace.add("device_scans")
-            trace.add("scan_bytes", len(text))
-            trace.add("kernel_scans")
-        with trace.stage("device_scan"):
+        with trace.span("device_layer"):
             rows, (n_ends, c_last, acc) = _records_torch(
                 text, mask_table, consts, D, W, tile, len(text), costs,
                 g0 - lo, skip_pos - lo if skip_pos >= lo else -1, and_flag,
@@ -330,8 +321,8 @@ def _planes_torch(text, mask_table, consts, D, W, L, variant, costs):
     mach = kernels.machine_from_arrays(mask_table, consts, D, variant,
                                        costs, dev)
     planes = kernels.mask_scan(kernels.to_device(text, dev), mach, W, L)
-    vals = torch.from_numpy(np.asarray(kernels.event_vals(mach),
-                                       dtype=np.uint32)).to(dev)
+    vals = kernels.upload(torch.from_numpy(np.asarray(
+        kernels.event_vals(mach), dtype=np.uint32)), dev)
     return planes, vals
 
 
@@ -349,9 +340,10 @@ def _pairs_torch(text, mask_table, consts, D, W, L, N, variant, costs,
 def _scan_torch(text, mask_table, consts, D, W, L, N, variant, costs,
                 keep_from):
     """_pairs_torch's pairs, brought to the host."""
+    from . import kernels
     pos, ev = _pairs_torch(text, mask_table, consts, D, W, L, N, variant,
                            costs, keep_from)
-    return pos.cpu().numpy(), ev.cpu().numpy()
+    return kernels.to_host(pos), kernels.to_host(ev)
 
 
 def _records_torch(text, mask_table, consts, D, W, L, N, costs, keep_from,
@@ -368,7 +360,7 @@ def _records_torch(text, mask_table, consts, D, W, L, N, costs, keep_from,
         planes, vals, W, L, N, keep_from, consts["endpos"],
         consts["d_endpos"], skip_pos, and_flag, invert, acc,
         capacity=capacity)
-    rows = rows.cpu().numpy()
+    rows = kernels.to_host(rows)
     if trace.ENABLED:
         trace.add("record_pairs", pairs)
         trace.add("record_rows", len(rows))
@@ -454,6 +446,8 @@ def lanes_machine(mask_table: np.ndarray, consts: dict, D: int,
     its sticky consts (consts["init1"] is the Init1 the lanes step
     with), with its relevant nodes."""
     import torch
+
+    from . import kernels
     if not 0 <= int(D) <= LANES_MAX_D:
         raise ValueError("D=%r outside 0..%d" % (D, LANES_MAX_D))
     table = np.ascontiguousarray(np.asarray(mask_table, dtype=np.uint32))
@@ -468,7 +462,7 @@ def lanes_machine(mask_table: np.ndarray, consts: dict, D: int,
         raise ValueError("a machine without endpos bits never hits")
     rel = relevant_nodes(table, noerr, endpos, int(D), costs)
     return LanesMachine(
-        table=torch.from_numpy(table.copy()).to(device),
+        table=kernels.upload(torch.from_numpy(table.copy()), device),
         init1=int(consts["init1"]) & U32, noerr=noerr, endpos=endpos,
         D=int(D), costs=costs, relevant=rel,
         nodes=sum(bin(r).count("1") for r in rel))
@@ -562,9 +556,12 @@ def lane_chunks(text, starts, lens, m: LanesMachine) -> int:
     is longer than LANES_LONG), read back in one read with the check
     that every lane lies inside the text (ValueError if not)."""
     import torch
+
+    from . import kernels
     bad = ((starts < 0) | (lens < 0) | (starts + lens >= text.numel())).any()
-    bad, chunks = torch.stack([bad.to(torch.int64),
-                               _lane_chunk_counts(lens, m).sum()]).tolist()
+    both = torch.stack([bad.to(torch.int64),
+                        _lane_chunk_counts(lens, m).sum()])
+    bad, chunks = kernels.read(both)
     if bad:
         raise ValueError("a lane [start, start + len] lies outside the "
                          "%d-byte text" % text.numel())
@@ -883,6 +880,7 @@ def _lanes_launch(text, starts, lens, m: LanesMachine, init, first,
     import torch
 
     from . import _cuda
+    from ..runtime import trace
     lib = _lanes_bind()
     R = starts.numel()
     dev = text.device
@@ -901,19 +899,22 @@ def _lanes_launch(text, starts, lens, m: LanesMachine, init, first,
     stream = torch.cuda.current_stream(dev).cuda_stream
     # the runtime launches on its current device: make it the tensor's
     with torch.cuda.device(_cuda.device_index(dev)):
-        _cuda.check(lib, "bitap_lanes", lib.bitap_lanes_launch(
-            *common, geo["threads"], geo["grid"], stream), "kernel launch")
+        with trace.span("launch"):
+            _cuda.check(lib, "bitap_lanes", lib.bitap_lanes_launch(
+                *common, geo["threads"], geo["grid"], stream),
+                "kernel launch")
         if chunks:
             cum = torch.cumsum(_lane_chunk_counts(lens, m), 0)
             done = torch.zeros(chunks, dtype=torch.int32, device=dev)
             maps = torch.empty(chunks * maps_plan(m.nodes)["size"],
                                dtype=torch.uint32, device=dev)
             rel = (ctypes.c_uint32 * (LANES_MAX_D + 1))(*m.relevant)
-            _cuda.check(lib, "bitap_lanes", lib.bitap_lane_maps_launch(
-                *common, rel, m.nodes, geo["seg"], geo["groups"],
-                cum.data_ptr(), done.data_ptr(), maps.data_ptr(),
-                geo["maps_threads"], chunks, geo["maps_smem"], stream),
-                "maps kernel launch")
+            with trace.span("launch"):
+                _cuda.check(lib, "bitap_lanes", lib.bitap_lane_maps_launch(
+                    *common, rel, m.nodes, geo["seg"], geo["groups"],
+                    cum.data_ptr(), done.data_ptr(), maps.data_ptr(),
+                    geo["maps_threads"], chunks, geo["maps_smem"], stream),
+                    "maps kernel launch")
             launches["bitap_lane_maps"] += 1
     launches["bitap_lanes"] += 1
     return verdicts.view(torch.bool), hits
@@ -942,7 +943,7 @@ def scan_lane_rows(text: np.ndarray, delim: int, mask_table: np.ndarray,
     from ..runtime import trace
     require_device()
     dev = torch.device(_DEVICE)
-    with trace.stage("device_scan"):
+    with trace.span("device_layer"):
         t = kernels.to_device(text, dev)
         idx = renfa_kernel.line_index(t, delim)
         K = idx.nl.numel()
@@ -952,7 +953,7 @@ def scan_lane_rows(text: np.ndarray, delim: int, mask_table: np.ndarray,
         v, _hits = bitap_lanes(t, idx.starts, idx.lens, m, init, first,
                                and_flag, invert)
         rows, _n = renfa_kernel.line_rows(v, idx.ords, idx.nl, False, 0, K)
-        rows = rows.cpu().numpy()
+        rows = kernels.to_host(rows)
     if trace.ENABLED:
         trace.add("lane_records", K)
         trace.add("lane_rows", len(rows))

@@ -24,6 +24,7 @@ import numpy as np
 from ..options import Options
 from ..ops import scan as scan_ops
 from ..parallel import multihost
+from . import trace
 from .output import Sink, output_bitap_record, output_sgrep_record
 from .stream_io import ByteStream, open_bytes
 
@@ -302,42 +303,43 @@ class BitapEngine:
         dl_off = dl if q.delimiter_opt else 1
         data_end = len(data)
         for rows in batches:
-            for k, p_m, prev in rows.tolist():
-                extra = 0
-                if inject_at is not None:
-                    extra = 1 if p_m > inject_at else 0
-                    prev -= 1 if prev > inject_at else 0
-                pk = p_m - extra
-                if o.filename_only and (sink.new_file
-                                        or not o.post_filter):
-                    sink.num_matched += 1
-                    sink.write_str("%s\n" % sink.current_filename)
-                    sink.new_file = False
-                    return
-                p_ref = prev + 1 - dl if prev >= 0 else None
-                lasti = 1 if p_ref is None else p_ref
-                if lasti >= data_end:
-                    continue
-                byte_offset = pk + 1 - dl_off + extra
-                synth = _bitap_clamped_synth(
-                    buf, p_ref, pk,
-                    asearch_mode=q.D > 0 and not q.opts.jump,
-                    align=getattr(q, "sim_align", 112))
-                if synth is not None:
-                    synth, was_clamped = synth
-                    if was_clamped:
-                        sink.truncate = True
-                    output_bitap_record(
-                        sink, synth, 0, len(synth) - 1 - dl, k + 1 + j0,
-                        byte_offset, dl, q.delimiter_opt, q.delim,
-                        q.outtail)
-                else:
-                    output_bitap_record(
-                        sink, buf, lasti, pk - dl, k + 1 + j0,
-                        byte_offset, dl, q.delimiter_opt, q.delim,
-                        q.outtail)
-                if _limits_reached(o, sink):
-                    return
+            with trace.span("walk"):
+                for k, p_m, prev in rows.tolist():
+                    extra = 0
+                    if inject_at is not None:
+                        extra = 1 if p_m > inject_at else 0
+                        prev -= 1 if prev > inject_at else 0
+                    pk = p_m - extra
+                    if o.filename_only and (sink.new_file
+                                            or not o.post_filter):
+                        sink.num_matched += 1
+                        sink.write_str("%s\n" % sink.current_filename)
+                        sink.new_file = False
+                        return
+                    p_ref = prev + 1 - dl if prev >= 0 else None
+                    lasti = 1 if p_ref is None else p_ref
+                    if lasti >= data_end:
+                        continue
+                    byte_offset = pk + 1 - dl_off + extra
+                    synth = _bitap_clamped_synth(
+                        buf, p_ref, pk,
+                        asearch_mode=q.D > 0 and not q.opts.jump,
+                        align=getattr(q, "sim_align", 112))
+                    if synth is not None:
+                        synth, was_clamped = synth
+                        if was_clamped:
+                            sink.truncate = True
+                        output_bitap_record(
+                            sink, synth, 0, len(synth) - 1 - dl, k + 1 + j0,
+                            byte_offset, dl, q.delimiter_opt, q.delim,
+                            q.outtail)
+                    else:
+                        output_bitap_record(
+                            sink, buf, lasti, pk - dl, k + 1 + j0,
+                            byte_offset, dl, q.delimiter_opt, q.delim,
+                            q.outtail)
+                    if _limits_reached(o, sink):
+                        return
 
     def _memory_search(self, data: np.ndarray, sink: Sink,
                        D: int) -> None:
@@ -412,19 +414,22 @@ class BitapEngine:
         if q.delimiter_opt and bytes(bytearray(data[:dl])) == q.delim:
             j0 = -1                          # bitap.c:320-323
         dl_off = dl if q.delimiter_opt else 1
-        for k, p, prev in rows.tolist():
-            if o.filename_only and (sink.new_file or not o.post_filter):
-                sink.num_matched += 1
-                sink.write_str("%s\n" % sink.current_filename)
-                sink.new_file = False
-                return False
-            lasti = 1 if prev < 0 else prev + 1 - dl
-            if lasti < n:                    # !(lasti >= num_read)
-                output_bitap_record(
-                    sink, data, lasti, p - dl, k + 1 + j0, p + 1 - dl_off,
-                    dl, q.delimiter_opt, q.delim, q.outtail)
-            if _limits_reached(o, sink):
-                return False
+        with trace.span("walk"):
+            for k, p, prev in rows.tolist():
+                if o.filename_only and (sink.new_file
+                                        or not o.post_filter):
+                    sink.num_matched += 1
+                    sink.write_str("%s\n" % sink.current_filename)
+                    sink.new_file = False
+                    return False
+                lasti = 1 if prev < 0 else prev + 1 - dl
+                if lasti < n:                # !(lasti >= num_read)
+                    output_bitap_record(
+                        sink, data, lasti, p - dl, k + 1 + j0,
+                        p + 1 - dl_off, dl, q.delimiter_opt, q.delim,
+                        q.outtail)
+                if _limits_reached(o, sink):
+                    return False
         return True
 
     def _memory_search_loop(self, data: np.ndarray, sink: Sink,
@@ -2815,11 +2820,10 @@ class Executor:
             sink.fname = False
         if o.always_filename:
             sink.fname = True
-        stats = os.environ.get("AGREP_TORCH_STATS")
+        stats = trace.ENABLED
         t0 = _time.perf_counter() if stats else 0.0
         bytes_scanned = 0
         nomatch = True
-        from . import trace
         prof = trace.profiled()
         prof.__enter__()
         stream_min = int(os.environ.get("AGREP_TORCH_STREAM_MB",
@@ -2869,7 +2873,7 @@ class Executor:
                 continue
             bytes_scanned += len(data)
             _ = getattr(self.engine, "total_line", 0)  # (cumulative)
-            with trace.stage("scan"):
+            with trace.span("scan"):
                 if len(data) == 0:
                     pass        # fill_buf returns 0: engines never run
                 else:
@@ -3195,7 +3199,8 @@ class Executor:
         q, o, sink = self.q, self.q.opts, self.sink
         sink.fname = o.always_filename
         _ = getattr(self.engine, "total_line", 0)  # (cumulative)
-        self.engine.search_stream(data, sink, q.D, memory_mode=True)
+        with trace.span("scan"):
+            self.engine.search_stream(data, sink, q.D, memory_mode=True)
         # memory mode emits NO count line: exec()'s -1 branch gates it
         # on `COUNT && ret` where ret is the engine's return value --
         # 0 on success, so the line never prints (agrep.c:3365, the

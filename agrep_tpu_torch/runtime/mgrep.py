@@ -42,6 +42,7 @@ import numpy as np
 
 from ..compile import boolean
 from ..options import AgrepError, PROGNAME
+from . import trace
 from .engine import _ISALNUM_TAB
 from .output import Sink
 
@@ -260,8 +261,10 @@ class MgrepEngine:
             tb = self._tables()
 
             def first_on_card(region):
-                rows = self._qgram_lines(region, tb, False)[0]
-                return rows[:, 0].cpu().numpy() - (tb.p_size - 1)
+                from ..ops import kernels
+                with trace.span("device_layer"):
+                    rows = self._qgram_lines(region, tb, False)[0]
+                    return kernels.to_host(rows[:, 0]) - (tb.p_size - 1)
             return first_on_card
         if many and native.get_lib() is not None:
             tb = self._tables()
@@ -305,7 +308,6 @@ class MgrepEngine:
           first winner in the region is its earliest start there."""
         from ..ops import scan as scan_ops
         from .. import native
-        from . import trace
         n = len(data)
         chunk = max(scan_ops.STREAM_CHUNK, 1 << 16)
         maxlen = max(len(t) for t in self.terms if t)
@@ -347,44 +349,46 @@ class MgrepEngine:
                     pend = allp[~resolved]
                     allp = allp[resolved]
                     jdx = jdx[resolved]
-            if len(allp):
-                cap_e = n - 1 if no_rescan else n
-                if len(nl):
-                    ends = np.where(jdx < len(nl),
-                                    nl[np.minimum(jdx,
-                                                  len(nl) - 1)] + 1,
-                                    np.int64(cap_e))
-                    begins = np.where(
-                        jdx > 0,
-                        nl[np.maximum(jdx - 1, 0)] + 1,
-                        np.int64(last_nl + 1))
-                else:
-                    ends = np.full(len(allp), cap_e, dtype=np.int64)
-                    begins = np.full(len(allp), last_nl + 1,
-                                     dtype=np.int64)
-                e_u, first_i = np.unique(ends, return_index=True)
-                b_u = begins[first_i]
-                sink.num_matched += len(e_u)
-                lastend = int(e_u[-1])
-                if not fname:
-                    brk = np.flatnonzero(b_u[1:] != e_u[:-1])
-                    seg_lo = np.concatenate([[0], brk + 1])
-                    seg_hi = np.concatenate([brk, [len(e_u) - 1]])
-                    for s_i, h_i in zip(seg_lo.tolist(),
-                                        seg_hi.tolist()):
-                        sink.write(bytes(bytearray(np.asarray(
-                            data[int(b_u[s_i]):int(e_u[h_i])]))))
-                else:
-                    for b_, e_ in zip(b_u.tolist(), e_u.tolist()):
-                        sink.emit_fname_prefix()
-                        sink.write(bytes(bytearray(np.asarray(
-                            data[b_:e_]))))
-                # EOF-rescan append (newmgrep.c:571): a final record
-                # without its newline prints one -- unless the rescan
-                # never runs (no_rescan above)
-                if (int(e_u[-1]) == n and n and not no_rescan
-                        and int(np.asarray(data[n - 1:n])[0]) != 0x0A):
-                    sink.write(b"\n")
+            with trace.span("walk"):
+                if len(allp):
+                    cap_e = n - 1 if no_rescan else n
+                    if len(nl):
+                        ends = np.where(jdx < len(nl),
+                                        nl[np.minimum(jdx,
+                                                      len(nl) - 1)] + 1,
+                                        np.int64(cap_e))
+                        begins = np.where(
+                            jdx > 0,
+                            nl[np.maximum(jdx - 1, 0)] + 1,
+                            np.int64(last_nl + 1))
+                    else:
+                        ends = np.full(len(allp), cap_e, dtype=np.int64)
+                        begins = np.full(len(allp), last_nl + 1,
+                                         dtype=np.int64)
+                    e_u, first_i = np.unique(ends, return_index=True)
+                    b_u = begins[first_i]
+                    sink.num_matched += len(e_u)
+                    lastend = int(e_u[-1])
+                    if not fname:
+                        brk = np.flatnonzero(b_u[1:] != e_u[:-1])
+                        seg_lo = np.concatenate([[0], brk + 1])
+                        seg_hi = np.concatenate([brk, [len(e_u) - 1]])
+                        for s_i, h_i in zip(seg_lo.tolist(),
+                                            seg_hi.tolist()):
+                            sink.write_record(bytes(bytearray(np.asarray(
+                                data[int(b_u[s_i]):int(e_u[h_i])]))),
+                                h_i - s_i + 1)
+                    else:
+                        for b_, e_ in zip(b_u.tolist(), e_u.tolist()):
+                            sink.emit_fname_prefix()
+                            sink.write_record(bytes(bytearray(np.asarray(
+                                data[b_:e_]))))
+                    # EOF-rescan append (newmgrep.c:571): a final record
+                    # without its newline prints one -- unless the rescan
+                    # never runs (no_rescan above)
+                    if (int(e_u[-1]) == n and n and not no_rescan
+                            and int(np.asarray(data[n - 1:n])[0]) != 0x0A):
+                        sink.write(b"\n")
             if len(nl):
                 last_nl = int(nl[-1])
             g0 = g1
@@ -404,7 +408,6 @@ class MgrepEngine:
         if not self._device_route(n):
             return None
         from ..ops import chain_kernel
-        from . import trace
         if self._chain_program() is not None:
             def plane_of(region):
                 return self._chain_plane(region), 0
@@ -417,10 +420,11 @@ class MgrepEngine:
                 return self._qgram_plane(region, proj), tb.p_size - 1
 
         def lines(region, **kw):
-            (text, plane), shift = plane_of(region)
-            got = chain_kernel.line_terms(text, plane, shift,
-                                          self._term_tables(text.device),
-                                          **kw)
+            with trace.span("device_layer"):
+                (text, plane), shift = plane_of(region)
+                got = chain_kernel.line_terms(text, plane, shift,
+                                              self._term_tables(text.device),
+                                              **kw)
             if trace.ENABLED:
                 trace.add("line_terms")
                 trace.add("line_terms_rows",
@@ -447,13 +451,14 @@ class MgrepEngine:
         """Prints the lines [begins[i], ends[i]) of a chunk, in order, and
         the EOF rescan's newline (newmgrep.c:571) after a final line
         without one -- unless the rescan never runs (no_rescan)."""
-        for b_, e_ in zip(begins.tolist(), ends.tolist()):
-            if fname:
-                sink.emit_fname_prefix()
-            sink.write(bytes(bytearray(np.asarray(data[b_:e_]))))
-        if (int(ends[-1]) == n and n and not no_rescan
-                and int(np.asarray(data[n - 1:n])[0]) != 0x0A):
-            sink.write(b"\n")
+        with trace.span("walk"):
+            for b_, e_ in zip(begins.tolist(), ends.tolist()):
+                if fname:
+                    sink.emit_fname_prefix()
+                sink.write_record(bytes(bytearray(np.asarray(data[b_:e_]))))
+            if (int(ends[-1]) == n and n and not no_rescan
+                    and int(np.asarray(data[n - 1:n])[0]) != 0x0A):
+                sink.write(b"\n")
 
     def _bool_stream_chunked(self, data, sink) -> None:
         """Streaming boolean AND / complex-tree record print+count:
@@ -470,7 +475,6 @@ class MgrepEngine:
         chunks)."""
         from ..ops import scan as scan_ops
         from .. import native
-        from . import trace
         q, o = self.q, self.q.opts
         n = len(data)
         chunk = max(scan_ops.STREAM_CHUNK, 1 << 16)
@@ -503,7 +507,9 @@ class MgrepEngine:
                     base=g0)
                 sink.num_matched += k
                 if k and not o.count:
-                    r = rows.cpu().numpy()
+                    from ..ops import kernels
+                    with trace.span("device_layer"):
+                        r = kernels.to_host(rows)
                     self._write_lines(data, sink, r[:, 0], r[:, 1], fname,
                                       n, no_rescan)
                 if nl_at >= 0:
@@ -769,13 +775,13 @@ class MgrepEngine:
         if self._chain_program() is None:
             return None
         from ..ops import chain_kernel
-        from . import trace
-        text = self._to_device(stream)
-        if (self._chain_dev is None
-                or self._chain_dev.class_of.device != text.device):
-            self._chain_dev = chain_kernel.device_program(
-                self._chain_prog, text.device)
-        plane = chain_kernel.chain_scan(text, self._chain_dev)
+        with trace.span("device_layer"):
+            text = self._to_device(stream)
+            if (self._chain_dev is None
+                    or self._chain_dev.class_of.device != text.device):
+                self._chain_dev = chain_kernel.device_program(
+                    self._chain_prog, text.device)
+            plane = chain_kernel.chain_scan(text, self._chain_dev)
         if trace.ENABLED:
             trace.add("chain_scans")
         return text, plane
@@ -783,15 +789,12 @@ class MgrepEngine:
     def _chain_starts(self, stream: np.ndarray) -> np.ndarray | None:
         """Exact match-start positions from the chain kernel, on the
         host; None as _chain_plane."""
-        got = self._chain_plane(stream)
-        if got is None:
-            return None
         from ..ops import chain_kernel
-        from . import trace
-        starts = chain_kernel.plane_positions(got[1], len(stream))
-        if trace.ENABLED:
-            trace.add("chain_hits", int(len(starts)))
-        return starts
+        with trace.span("device_layer"):
+            got = self._chain_plane(stream)
+            if got is None:
+                return None
+            return chain_kernel.plane_positions(got[1], len(stream))
 
     def _chain_counts(self, n: int) -> bool:
         """Whether a pure -c of a stream of n bytes counts its lines
@@ -819,15 +822,17 @@ class MgrepEngine:
         to the device once per engine and device."""
         from ..compile import multi as multi_mod
         from ..ops import qgram_kernel
-        from . import trace
-        text, plane = self._qgram_plane(
-            stream, multi_mod.member_projection_1024(tb))
-        if self._qgram_dev is None or self._qgram_dev.device != text.device:
-            self._qgram_dev = qgram_kernel.line_tables(
-                tb.member, tb.hash_id, *self._qgram_csr_tables(tb), self.tr,
-                tb.p_size, tb.long_, self.q.opts.wordbound, text.device)
-        rows, k = qgram_kernel.qgram_lines(text, plane, self._qgram_dev,
-                                           count_only)
+        with trace.span("device_layer"):
+            text, plane = self._qgram_plane(
+                stream, multi_mod.member_projection_1024(tb))
+            if (self._qgram_dev is None
+                    or self._qgram_dev.device != text.device):
+                self._qgram_dev = qgram_kernel.line_tables(
+                    tb.member, tb.hash_id, *self._qgram_csr_tables(tb),
+                    self.tr, tb.p_size, tb.long_, self.q.opts.wordbound,
+                    text.device)
+            rows, k = qgram_kernel.qgram_lines(text, plane, self._qgram_dev,
+                                               count_only)
         if trace.ENABLED:
             trace.add("qgram_lines")
             trace.add("qgram_line_rows", 0 if rows is None else k)
@@ -838,12 +843,10 @@ class MgrepEngine:
         (ops/qgram_kernel.py) over the stream on the scan device: the
         2-gram member filter for term sets past the chain caps."""
         from ..ops import qgram_kernel
-        from . import trace
-        text = self._to_device(stream)
-        plane = qgram_kernel.qgram_filter(
-            text, qgram_kernel.words_tensor(proj, text.device))
-        if trace.ENABLED:
-            trace.add("qgram_scans")
+        with trace.span("device_layer"):
+            text = self._to_device(stream)
+            plane = qgram_kernel.qgram_filter(
+                text, qgram_kernel.words_tensor(proj, text.device))
         return text, plane
 
     def _qgram_positions(self, stream: np.ndarray,
@@ -851,8 +854,9 @@ class MgrepEngine:
         """Candidate positions of the q-gram kernel over the stream, on
         the host."""
         from ..ops import chain_kernel
-        text, plane = self._qgram_plane(stream, proj)
-        return chain_kernel.plane_positions(plane, text.numel())
+        with trace.span("device_layer"):
+            text, plane = self._qgram_plane(stream, proj)
+            return chain_kernel.plane_positions(plane, text.numel())
 
     def _device_anchors(self, stream: np.ndarray, tb):
         """(plane, shift) of the -d first-per-anchor pass's candidate
@@ -873,7 +877,9 @@ class MgrepEngine:
                 return None
             got = self._qgram_plane(stream, proj)
             shift = 0
-        return got[1].cpu().numpy(), shift
+        from ..ops import kernels
+        with trace.span("device_layer"):
+            return kernels.to_host(got[1]), shift
 
     def _apply_seam_rules(self, occ_a, occ_i, occ_s, marks, stream,
                           seam_ctx, virt_append):
@@ -1179,8 +1185,9 @@ class MgrepEngine:
             # gate), so a match lies inside one line and the count is
             # the number of distinct lines holding an exact start
             from ..ops import chain_kernel
-            text, plane = self._chain_plane(stream)
-            return chain_kernel.lines_with_starts(text, plane)
+            with trace.span("device_layer"):
+                text, plane = self._chain_plane(stream)
+                return chain_kernel.lines_with_starts(text, plane)
         if self._qgram_counts(len(stream)):
             return self._qgram_lines(stream, tb, True)[1]
         from .. import native
@@ -1248,7 +1255,10 @@ class MgrepEngine:
         # line's first winner.  SHORT tables have no projection and stay
         # on the host
         if self._device_route(n) and not tb.short:
-            rows = self._qgram_lines(stream, tb, False)[0].cpu().numpy()
+            from ..ops import kernels
+            with trace.span("device_layer"):
+                rows = kernels.to_host(self._qgram_lines(stream, tb,
+                                                         False)[0])
             return self._occ_from_pairs(rows[:, 0], rows[:, 1], p)
         # native twin: the same dense filter + bucket verify + line
         # jump as one C pass (agrep_host.cpp qgram_first_per_line)
@@ -2318,7 +2328,8 @@ class MgrepEngine:
                     printed = True
                 if not o.invert:
                     if o.printrecord:
-                        sink.write(bytes(bytearray(stream[begin:end])))
+                        sink.write_record(bytes(bytearray(
+                            stream[begin:end])))
                     elif printed:
                         sink.write_str("\n")
                 else:

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import sys
 
+from . import trace
+
 
 class OutputOverflow(Exception):
     pass
@@ -70,14 +72,20 @@ class Sink:
 
     def write(self, data: bytes):
         self.bytes_written += len(data)
+        if trace.ENABLED:
+            trace.add("bytes_printed", len(data))
         self._vs_feed(data)
         self._write(data)
 
     def write_str(self, s: str):
-        self.bytes_written += len(s)
-        b = s.encode("latin-1")
-        self._vs_feed(b)
-        self._write(b)
+        self.write(s.encode("latin-1"))
+
+    def write_record(self, data: bytes, n: int = 1):
+        """write() of the bytes of n whole records that a walk prints
+        (counted in the trace counter records_printed)."""
+        if trace.ENABLED:
+            trace.add("records_printed", n)
+        self.write(data)
 
     # -- shared decoration helpers ------------------------------------
 
@@ -166,7 +174,7 @@ def output_bitap_record(sink: Sink, buffer, i1: int, i2: int, j: int,
         sink.write_str("@%d{%d}\n" % (byte_offset - (i2 - i1), i2 - i1))
         printed = True
     if o.printrecord:
-        sink.write(bytes(bytearray(buffer[i1:i2 + 1])))
+        sink.write_record(bytes(bytearray(buffer[i1:i2 + 1])))
     elif printed:
         sink.write_str("\n")
 
@@ -195,6 +203,6 @@ def output_sgrep_record(sink: Sink, buffer, begin: int, end: int,
                                      end - begin + extra_len))
         printed = True
     if o.printrecord:
-        sink.write(bytes(bytearray(buffer[begin:end])))
+        sink.write_record(bytes(bytearray(buffer[begin:end])))
     elif printed:
         sink.write_str("\n")

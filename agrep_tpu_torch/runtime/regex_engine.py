@@ -146,7 +146,8 @@ class RegexEngine:
         for dst, src in ((text[:inj], seg[:inj]), (text[inj + 1:],
                                                    seg[inj:])):
             if len(src):
-                dst.copy_(kernels.to_device(src, "cpu"))
+                with trace.span("upload", len(src)):
+                    dst.copy_(kernels.host_tensor(src))
         return text
 
     def _fire(self, text, idx, init, first: int, end: int, glitch: int,
@@ -156,14 +157,14 @@ class RegexEngine:
         end) kept and the glitch byte at text position glitch or -1):
         (rows int64 [R, 3] on the host -- ordinal, start, newline -- or
         None, count)."""
-        from ..ops import renfa_kernel
+        from ..ops import kernels, renfa_kernel
         m = renfa_kernel.machine_from_mc(self.mc, text.device)
         v = renfa_kernel.renfa_lines(text, idx.starts, idx.lens, m, init)
         r, count = renfa_kernel.line_rows(v, idx.ords, idx.nl,
                                           self.q.opts.invert, first, end,
                                           glitch, rows)
         if r is not None:
-            r = r.cpu().numpy()
+            r = kernels.to_host(r)
         if trace.ENABLED:
             trace.add("regex_lines", idx.nl.numel())
             trace.add("regex_rows", 0 if r is None else len(r))
@@ -186,21 +187,22 @@ class RegexEngine:
         lo = 0
         while lo < N:
             hi = min(lo + chunk, N)
-            while True:
-                inj = inj_g - lo if lo <= inj_g < hi else -1
-                text = self._to_device(data[lo:hi], inj)
-                idx = renfa_kernel.line_index(text)
-                if idx.last >= 0 or hi == N:
-                    break
-                hi = min(hi + chunk, N)
-            # a glitch byte past the last newline leaves the chunk's
-            # lines as they are; the next window inserts it again
-            cut = (N if hi == N
-                   else lo + idx.last + 1 - (0 <= inj < idx.last))
-            K = idx.nl.numel()
-            r, count = self._fire(text, idx, cont0,
-                                  1 if lo == 0 and drop_first else 0, K,
-                                  inj, rows)
+            with trace.span("device_layer"):
+                while True:
+                    inj = inj_g - lo if lo <= inj_g < hi else -1
+                    text = self._to_device(data[lo:hi], inj)
+                    idx = renfa_kernel.line_index(text)
+                    if idx.last >= 0 or hi == N:
+                        break
+                    hi = min(hi + chunk, N)
+                # a glitch byte past the last newline leaves the chunk's
+                # lines as they are; the next window inserts it again
+                cut = (N if hi == N
+                       else lo + idx.last + 1 - (0 <= inj < idx.last))
+                K = idx.nl.numel()
+                r, count = self._fire(text, idx, cont0,
+                                      1 if lo == 0 and drop_first else 0, K,
+                                      inj, rows)
             yield lo, cut, K, r, count
             lo = cut
 
@@ -317,38 +319,40 @@ class RegexEngine:
         deco = bool(o.linenum or o.bytecount or o.printoffset)
         line_base = 0
         for lo, cut, K, r, _n in chunks(data, True, drop_first):
-            if len(r):
-                sink.num_matched += len(r)
-                # each firing line's start and newline in data
-                b, e = r[:, 1] + lo, r[:, 2] + lo
-                if deco or fname:
-                    for k, bt, et in zip(r[:, 0].tolist(), b.tolist(),
-                                         e.tolist()):
-                        sink.emit_fname_prefix()
-                        if o.linenum:
-                            sink.write_str("%d: " % (line_base + k + 1))
-                        cbo = line_cbo(et, N, D)
-                        if o.bytecount:
-                            sink.write_str("%d= " % cbo)
-                        rec, rec_len = line_record(data, bt, et, D)
-                        if o.printoffset:
-                            sink.write_str("@%d{%d} " % (cbo - rec_len,
-                                                         rec_len))
-                        sink.write(np.asarray(rec).tobytes())
-                else:
-                    # adjacent lines in one write; a line across a
-                    # block boundary alone, through line_record
-                    cross = crosses(b, e)
-                    brk = np.flatnonzero((b[1:] != e[:-1] + 1)
-                                         | cross[1:] | cross[:-1])
-                    for s_i, h_i in zip([0] + (brk + 1).tolist(),
-                                        brk.tolist() + [len(b) - 1]):
-                        if cross[s_i]:
-                            rec = line_record(data, int(b[s_i]),
-                                              int(e[s_i]), D)[0]
-                        else:
-                            rec = data[int(b[s_i]):int(e[h_i]) + 1]
-                        sink.write(np.asarray(rec).tobytes())
+            with trace.span("walk"):
+                if len(r):
+                    sink.num_matched += len(r)
+                    # each firing line's start and newline in data
+                    b, e = r[:, 1] + lo, r[:, 2] + lo
+                    if deco or fname:
+                        for k, bt, et in zip(r[:, 0].tolist(), b.tolist(),
+                                             e.tolist()):
+                            sink.emit_fname_prefix()
+                            if o.linenum:
+                                sink.write_str("%d: " % (line_base + k + 1))
+                            cbo = line_cbo(et, N, D)
+                            if o.bytecount:
+                                sink.write_str("%d= " % cbo)
+                            rec, rec_len = line_record(data, bt, et, D)
+                            if o.printoffset:
+                                sink.write_str("@%d{%d} " % (cbo - rec_len,
+                                                             rec_len))
+                            sink.write_record(np.asarray(rec).tobytes())
+                    else:
+                        # adjacent lines in one write; a line across a
+                        # block boundary alone, through line_record
+                        cross = crosses(b, e)
+                        brk = np.flatnonzero((b[1:] != e[:-1] + 1)
+                                             | cross[1:] | cross[:-1])
+                        for s_i, h_i in zip([0] + (brk + 1).tolist(),
+                                            brk.tolist() + [len(b) - 1]):
+                            if cross[s_i]:
+                                rec = line_record(data, int(b[s_i]),
+                                                  int(e[s_i]), D)[0]
+                            else:
+                                rec = data[int(b[s_i]):int(e[h_i]) + 1]
+                            sink.write_record(np.asarray(rec).tobytes(),
+                                              h_i - s_i + 1)
             line_base += K
 
     def _stream_rows(self, stream, inject_at, memory_mode, appended,
@@ -360,30 +364,31 @@ class RegexEngine:
         -1), or None for a stream without a newline.  Ordinal 0 of the
         card's index is the sentinel's empty line (file mode) or the
         leading line (memory mode), so line k is ordinal k + 1."""
-        from ..ops import renfa_kernel
-        glitch = -1 if inject_at is None else inject_at
-        text = self._to_device(stream, glitch)
-        idx = renfa_kernel.line_index(text)
-        K = idx.nl.numel()
-        if K == 0:
-            return None
-        # r_output's i >= end guard swallows the appended line
-        end = K - 1 if (not memory_mode and appended) else K
-        rows, n_fire = self._fire(text, idx, cont_states,
-                                  2 if drop_first else 1, end, glitch,
-                                  not count_only)
-        extra0, nl0 = False, -1
-        if memory_mode:
-            # one single-line launch from the seed states
-            m = renfa_kernel.machine_from_mc(self.mc, text.device)
-            v0 = renfa_kernel.renfa_lines(text, idx.nl.new_zeros(1),
-                                          idx.nl[:1], m, seed0)
-            extra0 = bool(v0[0]) ^ bool(self.q.opts.invert)
-            if extra0 and not count_only:
-                nl0 = int(idx.nl[0])
-        hits = (None if rows is None
-                else ((j - 1, bp, p) for j, bp, p in rows.tolist()))
-        return n_fire, hits, extra0, nl0
+        from ..ops import kernels, renfa_kernel
+        with trace.span("device_layer"):
+            glitch = -1 if inject_at is None else inject_at
+            text = self._to_device(stream, glitch)
+            idx = renfa_kernel.line_index(text)
+            K = idx.nl.numel()
+            if K == 0:
+                return None
+            # r_output's i >= end guard swallows the appended line
+            end = K - 1 if (not memory_mode and appended) else K
+            rows, n_fire = self._fire(text, idx, cont_states,
+                                      2 if drop_first else 1, end, glitch,
+                                      not count_only)
+            extra0, nl0 = False, -1
+            if memory_mode:
+                # one single-line launch from the seed states
+                m = renfa_kernel.machine_from_mc(self.mc, text.device)
+                v0 = renfa_kernel.renfa_lines(text, idx.nl.new_zeros(1),
+                                              idx.nl[:1], m, seed0)
+                extra0 = kernels.read(v0[0]) ^ bool(self.q.opts.invert)
+                if extra0 and not count_only:
+                    nl0 = kernels.read(idx.nl[0])
+            hits = (None if rows is None
+                    else ((j - 1, bp, p) for j, bp, p in rows.tolist()))
+            return n_fire, hits, extra0, nl0
 
     def _stream_hits(self, stream, inject_at, memory_mode, appended,
                      drop_first, cont_states, seed0, count_only):
@@ -546,72 +551,73 @@ class RegexEngine:
             # vectorized -c (the reference's j counter just sums)
             sink.num_matched += n_fire + int(extra0)
             return
-        if extra0:
-            # the virtual leading line: counted; r_output emits its
-            # DECORATIONS (line number 0, -b offset) but the record
-            # span is empty so NO bytes or newline follow -- in plain
-            # print mode the whole first line stays unprinted
-            # (memdrv probes: -v prints nothing, -v -n prints "0: ",
-            # plain print skips the record; round-5 seeds
-            # 870054/870057)
-            sink.num_matched += 1
-            if o.filename_only:
-                sink.write_str("%s\n" % sink.current_filename)
-                return
-            p0 = nl0
-            sink.emit_fname_prefix()
-            if o.linenum:
-                sink.write_str("0: ")
-            cbo0 = p0
-            if int(mc["D"]) > 0 and (p0 - 1) % 2 == 0:
-                cbo0 -= 1
-            if o.bytecount:
-                sink.write_str("%d= " % cbo0)
-            if o.printoffset:
-                sink.write_str("@%d{%d} " % (cbo0 - p0, p0))
-        for k, bp, p in hits:
-            # line k: bp its start, p the stream pos of its '\n'
-            if not memory_mode and appended and p == N - 1:
-                continue                       # r_output i >= end guard
-            j = k + 2                          # j counter at this check
-            if j < 1:
-                continue
-            sink.num_matched += 1
-            if o.count:
-                continue
-            if o.filename_only:
-                sink.write_str("%s\n" % sink.current_filename)
-                return
-            printed = sink.emit_fname_prefix()
-            if o.linenum:
-                sink.write_str("%d: " % (j - 1))
-                printed = True
-            if memory_mode:
-                # no prepended sentinel newline, so the C's
-                # CurrentByteOffset at a record check sits one AHEAD of
-                # the file-mode convention; the pair-slot parity is
-                # anchored at the loop's start in both modes (memory:
-                # i=0 with CurrentByteOffset=1, agrep.c RE1 memory
-                # loops), so the -b value rounds DOWN to even
-                cbo = p - 1 if D > 0 and (p - 1) % 2 == 0 else p
-                rec, rec_len = stream[bp:p + 1], p - bp
-            else:
-                cbo = line_cbo(p - 1, len(data), D)
-                rec, rec_len = line_record(data, bp - 1, p - 1, D)
-            if o.bytecount:
-                sink.write_str("%d= " % cbo)
-                printed = True
-            if o.printoffset:
-                sink.write_str("@%d{%d} " % (cbo - rec_len, rec_len))
-                printed = True
-            if o.printrecord:
-                sink.write(np.asarray(rec).tobytes())
-            elif printed:
-                sink.write_str("\n")
-            if (o.limit_output > 0
-                    and sink.num_matched >= o.limit_output) or \
-               (o.limit_per_file > 0 and sink.num_matched
-                    - sink.prev_num_matched >= o.limit_per_file):
-                return
+        with trace.span("walk"):
+            if extra0:
+                # the virtual leading line: counted; r_output emits its
+                # DECORATIONS (line number 0, -b offset) but the record
+                # span is empty so NO bytes or newline follow -- in plain
+                # print mode the whole first line stays unprinted
+                # (memdrv probes: -v prints nothing, -v -n prints "0: ",
+                # plain print skips the record; round-5 seeds
+                # 870054/870057)
+                sink.num_matched += 1
+                if o.filename_only:
+                    sink.write_str("%s\n" % sink.current_filename)
+                    return
+                p0 = nl0
+                sink.emit_fname_prefix()
+                if o.linenum:
+                    sink.write_str("0: ")
+                cbo0 = p0
+                if int(mc["D"]) > 0 and (p0 - 1) % 2 == 0:
+                    cbo0 -= 1
+                if o.bytecount:
+                    sink.write_str("%d= " % cbo0)
+                if o.printoffset:
+                    sink.write_str("@%d{%d} " % (cbo0 - p0, p0))
+            for k, bp, p in hits:
+                # line k: bp its start, p the stream pos of its '\n'
+                if not memory_mode and appended and p == N - 1:
+                    continue                       # r_output i >= end guard
+                j = k + 2                          # j counter at this check
+                if j < 1:
+                    continue
+                sink.num_matched += 1
+                if o.count:
+                    continue
+                if o.filename_only:
+                    sink.write_str("%s\n" % sink.current_filename)
+                    return
+                printed = sink.emit_fname_prefix()
+                if o.linenum:
+                    sink.write_str("%d: " % (j - 1))
+                    printed = True
+                if memory_mode:
+                    # no prepended sentinel newline, so the C's
+                    # CurrentByteOffset at a record check sits one AHEAD of
+                    # the file-mode convention; the pair-slot parity is
+                    # anchored at the loop's start in both modes (memory:
+                    # i=0 with CurrentByteOffset=1, agrep.c RE1 memory
+                    # loops), so the -b value rounds DOWN to even
+                    cbo = p - 1 if D > 0 and (p - 1) % 2 == 0 else p
+                    rec, rec_len = stream[bp:p + 1], p - bp
+                else:
+                    cbo = line_cbo(p - 1, len(data), D)
+                    rec, rec_len = line_record(data, bp - 1, p - 1, D)
+                if o.bytecount:
+                    sink.write_str("%d= " % cbo)
+                    printed = True
+                if o.printoffset:
+                    sink.write_str("@%d{%d} " % (cbo - rec_len, rec_len))
+                    printed = True
+                if o.printrecord:
+                    sink.write_record(np.asarray(rec).tobytes())
+                elif printed:
+                    sink.write_str("\n")
+                if (o.limit_output > 0
+                        and sink.num_matched >= o.limit_output) or \
+                   (o.limit_per_file > 0 and sink.num_matched
+                        - sink.prev_num_matched >= o.limit_per_file):
+                    return
         _ = matched0
 

@@ -902,9 +902,6 @@ def verify_dp(m: int, n: int, D: int, pat: bytes, window) -> int:
     verify:2118-2181 (two alternating rows A/B, the `last` frontier,
     the mid-window newline reset).  Returns the offset of the match end
     within window, or 0.  pat is NUL-extended like the C buffer."""
-    from . import trace
-    if trace.ENABLED:
-        trace.add("candidates_verified")
     from .. import native
     if native.get_lib() is not None:
         r = native.verify_dp(m, n, D, bytes(pat), bytes(window))
